@@ -1,0 +1,40 @@
+"""The PyTorch port stands alone: importing it never pulls in JAX."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "trueno_rag_tpu_torch"
+
+
+def test_importing_the_port_leaves_jax_out():
+    code = (
+        "import sys\n"
+        "import trueno_rag_tpu_torch, trueno_rag_tpu_torch.convert\n"
+        "import trueno_rag_tpu_torch.ops.dense_tiered, trueno_rag_tpu_torch.ops.hybrid\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'trueno_rag_tpu.')))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(ROOT), env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_no_port_source_names_jax_or_finished_kernels():
+    banned = re.compile(
+        r"^\s*(import jax|from jax|import trueno_rag_tpu\b|from trueno_rag_tpu\b(?!_torch))"
+        r"|torch\.compile|scaled_dot_product_attention",
+        re.M,
+    )
+    offenders = [
+        str(p.relative_to(ROOT))
+        for p in PKG.rglob("*.py")
+        if banned.search(p.read_text())
+    ]
+    assert not offenders, offenders

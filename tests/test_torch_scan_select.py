@@ -1,0 +1,222 @@
+"""The plain PyTorch version of scan_select_v3 against the JAX package's
+Pallas kernel (interpret mode), its soundness against float64, the
+wrapper's dispatch rule, and (on a card only) the CUDA kernel against
+the plain version."""
+
+import numpy as np
+import pytest
+import torch
+
+from trueno_rag_tpu_torch.errors import InvalidConfigError
+from trueno_rag_tpu_torch.ops import dense_tiered as dt
+from trueno_rag_tpu_torch.ops.kernels.scan_select import (
+    BLOCK,
+    SEL,
+    block_bound_maxes,
+    scan_select_v3,
+    scan_select_v3_reference,
+)
+
+T_TOP = 4
+# Scores are compared across frameworks whose f32 sums of d = 32 bf16
+# products differ by at most ~d*2^-24 ≈ 2e-6 for unit vectors; data whose
+# deciding values are >= GAP apart must select identical rows.
+GAP = 2e-5
+
+
+def _bf16(x):
+    return torch.from_numpy(x).to(torch.bfloat16).float().numpy().astype(np.float64)
+
+
+def _unit(rng, n, d):
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def _min_gap(q, m, valid, u, v):
+    """Smallest gap among the values that decide the selection: each
+    block's top-3 raw scores and each tile's 16 pool values (f64)."""
+    mb, qb = _bf16(m), _bf16(q)
+    s = np.where(valid[:, None], mb @ qb.T, -np.inf)  # [N, B]
+    e = np.linalg.norm(m.astype(np.float64) - mb, axis=1)
+    a = np.linalg.norm(mb, axis=1)
+    corr = e.reshape(-1, BLOCK).max(1)[:, None] * u[None, :] + a.reshape(-1, BLOCK).max(1)[:, None] * v[None, :]
+    blocks = -np.sort(-s.reshape(-1, BLOCK, s.shape[1]), axis=1)[:, :3, :]  # [G, 3, B]
+    pool = np.concatenate([blocks[:, 0, :] + corr, blocks[:, 1, :] + corr]).reshape(2, -1, SEL // BLOCK, s.shape[1])
+    pool = -np.sort(-pool.transpose(1, 0, 2, 3).reshape(-1, 2 * SEL // BLOCK, s.shape[1]), axis=1)
+    with np.errstate(invalid="ignore"):  # -inf - -inf in masked blocks
+        gaps = [np.diff(-x, axis=1)[np.isfinite(x[:, 1:, :])] for x in (blocks, pool)]
+    return min(g.min() for g in gaps if g.size)
+
+
+def _random_inputs(n=4096, d=32, b=8):
+    """The first seed whose data has no near-tie (gap >= GAP)."""
+    for seed in range(200):
+        rng = np.random.default_rng(seed)
+        m, q = _unit(rng, n, d), _unit(rng, b, d)
+        valid = np.ones(n, bool)
+        valid[100:140] = False  # a partly masked block
+        valid[5 * BLOCK:6 * BLOCK] = False  # a fully masked block
+        u = np.full(b, 1.01, np.float32)
+        v = np.full(b, 1e-6, np.float32)
+        if _min_gap(q, m, valid, u.astype(np.float64), v.astype(np.float64)) >= GAP:
+            return m, q, valid, u, v
+    raise AssertionError("no seed without near-ties")
+
+
+def _both(m, q, valid, u, v, t_top=T_TOP):
+    # JAX is imported here, not at module level: the card's machine runs
+    # the cuda-marked test below without JAX installed
+    jnp = pytest.importorskip("jax.numpy")
+    from trueno_rag_tpu.ops.dense_tiered import prepare_tiered as jax_prepare_tiered
+    from trueno_rag_tpu.ops.pallas.scan_select_v2 import scan_select_v3 as jax_scan_select_v3
+
+    jm = jnp.asarray(m)
+    mb, e, a = jax_prepare_tiered(jm)
+    jv, jr = jax_scan_select_v3(
+        jnp.asarray(q).astype(jnp.bfloat16), mb, e, a, jnp.asarray(valid).astype(jnp.int32),
+        jnp.asarray(u), jnp.asarray(v), tile_n=2048, t_top=t_top, interpret=True,
+    )
+    tm = torch.from_numpy(m)
+    tmb, te, ta = dt.prepare_tiered(tm)
+    tv, tr = scan_select_v3_reference(
+        torch.from_numpy(q).to(torch.bfloat16), tmb, te, ta, torch.from_numpy(valid).to(torch.int32),
+        torch.from_numpy(u), torch.from_numpy(v), t_top=t_top,
+    )
+    return np.asarray(jv), np.asarray(jr), tv.numpy(), tr.numpy()
+
+
+def test_reference_matches_jax_kernel_on_separated_data():
+    m, q, valid, u, v = _random_inputs()
+    jv, jr, tv, tr = _both(m, q, valid, u, v)
+    assert tv.shape == jv.shape == (8, T_TOP + 1, 4) and tr.shape == jr.shape
+    np.testing.assert_array_equal(np.isneginf(tv), np.isneginf(jv))
+    fin = np.isfinite(jv)
+    np.testing.assert_allclose(tv[fin], jv[fin], rtol=0, atol=2e-5)
+    np.testing.assert_array_equal(tr, jr)
+
+
+@pytest.mark.parametrize("t_top", [1, 4, 16])
+def test_reference_matches_jax_kernel_with_exact_ties(t_top):
+    """Grid data: entries are multiples of 1/4 in [-1/2, 1/2], exact in
+    bf16, so every score is an exact multiple of 1/16 in f32 and e_l2 is
+    0 — ties are exact and frequent, and both versions must break them
+    the same way (highest lane in a block, highest slot in a tile; taken
+    entries are replaced by -inf, so an all-masked block emits lane 127
+    twice)."""
+    rng = np.random.default_rng(11)
+    n, d, b = 4096, 32, 8
+    m = (rng.integers(-2, 3, size=(n, d)) / 4.0).astype(np.float32)
+    q = (rng.integers(-2, 3, size=(b, d)) / 4.0).astype(np.float32)
+    valid = np.ones(n, bool)
+    valid[SEL:SEL + BLOCK] = False
+    valid[2 * SEL:3 * SEL] = False  # an all-masked tile
+    u = np.full(b, 1.01, np.float32)
+    v = np.full(b, 1e-6, np.float32)
+    jv, jr, tv, tr = _both(m, q, valid, u, v, t_top)
+    np.testing.assert_array_equal(tv, jv)
+    np.testing.assert_array_equal(tr, jr)
+    assert (tr[:, :, 2] == 2 * SEL + 7 * BLOCK + 127).all()  # slot 15 of the masked tile
+
+
+def test_reference_bounds_are_sound_against_float64():
+    """With the production bound coefficients, every emitted value and
+    every tile threshold bounds the float64 true score of the rows it
+    covers."""
+    rng = np.random.default_rng(5)
+    n, d, b = 8192, 64, 8
+    m, q = _unit(rng, n, d), _unit(rng, b, d)
+    valid = np.ones(n, bool)
+    valid[300:700] = False
+    tm, tq = torch.from_numpy(m), torch.from_numpy(q)
+    mb, e, a = dt.prepare_tiered(tm)
+    qb, u, v = dt._bf16_query_bounds(tq)
+    vp, rp = scan_select_v3_reference(qb, mb, e, a, torch.from_numpy(valid).to(torch.int32), u, v, t_top=T_TOP)
+    vp, rp = vp.numpy().astype(np.float64), rp.numpy()
+    true = np.where(valid[:, None], m.astype(np.float64) @ q.astype(np.float64).T, -np.inf)
+    for bi in range(b):
+        for g in range(n // SEL):
+            tile = np.arange(g * SEL, (g + 1) * SEL)
+            live = np.isfinite(vp[bi, :T_TOP, g])
+            rows = rp[bi, :T_TOP, g][live]
+            assert ((rows >= g * SEL) & (rows < (g + 1) * SEL)).all()
+            assert (vp[bi, :T_TOP, g][live] >= true[rows, bi]).all()
+            rest = np.setdiff1d(tile, rows)
+            assert vp[bi, T_TOP, g] >= true[rest, bi].max()
+
+
+def _small_args(n=2048, d=16, b=8, seed=0):
+    rng = np.random.default_rng(seed)
+    tm = torch.from_numpy(_unit(rng, n, d))
+    mb, e, a = dt.prepare_tiered(tm)
+    qb, u, v = dt._bf16_query_bounds(torch.from_numpy(_unit(rng, b, d)))
+    return [qb, mb, e, a, torch.ones(n, dtype=torch.int32), u, v]
+
+
+def test_wrapper_runs_the_plain_version_for_cpu_tensors():
+    args = _small_args()
+    before = scan_select_v3.launches
+    got = scan_select_v3(*args, t_top=3)
+    want = scan_select_v3_reference(*args, t_top=3)
+    assert scan_select_v3.launches == before  # nothing launched on the CPU
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize(
+    "mutate",
+    [
+        lambda a: a.__setitem__(1, a[1].float()),  # f32 corpus (inline-cast layout)
+        lambda a: a.__setitem__(1, a[1][:1000]),  # N not a multiple of 1024
+        lambda a: a.__setitem__(4, a[4].bool()),  # valid must be int32
+        lambda a: a.__setitem__(5, a[5][:3]),  # u_q of the wrong length
+        lambda a: a.__setitem__(0, a[0][:, :12]),  # width mismatch
+    ],
+)
+def test_wrapper_rejects_what_the_kernel_does_not_take(mutate):
+    args = _small_args()
+    mutate(args)
+    with pytest.raises(InvalidConfigError):
+        scan_select_v3(*args)
+
+
+@pytest.mark.parametrize("t_top", [0, 17])
+def test_wrapper_rejects_t_top_outside_the_pool(t_top):
+    with pytest.raises(InvalidConfigError):
+        scan_select_v3(*_small_args(), t_top=t_top)
+
+
+def test_wrapper_raises_on_devices_it_has_no_kernel_for():
+    args = [t.to("meta") for t in _small_args()]
+    with pytest.raises(InvalidConfigError):
+        scan_select_v3(*args)
+
+
+def test_block_bound_maxes_are_per_128_rows():
+    e = torch.arange(1024, dtype=torch.float32)
+    eb, ab = block_bound_maxes(e, -e)
+    assert torch.equal(eb, torch.arange(127, 1024, 128, dtype=torch.float32))
+    assert torch.equal(ab, -torch.arange(0, 1024, 128, dtype=torch.float32))
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain_version():
+    """On the card: the CUDA kernel against the plain version, both on
+    CUDA tensors, at d = 384 (values within 1e-4; rows equal except at
+    near-ties of the two summation orders)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from trueno_rag_tpu_torch.ops.dense import require_fp32
+
+    require_fp32()
+    args = [t.cuda() for t in _small_args(n=65536, d=384, b=200, seed=3)]
+    args[4][5000:5300] = 0
+    before = scan_select_v3.launches
+    vk, rk = scan_select_v3(*args, t_top=T_TOP)
+    torch.cuda.synchronize()
+    assert scan_select_v3.launches == before + 1
+    vr, rr = scan_select_v3_reference(*args, t_top=T_TOP)
+    assert torch.equal(torch.isneginf(vk), torch.isneginf(vr))
+    fin = torch.isfinite(vr)
+    assert (vk[fin] - vr[fin]).abs().max().item() <= 1e-4
+    assert (rk != rr).float().mean().item() <= 1e-3

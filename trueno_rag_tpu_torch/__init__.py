@@ -1,0 +1,145 @@
+"""trueno_rag_tpu_torch — the PyTorch + CUDA port of ``trueno_rag_tpu``.
+
+The hybrid RAG query path of the JAX package, for one NVIDIA H100:
+chunking, embedders, a device-resident dense store (exact fp32, or the
+certified bf16 tile tier whose scan is the hand-written CUDA kernel in
+``csrc/scan_select_v3.cu``), block-table BM25, on-device rank fusion,
+reranking and context assembly with citations. The JAX package stays the
+reference; this package imports ``torch`` and never ``jax``.
+"""
+
+from trueno_rag_tpu_torch.errors import (
+    ChunkTooLargeError,
+    DimensionMismatchError,
+    EmbeddingError,
+    EmptyDocumentError,
+    IndexNotFoundError,
+    InvalidConfigError,
+    QueryError,
+    RagError,
+    SerializationError,
+    VectorStoreError,
+)
+from trueno_rag_tpu_torch.document import Document, new_document_id
+from trueno_rag_tpu_torch.chunking import (
+    Chunk,
+    ChunkMetadata,
+    Chunker,
+    ChunkingStrategy,
+    FixedSizeChunker,
+    ParagraphChunker,
+    RecursiveChunker,
+    SemanticChunker,
+    SentenceChunker,
+    StructuralChunker,
+    chunk_id_from_int,
+    new_chunk_id,
+)
+from trueno_rag_tpu_torch.embed import (
+    Embedder,
+    EmbeddingConfig,
+    MockEmbedder,
+    PoolingStrategy,
+    TfIdfEmbedder,
+    cosine_similarity,
+    dot_product,
+    euclidean_distance,
+)
+from trueno_rag_tpu_torch.fusion import FusionStrategy
+from trueno_rag_tpu_torch.index import (
+    BM25Index,
+    ChunkRegistry,
+    DistanceMetric,
+    SparseIndex,
+    VectorStore,
+    VectorStoreConfig,
+)
+from trueno_rag_tpu_torch.pipeline import (
+    AssembledContext,
+    AssemblyStrategy,
+    Citation,
+    ContextAssembler,
+    ContextAssemblerConfig,
+    ContextChunk,
+    RagPipeline,
+    RagPipelineBuilder,
+    RagPipelineConfig,
+    pipeline_builder,
+)
+from trueno_rag_tpu_torch.rerank import (
+    CompositeReranker,
+    LexicalReranker,
+    MMRReranker,
+    MockCrossEncoderReranker,
+    NoOpReranker,
+    Reranker,
+)
+from trueno_rag_tpu_torch.retrieve import (
+    HybridRetriever,
+    HybridRetrieverConfig,
+    RetrievalResult,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "RagError",
+    "EmptyDocumentError",
+    "ChunkTooLargeError",
+    "DimensionMismatchError",
+    "IndexNotFoundError",
+    "VectorStoreError",
+    "SerializationError",
+    "InvalidConfigError",
+    "QueryError",
+    "EmbeddingError",
+    "Document",
+    "new_document_id",
+    "Chunk",
+    "ChunkMetadata",
+    "Chunker",
+    "ChunkingStrategy",
+    "RecursiveChunker",
+    "FixedSizeChunker",
+    "SemanticChunker",
+    "StructuralChunker",
+    "ParagraphChunker",
+    "SentenceChunker",
+    "new_chunk_id",
+    "chunk_id_from_int",
+    "Embedder",
+    "EmbeddingConfig",
+    "PoolingStrategy",
+    "MockEmbedder",
+    "TfIdfEmbedder",
+    "cosine_similarity",
+    "dot_product",
+    "euclidean_distance",
+    "BM25Index",
+    "ChunkRegistry",
+    "DistanceMetric",
+    "SparseIndex",
+    "VectorStore",
+    "VectorStoreConfig",
+    "FusionStrategy",
+    "HybridRetriever",
+    "HybridRetrieverConfig",
+    "RetrievalResult",
+    "CompositeReranker",
+    "LexicalReranker",
+    "MMRReranker",
+    "MockCrossEncoderReranker",
+    "NoOpReranker",
+    "Reranker",
+    "AssembledContext",
+    "AssemblyStrategy",
+    "Citation",
+    "ContextAssembler",
+    "ContextAssemblerConfig",
+    "ContextChunk",
+    "RagPipeline",
+    "RagPipelineBuilder",
+    "RagPipelineConfig",
+    "pipeline_builder",
+    "__version__",
+]

@@ -1,0 +1,81 @@
+"""State carried across: build the port's retriever from the JAX
+package's index state, given as plain Python and numpy objects.
+
+The JAX package's ``HybridRetriever`` exposes everything needed:
+
+- ``registry.chunk_of(row)`` for each row below ``registry.capacity_rows``
+  (``None`` for a tombstoned row) — the chunks in row order;
+- ``vector_store._host`` and ``vector_store._valid`` — the host matrix
+  (cosine rows already normalized) and its valid mask;
+- ``sparse_index.state_dict()`` — the BM25 postings and lengths.
+
+Rows are kept as they are, so both packages answer with the same rows.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional, Sequence
+
+import numpy as np
+
+from trueno_rag_tpu_torch.chunking import Chunk
+from trueno_rag_tpu_torch.embed import Embedder
+from trueno_rag_tpu_torch.errors import InvalidConfigError
+from trueno_rag_tpu_torch.index.vector_store import VectorStoreConfig
+from trueno_rag_tpu_torch.retrieve import HybridRetriever, HybridRetrieverConfig
+
+
+def _port_chunk(c) -> Chunk:
+    """A chunk object of either package → the port's :class:`Chunk`."""
+    return Chunk.from_dict(c.to_dict())
+
+
+def retriever_from_state(
+    embedder: Embedder,
+    chunks: Sequence,
+    host_matrix: np.ndarray,
+    valid: np.ndarray,
+    bm25_state: Mapping[str, object],
+    config: Optional[HybridRetrieverConfig] = None,
+    vector_config: Optional[VectorStoreConfig] = None,
+    device=None,
+) -> HybridRetriever:
+    """A port :class:`HybridRetriever` holding the given index state.
+
+    ``chunks[row]`` is the chunk at that row or ``None`` for a free row;
+    ``host_matrix [capacity, d]`` f32 and ``valid [capacity]`` bool are
+    the vector store's host mirror (capacity >= len(chunks));
+    ``bm25_state`` is a BM25 ``state_dict()``."""
+    host_matrix = np.asarray(host_matrix, dtype=np.float32)
+    valid = np.asarray(valid, dtype=bool)
+    if host_matrix.ndim != 2 or valid.shape != (host_matrix.shape[0],):
+        raise InvalidConfigError("host_matrix must be [capacity, d] with a [capacity] valid mask")
+    if len(chunks) > host_matrix.shape[0]:
+        raise InvalidConfigError("more chunk rows than matrix rows")
+    retr = HybridRetriever(embedder, config=config, vector_config=vector_config, device=device)
+    if host_matrix.shape[1] != retr.vector_store.config.dimension:
+        raise InvalidConfigError(
+            f"matrix width {host_matrix.shape[1]} != store dimension "
+            f"{retr.vector_store.config.dimension}"
+        )
+    reg = retr.registry
+    for row, c in enumerate(chunks):
+        if c is None:
+            reg._row_to_id.append(None)
+            reg._chunks.append(None)
+            reg._tags.append(0)
+            reg._free.append(row)
+        else:
+            pc = _port_chunk(c)
+            reg._row_to_id.append(pc.id)
+            reg._chunks.append(pc)
+            reg._tags.append(0)
+            reg._id_to_row[pc.id] = row
+    store = retr.vector_store
+    store._host = host_matrix.copy()
+    store._valid = valid.copy()
+    store._count = int(valid.sum())
+    store._dirty = True
+    store._dirty_rows = None
+    retr.sparse_index.load_state_dict(dict(bm25_state))
+    return retr

@@ -1,0 +1,234 @@
+"""Shared index infrastructure: the chunk-id ↔ device-row registry and
+the SparseIndex protocol (reference: trait SparseIndex, index.rs:8-28).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Protocol, Sequence, Tuple, runtime_checkable
+
+from trueno_rag_tpu_torch.chunking import Chunk
+from trueno_rag_tpu_torch.errors import InvalidConfigError
+
+# 31 assignable tag bits; bit 31 is reserved as the "impossible filter"
+# marker (a require-all mask containing it matches no chunk, which is how
+# per-query filters naming unknown tags resolve to empty results).
+MAX_TAG_BITS = 31
+IMPOSSIBLE_BIT = 1 << 31
+
+
+class ChunkRegistry:
+    """Assigns each chunk a stable dense int32 row id.
+
+    Device arrays (embedding matrix, BM25 doc-length vector) are indexed
+    by row; host code maps rows back to chunk ids/objects. Rows of
+    removed chunks become tombstones and are recycled for later inserts
+    (the mutable-corpus answer to immutable device arrays — SURVEY §7.3).
+
+    When a :class:`VectorStore` and a :class:`BM25Index` share one
+    registry (as in HybridRetriever) their candidate rows coincide, so
+    fusion runs on device with raw int rows.
+    """
+
+    def __init__(self) -> None:
+        self._id_to_row: Dict[str, int] = {}
+        self._row_to_id: List[Optional[str]] = []
+        self._chunks: List[Optional[Chunk]] = []
+        self._free: List[int] = []
+        # metadata tags: per-row 32-bit masks + the string->bit vocabulary.
+        # Host owns strings; the device only ever sees the int masks.
+        self._tags: List[int] = []
+        self._tag_bits: Dict[str, int] = {}
+        self.tags_version = 0
+
+    def __len__(self) -> int:
+        return len(self._id_to_row)
+
+    @property
+    def capacity_rows(self) -> int:
+        """Rows ever allocated (including tombstones)."""
+        return len(self._row_to_id)
+
+    def add(self, chunk: Chunk) -> int:
+        """Register a chunk; returns its row. Re-adding an existing id
+        replaces the stored chunk and keeps the row."""
+        existing = self._id_to_row.get(chunk.id)
+        if existing is not None:
+            self._chunks[existing] = chunk
+            return existing
+        row = self._free.pop() if self._free else len(self._row_to_id)
+        if row == len(self._row_to_id):
+            self._row_to_id.append(chunk.id)
+            self._chunks.append(chunk)
+            self._tags.append(0)
+        else:
+            self._row_to_id[row] = chunk.id
+            self._chunks[row] = chunk
+            self._tags[row] = 0
+        self._id_to_row[chunk.id] = row
+        return row
+
+    def add_batch(self, chunks: Sequence[Chunk]) -> List[int]:
+        """Bulk :meth:`add`; returns the rows in order.
+
+        Fast paths for the two ingest-dominant cases — all ids new
+        (bulk list extends, one dict update) and all ids existing (the
+        second index of a HybridRetriever ingest re-registering the
+        same batch: chunk swaps only). Mixed batches, intra-batch
+        duplicate ids, and recycling from tombstoned rows fall back to
+        per-chunk :meth:`add` (identical semantics). Measured: the
+        per-chunk call pair was ~0.4 s of a 100k-chunk build."""
+        ids = [c.id for c in chunks]
+        id_to_row = self._id_to_row
+        if not self._free and len(set(ids)) == len(ids):
+            rows = [id_to_row.get(i) for i in ids]
+            if all(r is None for r in rows):
+                base = len(self._row_to_id)
+                out = list(range(base, base + len(chunks)))
+                self._row_to_id.extend(ids)
+                self._chunks.extend(chunks)
+                self._tags.extend([0] * len(chunks))
+                id_to_row.update(zip(ids, out))
+                return out
+            if all(r is not None for r in rows):
+                store = self._chunks
+                for r, c in zip(rows, chunks):
+                    store[r] = c
+                return rows
+        return [self.add(c) for c in chunks]
+
+    # -- metadata tags ---------------------------------------------------------
+
+    def bit_for(self, tag: str, create: bool = True) -> Optional[int]:
+        """The bit assigned to ``tag`` (auto-assigned on first use when
+        ``create``; None for unknown tags otherwise). The vocabulary is
+        capped at 32 bits so per-row masks stay one int32 on device."""
+        bit = self._tag_bits.get(tag)
+        if bit is None and create:
+            if len(self._tag_bits) >= MAX_TAG_BITS:
+                raise InvalidConfigError(
+                    f"tag vocabulary exhausted ({MAX_TAG_BITS} distinct tags)"
+                )
+            bit = 1 << len(self._tag_bits)
+            self._tag_bits[tag] = bit
+        return bit
+
+    def mask_for(self, tags: Sequence[str], create: bool = False) -> Optional[int]:
+        """OR of the tags' bits; None if any tag is unknown (and not
+        ``create``) — an unknown tag can never match a chunk."""
+        mask = 0
+        for t in tags:
+            bit = self.bit_for(t, create=create)
+            if bit is None:
+                return None
+            mask |= bit
+        return mask
+
+    def set_tags(self, chunk_id: str, tags: Sequence[str]) -> None:
+        """Replace a chunk's tags (strings auto-enter the vocabulary)."""
+        row = self._id_to_row.get(chunk_id)
+        if row is None:
+            return
+        self._tags[row] = self.mask_for(tags, create=True) or 0
+        self.tags_version += 1
+
+    def tags_of_row(self, row: int) -> int:
+        if 0 <= row < len(self._tags):
+            return self._tags[row]
+        return 0
+
+    def tag_bits_array(self, rows: int) -> "np.ndarray":
+        """Per-row tag words as one int64 vector of length ``rows``
+        (rows past the registry's extent are 0) — the vectorized form
+        host-side filter resolution needs; a Python loop over
+        tags_of_row costs ~10 ms per 100k rows per dispatch."""
+        import numpy as np
+
+        out = np.zeros((rows,), dtype=np.int64)
+        m = min(rows, len(self._tags))
+        if m:
+            out[:m] = np.asarray(self._tags[:m], dtype=np.int64)
+        return out
+
+    def tag_names_of(self, chunk_id: str) -> List[str]:
+        row = self._id_to_row.get(chunk_id)
+        if row is None:
+            return []
+        bits = self._tags[row]
+        return [t for t, b in self._tag_bits.items() if bits & b]
+
+    def tag_state(self, ordered_ids: Sequence[str]):
+        """Serializable tag state: (vocabulary, per-chunk bits in the
+        given id order) — for index persistence."""
+        return dict(self._tag_bits), [
+            self._tags[self._id_to_row[cid]] for cid in ordered_ids
+        ]
+
+    def load_tag_state(self, vocab: Dict[str, int], bits_by_row: Sequence[int]) -> None:
+        """Restore tag state; ``bits_by_row[i]`` applies to row i (the
+        loader re-inserts chunks in saved order, so saved index == row)."""
+        self._tag_bits = {t: int(b) for t, b in vocab.items()}
+        for i, bits in enumerate(bits_by_row):
+            if i < len(self._tags):
+                self._tags[i] = int(bits)
+        self.tags_version += 1
+
+    def tags_host(self, n_rows: int):
+        """Per-row tag masks as an int32 array padded/truncated to
+        ``n_rows`` (device consumers size this to their capacity)."""
+        import numpy as np
+
+        out = np.zeros((n_rows,), dtype=np.int32)
+        upto = min(n_rows, len(self._tags))
+        out[:upto] = np.asarray(self._tags[:upto], dtype=np.int64).astype(np.int32)
+        return out
+
+    def row_of(self, chunk_id: str) -> Optional[int]:
+        return self._id_to_row.get(chunk_id)
+
+    def id_of(self, row: int) -> Optional[str]:
+        if 0 <= row < len(self._row_to_id):
+            return self._row_to_id[row]
+        return None
+
+    def chunk_of(self, row: int) -> Optional[Chunk]:
+        if 0 <= row < len(self._chunks):
+            return self._chunks[row]
+        return None
+
+    def get_chunk(self, chunk_id: str) -> Optional[Chunk]:
+        row = self._id_to_row.get(chunk_id)
+        return None if row is None else self._chunks[row]
+
+    def remove(self, chunk_id: str) -> Optional[int]:
+        """Tombstone a chunk; returns the freed row (or None)."""
+        row = self._id_to_row.pop(chunk_id, None)
+        if row is None:
+            return None
+        self._row_to_id[row] = None
+        self._chunks[row] = None
+        if self._tags[row]:
+            self._tags[row] = 0
+            self.tags_version += 1
+        self._free.append(row)
+        return row
+
+    def ids(self) -> List[str]:
+        return list(self._id_to_row.keys())
+
+
+@runtime_checkable
+class SparseIndex(Protocol):
+    """Protocol mirror of the reference's ``trait SparseIndex``
+    (index.rs:8-28)."""
+
+    def add(self, chunk: Chunk) -> None: ...
+
+    def add_batch(self, chunks: Sequence[Chunk]) -> None: ...
+
+    def search(self, query: str, k: int) -> List[Tuple[str, float]]: ...
+
+    def remove(self, chunk_id: str) -> bool: ...
+
+    def __len__(self) -> int: ...
+
+    def is_empty(self) -> bool: ...
