@@ -6,18 +6,39 @@
 Run from the repository root. Phases, each fatal on failure:
 
 1. device: the card's name and power limit (nvidia-smi), TF32 off, and a
-   fresh build of the CUDA kernel library from ``trueno_rag_tpu_torch/csrc``;
-2. kernel: ``scan_select_v3`` against its plain PyTorch version at the main
-   path's shapes (N = 1,048,576 unit rows, a multiple of the store's
-   4096-row tile, so no padding; d = 384, B = 256, t_top 4): values within 1e-4, rows equal on >= 99.9% of slots with every
-   difference at a near-tie, the emitted bounds sound against float64 true
-   scores, and both versions timed with CUDA events;
-3. slice: a RagPipeline with ``VectorStoreConfig(scan_tier="auto")`` ingests
-   1,048,576 one-chunk documents (60 words from a 20,000-word vocabulary),
-   must be on the bf16 tier, and answers 4 batches of 256 queries through
-   ``query_with_context_batch(k=5)``; the kernel's launch count must rise,
-   the dense candidates must equal the exact fp32 ``dense_topk`` rows and
-   scores, and the fused lists must equal the host fusion oracle.
+   fresh build of the CUDA kernels from ``trueno_rag_tpu_torch/csrc`` (one
+   nvcc per source, all started together);
+2. kernels, at the main path's shapes (N = 1,048,576 unit rows, d = 384,
+   B = 256, t_top 4):
+   - K1 ``scan_select_v3`` against its plain PyTorch version: values within
+     1e-4, rows equal on >= 99.9% of slots with every difference at a
+     near-tie;
+   - K3 ``scan_select_int8_v3`` against its plain version: bit-identical
+     values and rows;
+   - both: the emitted bounds sound against float64 true scores, and both
+     versions timed with CUDA events;
+3. tags: K1 and K3 with a filter masking whole 128-row blocks and with one
+   masking scattered rows, against their plain versions;
+4. tier, at 10,485,760 x 384 device-generated unit rows, B = 256, k = 50:
+   ``dense_topk_compact_bf16r`` (K1), ``dense_topk_compact`` (K3; both
+   with no fp32 matrix in their inputs) and
+   ``dense_topk_int8_tiered2_checked`` (K3 + exact rescore): certified
+   fractions, every certified set equal to the float64 exact top-k set, the
+   int8 tier equal to the exact fp32 path, batch and kernel times;
+5. slice 1: a RagPipeline with ``VectorStoreConfig(scan_tier="auto")``
+   ingests 1,048,576 one-chunk documents (60 words from a 20,000-word
+   vocabulary), must be on the bf16 tier, and answers 4 batches of 256
+   queries through ``query_with_context_batch(k=5)``; K1's launch count
+   must rise, the dense candidates must equal the exact fp32
+   ``dense_topk`` rows and scores, and the fused lists must equal the host
+   fusion oracle;
+6. stores on the same corpus (the slice's rows, chunks and BM25 index,
+   not ingested again): ``scan_tier="int8"`` (exact) and
+   ``scan_tier="compact"`` in the layouts bf16rr, bf16, int8 and bf16r
+   (exact sets after the host patch) answer 2 batches of 256 through
+   ``query_with_context_batch(k=5)``; then every chunk gets one of 4 tags
+   by row and the compact bf16r store and the bf16 tile store answer a
+   batch filtered ``all=["t1"]`` and one filtered ``none=["t0"]``.
 
 The last two lines of standard output are JSON: the per-kernel record, then
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
@@ -31,6 +52,7 @@ import subprocess
 import sys
 import time
 
+DEV = "cuda"
 N_ROWS = 1 << 20
 DIM = 384
 BATCH = 256
@@ -42,6 +64,14 @@ DOC_WORDS = 60
 QUERY_WORDS = 6
 V_TOL = 1e-4  # f32 sums of d=384 bf16 products in another order: ~d*2^-24 for unit rows
 ROW_AGREE = 0.999
+N_TIER = 10 * (1 << 20)  # 10,485,760 rows: the JAX package's compact design point
+TIER_K = 50
+TIER_SLAB = 1 << 20  # rows prepped at a time at N_TIER
+STORE_BATCHES = 2
+# H100 SXM peaks (NVIDIA data sheet) for the kernels' bounds
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12  # CUDA-core FMA: K1's certified f32 accumulation
+INT8_OP_PER_S = 1979e12  # tensor cores: K3's exact integer dot
 
 
 def log(msg: str) -> None:
@@ -70,6 +100,24 @@ def cuda_ms(fn, reps: int) -> float:
     return times[len(times) // 2]
 
 
+def bound(bytes_moved: float, ops: float, op_rate: float):
+    """The least time the card could take: (ms, what bounds it)."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / op_rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def unit_rows(n: int, gen, slab: int = 1 << 20):
+    """``n`` seeded unit rows of width DIM on the device, made slab by slab."""
+    import torch
+
+    m = torch.empty(n, DIM, device=DEV)
+    for lo in range(0, n, slab):
+        part = m[lo:lo + slab]
+        torch.randn(part.shape, device=DEV, generator=gen, out=part)
+        part /= torch.linalg.vector_norm(part, dim=1, keepdim=True)
+    return m
+
+
 def phase_device():
     import torch
 
@@ -88,50 +136,55 @@ def phase_device():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     ks.build_library(force=True)
-    log(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    log(f"kernel build (parallel nvcc): {time.perf_counter() - t0:.1f} s")
     for line in ks.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if line.startswith("==") or "registers" in line or "spill" in line or "smem" in line:
             log(f"  nvcc: {line.strip()}")
 
 
-def phase_kernel(seed: int) -> dict:
+def check_sound(vk, rk, m64, q64, valid, bidx, tiles, name):
+    """Every emitted value and tile threshold bounds the float64 true score
+    of the rows it covers → the least slack seen."""
     import torch
 
-    from trueno_rag_tpu_torch.ops import dense_tiered as dt
-    from trueno_rag_tpu_torch.ops.kernels.scan_select import (
-        BLOCK, SEL, block_bound_maxes, scan_select_v3, scan_select_v3_reference,
-    )
+    from trueno_rag_tpu_torch.ops.kernels.scan_select import SEL
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    m = torch.randn(N_ROWS, DIM, device=dev, generator=gen)
-    m /= torch.linalg.vector_norm(m, dim=1, keepdim=True)
-    q = torch.randn(BATCH, DIM, device=dev, generator=gen)
-    q /= torch.linalg.vector_norm(q, dim=1, keepdim=True)
-    valid = torch.ones(N_ROWS, dtype=torch.int32, device=dev)
-    valid[1000:1040] = 0  # a partly masked block
-    valid[5 * BLOCK:6 * BLOCK] = 0  # a fully masked block
-    mb, e_l2, a_l2 = dt.prepare_tiered(m)
-    check(bool((e_l2 > 0).any()), "prepare_tiered's e_l2 is all zero on the device")
-    log(f"prepare_tiered: e_l2 mean {e_l2.mean().item():.3e}, nonzero {int((e_l2 > 0).sum())}/{N_ROWS}")
-    qb, u_q, v_q = dt._bf16_query_bounds(q)
-    args = (qb, mb, e_l2, a_l2, valid, u_q, v_q)
+    worst = float("inf")
+    for b in bidx:
+        for g in tiles:
+            rows = torch.arange(g * SEL, (g + 1) * SEL, device=DEV)
+            true = m64[rows] @ q64[b]
+            true = torch.where(valid[rows] != 0, true, float("-inf"))
+            cand = rk[b, :, g].long()
+            cv = vk[b, :T_TOP, g].double()
+            live = ~torch.isneginf(cv)
+            check(bool(((cand[live] >= g * SEL) & (cand[live] < (g + 1) * SEL)).all()), f"{name}: row outside its tile")
+            if live.any():
+                slack = (cv[live] - true[cand[live] - g * SEL]).min().item()
+                check(slack >= 0.0, f"{name}: candidate value below its true score (b={b}, tile={g}, {slack})")
+                worst = min(worst, slack)
+            covered = torch.ones(SEL, dtype=torch.bool, device=DEV)
+            covered[cand[live] - g * SEL] = False
+            rest = true[covered]
+            if (~torch.isneginf(rest)).any():
+                slack = vk[b, T_TOP, g].double().item() - rest.max().item()
+                check(slack >= 0.0, f"{name}: tile threshold below a covered row's true score (b={b}, tile={g})")
+                worst = min(worst, slack)
+    return worst
 
-    vk, rk = scan_select_v3(*args, t_top=T_TOP)
-    torch.cuda.synchronize()
-    vr, rr = scan_select_v3_reference(*args, t_top=T_TOP)
-    torch.cuda.synchronize()
-    check(tuple(vk.shape) == (BATCH, T_TOP + 1, N_ROWS // SEL), f"v_pack shape {tuple(vk.shape)}")
-    check(tuple(rk.shape) == (BATCH, T_TOP, N_ROWS // SEL), f"r_pack shape {tuple(rk.shape)}")
+
+def compare_k1(vk, rk, vr, rr, mb, qb, corr, label):
+    """K1 against its plain version: -inf slots equal, values within V_TOL,
+    rows equal but at near-ties of the two summation orders → max |dv|."""
+    import torch
+
+    from trueno_rag_tpu_torch.ops.kernels.scan_select import BLOCK
+
     inf_k, inf_r = torch.isneginf(vk), torch.isneginf(vr)
-    check(torch.equal(inf_k, inf_r), "kernel and plain version disagree on -inf slots")
-    check(bool(torch.isfinite(vk[~inf_k]).all()), "non-finite kernel values")
+    check(torch.equal(inf_k, inf_r), f"{label}: kernel and plain version disagree on -inf slots")
+    check(bool(torch.isfinite(vk[~inf_k]).all()), f"{label}: non-finite kernel values")
     max_err = (vk[~inf_k] - vr[~inf_r]).abs().max().item()
-    log(f"kernel vs plain: v_pack max |diff| {max_err:.3e} (tolerance {V_TOL})")
-    check(max_err <= V_TOL, f"v_pack differs by {max_err}")
-
-    eb, ab = block_bound_maxes(e_l2, a_l2)
-    corr = eb[:, None] * u_q[None, :] + ab[:, None] * v_q[None, :]  # [N/128, B]
+    check(max_err <= V_TOL, f"{label}: v_pack differs by {max_err}")
 
     def upper(rows, bidx):  # raw bf16 score + block correction, f64
         s = (mb[rows].double() * qb[bidx].double()).sum(dim=-1)
@@ -143,55 +196,220 @@ def phase_kernel(seed: int) -> dict:
     gap = 0.0
     if bi.numel():
         gap = (upper(rk[bi, ti, gi].long(), bi) - upper(rr[bi, ti, gi].long(), bi)).abs().max().item()
-    log(f"kernel vs plain: r_pack agreement {agree:.6f} ({int(diff.sum())} slots differ, max |dv| {gap:.3e})")
-    check(agree >= ROW_AGREE, f"r_pack agreement {agree} < {ROW_AGREE}")
-    check(gap <= V_TOL, f"a differing row is not a near-tie (|dv| = {gap})")
+    log(f"{label}: v_pack max |diff| {max_err:.3e} (tolerance {V_TOL}); r_pack agreement {agree:.6f} "
+        f"({int(diff.sum())} slots differ, max |dv| {gap:.3e})")
+    check(agree >= ROW_AGREE, f"{label}: r_pack agreement {agree} < {ROW_AGREE}")
+    check(gap <= V_TOL, f"{label}: a differing row is not a near-tie (|dv| = {gap})")
+    return max_err
 
-    # soundness: every emitted value and tile threshold bounds the true
-    # float64 score of the rows it covers
-    g_sub = torch.randperm(N_ROWS // SEL, device=dev, generator=gen)[:8].tolist() + [0]
-    qs = torch.randperm(BATCH, device=dev, generator=gen)[:16].tolist()
+
+def phase_kernels(seed: int):
+    """K1 and K3 against their plain versions, soundness and times; then
+    their tag variants. → (K1 record, K3 record)."""
+    import torch
+
+    from trueno_rag_tpu_torch.ops import dense_tiered as dt
+    from trueno_rag_tpu_torch.ops.kernels.scan_select import (
+        BLOCK, SEL, block_bound_maxes, scan_select_int8_v3, scan_select_int8_v3_reference,
+        scan_select_v3, scan_select_v3_reference,
+    )
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    m = unit_rows(N_ROWS, gen)
+    q = unit_rows(BATCH, gen)
+    valid = torch.ones(N_ROWS, dtype=torch.int32, device=DEV)
+    valid[1000:1040] = 0  # a partly masked block
+    valid[5 * BLOCK:6 * BLOCK] = 0  # a fully masked block
+    g_sel = N_ROWS // SEL
     m64, q64 = m.double(), q.double()
-    worst = float("inf")
-    for b in qs:
-        for g in g_sub:
-            rows = torch.arange(g * SEL, (g + 1) * SEL, device=dev)
-            true = m64[rows] @ q64[b]
-            true = torch.where(valid[rows] != 0, true, float("-inf"))
-            cand = rk[b, :, g].long()
-            cv = vk[b, :T_TOP, g].double()
-            live = ~torch.isneginf(cv)
-            check(bool(((cand[live] >= g * SEL) & (cand[live] < (g + 1) * SEL)).all()), "row outside its tile")
-            if live.any():
-                slack = (cv[live] - true[cand[live] - g * SEL]).min().item()
-                check(slack >= 0.0, f"candidate value below its true score (b={b}, tile={g}, {slack})")
-                worst = min(worst, slack)
-            covered = torch.ones(SEL, dtype=torch.bool, device=dev)
-            covered[cand[live] - g * SEL] = False
-            rest = true[covered]
-            if (~torch.isneginf(rest)).any():
-                slack = vk[b, T_TOP, g].double().item() - rest.max().item()
-                check(slack >= 0.0, f"tile threshold below a covered row's true score (b={b}, tile={g})")
-                worst = min(worst, slack)
-    log(f"soundness: {len(qs)} queries x {len(g_sub)} tiles bounded, least slack {worst:.3e}")
+    g_sub = torch.randperm(g_sel, device=DEV, generator=gen)[:8].tolist() + [0]
+    qs = torch.randperm(BATCH, device=DEV, generator=gen)[:16].tolist()
 
-    ms = cuda_ms(lambda: scan_select_v3(*args, t_top=T_TOP), 20)
-    plain_ms = cuda_ms(lambda: scan_select_v3_reference(*args, t_top=T_TOP), 5)
-    ms2 = cuda_ms(lambda: scan_select_v3(*args, t_top=T_TOP), 20)
-    log(f"scan_select_v3 at N={N_ROWS} d={DIM} B={BATCH}: kernel {ms:.3f} / {ms2:.3f} ms, plain {plain_ms:.3f} ms (median, CUDA events)")
+    # -- K1 -----------------------------------------------------------------
+    mb, e_l2, a_l2 = dt.prepare_tiered(m)
+    check(bool((e_l2 > 0).any()), "prepare_tiered's e_l2 is all zero on the device")
+    log(f"prepare_tiered: e_l2 mean {e_l2.mean().item():.3e}, nonzero {int((e_l2 > 0).sum())}/{N_ROWS}")
+    qb, u_q, v_q = dt._bf16_query_bounds(q)
+    k1_args = (qb, mb, e_l2, a_l2, valid, u_q, v_q)
+    vk, rk = scan_select_v3(*k1_args, t_top=T_TOP)
+    torch.cuda.synchronize()
+    vr, rr = scan_select_v3_reference(*k1_args, t_top=T_TOP)
+    torch.cuda.synchronize()
+    check(tuple(vk.shape) == (BATCH, T_TOP + 1, g_sel), f"v_pack shape {tuple(vk.shape)}")
+    check(tuple(rk.shape) == (BATCH, T_TOP, g_sel), f"r_pack shape {tuple(rk.shape)}")
+    eb, ab = block_bound_maxes(e_l2, a_l2)
+    corr = eb[:, None] * u_q[None, :] + ab[:, None] * v_q[None, :]  # [N/128, B]
+    k1_err = compare_k1(vk, rk, vr, rr, mb, qb, corr, "K1 vs plain")
+    worst = check_sound(vk, rk, m64, q64, valid, qs, g_sub, "K1")
+    log(f"K1 soundness: {len(qs)} queries x {len(g_sub)} tiles bounded, least slack {worst:.3e}")
+    del vr, rr
+    k1_ms = cuda_ms(lambda: scan_select_v3(*k1_args, t_top=T_TOP), 20)
+    k1_plain = cuda_ms(lambda: scan_select_v3_reference(*k1_args, t_top=T_TOP), 5)
+    k1_ms2 = cuda_ms(lambda: scan_select_v3(*k1_args, t_top=T_TOP), 20)
     flop = 2.0 * BATCH * N_ROWS * DIM
-    log(f"  kernel rate {flop / (min(ms, ms2) * 1e-3) / 1e12:.1f} TFLOP/s fp32 FMA (2*B*N*d / time)")
-    del m, q, mb, e_l2, a_l2, vr, rr, m64, q64
+    out_bytes = BATCH * (2 * T_TOP + 1) * g_sel * 4
+    k1_bound = bound(BATCH * DIM * 2 + N_ROWS * DIM * 2 + N_ROWS * 12 + BATCH * 8 + out_bytes, flop, FP32_FLOP_PER_S)
+    log(f"K1 scan_select_v3 at N={N_ROWS} d={DIM} B={BATCH}: kernel {k1_ms:.3f} / {k1_ms2:.3f} ms, "
+        f"plain {k1_plain:.3f} ms (median, CUDA events); bound {k1_bound[0]:.3f} ms ({k1_bound[1]})")
+    log(f"  K1 rate {flop / (min(k1_ms, k1_ms2) * 1e-3) / 1e12:.1f} TFLOP/s fp32 FMA (2*B*N*d / time)")
+
+    # -- K3 -----------------------------------------------------------------
+    m_i8, s_row, i8_e, i8_a = dt.prepare_int8(m)
+    q_i8, t_q, u8, v8 = dt._int8_query_bounds(q)
+    k3_args = (q_i8, m_i8, s_row, i8_e, i8_a, valid, t_q, u8, v8)
+    vk3, rk3 = scan_select_int8_v3(*k3_args, t_top=T_TOP)
+    torch.cuda.synchronize()
+    vr3, rr3 = scan_select_int8_v3_reference(*k3_args, t_top=T_TOP)
+    torch.cuda.synchronize()
+    k3_err = (vk3 - vr3).abs().nan_to_num(0.0).max().item()  # -inf - -inf is nan
+    check(torch.equal(vk3, vr3), f"K3 v_pack differs from the plain version (max |diff| {k3_err})")
+    check(torch.equal(rk3, rr3), "K3 r_pack differs from the plain version")
+    log(f"K3 vs plain: v_pack and r_pack bit-identical ({vk3.numel()} + {rk3.numel()} entries)")
+    worst = check_sound(vk3, rk3, m64, q64, valid, qs, g_sub, "K3")
+    log(f"K3 soundness: {len(qs)} queries x {len(g_sub)} tiles bounded, least slack {worst:.3e}")
+    del vr3, rr3
+    k3_ms = cuda_ms(lambda: scan_select_int8_v3(*k3_args, t_top=T_TOP), 20)
+    k3_plain = cuda_ms(lambda: scan_select_int8_v3_reference(*k3_args, t_top=T_TOP), 5)
+    k3_ms2 = cuda_ms(lambda: scan_select_int8_v3(*k3_args, t_top=T_TOP), 20)
+    k3_bound = bound(BATCH * DIM + N_ROWS * DIM + N_ROWS * 16 + BATCH * 12 + out_bytes, flop, INT8_OP_PER_S)
+    log(f"K3 scan_select_int8_v3 at N={N_ROWS} d={DIM} B={BATCH}: kernel {k3_ms:.3f} / {k3_ms2:.3f} ms, "
+        f"plain {k3_plain:.3f} ms (median, CUDA events); bound {k3_bound[0]:.3f} ms ({k3_bound[1]})")
+    log(f"  K3 rate {flop / (min(k3_ms, k3_ms2) * 1e-3) / 1e12:.1f} TOP/s int8 dp4a (2*B*N*d / time)")
+
+    # -- tag variants ---------------------------------------------------------
+    for pattern in ("blocks", "rows"):
+        if pattern == "blocks":  # one tag word per 128-row block
+            bits = torch.randint(0, 16, (N_ROWS // BLOCK,), device=DEV, generator=gen,
+                                 dtype=torch.int32).repeat_interleave(BLOCK)
+        else:
+            bits = torch.randint(0, 16, (N_ROWS,), device=DEV, generator=gen, dtype=torch.int32)
+        words = [torch.randint(0, 16, (BATCH,), device=DEV, generator=gen, dtype=torch.int32) & w
+                 for w in (1, 6, 8)]  # all / any / none
+        tags = (bits, *words)
+        allowed = ((bits[None, :] & words[0][:, None]) == words[0][:, None]) & (
+            (words[1][:, None] == 0) | ((bits[None, :] & words[1][:, None]) != 0)) & (
+            (bits[None, :] & words[2][:, None]) == 0)  # [B, N]
+        check(0.05 < allowed.float().mean().item() < 0.95, "tag filter keeps too few or too many rows")
+        vk, rk = scan_select_v3(*k1_args, t_top=T_TOP, tags=tags)
+        vr, rr = scan_select_v3_reference(*k1_args, t_top=T_TOP, tags=tags)
+        compare_k1(vk, rk, vr, rr, mb, qb, corr, f"K1 tags ({pattern})")
+        vk3, rk3 = scan_select_int8_v3(*k3_args, t_top=T_TOP, tags=tags)
+        vr3, rr3 = scan_select_int8_v3_reference(*k3_args, t_top=T_TOP, tags=tags)
+        check(torch.equal(vk3, vr3) and torch.equal(rk3, rr3), f"K3 tags ({pattern}) differ from the plain version")
+        for name, v, r in (("K1", vk, rk), ("K3", vk3, rk3)):
+            live = ~torch.isneginf(v[:, :T_TOP, :])
+            b_idx = torch.arange(BATCH, device=DEV)[:, None, None].expand_as(r)
+            check(bool(allowed[b_idx[live], r[live].long()].all()), f"{name} emitted a row its filter forbids")
+        t1 = cuda_ms(lambda: scan_select_v3(*k1_args, t_top=T_TOP, tags=tags), 10)
+        t3 = cuda_ms(lambda: scan_select_int8_v3(*k3_args, t_top=T_TOP, tags=tags), 10)
+        log(f"K3 tags ({pattern}): bit-identical to plain; kept {allowed.float().mean().item():.3f} of "
+            f"(row, query) pairs; tagged kernel times K1 {t1:.3f} ms, K3 {t3:.3f} ms")
+        del allowed, vr, rr, vr3, rr3
+
+    del m, m64, q64, mb, m_i8
     torch.cuda.empty_cache()
-    return {
-        "name": "scan_select_v3",
-        "route": "cuda",
-        "source": "trueno_rag_tpu_torch/csrc/scan_select_v3.cu",
-        "replaces": "trueno_rag_tpu/ops/pallas/scan_select_v2.py:433",
-        "max_abs_err": max_err,
-        "ms": min(ms, ms2),
-        "plain_ms": plain_ms,
-    }
+    src = "trueno_rag_tpu_torch/csrc/"
+    return (
+        {"name": "scan_select_v3", "route": "cuda", "source": src + "scan_select_v3.cu",
+         "replaces": "trueno_rag_tpu/ops/pallas/scan_select_v2.py:433", "max_abs_err": k1_err,
+         "ms": min(k1_ms, k1_ms2), "plain_ms": k1_plain, "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": None},
+        {"name": "scan_select_int8_v3", "route": "cuda", "source": src + "scan_select_int8_v3.cu",
+         "replaces": "trueno_rag_tpu/ops/pallas/scan_select_v2.py:775", "max_abs_err": k3_err,
+         "ms": min(k3_ms, k3_ms2), "plain_ms": k3_plain, "bound_ms": k3_bound[0],
+         "bound_by": k3_bound[1], "library_ms": None},
+    )
+
+
+def exact_topk_chunked(q, m, valid, k, chunk=32):
+    """The exact fp32 path (``dense_topk``: fp32 preselection of 2k, float64
+    re-rank) in query chunks, plus a guard that the preselection cannot
+    have missed a float64 top-k row: the best score outside the fp32 2k
+    trails the k-th exact score by far more than the fp32 error."""
+    import torch
+
+    from trueno_rag_tpu_torch.ops.dense import dense_topk, normalize_queries
+
+    out_s, out_r = [], []
+    for lo in range(0, q.shape[0], chunk):
+        qc = q[lo:lo + chunk]
+        s, r = dense_topk(qc, m, valid, k, "cosine")
+        sc = normalize_queries(qc) @ m.T
+        margin = s[:, k - 1] - torch.topk(sc, 2 * k + 1, dim=1).values[:, 2 * k]  # check-only library call
+        check(bool((margin > 1e-4).all()), "fp32 preselection margin too thin for a float64 reference")
+        out_s.append(s)
+        out_r.append(r)
+        del sc
+    return torch.cat(out_s), torch.cat(out_r)
+
+
+def phase_tier(seed: int) -> None:
+    """The compact design point: 10,485,760 rows, B = 256, k = 50."""
+    import torch
+
+    from trueno_rag_tpu_torch.ops import dense_tiered as dt
+    from trueno_rag_tpu_torch.ops.dense import normalize_queries
+    from trueno_rag_tpu_torch.ops.kernels.scan_select import scan_select_int8_v3, scan_select_v3
+
+    n = N_TIER
+    gen = torch.Generator(device=DEV).manual_seed(seed + 1)
+    t0 = time.perf_counter()
+    m = unit_rows(n, gen)  # the fp32 yardstick; the compact calls never see it
+    q = torch.randn(BATCH, DIM, device=DEV, generator=gen)
+    valid = torch.ones(n, dtype=torch.bool, device=DEV)
+    reps = None
+    for lo in range(0, n, TIER_SLAB):
+        s = m[lo:lo + TIER_SLAB]
+        parts = dt.prepare_tiered(s) + dt.prepare_residual(s) + dt.prepare_int8(s)
+        if reps is None:
+            reps = [torch.empty((n,) + p.shape[1:], dtype=p.dtype, device=DEV) for p in parts]
+        for dest, part in zip(reps, parts):
+            dest[lo:lo + part.shape[0]].copy_(part)
+        del parts
+    mb, e, a, ri8, rs, e2, mi8, sr, ie, ia = reps
+    torch.cuda.synchronize()
+    log(f"tier data: {n} x {DIM} unit rows + bf16, residual and int8 replicas in "
+        f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    t0 = time.perf_counter()
+    ref_s, ref_r = exact_topk_chunked(q, m, valid, TIER_K)
+    log(f"tier reference (exact fp32 path, float64 re-rank): {time.perf_counter() - t0:.1f} s")
+    ref_sets = [set(x) for x in ref_r.cpu().tolist()]
+
+    qn = normalize_queries(q)
+    qb, u_q, v_q = dt._bf16_query_bounds(qn)
+    q_i8, t_q, u8, v8 = dt._int8_query_bounds(qn)
+    vi = valid.to(torch.int32)
+    runs = (
+        ("dense_topk_compact_bf16r", dt.dense_topk_compact_bf16r, (q, mb, e, a, ri8, rs, e2, valid, TIER_K),
+         scan_select_v3, lambda: scan_select_v3(qb, mb, e, a, vi, u_q, v_q, t_top=T_TOP)),
+        ("dense_topk_compact (int8 scan)", dt.dense_topk_compact, (q, mb, e, a, mi8, sr, ie, ia, valid, TIER_K),
+         scan_select_int8_v3, lambda: scan_select_int8_v3(q_i8, mi8, sr, ie, ia, vi, t_q, u8, v8, t_top=T_TOP)),
+    )
+    for name, fn, args, kernel, alone in runs:
+        kernel.launches = 0
+        s, r, ok = fn(*args)
+        torch.cuda.synchronize()
+        check(kernel.launches == 1, f"{name}: its scan kernel launched {kernel.launches} times")
+        check(bool(torch.isfinite(s).all()) and tuple(r.shape) == (BATCH, TIER_K), f"{name}: malformed result")
+        ok_l, r_l = ok.cpu().tolist(), r.cpu().tolist()
+        for i in range(BATCH):
+            if ok_l[i]:
+                check(set(r_l[i]) == ref_sets[i], f"{name}: certified query {i} is not the exact top-k set")
+        batch_ms = cuda_ms(lambda: fn(*args), 3)
+        kern_ms = cuda_ms(alone, 3)
+        log(f"tier {name} at N={n}: certified {sum(ok_l) / BATCH:.4f} ({sum(ok_l)}/{BATCH}), every certified "
+            f"set exact; batch {batch_ms:.2f} ms, scan kernel alone {kern_ms:.2f} ms (median, CUDA events)")
+    scan_select_int8_v3.launches = 0
+    s, r, n_fb = dt.dense_topk_int8_tiered2_checked(q, m, mi8, sr, ie, ia, valid, TIER_K)
+    torch.cuda.synchronize()
+    check(scan_select_int8_v3.launches == 1, "int8 tier: K3 did not launch")
+    check(torch.equal(r, ref_r) and torch.equal(s, ref_s), "int8 tier: rows or scores differ from the exact path")
+    batch_ms = cuda_ms(lambda: dt.dense_topk_int8_tiered2_checked(q, m, mi8, sr, ie, ia, valid, TIER_K), 3)
+    log(f"tier dense_topk_int8_tiered2_checked at N={n}: certified {(BATCH - n_fb) / BATCH:.4f} "
+        f"({n_fb} re-run on fp32); rows and scores identical to the exact path; batch {batch_ms:.2f} ms")
+    log(f"tier peak allocated {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    del m, reps, mb, e, a, ri8, rs, e2, mi8, sr, ie, ia
+    torch.cuda.empty_cache()
 
 
 def make_texts(rng, n: int, words: int):
@@ -203,6 +421,13 @@ def make_texts(rng, n: int, words: int):
         ids = rng.integers(0, VOCAB, size=(min(65536, n - lo), words))
         out.extend(" ".join(row) for row in word_arr[ids])
     return out
+
+
+def query_batches(rng, n):
+    import numpy as np
+
+    words = np.array([f"w{i:05d}" for i in range(VOCAB)])
+    return [[" ".join(r) for r in words[rng.integers(0, VOCAB, size=(BATCH, QUERY_WORDS))]] for _ in range(n)]
 
 
 def stage_breakdown(pipe, qs) -> None:
@@ -236,14 +461,49 @@ def stage_breakdown(pipe, qs) -> None:
         f"fusion {t_fuse:.1f}; retrieve_batch {t_retr:.1f}; rerank + assemble {t_post:.1f}")
 
 
-def phase_slice(seed: int) -> int:
+def check_contexts(contexts, allowed_row=None, registry=None) -> None:
+    """Well-formed contexts; with ``allowed_row``, every chunk passes it."""
+    import numpy as np
+
+    check(len(contexts) == BATCH, "one context per query")
+    for ctx in contexts:
+        check(len(ctx.chunks) <= K, f"{len(ctx.chunks)} chunks in a context")
+        check(allowed_row is not None or len(ctx.chunks) > 0, "an empty context")
+        check(len(ctx.citations) == len(ctx.chunks), "one citation per chunk")
+        check(all(np.isfinite(c.score) for c in ctx.chunks), "non-finite score")
+        check(all(c.content for c in ctx.chunks), "empty chunk content")
+        if allowed_row is not None:
+            check(all(allowed_row(registry.row_of(c.chunk_id)) for c in ctx.chunks),
+                  "a returned chunk fails the tag filter")
+
+
+def check_fused(strategy, d_r, d_s, s_r, s_s, label) -> None:
+    """Device fusion of the candidate lists equals the host fusion oracle
+    (first 8 queries)."""
+    from trueno_rag_tpu_torch.ops.fusion import fuse_topk
+
+    f_r, f_s = fuse_topk(d_r, d_s, s_r, s_s, kind=strategy.kind, param=strategy.device_param)
+    f_r, f_s = f_r.cpu().numpy(), f_s.cpu().numpy()
+    d_l, s_l = d_r.cpu().numpy(), d_s.cpu().numpy()
+    sp_r, sp_s = s_r.cpu().numpy(), s_s.cpu().numpy()
+    for j in range(8):
+        host = dict(strategy.fuse(
+            [(int(r), float(s)) for r, s in zip(d_l[j], s_l[j]) if r >= 0],
+            [(int(r), float(s)) for r, s in zip(sp_r[j], sp_s[j]) if r >= 0],
+        ))
+        dev = {int(r): float(s) for r, s in zip(f_r[j], f_s[j]) if r >= 0}
+        check(dev.keys() == host.keys(), f"{label} query {j}: fused rows differ from the host oracle")
+        check(all(abs(dev[r] - host[r]) <= 1e-6 for r in dev), f"{label} query {j}: fused scores differ")
+
+
+def phase_slice(seed: int):
+    """Slice 1's main path → (pipeline, K1 launches on it)."""
     import numpy as np
     import torch
 
     import trueno_rag_tpu_torch as rag
     from trueno_rag_tpu_torch.ops.dense import dense_topk
-    from trueno_rag_tpu_torch.ops.fusion import fuse_topk
-    from trueno_rag_tpu_torch.ops.kernels.scan_select import scan_select_v3
+    from trueno_rag_tpu_torch.ops.kernels.scan_select import scan_select_int8_v3, scan_select_v3
 
     rng = np.random.default_rng(seed)
     t0 = time.perf_counter()
@@ -254,7 +514,7 @@ def phase_slice(seed: int) -> int:
         .with_embedder(rag.MockEmbedder(DIM))
         .with_reranker(rag.LexicalReranker())
         .with_vector_config(rag.VectorStoreConfig(scan_tier="auto"))
-        .with_device("cuda")
+        .with_device(DEV)
         .build()
     )
     retr = pipe.retriever
@@ -272,16 +532,13 @@ def phase_slice(seed: int) -> int:
     torch.cuda.synchronize()
     log(f"device build (upload, bf16 replica, BM25 block table): {time.perf_counter() - t0:.1f} s")
 
-    batches = [[" ".join(r) for r in b] for b in (
-        np.array([f"w{i:05d}" for i in range(VOCAB)])[rng.integers(0, VOCAB, size=(BATCH, QUERY_WORDS))]
-        for _ in range(N_BATCHES)
-    )]
+    batches = query_batches(rng, N_BATCHES)
     warm = pipe.query_with_context_batch(batches[0], k=K)  # first-call set-up
     check(len(warm) == BATCH, "warm-up batch")
 
     torch.cuda.reset_peak_memory_stats()
     fb_before = store.tier_fallback_queries
-    scan_select_v3.launches = 0
+    scan_select_v3.launches = scan_select_int8_v3.launches = 0
     lat, contexts = [], []
     for qs in batches:
         t0 = time.perf_counter()
@@ -291,7 +548,7 @@ def phase_slice(seed: int) -> int:
     launches = scan_select_v3.launches
     fallbacks = store.tier_fallback_queries - fb_before
     peak = torch.cuda.max_memory_allocated()
-    log(f"main path: scan_select_v3 launches {launches}")
+    log(f"slice 1 main path: scan_select_v3 launches {launches}, scan_select_int8_v3 {scan_select_int8_v3.launches}")
     check(launches > 0, "the main path never launched scan_select_v3")
     for i, t in enumerate(lat):
         log(f"batch {i}: {t * 1e3:.1f} ms = {BATCH / t:.0f} queries/s (host clock, query_with_context_batch k={K})")
@@ -301,42 +558,169 @@ def phase_slice(seed: int) -> int:
     log(f"torch.cuda.max_memory_allocated during queries: {peak / 2**30:.2f} GiB")
 
     stage_breakdown(pipe, batches[0])
-
-    # outputs: well-formed contexts
     for batch in contexts:
-        check(len(batch) == BATCH, "one context per query")
-        for ctx in batch:
-            check(0 < len(ctx.chunks) <= K, f"{len(ctx.chunks)} chunks in a context")
-            check(len(ctx.citations) == len(ctx.chunks), "one citation per chunk")
-            check(all(np.isfinite(c.score) for c in ctx.chunks), "non-finite score")
-            check(all(c.content for c in ctx.chunks), "empty chunk content")
+        check_contexts(batch)
 
     # dense candidates: the certified tier equals the exact fp32 path
     # (both report ops.dense.exact_scores, so even near-ties agree)
     cand = retr.config.candidates_per_source
-    strategy = retr.config.fusion
     for i, qs in enumerate(batches):
         qv = np.asarray(retr.embedder.embed_queries(qs), dtype=np.float32)
         s_t, r_t = store.search_arrays(qv, cand)
-        s_x, r_x = dense_topk(torch.from_numpy(qv).cuda(), store.device_matrix, store.device_valid, cand, "cosine")
+        s_x, r_x = dense_topk(torch.from_numpy(qv).to(DEV), store.device_matrix, store.device_valid, cand, "cosine")
         check(torch.equal(r_t, r_x), f"batch {i}: tier rows differ from the exact fp32 rows")
         check(torch.equal(s_t, s_x), f"batch {i}: tier scores differ from the exact fp32 scores")
         s_s, r_s = retr.sparse_index.search_arrays(qs, cand)
-        f_r, f_s = fuse_topk(r_t, s_t, r_s, s_s, kind=strategy.kind, param=strategy.device_param)
-        f_r, f_s = f_r.cpu().numpy(), f_s.cpu().numpy()
-        d_l, s_l = r_t.cpu().numpy(), s_t.cpu().numpy()
-        sp_r, sp_s = r_s.cpu().numpy(), s_s.cpu().numpy()
-        for j in range(8):
-            host = dict(strategy.fuse(
-                [(int(r), float(s)) for r, s in zip(d_l[j], s_l[j]) if r >= 0],
-                [(int(r), float(s)) for r, s in zip(sp_r[j], sp_s[j]) if r >= 0],
-            ))
-            dev = {int(r): float(s) for r, s in zip(f_r[j], f_s[j]) if r >= 0}
-            check(dev.keys() == host.keys(), f"batch {i} query {j}: fused rows differ from the host oracle")
-            check(all(abs(dev[r] - host[r]) <= 1e-6 for r in dev), f"batch {i} query {j}: fused scores differ")
+        check_fused(retr.config.fusion, r_t, s_t, r_s, s_s, f"batch {i}")
     log(f"dense rows and scores identical to exact fp32 dense_topk for all {n_q} queries; "
         f"fused lists match the host oracle")
-    return launches
+    return pipe, launches
+
+
+def sibling_pipeline(pipe, vcfg):
+    """A pipeline whose vector store has config ``vcfg`` but which shares
+    ``pipe``'s ingested state: the chunk registry, the BM25 index and the
+    host rows (the store builds its own device replicas from them)."""
+    import trueno_rag_tpu_torch as rag
+
+    base = pipe.retriever
+    retr = rag.HybridRetriever(base.embedder, config=base.config, vector_config=vcfg, device=DEV)
+    retr.registry = base.registry
+    retr.sparse_index = base.sparse_index
+    store = retr.vector_store
+    store.registry = base.registry
+    src = base.vector_store
+    store._host, store._valid, store._count = src._host, src._valid, src._count
+    store._dirty, store._dirty_rows = True, None
+    return rag.RagPipeline(pipe.embedder, pipe.reranker, pipe.chunker, retr, pipe.assembler)
+
+
+def phase_stores(pipe, seed: int):
+    """The int8 and compact tiers and the tag filters, through
+    query_with_context_batch → (K1 launches, K3 launches) on this path."""
+    import numpy as np
+    import torch
+
+    import trueno_rag_tpu_torch as rag
+    from trueno_rag_tpu_torch.ops.dense import dense_topk
+    from trueno_rag_tpu_torch.ops.kernels.scan_select import scan_select_int8_v3, scan_select_v3
+    from trueno_rag_tpu_torch.ops.tags import dense_topk_tagged
+    from trueno_rag_tpu_torch.retrieve import resolve_tag_filters
+
+    base = pipe.retriever
+    bstore = base.vector_store
+    cand = base.config.candidates_per_source
+    strategy = base.config.fusion
+    rng = np.random.default_rng(seed + 2)
+    batches = query_batches(rng, STORE_BATCHES)
+    qvs = [np.asarray(base.embedder.embed_queries(qs), dtype=np.float32) for qs in batches]
+    exact = [dense_topk(torch.from_numpy(qv).to(DEV), bstore.device_matrix, bstore.device_valid, cand, "cosine")
+             for qv in qvs]
+
+    k1_total = k3_total = 0  # launches on the main path only, not in the checks
+
+    def drive(p, qs, **kw):
+        """One query_with_context_batch with both launch counts set to 0
+        just before it and read just after → (contexts, K1, K3 launches)."""
+        nonlocal k1_total, k3_total
+        scan_select_v3.launches = scan_select_int8_v3.launches = 0
+        ctxs = p.query_with_context_batch(qs, k=K, **kw)
+        k1, k3 = scan_select_v3.launches, scan_select_int8_v3.launches
+        k1_total, k3_total = k1_total + k1, k3_total + k3
+        return ctxs, k1, k3
+
+    configs = [
+        ("int8", dict(scan_tier="int8")),
+        ("compact bf16rr", dict(scan_tier="compact", compact_scan="bf16rr")),
+        ("compact bf16", dict(scan_tier="compact", compact_scan="bf16")),
+        ("compact int8", dict(scan_tier="compact", compact_scan="int8")),
+        ("compact bf16r", dict(scan_tier="compact", compact_scan="bf16r", compact_fallback="host")),
+    ]
+    for name, kw in configs:
+        p = sibling_pipeline(pipe, rag.VectorStoreConfig(**kw))
+        store = p.retriever.vector_store
+        t0 = time.perf_counter()
+        p.retriever.ensure_ready()
+        torch.cuda.synchronize()
+        log(f"store {name}: device build {time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        lat, k1, k3 = [], 0, 0
+        for qs in batches:
+            t0 = time.perf_counter()
+            ctxs, n1, n3 = drive(p, qs)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            check_contexts(ctxs)
+            k1, k3 = k1 + n1, k3 + n3
+        check((k3 if "int8" in name else k1) > 0, f"store {name}: its scan kernel never launched")
+        counters = (f"uncertified {store.compact_uncertified}, candidate-patched {store.compact_candidate_patched}, "
+                    f"GEMM-patched {store.compact_gemm_patched}, retry-certified {store.compact_retry_certified}"
+                    if store.is_compact else f"fp32 re-runs {store.tier_fallback_queries}")
+        log(f"store {name}: {STORE_BATCHES} batches of {BATCH} in {', '.join(f'{t:.1f}' for t in lat)} ms "
+            f"(host clock); launches K1 {k1}, K3 {k3}; {counters}")
+        for i, (qv, qs) in enumerate(zip(qvs, batches)):
+            s_t, r_t = store.search_arrays(qv, cand)
+            x_s, x_r = exact[i]
+            if store.is_compact:
+                check(all(set(a) == set(b) for a, b in zip(r_t.cpu().tolist(), x_r.cpu().tolist())),
+                      f"store {name} batch {i}: a row set differs from the float64 exact top-k set")
+            else:
+                check(torch.equal(r_t, x_r) and torch.equal(s_t, x_s),
+                      f"store {name} batch {i}: rows or scores differ from the exact fp32 path")
+            s_s, r_s = base.sparse_index.search_arrays(qs, cand)
+            check_fused(strategy, r_t, s_t, r_s, s_s, f"store {name} batch {i}")
+        log(f"store {name}: dense results {'exact as sets after the host patch' if store.is_compact else 'identical to the exact fp32 path'}; "
+            f"fused lists match the host oracle")
+        if name != "compact bf16r":
+            del p, store
+            torch.cuda.empty_cache()
+    compact_pipe = p
+
+    # -- tag filters: one of 4 tags per chunk, by row ------------------------
+    reg = base.registry
+    t0 = time.perf_counter()
+    for row in range(reg.capacity_rows):
+        cid = reg.id_of(row)
+        if cid is not None:
+            reg.set_tags(cid, [f"t{row % 4}"])
+    log(f"tags: {len(reg)} chunks tagged in {time.perf_counter() - t0:.1f} s")
+    filters = (
+        ("all=[t1]", rag.TagFilter(all=("t1",)), lambda row: row % 4 == 1),
+        ("none=[t0]", rag.TagFilter(none=("t0",)), lambda row: row % 4 != 0),
+    )
+    qs, qv = batches[0], qvs[0]
+    q_t = torch.from_numpy(qv).to(DEV)
+    for name, p in (("bf16 tile", pipe), ("compact bf16r", compact_pipe)):
+        store = p.retriever.vector_store
+        for fname, f, allowed_row in filters:
+            t0 = time.perf_counter()
+            ctxs, n1, _ = drive(p, qs, tag_filter=f)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            check_contexts(ctxs, allowed_row, reg)
+            check(n1 > 0, f"{name} {fname}: the tag filter did not ride K1")
+            masks = resolve_tag_filters(reg, f, BATCH)
+            masks_t = [torch.from_numpy(x).to(DEV) for x in masks]
+            s_t, r_t = store.search_arrays(qv, cand, tag_masks=masks)
+            x_s, x_r = dense_topk_tagged(q_t, bstore.device_matrix, bstore.device_valid,
+                                         bstore._device_tag_bits(), *masks_t, cand, "cosine")
+            if store.is_compact:
+                check(all(set(a) == set(b) for a, b in zip(r_t.cpu().tolist(), x_r.cpu().tolist())),
+                      f"{name} {fname}: a row set differs from the filtered float64 top-k set")
+            else:
+                check(torch.equal(r_t, x_r) and torch.equal(s_t, x_s),
+                      f"{name} {fname}: rows or scores differ from the tagged exact path")
+            s_s, r_s = p.retriever._sparse_candidates(qs, cand, masks)
+            check(all(allowed_row(r) for r in r_s.cpu().numpy().ravel() if r >= 0), f"{name} {fname}: BM25 row fails")
+            check_fused(strategy, r_t, s_t, r_s, s_s, f"{name} {fname}")
+            log(f"tags {name} {fname}: batch {ms:.1f} ms (host clock); every chunk passes; dense rows equal the "
+                f"filtered exact top-k{' set' if store.is_compact else ''}; fused lists match the host oracle")
+        if store.is_compact:
+            log(f"store {name} counters after the tag batches: uncertified {store.compact_uncertified}, "
+                f"candidate-patched {store.compact_candidate_patched}, GEMM-patched {store.compact_gemm_patched}")
+    log(f"stores path (query_with_context_batch calls only): launches K1 {k1_total}, K3 {k3_total}")
+    check(k1_total > 0 and k3_total > 0, "the stores path missed a kernel")
+    return k1_total, k3_total
 
 
 def main() -> int:
@@ -349,16 +733,21 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs a GPU", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     phase_device()
-    record = phase_kernel(args.seed)
-    record["launches"] = phase_slice(args.seed)
+    k1, k3 = phase_kernels(args.seed)
+    phase_tier(args.seed)
+    pipe, k1["launches"] = phase_slice(args.seed)
+    _, k3["launches"] = phase_stores(pipe, args.seed)
+    log(f"smoke wall time {time.perf_counter() - t_start:.0f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     )
     log(f"nvidia-smi: {smi.stdout.strip()}")
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms")
-    print(json.dumps({"kernels": [{k: record[k] for k in keys}]}))
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in (k1, k3)]}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},

@@ -1,0 +1,44 @@
+"""The device rule: the port's entry points run on the card unless the
+caller asks for the CPU; without a CUDA device, a default device raises
+instead of moving to the CPU."""
+
+import pytest
+import torch
+
+import trueno_rag_tpu_torch as trag
+from trueno_rag_tpu_torch.convert import retriever_from_state
+from trueno_rag_tpu_torch.device import resolve_device
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_raises_without_cuda(no_cuda):
+    with pytest.raises(trag.InvalidConfigError, match="device='cpu'"):
+        resolve_device(None)
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device(torch.device("cpu")) == torch.device("cpu")
+
+
+@pytest.mark.parametrize("make", [
+    lambda: trag.VectorStore(trag.VectorStoreConfig(dimension=8)),
+    lambda: trag.BM25Index(),
+    lambda: trag.HybridRetriever(trag.MockEmbedder(8)),
+    lambda: trag.RagPipelineBuilder().with_embedder(trag.MockEmbedder(8)).with_reranker(trag.NoOpReranker()).build(),
+    lambda: retriever_from_state(trag.MockEmbedder(8), [], torch.zeros(4, 8).numpy(),
+                                 torch.zeros(4, dtype=torch.bool).numpy(), trag.BM25Index(device="cpu").state_dict()),
+])
+def test_entry_points_default_to_cuda(no_cuda, make):
+    with pytest.raises(trag.InvalidConfigError):
+        make()
+
+
+def test_entry_points_run_on_the_cpu_when_asked(no_cuda):
+    store = trag.VectorStore(trag.VectorStoreConfig(dimension=8), device="cpu")
+    assert store.device == torch.device("cpu")
+    p = (trag.RagPipelineBuilder().with_embedder(trag.MockEmbedder(8))
+         .with_reranker(trag.NoOpReranker()).with_device("cpu").build())
+    p.index_documents([trag.Document("alpha beta gamma", id="d")])
+    assert p.query("alpha", k=1)[0].chunk.document_id == "d"

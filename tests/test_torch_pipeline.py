@@ -142,9 +142,11 @@ def test_retriever_from_jax_state_answers_like_jax():
 
 
 def test_unported_paths_raise():
+    from trueno_rag_tpu_torch.ops.tags import fused_hybrid_query_tagged
+
     p = _pipeline(trag, "none", n=50)
-    with pytest.raises(trag.QueryError, match="ROADMAP"):
-        p.retriever.retrieve_batch(QUERIES, K, tag_filter=object())
+    with pytest.raises(trag.InvalidConfigError, match="ROADMAP"):
+        fused_hybrid_query_tagged()
     p.retriever.config.fused = True
     with pytest.raises(trag.QueryError, match="ROADMAP"):
         p.retriever.retrieve_batch(QUERIES, K)

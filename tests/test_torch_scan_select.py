@@ -199,24 +199,71 @@ def test_block_bound_maxes_are_per_128_rows():
     assert torch.equal(ab, -torch.arange(0, 1024, 128, dtype=torch.float32))
 
 
-@pytest.mark.cuda
-def test_cuda_kernel_matches_plain_version():
-    """On the card: the CUDA kernel against the plain version, both on
-    CUDA tensors, at d = 384 (values within 1e-4; rows equal except at
-    near-ties of the two summation orders)."""
+def _cuda_or_skip():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
     from trueno_rag_tpu_torch.ops.dense import require_fp32
 
     require_fp32()
+
+
+def _cuda_tags(n, b, seed):
+    """A filter masking whole 128-row blocks in the first 4096 rows and
+    scattered rows after them."""
+    g = torch.Generator().manual_seed(seed)
+    bits = torch.randint(0, 16, (n,), generator=g, dtype=torch.int32)
+    bits[:4096] = torch.randint(0, 16, (32,), generator=g, dtype=torch.int32).repeat_interleave(BLOCK)
+    words = [torch.randint(0, 16, (b,), generator=g, dtype=torch.int32) & m for m in (1, 6, 8)]
+    return tuple(t.cuda() for t in (bits, *words))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tagged", [False, True])
+def test_cuda_kernel_matches_plain_version(tagged):
+    """On the card: the CUDA kernel against the plain version, both on
+    CUDA tensors, at d = 384, untagged and with a tag filter (values
+    within 1e-4; rows equal except at near-ties of the two summation
+    orders)."""
+    _cuda_or_skip()
     args = [t.cuda() for t in _small_args(n=65536, d=384, b=200, seed=3)]
     args[4][5000:5300] = 0
+    tags = _cuda_tags(65536, 200, 4) if tagged else None
     before = scan_select_v3.launches
-    vk, rk = scan_select_v3(*args, t_top=T_TOP)
+    vk, rk = scan_select_v3(*args, t_top=T_TOP, tags=tags)
     torch.cuda.synchronize()
     assert scan_select_v3.launches == before + 1
-    vr, rr = scan_select_v3_reference(*args, t_top=T_TOP)
+    vr, rr = scan_select_v3_reference(*args, t_top=T_TOP, tags=tags)
     assert torch.equal(torch.isneginf(vk), torch.isneginf(vr))
     fin = torch.isfinite(vr)
     assert (vk[fin] - vr[fin]).abs().max().item() <= 1e-4
     assert (rk != rr).float().mean().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tagged", [False, True])
+def test_cuda_int8_kernel_is_bit_identical_to_plain_version(tagged):
+    """On the card: the int8 kernel against its plain version. The integer
+    dot is exact and both apply the same two scale multiplies, so values
+    and rows must agree bit for bit."""
+    _cuda_or_skip()
+    from trueno_rag_tpu_torch.ops.kernels.scan_select import (
+        scan_select_int8_v3,
+        scan_select_int8_v3_reference,
+    )
+
+    rng = np.random.default_rng(6)
+    m = torch.from_numpy(_unit(rng, 65536, 384)).cuda()
+    q = torch.from_numpy(_unit(rng, 200, 384)).cuda()
+    valid = torch.ones(65536, dtype=torch.int32, device="cuda")
+    valid[5000:5300] = 0
+    m_i8, s_row, e_l2, a_l2 = dt.prepare_int8(m)
+    q_i8, t_q, u_q, v_q = dt._int8_query_bounds(q)
+    args = [q_i8, m_i8, s_row, e_l2, a_l2, valid, t_q, u_q, v_q]
+    tags = _cuda_tags(65536, 200, 5) if tagged else None
+    before = scan_select_int8_v3.launches
+    vk, rk = scan_select_int8_v3(*args, t_top=T_TOP, tags=tags)
+    torch.cuda.synchronize()
+    assert scan_select_int8_v3.launches == before + 1
+    vr, rr = scan_select_int8_v3_reference(*args, t_top=T_TOP, tags=tags)
+    assert torch.equal(vk, vr)
+    assert torch.equal(rk, rr)

@@ -131,8 +131,8 @@ def test_vector_store_bf16_tier_matches_jax_through_mutations():
 @pytest.mark.parametrize(
     "cfg",
     [
-        dict(scan_tier="int8"),
-        dict(scan_tier="compact"),
+        dict(scan_tier="int8", scan_kernel="block"),
+        dict(scan_tier="auto", scan_kernel="block"),
         dict(scan_tier="clustered"),
         dict(scan_tier="bf16", scan_kernel="block"),
         dict(storage_dtype="bfloat16"),

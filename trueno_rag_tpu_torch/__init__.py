@@ -1,10 +1,11 @@
 """trueno_rag_tpu_torch — the PyTorch + CUDA port of ``trueno_rag_tpu``.
 
 The hybrid RAG query path of the JAX package, for one NVIDIA H100:
-chunking, embedders, a device-resident dense store (exact fp32, or the
-certified bf16 tile tier whose scan is the hand-written CUDA kernel in
-``csrc/scan_select_v3.cu``), block-table BM25, on-device rank fusion,
-reranking and context assembly with citations. The JAX package stays the
+chunking, embedders, a device-resident dense store (exact fp32; the
+certified bf16 and int8 tile tiers; the compact tier, which keeps no
+fp32 matrix on the card), tag filters, block-table BM25, on-device rank
+fusion, reranking and context assembly with citations. The tile scans
+are the hand-written CUDA kernels in ``csrc/``. The JAX package stays the
 reference; this package imports ``torch`` and never ``jax``.
 """
 
@@ -78,6 +79,7 @@ from trueno_rag_tpu_torch.retrieve import (
     HybridRetriever,
     HybridRetrieverConfig,
     RetrievalResult,
+    TagFilter,
 )
 
 __version__ = "0.1.0"
@@ -125,6 +127,7 @@ __all__ = [
     "HybridRetriever",
     "HybridRetrieverConfig",
     "RetrievalResult",
+    "TagFilter",
     "CompositeReranker",
     "LexicalReranker",
     "MMRReranker",

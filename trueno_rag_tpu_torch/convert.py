@@ -7,7 +7,10 @@ The JAX package's ``HybridRetriever`` exposes everything needed:
   (``None`` for a tombstoned row) — the chunks in row order;
 - ``vector_store._host`` and ``vector_store._valid`` — the host matrix
   (cosine rows already normalized) and its valid mask;
-- ``sparse_index.state_dict()`` — the BM25 postings and lengths.
+- ``sparse_index.state_dict()`` — the BM25 postings and lengths;
+- ``registry.tags_host(registry.capacity_rows)`` and
+  ``registry.tag_state([])[0]`` — the per-row tag words and the tag
+  vocabulary (tag string → bit).
 
 Rows are kept as they are, so both packages answer with the same rows.
 """
@@ -39,19 +42,31 @@ def retriever_from_state(
     config: Optional[HybridRetrieverConfig] = None,
     vector_config: Optional[VectorStoreConfig] = None,
     device=None,
+    tag_bits: Optional[np.ndarray] = None,
+    tag_vocab: Optional[Mapping[str, int]] = None,
 ) -> HybridRetriever:
     """A port :class:`HybridRetriever` holding the given index state.
 
     ``chunks[row]`` is the chunk at that row or ``None`` for a free row;
     ``host_matrix [capacity, d]`` f32 and ``valid [capacity]`` bool are
     the vector store's host mirror (capacity >= len(chunks));
-    ``bm25_state`` is a BM25 ``state_dict()``."""
+    ``bm25_state`` is a BM25 ``state_dict()``; ``tag_bits [>= len(chunks)]``
+    (int) and ``tag_vocab`` carry the registry's tags, so tag filters
+    answer as they did."""
     host_matrix = np.asarray(host_matrix, dtype=np.float32)
     valid = np.asarray(valid, dtype=bool)
     if host_matrix.ndim != 2 or valid.shape != (host_matrix.shape[0],):
         raise InvalidConfigError("host_matrix must be [capacity, d] with a [capacity] valid mask")
     if len(chunks) > host_matrix.shape[0]:
         raise InvalidConfigError("more chunk rows than matrix rows")
+    if (tag_bits is None) != (tag_vocab is None):
+        raise InvalidConfigError("tag_bits and tag_vocab come together")
+    bits = np.zeros(len(chunks), np.int64)
+    if tag_bits is not None:
+        tag_bits = np.asarray(tag_bits).astype(np.int64)
+        if tag_bits.shape[0] < len(chunks):
+            raise InvalidConfigError("tag_bits must cover every chunk row")
+        bits = tag_bits[: len(chunks)]
     retr = HybridRetriever(embedder, config=config, vector_config=vector_config, device=device)
     if host_matrix.shape[1] != retr.vector_store.config.dimension:
         raise InvalidConfigError(
@@ -69,8 +84,11 @@ def retriever_from_state(
             pc = _port_chunk(c)
             reg._row_to_id.append(pc.id)
             reg._chunks.append(pc)
-            reg._tags.append(0)
+            reg._tags.append(int(bits[row]))
             reg._id_to_row[pc.id] = row
+    if tag_vocab is not None:
+        reg._tag_bits = {str(t): int(b) for t, b in tag_vocab.items()}
+        reg.tags_version += 1
     store = retr.vector_store
     store._host = host_matrix.copy()
     store._valid = valid.copy()

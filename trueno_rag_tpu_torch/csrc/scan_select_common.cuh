@@ -1,0 +1,208 @@
+// Shared by the tile-scan kernels (scan_select_v3.cu, scan_select_int8_v3.cu):
+// the thread layout, the tag predicate, and the selection epilogue that
+// turns a 128-row block of masked scores into the tile's candidate pool and
+// then runs the per-1024-row tournament. Both kernels include this file, so
+// their selection and tie rules cannot drift apart.
+//
+// Thread layout: one thread block per (group of QB = 64 queries, 1024-row
+// selection tile), walking the tile's eight 128-row blocks in turn. Each of
+// the 256 threads owns an 8-row x 4-query register tile of the block: rows
+// rg*8 .. rg*8+7 (rg = tid & 15) and queries qg*4 .. qg*4+3 (qg = tid >> 4).
+// The 16 threads that hold one query's 128 rows sit in one half-warp, so
+// the block top-2 and third value are xor-shuffle reductions.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace scan_select {
+
+constexpr int BLOCK = 128;        // rows per bound block
+constexpr int SEL = 1024;         // rows per selection tile
+constexpr int BPT = SEL / BLOCK;  // blocks per tile (8)
+constexpr int POOL = 2 * BPT;     // tournament slots (16)
+constexpr int QB = 64;            // queries per thread block
+constexpr int THREADS = 256;
+constexpr int TM = 8;  // rows per thread
+constexpr int TQ = 4;  // queries per thread
+
+static_assert(BLOCK / TM == 16, "16 row groups: one query's rows span a half-warp");
+static_assert((QB / TQ) * (BLOCK / TM) == THREADS, "thread tile covers the block");
+
+// The tile's candidate pool in shared memory (+1 columns: no bank conflicts).
+struct SelectSmem {
+  float pool_v[QB][POOL + 1];
+  int pool_r[QB][POOL + 1];
+  float v3s[QB][BPT + 1];
+};
+
+// Tag predicate of ops/tags.py::tag_pred: all of t_all, at least one of
+// t_any (0 = no constraint), none of t_none.
+__device__ __forceinline__ bool tag_ok(int bits, int t_all, int t_any, int t_none) {
+  return (bits & t_all) == t_all && (t_any == 0 || (bits & t_any) != 0) &&
+         (bits & t_none) == 0;
+}
+
+// Per-row validity of this thread's 8 rows, and their tag words (0 when
+// the call has no filter). row0 + lane0 is a multiple of 8, so both loads
+// are 16-byte aligned.
+__device__ __forceinline__ void load_rows(const int* __restrict__ valid,
+                                          const int* __restrict__ tag_bits,
+                                          int64_t row, bool (&ok)[TM], int (&bits)[TM]) {
+  const int4 va = __ldg(reinterpret_cast<const int4*>(valid + row));
+  const int4 vb = __ldg(reinterpret_cast<const int4*>(valid + row + 4));
+  const int v[TM] = {va.x, va.y, va.z, va.w, vb.x, vb.y, vb.z, vb.w};
+#pragma unroll
+  for (int r = 0; r < TM; ++r) ok[r] = v[r] != 0;
+  if (tag_bits != nullptr) {
+    const int4 ta = __ldg(reinterpret_cast<const int4*>(tag_bits + row));
+    const int4 tb = __ldg(reinterpret_cast<const int4*>(tag_bits + row + 4));
+    const int t[TM] = {ta.x, ta.y, ta.z, ta.w, tb.x, tb.y, tb.z, tb.w};
+#pragma unroll
+    for (int r = 0; r < TM; ++r) bits[r] = t[r];
+  } else {
+#pragma unroll
+    for (int r = 0; r < TM; ++r) bits[r] = 0;
+  }
+}
+
+// Whether row r of this thread passes query q's filter (true without one).
+struct QueryFilter {
+  bool on;
+  int all, any, none;
+  __device__ __forceinline__ QueryFilter(const int* __restrict__ tag_bits,
+                                         const int* __restrict__ t_all,
+                                         const int* __restrict__ t_any,
+                                         const int* __restrict__ t_none, int q, int nq)
+      : on(tag_bits != nullptr), all(0), any(0), none(0) {
+    if (on && q < nq) {
+      all = __ldg(t_all + q);
+      any = __ldg(t_any + q);
+      none = __ldg(t_none + q);
+    }
+  }
+  __device__ __forceinline__ bool pass(int bits) const {
+    return !on || tag_ok(bits, all, any, none);
+  }
+};
+
+// (value, lane) order of the JAX code: larger value, then higher lane.
+__device__ __forceinline__ bool beats(float av, int al, float bv, int bl) {
+  return av > bv || (av == bv && al > bl);
+}
+
+// Max by (value, lane) over the 16 lanes of this half-warp.
+__device__ __forceinline__ void argmax16(float& v, int& l) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) {
+    float ov = __shfl_xor_sync(0xffffffffu, v, off);
+    int ol = __shfl_xor_sync(0xffffffffu, l, off);
+    if (beats(ov, ol, v, l)) {
+      v = ov;
+      l = ol;
+    }
+  }
+}
+
+// One 128-row block of masked scores x[query][row] (-inf where masked):
+// per query, the top-2 raw scores with their rows (ties -> highest lane, a
+// taken lane is replaced by -inf, exactly as the JAX code does) and the
+// third value v3, each plus the block's bound correction
+// corr = eb[gblk]*u_q + ab[gblk]*v_q, into the tile's pool slots blk and
+// BPT + blk. Every thread of the block must call it (shuffles).
+__device__ __forceinline__ void block_candidates(const float (&x)[TQ][TM], int tid, int q0, int nq,
+                                                 int64_t row0, int blk, int gblk,
+                                                 const float* __restrict__ eb,
+                                                 const float* __restrict__ ab,
+                                                 const float* __restrict__ uq,
+                                                 const float* __restrict__ vq, SelectSmem& sel) {
+  const int rg = tid & 15;
+  const int qg = tid >> 4;
+  const int lane0 = rg * TM;
+#pragma unroll
+  for (int i = 0; i < TQ; ++i) {
+    // pass 1: (v1, a1); ">=" keeps the higher lane on ties
+    float v1 = x[i][0];
+    int a1 = lane0;
+#pragma unroll
+    for (int r = 1; r < TM; ++r)
+      if (x[i][r] >= v1) {
+        v1 = x[i][r];
+        a1 = lane0 + r;
+      }
+    argmax16(v1, a1);
+    // pass 2: lane a1 replaced by -inf
+    float v2 = -INFINITY;
+    int a2 = -1;
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+      const float y = (lane0 + r == a1) ? -INFINITY : x[i][r];
+      if (y >= v2) {
+        v2 = y;
+        a2 = lane0 + r;
+      }
+    }
+    argmax16(v2, a2);
+    // pass 3: lanes a1 and a2 replaced by -inf; value only
+    float v3 = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+      const int l = lane0 + r;
+      v3 = fmaxf(v3, (l == a1 || l == a2) ? -INFINITY : x[i][r]);
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) v3 = fmaxf(v3, __shfl_xor_sync(0xffffffffu, v3, off));
+
+    const int ql = qg * TQ + i;
+    if (rg == 0 && q0 + ql < nq) {
+      // no contraction into fma: the plain version rounds each product
+      const float corr =
+          __fadd_rn(__fmul_rn(eb[gblk], uq[q0 + ql]), __fmul_rn(ab[gblk], vq[q0 + ql]));
+      sel.pool_v[ql][blk] = v1 + corr;
+      sel.pool_r[ql][blk] = (int)(row0 + a1);
+      sel.pool_v[ql][BPT + blk] = v2 + corr;
+      sel.pool_r[ql][BPT + blk] = (int)(row0 + a2);
+      sel.v3s[ql][blk] = v3 + corr;
+    }
+  }
+}
+
+// The tournament over the tile's 16 pool slots, one thread per query:
+// slot order [first candidates of blocks 0..7, second candidates of blocks
+// 0..7], ties -> highest slot, emitting the top t_top (value, row) pairs and
+// channel t_top = max(the pool's (t_top+1)-th value, max_blocks v3).
+// Call after a __syncthreads() that follows the last block_candidates.
+__device__ __forceinline__ void tile_tournament(SelectSmem& sel, int tid, int q0, int nq, int tile,
+                                                int g_tiles, int t_top,
+                                                float* __restrict__ v_pack,
+                                                int* __restrict__ r_pack) {
+  if (tid >= QB || q0 + tid >= nq) return;
+  const int64_t b = q0 + tid;
+  float* pv = sel.pool_v[tid];
+  const int* pr = sel.pool_r[tid];
+  for (int t = 0; t < t_top; ++t) {
+    float bv = pv[0];
+    int bs = 0;
+    for (int s = 1; s < POOL; ++s)
+      if (pv[s] >= bv) {
+        bv = pv[s];
+        bs = s;
+      }
+    v_pack[(b * (t_top + 1) + t) * g_tiles + tile] = bv;
+    r_pack[(b * t_top + t) * g_tiles + tile] = pr[bs];
+    pv[bs] = -INFINITY;
+  }
+  float thr = -INFINITY;
+  for (int s = 0; s < POOL; ++s) thr = fmaxf(thr, pv[s]);
+  for (int k = 0; k < BPT; ++k) thr = fmaxf(thr, sel.v3s[tid][k]);
+  v_pack[(b * (t_top + 1) + t_top) * g_tiles + tile] = thr;
+}
+
+// Shape checks shared by the two C entry points.
+inline bool bad_shape(int nq, int d, int n, int t_top) {
+  return nq < 1 || d < 1 || n < SEL || n % SEL != 0 || t_top < 1 || t_top > POOL ||
+         n / SEL > 65535;
+}
+
+}  // namespace scan_select

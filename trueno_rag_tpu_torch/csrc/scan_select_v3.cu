@@ -4,15 +4,14 @@
 //   trueno_rag_tpu/ops/pallas/scan_select_v2.py::scan_select_v3
 // (pallas_call at scan_select_v2.py:433). Semantics, per 1024-row
 // selection tile and query:
-//   1. s = bf16(m_row) . bf16(q) with f32 accumulation, -inf on invalid rows;
+//   1. s = bf16(m_row) . bf16(q) with f32 accumulation, -inf on invalid
+//      rows and, with a tag filter, on rows failing the query's predicate
+//      (scan_select_v2.py::_apply_tags);
 //   2. per 128-row block: top-2 raw scores with their rows and the third
-//      value v3 (ties -> highest lane, and a taken lane is replaced by
-//      -inf, exactly as the JAX code does), each plus the block's bound
-//      correction corr = eb[blk]*u_q + ab[blk]*v_q;
-//   3. a tournament over the 16 block candidates, slot order
-//      [first candidates of blocks 0..7, second candidates of blocks 0..7],
-//      ties -> highest slot, emitting the top t_top (value, row) pairs;
-//   4. channel t_top = max(the pool's (t_top+1)-th value, max_blocks v3).
+//      value v3, each plus the block's bound correction
+//      corr = eb[blk]*u_q + ab[blk]*v_q (scan_select_common.cuh);
+//   3. a tournament over the 16 block candidates emitting the top t_top
+//      (value, row) pairs and the tile threshold (scan_select_common.cuh).
 // Outputs: v_pack [B, t_top+1, N/1024] f32, r_pack [B, t_top, N/1024] i32.
 //
 // What bounds it on the H100. At the main path's shape (N = 1,048,576,
@@ -27,11 +26,8 @@
 //   - each of the 256 threads owns an 8-row x 4-query register tile of
 //     one 128-row block, fed from shared memory as float4 loads (3 shared
 //     loads per 32 FMAs); rows are converted bf16->f32 once, when staged;
-//   - the 16 threads that hold one query's 128 rows sit in one half-warp,
-//     so the block top-2 and v3 are three xor-shuffle reductions and the
-//     score tile never leaves registers;
-//   - the tournament (16 slots per query) runs from shared memory, one
-//     thread per query, once per tile.
+//   - the score tile never leaves registers: the selection epilogue works
+//     on it with half-warp shuffles.
 //
 // Certificate soundness. dense_tiered._bf16_query_bounds budgets
 // d*2^-23*|a||b| for f32 accumulation error. A product of two bf16
@@ -46,24 +42,14 @@
 //             scan_select_v3_launch on the caller's stream.
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+
+#include "scan_select_common.cuh"
+
+using namespace scan_select;
 
 namespace {
 
-constexpr int BLOCK = 128;             // rows per bound block
-constexpr int SEL = 1024;              // rows per selection tile
-constexpr int BPT = SEL / BLOCK;       // blocks per tile (8)
-constexpr int POOL = 2 * BPT;          // tournament slots (16)
-constexpr int QB = 64;                 // queries per thread block
-constexpr int THREADS = 256;
-constexpr int TM = 8;                  // rows per thread
-constexpr int TQ = 4;                  // queries per thread
-constexpr int KC = 32;                 // depth staged per step
-
-static_assert(BLOCK / TM == 16, "16 row groups: one query's rows span a half-warp");
-static_assert((QB / TQ) * (BLOCK / TM) == THREADS, "thread tile covers the block");
+constexpr int KC = 32;  // depth staged per step
 
 __device__ __forceinline__ void unpack8(uint4 raw, float* f) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -75,24 +61,6 @@ __device__ __forceinline__ void unpack8(uint4 raw, float* f) {
   }
 }
 
-// (value, lane) order of the JAX code: larger value, then higher lane.
-__device__ __forceinline__ bool beats(float av, int al, float bv, int bl) {
-  return av > bv || (av == bv && al > bl);
-}
-
-// Max by (value, lane) over the 16 lanes of this half-warp.
-__device__ __forceinline__ void argmax16(float& v, int& l) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) {
-    float ov = __shfl_xor_sync(0xffffffffu, v, off);
-    int ol = __shfl_xor_sync(0xffffffffu, l, off);
-    if (beats(ov, ol, v, l)) {
-      v = ov;
-      l = ol;
-    }
-  }
-}
-
 __global__ void __launch_bounds__(THREADS, 2)
 scan_select_v3_kernel(const __nv_bfloat16* __restrict__ q,  // [B, d]
                       const __nv_bfloat16* __restrict__ m,  // [N, d]
@@ -101,20 +69,22 @@ scan_select_v3_kernel(const __nv_bfloat16* __restrict__ q,  // [B, d]
                       const int* __restrict__ valid,        // [N]
                       const float* __restrict__ uq,         // [B]
                       const float* __restrict__ vq,         // [B]
+                      const int* __restrict__ tag_bits,     // [N] or null: no filter
+                      const int* __restrict__ t_all,        // [B]
+                      const int* __restrict__ t_any,        // [B]
+                      const int* __restrict__ t_none,       // [B]
                       float* __restrict__ v_pack,           // [B, T+1, G]
                       int* __restrict__ r_pack,             // [B, T, G]
                       int nq, int d, int g_tiles, int t_top) {
   __shared__ __align__(16) float As[KC][BLOCK];  // staged rows, depth-major
   __shared__ __align__(16) float Qs[KC][QB];     // staged queries, depth-major
-  __shared__ float pool_v[QB][POOL + 1];         // +1: no bank conflicts
-  __shared__ int pool_r[QB][POOL + 1];
-  __shared__ float v3s[QB][BPT + 1];
+  __shared__ SelectSmem sel;
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * QB;
   const int tile = blockIdx.y;
-  const int rg = tid & 15;  // rows rg*8 .. rg*8+7 of the block
-  const int qg = tid >> 4;  // queries qg*4 .. qg*4+3 of the group
+  const int rg = tid & 15;
+  const int qg = tid >> 4;
   const int lane0 = rg * TM;
 
   for (int blk = 0; blk < BPT; ++blk) {
@@ -173,94 +143,40 @@ scan_select_v3_kernel(const __nv_bfloat16* __restrict__ q,  // [B, d]
       __syncthreads();
     }
 
-    // mask invalid rows to -inf
-    const int4 va = __ldg(reinterpret_cast<const int4*>(valid + row0 + lane0));
-    const int4 vb = __ldg(reinterpret_cast<const int4*>(valid + row0 + lane0 + 4));
-    const bool ok[TM] = {va.x != 0, va.y != 0, va.z != 0, va.w != 0,
-                         vb.x != 0, vb.y != 0, vb.z != 0, vb.w != 0};
-    const int gblk = tile * BPT + blk;
+    // mask invalid rows and rows failing the query's filter to -inf
+    bool ok[TM];
+    int bits[TM];
+    load_rows(valid, tag_bits, row0 + lane0, ok, bits);
+    float x[TQ][TM];
 #pragma unroll
     for (int i = 0; i < TQ; ++i) {
-      float x[TM];
+      const QueryFilter f(tag_bits, t_all, t_any, t_none, q0 + qg * TQ + i, nq);
 #pragma unroll
-      for (int r = 0; r < TM; ++r) x[r] = ok[r] ? acc[i][r] : -INFINITY;
-      // pass 1: (v1, a1); ">=" keeps the higher lane on ties
-      float v1 = x[0];
-      int a1 = lane0;
-#pragma unroll
-      for (int r = 1; r < TM; ++r)
-        if (x[r] >= v1) { v1 = x[r]; a1 = lane0 + r; }
-      argmax16(v1, a1);
-      // pass 2: lane a1 replaced by -inf
-      float v2 = -INFINITY;
-      int a2 = -1;
-#pragma unroll
-      for (int r = 0; r < TM; ++r) {
-        const float y = (lane0 + r == a1) ? -INFINITY : x[r];
-        if (y >= v2) { v2 = y; a2 = lane0 + r; }
-      }
-      argmax16(v2, a2);
-      // pass 3: lanes a1 and a2 replaced by -inf; value only
-      float v3 = -INFINITY;
-#pragma unroll
-      for (int r = 0; r < TM; ++r) {
-        const int l = lane0 + r;
-        v3 = fmaxf(v3, (l == a1 || l == a2) ? -INFINITY : x[r]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        v3 = fmaxf(v3, __shfl_xor_sync(0xffffffffu, v3, off));
-
-      const int ql = qg * TQ + i;
-      if (rg == 0 && q0 + ql < nq) {
-        // no contraction into fma: the plain version rounds each product
-        const float corr = __fadd_rn(__fmul_rn(eb[gblk], uq[q0 + ql]),
-                                     __fmul_rn(ab[gblk], vq[q0 + ql]));
-        pool_v[ql][blk] = v1 + corr;
-        pool_r[ql][blk] = (int)(row0 + a1);
-        pool_v[ql][BPT + blk] = v2 + corr;
-        pool_r[ql][BPT + blk] = (int)(row0 + a2);
-        v3s[ql][blk] = v3 + corr;
-      }
+      for (int r = 0; r < TM; ++r) x[i][r] = (ok[r] && f.pass(bits[r])) ? acc[i][r] : -INFINITY;
     }
+    block_candidates(x, tid, q0, nq, row0, blk, tile * BPT + blk, eb, ab, uq, vq, sel);
   }
   __syncthreads();
-
-  // tournament: one thread per query of the group
-  if (tid < QB && q0 + tid < nq) {
-    const int64_t b = q0 + tid;
-    float* pv = pool_v[tid];
-    const int* pr = pool_r[tid];
-    for (int t = 0; t < t_top; ++t) {
-      float bv = pv[0];
-      int bs = 0;
-      for (int s = 1; s < POOL; ++s)
-        if (pv[s] >= bv) { bv = pv[s]; bs = s; }
-      v_pack[(b * (t_top + 1) + t) * g_tiles + tile] = bv;
-      r_pack[(b * t_top + t) * g_tiles + tile] = pr[bs];
-      pv[bs] = -INFINITY;
-    }
-    float thr = -INFINITY;
-    for (int s = 0; s < POOL; ++s) thr = fmaxf(thr, pv[s]);
-    for (int k = 0; k < BPT; ++k) thr = fmaxf(thr, v3s[tid][k]);
-    v_pack[(b * (t_top + 1) + t_top) * g_tiles + tile] = thr;
-  }
+  tile_tournament(sel, tid, q0, nq, tile, g_tiles, t_top, v_pack, r_pack);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Shapes: q [nq, d] bf16,
-// m [n, d] bf16, eb/ab [n/128] f32, valid [n] i32, uq/vq [nq] f32;
-// outputs v_pack [nq, t_top+1, n/1024] f32, r_pack [nq, t_top, n/1024]
-// i32. Requires n % 1024 == 0, d % 8 == 0, 16-byte aligned q/m/valid,
+// m [n, d] bf16, eb/ab [n/128] f32, valid [n] i32, uq/vq [nq] f32, and
+// either all four tag arrays (tag_bits [n] i32; t_all/t_any/t_none [nq]
+// i32) or none (null pointers: no filter); outputs v_pack
+// [nq, t_top+1, n/1024] f32, r_pack [nq, t_top, n/1024] i32. Requires
+// n % 1024 == 0, d % 8 == 0, 16-byte aligned q/m/valid/tag_bits,
 // 1 <= t_top <= 16. Launches on `stream`, allocates nothing, and returns
 // cudaGetLastError() (0 on success).
 extern "C" int scan_select_v3_launch(const void* q, const void* m, const void* eb,
                                      const void* ab, const void* valid, const void* uq,
-                                     const void* vq, void* v_pack, void* r_pack, int nq,
-                                     int d, int n, int t_top, void* stream) {
-  if (nq < 1 || d < 8 || d % 8 != 0 || n < SEL || n % SEL != 0 || t_top < 1 ||
-      t_top > POOL || n / SEL > 65535) {
+                                     const void* vq, const void* tag_bits, const void* t_all,
+                                     const void* t_any, const void* t_none, void* v_pack,
+                                     void* r_pack, int nq, int d, int n, int t_top,
+                                     void* stream) {
+  if (bad_shape(nq, d, n, t_top) || d < 8 || d % 8 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   const dim3 grid((nq + QB - 1) / QB, n / SEL);
@@ -268,7 +184,9 @@ extern "C" int scan_select_v3_launch(const void* q, const void* m, const void* e
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(m),
       static_cast<const float*>(eb), static_cast<const float*>(ab),
       static_cast<const int*>(valid), static_cast<const float*>(uq),
-      static_cast<const float*>(vq), static_cast<float*>(v_pack),
+      static_cast<const float*>(vq), static_cast<const int*>(tag_bits),
+      static_cast<const int*>(t_all), static_cast<const int*>(t_any),
+      static_cast<const int*>(t_none), static_cast<float*>(v_pack),
       static_cast<int*>(r_pack), nq, d, n / SEL, t_top);
   return (int)cudaGetLastError();
 }

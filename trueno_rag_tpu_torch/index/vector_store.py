@@ -1,8 +1,8 @@
 """Dense vector store: device-resident ``[N, d]`` embedding matrix.
 
 PyTorch counterpart of ``trueno_rag_tpu/index/vector_store.py`` for the
-``"none"``, ``"auto"`` and ``"bf16"`` (tile kernel) scan tiers.
-Capability-equivalent to the reference's ``VectorStore``
+``"none"``, ``"auto"``, ``"bf16"``, ``"int8"`` (tile kernels) and
+``"compact"`` scan tiers. Capability-equivalent to the reference's ``VectorStore``
 (reference: index.rs:321-437):
 
 - Embeddings live in one capacity-padded device matrix; inserts write a
@@ -14,8 +14,14 @@ Capability-equivalent to the reference's ``VectorStore``
 - Removal tombstones the row (mask False + zero row) and recycles it
   through the shared :class:`~trueno_rag_tpu_torch.index.base.ChunkRegistry`.
 - ``scan_tier="bf16"`` (or ``"auto"`` past ``scan_tier_auto_rows``)
-  keeps a bf16 replica that the certified tile scan reads; results stay
-  exactly those of the fp32 path.
+  keeps a bf16 replica that the certified tile scan reads, ``"int8"`` an
+  int8 one; results stay exactly those of the fp32 path.
+- ``scan_tier="compact"`` keeps NO fp32 matrix on the device: the
+  replicas of ``compact_scan`` ("bf16r", "bf16rr", "bf16" or "int8")
+  build slab by slab from the host rows, certified queries return the
+  exact top-k set, and uncertified ones are patched exactly from the host
+  matrix (``compact_fallback="host"``).
+- Tag filters ride the scan kernels on the compact and bf16 tile tiers.
 
 Validation matches the reference: inserting a chunk without an
 embedding raises :class:`VectorStoreError`; a wrong-size embedding
@@ -48,9 +54,11 @@ class DistanceMetric:
 @dataclass
 class VectorStoreConfig:
     """The JAX package's config, field for field (see its docstrings for
-    each knob). This store implements ``scan_tier`` "none", "auto" and
-    "bf16" with ``scan_kernel="tile"`` and float32 storage; the other
-    values pass validation but the store raises on them."""
+    each knob). This store implements ``scan_tier`` "none", "auto",
+    "bf16", "int8" (with ``scan_kernel="tile"``) and "compact" with
+    float32 storage; the other values pass validation but the store
+    raises on them. ``compact_build`` "auto" and "device" prep the
+    compact replicas on the store's device, "host" on the CPU."""
 
     dimension: int = 384
     metric: str = DistanceMetric.COSINE
@@ -133,14 +141,14 @@ class VectorStoreConfig:
 def _check_ported(config: VectorStoreConfig) -> None:
     """Raise on the configurations the port does not implement yet, so
     none silently takes another path."""
-    if config.scan_tier in ("int8", "compact", "clustered"):
+    if config.scan_tier == "clustered":
         raise InvalidConfigError(
-            f"scan_tier={config.scan_tier!r} is not ported yet (ROADMAP: "
-            "int8/compact/clustered tiers)"
+            "scan_tier='clustered' is not ported yet (ROADMAP Queue 1: K5 "
+            "scan_select_v3_indirect with ops/clustered.py)"
         )
-    if config.scan_tier in ("bf16", "auto") and config.scan_kernel != "tile":
+    if config.scan_tier in ("bf16", "auto", "int8") and config.scan_kernel != "tile":
         raise InvalidConfigError(
-            "scan_kernel='block' (the v1 scan kernel) is not ported yet (ROADMAP)"
+            "scan_kernel='block' (the v1 scan kernels) is not ported yet (ROADMAP)"
         )
     if config.storage_dtype != "float32":
         raise InvalidConfigError(
@@ -170,10 +178,22 @@ class VectorStore:
         self._dirty = True
         self._dirty_rows: Optional[set] = set()  # None: full re-upload
         self._count = 0
-        self._tier = None  # (m_bf16, e_l2, a_l2) when the bf16 tier is built
+        self._tier = None  # the scan tier's replica arrays, once built
+        # which tier's layout ``_tier`` holds: a tier switch rebuilds
         self._tier_built_for = None
-        self.tier_fallbacks = 0  # batches with a query re-run on fp32
-        self.tier_fallback_queries = 0  # queries re-run on fp32
+        self._tag_bits_cache = None  # (tags_version, device tag words)
+        self.tier_fallbacks = 0  # batches with a query re-run or host-patched
+        self.tier_fallback_queries = 0  # queries re-run on fp32 (bf16/int8 tiers)
+        self.compact_uncertified = 0  # compact-tier queries past the certificate
+        self.compact_retry_certified = 0  # rescued by the widened device retry
+        # provable worst-case score error of best-effort results: the max
+        # over still-uncertified queries of (exclusion upper bound − min
+        # selected lower bound); inf when a retry failure mode voided it
+        self.compact_uncertified_bound = 0.0
+        # host patches: queries resolved exactly from the candidate rows
+        # alone vs. queries that needed the full host-matrix GEMM
+        self.compact_candidate_patched = 0
+        self.compact_gemm_patched = 0
 
     # -- mutation ------------------------------------------------------------
 
@@ -269,6 +289,9 @@ class VectorStore:
     # -- device state ----------------------------------------------------------
 
     def _refresh_device(self) -> None:
+        if self._effective_tier() == "compact":
+            self._refresh_device_compact()
+            return
         if (
             not self._dirty
             and self._device_matrix is not None
@@ -295,6 +318,75 @@ class VectorStore:
         self._dirty = False
         self._dirty_rows = set()
 
+    def _compact_prep(self, m: torch.Tensor):
+        """The compact layout's replica parts of rows ``m`` (f32)."""
+        from trueno_rag_tpu_torch.ops import dense_tiered as dt
+
+        parts = dt.prepare_tiered(m)
+        extra = {
+            "bf16r": dt.prepare_residual,
+            "bf16rr": dt.prepare_residual2,
+            "int8": dt.prepare_int8,
+        }.get(self.config.compact_scan)
+        return parts + extra(m) if extra is not None else parts
+
+    def _refresh_device_compact(self) -> None:
+        """Compact tier: the fp32 matrix never resides on the device. The
+        replicas (the bf16 scan+rescore copy, plus the residual levels or
+        the int8 scan copy of the layout, with their norms) build slab by
+        slab from host rows; mutations scatter only the changed rows'
+        re-prepared replicas."""
+        if not self._dirty and self._tier is not None and self._tier_built_for == "compact":
+            return
+        self._device_matrix = None  # the whole point of this tier
+        if (
+            self._tier is not None
+            and self._tier_built_for == "compact"
+            and self._dirty_rows  # bounded, non-empty row set
+            and self._tier[0].shape[0] == self._host.shape[0]
+        ):
+            idx = np.fromiter(self._dirty_rows, dtype=np.int64)
+            rows = torch.from_numpy(idx).to(self.device)
+            parts = self._compact_prep(torch.from_numpy(self._host[idx]).to(self.device))
+            for full, part in zip(self._tier, parts):
+                full[rows] = part
+            self._device_valid[rows] = torch.from_numpy(self._valid[idx]).to(self.device)
+        else:
+            self._tier = None  # free the old replicas before the build
+            self._tier = self._stream_build_tier()
+            self._device_valid = torch.from_numpy(self._valid).to(self.device, copy=True)
+        self._tier_built_for = "compact"
+        self._dirty = False
+        self._dirty_rows = set()
+
+    def _stream_build_tier(self):
+        """Full compact replica build, streamed: host fp32 rows are
+        prepped slab by slab (``compact_prep_rows`` rows) and copied into
+        replicas preallocated on the device, so the transient is one
+        slab's parts, not a second copy of every replica. Per
+        ``compact_build``, a slab is prepped on the store's device
+        ("auto" and "device": the upload is raw f32) or on the host CPU
+        ("host": CPU tensors, copied over once prepped). That is the
+        caller's choice, never a fallback; the prep code is the same
+        either way, so every certificate array is computed from the exact
+        replica bytes it will sit next to."""
+        n = self._host.shape[0]
+        step = self.config.compact_prep_rows
+        prep_dev = torch.device("cpu") if self.config.compact_build == "host" else self.device
+        dests = None
+        for lo in range(0, n, step):
+            slab = torch.from_numpy(self._host[lo : lo + step]).to(prep_dev)
+            parts = self._compact_prep(slab)
+            if dests is None:
+                dests = [
+                    torch.empty((n,) + p.shape[1:], dtype=p.dtype, device=self.device)
+                    for p in parts
+                ]
+            for dest, part in zip(dests, parts):
+                dest[lo : lo + part.shape[0]].copy_(part)  # in place: no second replica
+            del parts, slab
+        return tuple(dests)
+
     def _effective_tier(self) -> str:
         """Resolve "auto": the bf16 tier once the store holds
         ``scan_tier_auto_rows`` rows (the crossover is a tuned constant of
@@ -304,26 +396,49 @@ class VectorStore:
             return "bf16" if self._count >= self.config.scan_tier_auto_rows else "none"
         return tier
 
-    def _refresh_tier(self, rows=None, updates=None) -> None:
-        """Maintain the bf16 replica. The quantization/residual math is
-        row-local, so incremental mutations prepare ONLY the changed rows
-        and scatter them into the replica arrays."""
+    @property
+    def supports_tagged_scan(self) -> bool:
+        """True when :meth:`search_arrays` accepts ``tag_masks``: the
+        filter rides the scan kernel (compact tier, or the bf16 tile
+        tier). The retriever keeps filtered queries on the fast tier then,
+        instead of the full fp32 tagged scan."""
         tier = self._effective_tier()
-        self._tier_built_for = tier
+        return tier == "compact" or (tier == "bf16" and self.config.scan_kernel == "tile")
+
+    @property
+    def is_compact(self) -> bool:
+        """True when this store holds no fp32 device matrix (compact
+        tier): callers that need ``device_matrix`` must take a staged path
+        instead; hybrid and tag-filtered queries stage automatically."""
+        return self._effective_tier() == "compact"
+
+    def _refresh_tier(self, rows=None, updates=None) -> None:
+        """Maintain the bf16 or int8 replica. The quantization/residual
+        math is row-local, so incremental mutations prepare ONLY the
+        changed rows and scatter them into the replica arrays."""
+        tier = self._effective_tier()
+        built_for, self._tier_built_for = self._tier_built_for, tier
         if tier == "none":
             self._tier = None
             return
         from trueno_rag_tpu_torch.ops import dense_tiered as dt
 
-        if rows is None or self._tier is None:
-            self._tier = dt.prepare_tiered(self._device_matrix)
+        prepare = dt.prepare_tiered if tier == "bf16" else dt.prepare_int8
+        if rows is None or self._tier is None or built_for != tier:
+            self._tier = prepare(self._device_matrix)
             return
-        for full, part in zip(self._tier, dt.prepare_tiered(updates)):
+        for full, part in zip(self._tier, prepare(updates)):
             full[rows] = part
 
     @property
     def device_matrix(self) -> torch.Tensor:
         """The ``[capacity, d]`` device matrix (cosine rows normalized)."""
+        if self.is_compact:
+            raise InvalidConfigError(
+                "scan_tier='compact' holds no fp32 device matrix (that is its "
+                "memory contract); hybrid and tag-filtered queries run staged "
+                "automatically"
+            )
         self._refresh_device()
         return self._device_matrix
 
@@ -343,31 +458,343 @@ class VectorStore:
         self, queries, k: int, tag_masks=None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Device-level search: host ``[B, d]`` queries (array-like) →
-        ``(scores, rows) [B, k]`` tensors on ``self.device``."""
-        if tag_masks is not None:
-            raise InvalidConfigError("tag filters are not ported yet (ROADMAP)")
+        ``(scores, rows) [B, k]`` tensors on ``self.device``.
+
+        ``tag_masks`` = per-query ``(t_all [B], t_any [B], t_none [B])``
+        int32 filter words (see
+        :func:`trueno_rag_tpu_torch.retrieve.resolve_tag_filters`),
+        accepted where the filter rides the scan kernel
+        (:attr:`supports_tagged_scan`): the compact tier (certified exact
+        filtered sets, filter-aware host patch) and the bf16 tile tier
+        (exact filtered results; uncertified queries fall back to the
+        tagged fp32 scan). Other tiers filter in the retriever through
+        :func:`trueno_rag_tpu_torch.ops.tags.dense_topk_tagged`."""
         self._refresh_device()
         require_fp32()
         q = torch.as_tensor(np.atleast_2d(np.asarray(queries, dtype=np.float32))).to(self.device)
         if q.shape[-1] != self.config.dimension:
             raise DimensionMismatchError(self.config.dimension, int(q.shape[-1]))
         k_eff = min(k, self._host.shape[0])
-        if self._tier is not None:
-            from trueno_rag_tpu_torch.ops import dense_tiered as dt
+        if tag_masks is not None and not self.supports_tagged_scan:
+            raise InvalidConfigError(
+                "search_arrays(tag_masks=...) rides the scan kernel: compact "
+                "tier or bf16 tile tier only; other tiers filter via "
+                "ops.tags.dense_topk_tagged"
+            )
+        if self._effective_tier() == "compact":
+            return self._search_compact(q, k_eff, tag_masks)
+        if self._tier is None:
+            return dense_topk(q, self._device_matrix, self._device_valid, k_eff, self.config.metric)
+        from trueno_rag_tpu_torch.ops import dense_tiered as dt
 
+        kw = dict(
+            metric=self.config.metric,
+            rescore_rows=self.config.scan_rescore_rows,
+            t_top=self.config.scan_t_top,
+            margin_tiles=self.config.scan_margin_tiles,
+            tile_n=self.config.scan_tile_n,
+        )
+        if self._effective_tier() == "bf16":
             scores, rows, n_fallback = dt.dense_topk_tiered2_checked(
                 q, self._device_matrix, *self._tier, self._device_valid, k_eff,
-                metric=self.config.metric,
-                rescore_rows=self.config.scan_rescore_rows,
-                t_top=self.config.scan_t_top,
-                margin_tiles=self.config.scan_margin_tiles,
-                tile_n=self.config.scan_tile_n,
+                tags=self._scan_tags(tag_masks), **kw,
             )
-            if n_fallback:
-                self.tier_fallbacks += 1
-                self.tier_fallback_queries += n_fallback
+        else:
+            scores, rows, n_fallback = dt.dense_topk_int8_tiered2_checked(
+                q, self._device_matrix, *self._tier, self._device_valid, k_eff, **kw,
+            )
+        if n_fallback:
+            self.tier_fallbacks += 1
+            self.tier_fallback_queries += n_fallback
+        return scores, rows
+
+    def _compact_fn(self):
+        from trueno_rag_tpu_torch.ops import dense_tiered as dt
+
+        return {
+            "bf16r": dt.dense_topk_compact_bf16r,
+            "bf16rr": dt.dense_topk_compact_bf16rr,
+            "bf16": dt.dense_topk_compact_bf16,
+            "int8": dt.dense_topk_compact,
+        }[self.config.compact_scan]
+
+    def _search_compact(self, q: torch.Tensor, k: int, tag_masks):
+        """The compact tier's search: the certified scan, then (per
+        ``compact_retry``/``compact_fallback``) the widened device retry
+        and the staged exact host patch of uncertified queries."""
+        host_fb = self.config.compact_fallback == "host"
+        out = self._compact_fn()(
+            q, *self._tier, self._device_valid, k,
+            metric=self.config.metric,
+            rescore_rows=self.config.scan_rescore_rows,
+            t_top=self.config.scan_t_top,
+            margin_tiles=self.config.scan_margin_tiles,
+            tile_n=self.config.scan_tile_n,
+            tags=self._scan_tags(tag_masks),
+            # candidate rows + tile threshold feed the containment patch
+            return_candidates=host_fb,
+        )
+        scores, rows, ok = out[:3]
+        ok_np = ok.cpu().numpy()
+        if ok_np.all():
             return scores, rows
-        return dense_topk(q, self._device_matrix, self._device_valid, k_eff, self.config.metric)
+        retry = self.config.compact_retry
+        # AUTO (None): under the host fallback the cheap exact candidate
+        # patch runs first and the widened retry serves its containment
+        # failures; under fallback="none" the retry is the only step
+        retry_all = retry is True or (retry is None and not host_fb)
+        scores, rows = scores.cpu().numpy(), rows.cpu().numpy()
+        if retry_all:
+            scores, rows, ok_np = self._compact_device_retry(q, scores, rows, ok_np, k, tag_masks)
+        if not ok_np.all():
+            self.compact_uncertified += int((~ok_np).sum())
+            if host_fb:
+                scores, rows = self._compact_exact_patch(
+                    q, scores, rows, ok_np, k, out[3].cpu().numpy(), out[4].cpu().numpy(),
+                    tag_masks, containment_retry=retry is not False,
+                )
+                self.tier_fallbacks += 1
+        return torch.from_numpy(scores).to(self.device), torch.from_numpy(rows).to(self.device)
+
+    def _device_tag_bits(self) -> torch.Tensor:
+        """Capacity-sized device copy of the registry's per-row tag
+        words, cached against the registry's ``tags_version``."""
+        version = self.registry.tags_version
+        n = self._host.shape[0]
+        cached = self._tag_bits_cache
+        if cached is not None and cached[0] == version and cached[1].shape[0] == n:
+            return cached[1]
+        bits = torch.from_numpy(self.registry.tags_host(n)).to(self.device)
+        self._tag_bits_cache = (version, bits)
+        return bits
+
+    def _scan_tags(self, tag_masks, sel=None):
+        """The scan kernels' ``tags`` argument for host filter words
+        (optionally only the queries ``sel``); None without a filter."""
+        if tag_masks is None:
+            return None
+        words = [np.asarray(m, np.int32) for m in tag_masks]
+        if sel is not None:
+            words = [w[sel] for w in words]
+        return (self._device_tag_bits(), *(torch.from_numpy(w).to(self.device) for w in words))
+
+    def _compact_device_retry(self, q, scores, rows, ok_np, k, tag_masks=None,
+                              return_candidates=False):
+        """Widened device re-scan of just the uncertified compact-tier
+        queries (see ``compact_retry``): margin_tiles x4 (>= 128), every
+        emitted candidate rescored (no ``rescore_rows`` trim), t_top 8.
+        Returns (scores, rows, ok) with rescued queries merged in, plus
+        the retry's candidates and thresholds aligned to the full batch
+        when ``return_candidates``; for queries that STILL fail, records
+        the provable worst-case score error in
+        ``compact_uncertified_bound`` (bf16r/bf16rr only — the other
+        layouts don't expose bounds)."""
+        bad = np.flatnonzero(~ok_np)
+        q_bad = q[torch.from_numpy(bad).to(q.device)]
+        kwargs = dict(
+            metric=self.config.metric,
+            rescore_rows=None,
+            t_top=max(8, self.config.scan_t_top),
+            margin_tiles=max(128, 4 * self.config.scan_margin_tiles),
+            tile_n=self.config.scan_tile_n,
+            tags=self._scan_tags(tag_masks, bad),
+        )
+        bound = cand_full = thr_full = None
+        if self.config.compact_scan in ("bf16r", "bf16rr"):
+            out2 = self._compact_fn()(
+                q_bad, *self._tier, self._device_valid, k,
+                return_bounds=True, return_candidates=return_candidates, **kwargs,
+            )
+            s2, r2, ok2, err2, rhs2 = (x.cpu().numpy() for x in out2[:5])
+            if return_candidates:
+                # the retry's candidates, aligned to the full batch for a
+                # second containment patch: the widened threshold sits far
+                # below the primary's
+                c2, t2 = out2[5].cpu().numpy(), out2[6].cpu().numpy()
+                cand_full = np.full((len(ok_np), c2.shape[1]), -1, np.int64)
+                thr_full = np.full((len(ok_np),), np.inf, np.float64)
+                cand_full[bad] = c2
+                thr_full[bad] = t2
+            sel_lower = np.where(np.isneginf(s2), np.inf, s2 - err2).min(axis=1)
+            bound = np.maximum(rhs2 - np.where(np.isinf(sel_lower), -np.inf, sel_lower), 0.0)
+        else:
+            out2 = self._compact_fn()(q_bad, *self._tier, self._device_valid, k, **kwargs)
+            s2, r2, ok2 = (x.cpu().numpy() for x in out2)
+        scores, rows = scores.copy(), rows.copy()
+        fixed = bad[ok2]
+        scores[fixed] = s2[ok2]
+        rows[fixed] = r2[ok2]
+        # the widened pass is usually the better best-effort answer even
+        # where uncertified, but a concentrated corpus can overflow the
+        # per-tile pool and come back SHORTER: adopt it only when it found
+        # at least as many valid rows
+        still = ~ok2
+        better = (r2 >= 0).sum(axis=1) >= (rows[bad] >= 0).sum(axis=1)
+        adopt = still & better
+        scores[bad[adopt]] = s2[adopt]
+        rows[bad[adopt]] = r2[adopt]
+        self.compact_retry_certified += int(ok2.sum())
+        if bound is not None and still.any():
+            # a non-adopted (shorter) widened result leaves the primary
+            # best-effort in place, whose error the bounds don't cover
+            b_vals = np.where(better, bound, np.inf)[still]
+            self.compact_uncertified_bound = max(self.compact_uncertified_bound, float(np.max(b_vals)))
+        out_ok = ok_np.copy()
+        out_ok[fixed] = True
+        if return_candidates:
+            return scores, rows, out_ok, cand_full, thr_full
+        return scores, rows, out_ok
+
+    def _compact_exact_patch(self, q, scores, rows, ok_np, k, cand, thr,
+                             tag_masks=None, containment_retry=True):
+        """Staged exact resolution of uncertified compact queries, in
+        increasing cost order:
+
+        1. candidate patch — exact f64 rescore of the primary pass's
+           candidate rows where the containment certificate holds;
+        2. widened device retry (bf16r/bf16rr) WITH its own candidates —
+           it either certifies outright or its far lower tile threshold
+           restores containment for another candidate patch;
+        3. streamed full-matrix host GEMM (counted in
+           ``compact_gemm_patched``)."""
+        q_np = q.cpu().numpy()
+        scores, rows, unresolved = self._host_candidate_patch(
+            q_np, scores, rows, ok_np, k, cand, thr, tag_masks=tag_masks, resolve_rest=False)
+        if (len(unresolved) and containment_retry
+                and self.config.compact_scan in ("bf16r", "bf16rr")):
+            nok = np.ones_like(ok_np)
+            nok[unresolved] = False
+            scores, rows, nok2, cand2, thr2 = self._compact_device_retry(
+                q, scores, rows, nok, k, tag_masks, return_candidates=True)
+            unresolved = np.flatnonzero(~nok2)
+            if len(unresolved):
+                scores, rows, unresolved = self._host_candidate_patch(
+                    q_np, scores, rows, nok2, k, cand2, thr2,
+                    tag_masks=tag_masks, resolve_rest=False)
+        if len(unresolved):
+            gm = np.ones_like(ok_np)
+            gm[unresolved] = False
+            scores, rows = self._host_exact_patch(q_np, scores, rows, gm, k, tag_masks=tag_masks)
+            self.compact_gemm_patched += len(unresolved)
+        return scores, rows
+
+    @staticmethod
+    def _host_allowed(bits: np.ndarray, bad: np.ndarray, tag_masks) -> np.ndarray:
+        """The tag predicate of the queries ``bad`` on host tag words
+        ``bits`` ([len(bad), W] or [1, W])."""
+        from trueno_rag_tpu_torch.ops.tags import tag_pred
+
+        return tag_pred(bits, *(np.asarray(m, np.int32)[bad, None] for m in tag_masks))
+
+    def _host_queries(self, q: np.ndarray, bad: np.ndarray) -> np.ndarray:
+        """The queries ``bad`` in float64, normalized for cosine."""
+        qv = q[bad].astype(np.float64)
+        if self.config.metric == DistanceMetric.COSINE:
+            nrm = np.linalg.norm(qv, axis=1, keepdims=True)
+            qv = qv / np.where(nrm == 0.0, 1.0, nrm)
+        return qv
+
+    def _host_candidate_patch(self, q, scores, rows, ok_np, k, cand_rows, cand_thr,
+                              tag_masks=None, resolve_rest=True):
+        """Exact patch for uncertified compact queries via the
+        CONTAINMENT certificate: ``cand_thr`` (the scan's tile-level
+        threshold) bounds the TRUE score of every row outside
+        ``cand_rows``. The host rescores just the candidate rows in
+        float64 ((score desc, row asc) ties); where the k-th exact
+        candidate score strictly beats the threshold, the exact top-k set
+        lies inside the candidates, and the patched result carries the
+        full exact contract at O(W·d) host cost. Containment failures go
+        to :meth:`_host_exact_patch`, or with ``resolve_rest=False`` are
+        returned as the third element for the caller's next stage."""
+        bad = np.flatnonzero(~ok_np)
+        n = self._host.shape[0]
+        scores = scores.copy()
+        rows = rows.copy()
+        cr = np.asarray(cand_rows, np.int64)[bad]  # [B', W]
+        live = (cr >= 0) & (cr < n)
+        cr_safe = np.where(live, cr, 0)
+        live &= self._valid[cr_safe]
+        if tag_masks is not None:
+            # defensive re-filter (the kernel already masked disallowed rows)
+            live &= self._host_allowed(self.registry.tags_host(n)[cr_safe], bad, tag_masks)
+        # duplicate candidate rows keep their first occurrence only; dead
+        # slots all sort to the same padding value, so the check skips them
+        pad_v = np.iinfo(np.int64).max
+        srt = np.sort(np.where(live, cr, pad_v), axis=1)
+        if ((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] != pad_v)).any():
+            for bi in range(cr.shape[0]):
+                seen = set()
+                for wi in range(cr.shape[1]):
+                    if live[bi, wi]:
+                        r = int(cr[bi, wi])
+                        if r in seen:
+                            live[bi, wi] = False
+                        seen.add(r)
+        gathered = self._host[cr_safe].astype(np.float64)  # [B', W, d]
+        s = np.einsum("bwd,bd->bw", gathered, self._host_queries(q, bad))
+        s[~live] = -np.inf
+        # (score desc, row asc) within candidates; dead slots last
+        kk = min(k, cr.shape[1])  # starved selections can have W < k
+        order = np.lexsort((np.where(live, cr, pad_v), -s), axis=-1)[:, :kk]
+        top_s = np.take_along_axis(s, order, axis=1)
+        top_r = np.take_along_axis(cr_safe, order, axis=1)
+        if kk < k:
+            top_s = np.pad(top_s, ((0, 0), (0, k - kk)), constant_values=-np.inf)
+            top_r = np.pad(top_r, ((0, 0), (0, k - kk)), constant_values=0)
+        thr_b = np.asarray(cand_thr, np.float64)[bad]
+        s_k = top_s[:, -1] if k > 0 else np.full(len(bad), -np.inf)
+        # containment: every non-candidate row provably below the k-th
+        # exact candidate score; short allowed sets need thr == -inf
+        contained = np.where(live.sum(axis=1) >= k, thr_b < s_k, np.isneginf(thr_b))
+        dead = np.isneginf(top_s)
+        top_r = np.where(dead, -1, top_r)
+        fixed = bad[contained]
+        scores[fixed] = top_s.astype(np.float32)[contained]
+        rows[fixed] = top_r[contained]
+        self.compact_candidate_patched += int(contained.sum())
+        unresolved = bad[~contained]
+        if not resolve_rest:
+            return scores, rows, unresolved
+        if len(unresolved):
+            gemm_mask = np.ones_like(ok_np)
+            gemm_mask[unresolved] = False
+            scores, rows = self._host_exact_patch(q, scores, rows, gemm_mask, k, tag_masks=tag_masks)
+            self.compact_gemm_patched += len(unresolved)
+        return scores, rows
+
+    def _host_exact_patch(self, q, scores, rows, ok_np, k, tag_masks=None):
+        """Re-run uncertified compact-tier queries on the HOST fp32
+        matrix with float64 accumulation — true-score top-k with the
+        (score desc, row asc) tie rule, the same set the device
+        certificate proves for certified queries. Streams the matrix in
+        ``compact_prep_rows`` slabs so no f64 copy of it materializes;
+        ``tag_masks`` applies the device scan's filter."""
+        bad = np.flatnonzero(~ok_np)
+        qs = self._host_queries(q, bad)
+        step = self.config.compact_prep_rows
+        best_s = np.full((len(bad), k), -np.inf)
+        best_r = np.full((len(bad), k), -1, dtype=np.int64)
+        if tag_masks is not None:
+            tag_bits = self.registry.tags_host(self._host.shape[0])
+        for lo in range(0, self._host.shape[0], step):
+            slab = self._host[lo : lo + step]
+            s = slab.astype(np.float64) @ qs.T  # [rows, B'] f64 accumulation
+            s[~self._valid[lo : lo + step]] = -np.inf
+            r = np.arange(lo, lo + slab.shape[0], dtype=np.int64)
+            if tag_masks is not None:
+                s[~self._host_allowed(tag_bits[None, lo : lo + step], bad, tag_masks).T] = -np.inf
+            cat_s = np.concatenate([best_s, s.T], axis=1)
+            cat_r = np.concatenate([best_r, np.broadcast_to(r, (len(bad), len(r)))], axis=1)
+            # merge with (score desc, row asc) on both keys explicitly
+            take = np.lexsort((cat_r, -cat_s), axis=-1)[:, :k]
+            best_s = np.take_along_axis(cat_s, take, axis=1)
+            best_r = np.take_along_axis(cat_r, take, axis=1)
+        best_r[np.isneginf(best_s)] = -1
+        scores = scores.copy()
+        rows = rows.copy()
+        scores[bad] = best_s.astype(np.float32)
+        rows[bad] = best_r.astype(rows.dtype)
+        return scores, rows
 
     def search(self, query: Sequence[float], k: int) -> List[Tuple[str, float]]:
         """Host-facing search: ``[(chunk_id, score)]`` sorted (score desc,

@@ -151,6 +151,13 @@ def dense_topk(
     are re-ranked by :func:`exact_scores`."""
     scores = similarity_scores(queries, matrix, metric)
     masked = torch.where(valid_mask[None, :], scores, NEG_INF)
+    return topk_masked(queries, matrix, masked, k, metric, algorithm)
+
+
+def topk_masked(queries, matrix, masked, k: int, metric: str = "cosine", algorithm: str = "blockwise"):
+    """The selection of :func:`dense_topk` on ``masked [B, N]`` scores
+    (-inf where a row may not be returned): the best ``2k`` rows, re-ranked
+    by :func:`exact_scores` for cosine/dot."""
     width = k if metric == "euclidean" else min(2 * k, matrix.shape[0])
     if algorithm == "blockwise":
         top_scores, top_rows = blockwise_topk(masked, width)

@@ -1,18 +1,26 @@
-"""``scan_select_v3``: the certified bf16 tile scan, as a CUDA kernel for
-Hopper (``csrc/scan_select_v3.cu``) plus its plain PyTorch version.
+"""The certified tile scans as CUDA kernels for Hopper, plus their plain
+PyTorch versions:
 
-Counterpart of the Pallas TPU kernel
-``trueno_rag_tpu/ops/pallas/scan_select_v2.py::scan_select_v3``. For each
-1024-row selection tile and each query it scores ``bf16(m)·bf16(q)`` in
-f32, keeps each 128-row block's top-2 raw scores (with global rows) and
-third value, adds the block's bound correction
-``max_blk(e_l2)·u_q + max_blk(a_l2)·v_q``, and runs a tournament over
-the tile's 16 block candidates → ``v_pack [B, T+1, N/1024]`` (values,
-then the tile threshold) and ``r_pack [B, T, N/1024]`` (global rows).
+- ``scan_select_v3`` (``csrc/scan_select_v3.cu``): the bf16 scan,
+  counterpart of the Pallas TPU kernel
+  ``trueno_rag_tpu/ops/pallas/scan_select_v2.py::scan_select_v3``. It
+  scores ``bf16(m)·bf16(q)`` in f32.
+- ``scan_select_int8_v3`` (``csrc/scan_select_int8_v3.cu``): the int8
+  scan, counterpart of ``scan_select_v2.py::scan_select_int8_v3``. It
+  scores ``(f32(Σ q_i8·m_i8)·s_row)·t_q`` with an exact integer dot.
 
-Dispatch: a CPU tensor goes to :func:`scan_select_v3_reference`; a CUDA
-tensor goes to the kernel, or the call raises. The kernel library is
-built from ``csrc/*.cu`` with ``nvcc`` at first use, into ``build/`` at
+Both then keep each 128-row block's top-2 raw scores (with global rows)
+and third value, add the block's bound correction
+``max_blk(e_l2)·u_q + max_blk(a_l2)·v_q``, and run a tournament over the
+tile's 16 block candidates → ``v_pack [B, T+1, N/1024]`` (values, then
+the tile threshold) and ``r_pack [B, T, N/1024]`` (global rows). With
+``tags=(tag_bits [N], t_all [B], t_any [B], t_none [B])`` (int32), a row
+that fails the query's tag predicate (``ops/tags.py::tag_pred``) scores
+-inf before selection, like an invalid row.
+
+Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to
+the kernel, or the call raises. Each kernel source is built with its own
+``nvcc`` (all started together) at first use, into ``build/kernels/`` at
 the repository root.
 """
 
@@ -23,11 +31,12 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from trueno_rag_tpu_torch.errors import InvalidConfigError
+from trueno_rag_tpu_torch.ops.tags import tag_pred
 
 BLOCK = 128  # rows per bound block
 SEL = 1024  # rows per selection tile (one emitted candidate set)
@@ -37,13 +46,18 @@ MAX_T_TOP = 2 * (SEL // BLOCK)  # the tournament pool: 16 slots
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-_LIB_PATH = os.path.join(_BUILD, "libtrag_torch_kernels.so")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# each kernel's C entry point: name → (source, ctypes argument types)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ENTRY = {
+    "scan_select_v3_launch": ("scan_select_v3.cu", [_P] * 13 + [_I] * 4 + [_P]),
+    "scan_select_int8_v3_launch": ("scan_select_int8_v3.cu", [_P] * 15 + [_I] * 4 + [_P]),
+}
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: Optional[Dict[str, ctypes.CDLL]] = None
 _lib_lock = threading.Lock()
 build_log = ""  # nvcc's output (register and shared-memory use) of the last build
 
@@ -58,81 +72,140 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME)")
 
 
-def _sources():
-    return sorted(
-        os.path.join(_CSRC, f) for f in os.listdir(_CSRC) if f.endswith((".cu", ".cuh"))
-    )
+def _lib_path(source: str) -> str:
+    return os.path.join(_BUILD, f"libtrag_{os.path.splitext(source)[0]}.so")
 
 
-def build_library(force: bool = False) -> str:
-    """Compile ``csrc/*.cu`` into the kernel library unless an up-to-date
-    build exists; returns its path. The library is written to a temporary
-    name and renamed, so concurrent builders never load a partial file."""
+def build_library(force: bool = False) -> Dict[str, str]:
+    """Compile each kernel source in ``csrc/`` into its own shared library
+    unless an up-to-date build exists (newer than the source and every
+    ``.cuh``); returns {source: library path}. The ``nvcc`` processes run
+    together. Each library is written to a temporary name and renamed, so
+    concurrent processes never load a partial file."""
     global build_log
-    srcs = _sources()
-    fresh = os.path.exists(_LIB_PATH) and all(
-        os.path.getmtime(_LIB_PATH) >= os.path.getmtime(s) for s in srcs
-    )
-    if fresh and not force:
-        return _LIB_PATH
+    headers = [os.path.join(_CSRC, f) for f in os.listdir(_CSRC) if f.endswith(".cuh")]
+    sources = sorted({src for src, _ in _ENTRY.values()})
+    paths = {src: _lib_path(src) for src in sources}
+    stale = [
+        src for src in sources
+        if force or not os.path.exists(paths[src]) or any(
+            os.path.getmtime(paths[src]) < os.path.getmtime(f)
+            for f in headers + [os.path.join(_CSRC, src)]
+        )
+    ]
+    if not stale:
+        return paths
     os.makedirs(_BUILD, exist_ok=True)
-    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(s for s in srcs if s.endswith(".cu"))]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, _LIB_PATH)
-    return _LIB_PATH
+    nvcc = _nvcc()
+    procs = []
+    for src in stale:
+        tmp = f"{paths[src]}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, src)]
+        procs.append((src, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )))
+    logs, failed = [], []
+    for src, tmp, proc in procs:
+        try:
+            out, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        logs.append(f"== {src}\n{out}")
+        if proc.returncode != 0:
+            failed.append(src)
+        else:
+            os.replace(tmp, paths[src])
+    build_log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n{build_log}")
+    return paths
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
+def _load() -> Dict[str, ctypes.CDLL]:
+    global _libs
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build_library())
-            fn = lib.scan_select_v3_launch
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-            _lib = lib
-        return _lib
+        if _libs is None:
+            paths = build_library()
+            libs = {}
+            for name, (src, argtypes) in _ENTRY.items():
+                lib = ctypes.CDLL(paths[src])
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = argtypes
+                libs[name] = lib
+            _libs = libs
+        return _libs
 
 
 def block_bound_maxes(e_l2: torch.Tensor, a_l2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-128-row-block maxes of the bound norms ([N] → [N/128]); both
-    the kernel and the plain version take the bound at block granularity."""
+    the kernels and the plain versions take the bound at block
+    granularity."""
     return (
         e_l2.view(-1, BLOCK).amax(dim=1).contiguous(),
         a_l2.view(-1, BLOCK).amax(dim=1).contiguous(),
     )
 
 
-def _check(q, m, e_l2, a_l2, valid, u_q, v_q, t_top) -> None:
+def _check_vectors(named: Sequence[Tuple[str, torch.Tensor, torch.dtype, int]]) -> None:
+    for name, t, dt, ln in named:
+        if t.dtype != dt or tuple(t.shape) != (ln,):
+            raise InvalidConfigError(f"{name} must be {dt} [{ln}], got {t.dtype} {tuple(t.shape)}")
+
+
+def _check(q, m, dtype, d_mult, vectors, tags, t_top) -> None:
+    """Shapes, types and devices common to both scans."""
     if q.dim() != 2 or m.dim() != 2 or q.shape[1] != m.shape[1]:
         raise InvalidConfigError(f"need q [B, d] and m [N, d], got {tuple(q.shape)}, {tuple(m.shape)}")
     b, d = q.shape
     n = m.shape[0]
-    if q.dtype != torch.bfloat16 or m.dtype != torch.bfloat16:
-        raise InvalidConfigError(
-            f"q and m must be bf16 (got {q.dtype}, {m.dtype}); the f32 inline-cast "
-            "layout is not ported yet (ROADMAP)"
-        )
+    if q.dtype != dtype or m.dtype != dtype:
+        raise InvalidConfigError(f"q and m must be {dtype} (got {q.dtype}, {m.dtype})")
     if b < 1 or n < SEL or n % SEL:
         raise InvalidConfigError(f"need B >= 1 and N a positive multiple of {SEL}, got B={b}, N={n}")
-    if d < 8 or d % 8:
-        raise InvalidConfigError(f"d must be a positive multiple of 8, got {d}")
-    for name, t, dt, ln in (
-        ("e_l2", e_l2, torch.float32, n), ("a_l2", a_l2, torch.float32, n),
-        ("valid", valid, torch.int32, n), ("u_q", u_q, torch.float32, b),
-        ("v_q", v_q, torch.float32, b),
-    ):
-        if t.dtype != dt or tuple(t.shape) != (ln,):
-            raise InvalidConfigError(f"{name} must be {dt} [{ln}], got {t.dtype} {tuple(t.shape)}")
+    if d < d_mult or d % d_mult:
+        raise InvalidConfigError(f"d must be a positive multiple of {d_mult}, got {d}")
+    named = [(name, t, dt, n if per_row else b) for name, t, dt, per_row in vectors]
+    if tags is not None:
+        if len(tags) != 4:
+            raise InvalidConfigError("tags must be (tag_bits, t_all, t_any, t_none)")
+        named += [
+            (name, t, torch.int32, n if name == "tag_bits" else b)
+            for name, t in zip(("tag_bits", "t_all", "t_any", "t_none"), tags)
+        ]
+    _check_vectors(named)
     if not 1 <= t_top <= MAX_T_TOP:
         raise InvalidConfigError(f"t_top must be in [1, {MAX_T_TOP}], got {t_top}")
-    devices = {t.device for t in (q, m, e_l2, a_l2, valid, u_q, v_q)}
+    devices = {t.device for t in [q, m] + [t for _, t, _, _ in named]}
     if len(devices) != 1:
         raise InvalidConfigError(f"all inputs must be on one device, got {sorted(map(str, devices))}")
+
+
+def _launch(name: str, inputs, aligned, tags, b: int, d: int, n: int, t_top: int):
+    """Allocate the packs and launch entry point ``name`` on the current
+    stream of the inputs' device; raises if the launch is refused."""
+    dev = inputs[0].device
+    if dev.type != "cuda":
+        raise InvalidConfigError(f"{name[:-7]} runs on cpu or cuda tensors, got {dev}")
+    tag_list = list(tags) if tags is not None else []
+    if not all(t.is_contiguous() for t in list(inputs) + tag_list):
+        raise InvalidConfigError(f"{name[:-7]} needs contiguous inputs")
+    if any(t.data_ptr() % 16 for t in list(aligned) + tag_list[:1]):
+        raise InvalidConfigError(f"{name[:-7]}: q, m and the per-row arrays must be 16-byte aligned")
+    lib = _load()[name]
+    v_pack = torch.empty((b, t_top + 1, n // SEL), dtype=torch.float32, device=dev)
+    r_pack = torch.empty((b, t_top, n // SEL), dtype=torch.int32, device=dev)
+    tag_ptrs = [t.data_ptr() for t in tag_list] or [None] * 4
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, name)(
+            *(t.data_ptr() for t in inputs), *tag_ptrs,
+            v_pack.data_ptr(), r_pack.data_ptr(), b, d, n, t_top, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name[:-7]} kernel launch failed: cudaError {err}")
+    return v_pack, r_pack
 
 
 def scan_select_v3(
@@ -144,61 +217,113 @@ def scan_select_v3(
     u_q: torch.Tensor,  # [B] f32, >= 0 — bound coefficient on e_l2
     v_q: torch.Tensor,  # [B] f32, >= 0 — bound coefficient on a_l2
     t_top: int = TILE_T,
+    tags: Optional[Tuple[torch.Tensor, ...]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (v_pack [B, T+1, N/1024] f32, r_pack [B, T, N/1024] int32).
 
     CPU tensors run :func:`scan_select_v3_reference`; CUDA tensors launch
     the kernel (counted in ``scan_select_v3.launches``) or raise."""
-    _check(q_bf16, m_bf16, e_l2, a_l2, valid_i32, u_q, v_q, t_top)
-    dev = q_bf16.device
-    if dev.type == "cpu":
-        return scan_select_v3_reference(q_bf16, m_bf16, e_l2, a_l2, valid_i32, u_q, v_q, t_top)
-    if dev.type != "cuda":
-        raise InvalidConfigError(f"scan_select_v3 runs on cpu or cuda tensors, got {dev}")
-    args = (q_bf16, m_bf16, valid_i32, u_q, v_q)
-    if not all(t.is_contiguous() for t in args + (e_l2, a_l2)):
-        raise InvalidConfigError("scan_select_v3 needs contiguous inputs")
-    if any(t.data_ptr() % 16 for t in (q_bf16, m_bf16, valid_i32)):
-        raise InvalidConfigError("q, m and valid must be 16-byte aligned")
-    lib = _load()
+    _check_v3(q_bf16, m_bf16, e_l2, a_l2, valid_i32, u_q, v_q, t_top, tags)
+    if q_bf16.device.type == "cpu":
+        return scan_select_v3_reference(q_bf16, m_bf16, e_l2, a_l2, valid_i32, u_q, v_q, t_top, tags)
     b, d = q_bf16.shape
     n = m_bf16.shape[0]
-    g = n // SEL
     eb, ab = block_bound_maxes(e_l2, a_l2)
-    v_pack = torch.empty((b, t_top + 1, g), dtype=torch.float32, device=dev)
-    r_pack = torch.empty((b, t_top, g), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.scan_select_v3_launch(
-            q_bf16.data_ptr(), m_bf16.data_ptr(), eb.data_ptr(), ab.data_ptr(),
-            valid_i32.data_ptr(), u_q.data_ptr(), v_q.data_ptr(),
-            v_pack.data_ptr(), r_pack.data_ptr(), b, d, n, t_top, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"scan_select_v3 kernel launch failed: cudaError {err}")
+    out = _launch(
+        "scan_select_v3_launch", (q_bf16, m_bf16, eb, ab, valid_i32, u_q, v_q),
+        (q_bf16, m_bf16, valid_i32), tags, b, d, n, t_top,
+    )
     scan_select_v3.launches += 1
-    return v_pack, r_pack
+    return out
 
 
 scan_select_v3.launches = 0
 
 
-def scan_select_v3_reference(
-    q_bf16, m_bf16, e_l2, a_l2, valid_i32, u_q, v_q, t_top: int = TILE_T
+def _check_v3(q_bf16, m_bf16, e_l2, a_l2, valid_i32, u_q, v_q, t_top, tags) -> None:
+    f32 = torch.float32
+    _check(q_bf16, m_bf16, torch.bfloat16, 8, [
+        ("e_l2", e_l2, f32, True), ("a_l2", a_l2, f32, True),
+        ("valid", valid_i32, torch.int32, True), ("u_q", u_q, f32, False),
+        ("v_q", v_q, f32, False),
+    ], tags, t_top)
+
+
+def scan_select_int8_v3(
+    q_i8: torch.Tensor,  # [B, d] int8 (symmetric amax/127 scale t_q)
+    m_i8: torch.Tensor,  # [N, d] int8, N a multiple of 1024
+    s_row: torch.Tensor,  # [N] f32 — row scales
+    e_l2: torch.Tensor,  # [N] f32 — ‖row − s_i·row_i8‖₂
+    a_l2: torch.Tensor,  # [N] f32 — ‖s_i·row_i8‖₂
+    valid_i32: torch.Tensor,  # [N] int32 (0/1)
+    t_q: torch.Tensor,  # [B] f32 — query scales
+    u_q: torch.Tensor,  # [B] f32, >= 0 — bound coefficient on e_l2
+    v_q: torch.Tensor,  # [B] f32, >= 0 — bound coefficient on a_l2
+    t_top: int = TILE_T,
+    tags: Optional[Tuple[torch.Tensor, ...]] = None,
+    use_int8_mxu: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel, on any device: an f32 matmul
-    of the bf16 values, a reshape into [G, 128, B] blocks, and the same
+    """→ (v_pack [B, T+1, N/1024] f32, r_pack [B, T, N/1024] int32).
+
+    ``use_int8_mxu`` is accepted for the JAX package's signature and
+    ignored: its two branches (an int32 dot, or a bf16 dot with f32
+    accumulation) give the same exact integer dot, because int8 values
+    are exact in bf16 and every partial sum stays below 2²⁴; the kernel
+    always accumulates in int32.
+
+    CPU tensors run :func:`scan_select_int8_v3_reference`; CUDA tensors
+    launch the kernel (counted in ``scan_select_int8_v3.launches``) or
+    raise."""
+    del use_int8_mxu
+    _check_int8(q_i8, m_i8, s_row, e_l2, a_l2, valid_i32, t_q, u_q, v_q, t_top, tags)
+    if q_i8.device.type == "cpu":
+        return scan_select_int8_v3_reference(
+            q_i8, m_i8, s_row, e_l2, a_l2, valid_i32, t_q, u_q, v_q, t_top, tags
+        )
+    b, d = q_i8.shape
+    n = m_i8.shape[0]
+    eb, ab = block_bound_maxes(e_l2, a_l2)
+    out = _launch(
+        "scan_select_int8_v3_launch", (q_i8, m_i8, s_row, eb, ab, valid_i32, t_q, u_q, v_q),
+        (q_i8, m_i8, s_row, valid_i32), tags, b, d, n, t_top,
+    )
+    scan_select_int8_v3.launches += 1
+    return out
+
+
+scan_select_int8_v3.launches = 0
+
+
+def _check_int8(q_i8, m_i8, s_row, e_l2, a_l2, valid_i32, t_q, u_q, v_q, t_top, tags) -> None:
+    f32 = torch.float32
+    _check(q_i8, m_i8, torch.int8, 16, [
+        ("s_row", s_row, f32, True), ("e_l2", e_l2, f32, True), ("a_l2", a_l2, f32, True),
+        ("valid", valid_i32, torch.int32, True), ("t_q", t_q, f32, False),
+        ("u_q", u_q, f32, False), ("v_q", v_q, f32, False),
+    ], tags, t_top)
+    if q_i8.shape[1] * 127 * 127 >= 1 << 24:
+        raise InvalidConfigError("d*127^2 must stay below 2^24: the integer dot must stay exact in f32")
+
+
+def _mask(s: torch.Tensor, valid_i32: torch.Tensor, tags) -> torch.Tensor:
+    """-inf on invalid rows and on (row, query) pairs failing the filter."""
+    keep = valid_i32[:, None] != 0
+    if tags is not None:
+        tag_bits, t_all, t_any, t_none = tags
+        keep = keep & tag_pred(tag_bits[:, None], t_all[None, :], t_any[None, :], t_none[None, :])
+    return torch.where(keep, s, float("-inf"))
+
+
+def _select_reference(s, e_l2, a_l2, u_q, v_q, t_top):
+    """The shared selection of both plain versions on masked raw scores
+    ``s [N, B]``: a reshape into [G, 128, B] blocks and the kernels'
     top-2, tournament and tie rules (ties go to the highest lane or slot,
     and a taken entry is replaced by -inf)."""
-    _check(q_bf16, m_bf16, e_l2, a_l2, valid_i32, u_q, v_q, t_top)
     neg_inf = float("-inf")
-    b = q_bf16.shape[0]
-    n = m_bf16.shape[0]
+    n, b = s.shape
     g, n_sel, bpt = n // BLOCK, n // SEL, SEL // BLOCK
-    dev = q_bf16.device
+    dev = s.device
     eb, ab = block_bound_maxes(e_l2, a_l2)
-    s = m_bf16.float() @ q_bf16.float().T  # [N, B]; TF32 off (ops.dense.require_fp32)
-    s = torch.where(valid_i32[:, None] != 0, s, neg_inf)
     corr = eb[:, None] * u_q[None, :] + ab[:, None] * v_q[None, :]  # [G, B]
     x = s.view(g, BLOCK, b)
     lane = torch.arange(BLOCK, device=dev, dtype=torch.int32)[None, :, None]
@@ -211,7 +336,7 @@ def scan_select_v3_reference(
         cand_r.append(blk_row0 + amax)
         x = torch.where(lane == amax[:, None, :], neg_inf, x)
     v3 = x.amax(dim=1) + corr
-    del x, s
+    del x
 
     pool_v = torch.cat([cand_v[0].view(n_sel, bpt, b), cand_v[1].view(n_sel, bpt, b)], dim=1)
     pool_r = torch.cat([cand_r[0].view(n_sel, bpt, b), cand_r[1].view(n_sel, bpt, b)], dim=1)
@@ -228,3 +353,27 @@ def scan_select_v3_reference(
     v_pack = torch.stack(v_out + [thr], dim=0).permute(2, 0, 1).contiguous()
     r_pack = torch.stack(r_out, dim=0).permute(2, 0, 1).contiguous()
     return v_pack, r_pack
+
+
+def scan_select_v3_reference(
+    q_bf16, m_bf16, e_l2, a_l2, valid_i32, u_q, v_q, t_top: int = TILE_T, tags=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the bf16 kernel, on any device: an f32
+    matmul of the bf16 values (TF32 off: ops.dense.require_fp32), the
+    masks, then :func:`_select_reference`."""
+    _check_v3(q_bf16, m_bf16, e_l2, a_l2, valid_i32, u_q, v_q, t_top, tags)
+    s = _mask(m_bf16.float() @ q_bf16.float().T, valid_i32, tags)  # [N, B]
+    return _select_reference(s, e_l2, a_l2, u_q, v_q, t_top)
+
+
+def scan_select_int8_v3_reference(
+    q_i8, m_i8, s_row, e_l2, a_l2, valid_i32, t_q, u_q, v_q, t_top: int = TILE_T, tags=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the int8 kernel, on any device: an f32
+    matmul of the int8 values, exact in any summation order because every
+    partial sum is an integer below 2²⁴, then the kernel's two scale
+    multiplies in the same order, the masks and :func:`_select_reference`.
+    Its output equals the kernel's bit for bit."""
+    _check_int8(q_i8, m_i8, s_row, e_l2, a_l2, valid_i32, t_q, u_q, v_q, t_top, tags)
+    s = (m_i8.float() @ q_i8.float().T) * s_row[:, None] * t_q[None, :]  # [N, B]
+    return _select_reference(_mask(s, valid_i32, tags), e_l2, a_l2, u_q, v_q, t_top)

@@ -2,9 +2,9 @@
 
 PyTorch-port counterpart of ``trueno_rag_tpu/pipeline.py`` (the host
 orchestration is the same code; retrieval runs through the port's
-:class:`~trueno_rag_tpu_torch.retrieve.HybridRetriever`). Query
-preprocessing, ingest dedup, learned sparse and tag filters are not
-ported yet (ROADMAP). Capability-equivalent to the reference's ``src/pipeline.rs``:
+:class:`~trueno_rag_tpu_torch.retrieve.HybridRetriever`, with tag filters
+at ingest and query time). Query preprocessing, ingest dedup and learned
+sparse are not ported yet (ROADMAP). Capability-equivalent to the reference's ``src/pipeline.rs``:
 ``Citation`` (pipeline.rs:16-30), ``ContextChunk``/``AssembledContext``
 with the three formatters (pipeline.rs:33-148), ``AssemblyStrategy``
 (pipeline.rs:150-160), ``ContextAssembler`` with greedy token budgeting
@@ -253,47 +253,75 @@ class RagPipeline:
 
     # -- ingest -----------------------------------------------------------------
 
-    def index_document(self, document: Document) -> int:
+    def index_document(self, document: Document, tags: Optional[Sequence[str]] = None) -> int:
         """Chunk → embed (one batched call) → index both stores.
-        Returns the number of chunks indexed (reference: pipeline.rs:333-347)."""
+        Returns the number of chunks indexed (reference: pipeline.rs:333-347).
+        ``tags`` label every chunk for tag-filtered retrieval."""
         chunks = self.chunker.chunk(document)
         self.embedder.embed_chunks(chunks)
-        self.retriever.index_batch(chunks)
+        self.retriever.index_batch(chunks, tags=tags)
         self.document_count += 1
         self.chunk_count += len(chunks)
         return len(chunks)
 
-    def index_documents(self, documents: Sequence[Document]) -> int:
+    def index_documents(self, documents: Sequence[Document],
+                        tags: Optional[Sequence[Sequence[str]]] = None) -> int:
         """Bulk ingest: chunk every document first, then embed ALL chunks
-        in one batched embedder call, then index both stores."""
+        in one batched embedder call, then index both stores. ``tags``:
+        optional per-document tag lists (parallel to ``documents``) for
+        tag-filtered retrieval."""
+        if tags is not None:
+            if len(tags) != len(documents):
+                raise InvalidConfigError(
+                    f"got {len(tags)} tag lists for {len(documents)} documents"
+                )
+            if any(isinstance(t, str) for t in tags):
+                # a flat ['news', 'sports'] would register each CHARACTER
+                # of a string as a tag: fail closed
+                raise InvalidConfigError(
+                    "tags must be one tag LIST per document, e.g. "
+                    "[['news'], ['sports']] — got a flat string entry"
+                )
         all_chunks: List[Chunk] = []
-        for d in documents:
-            all_chunks.extend(self.chunker.chunk(d))
+        chunk_tags: List[Optional[Sequence[str]]] = []
+        for i, d in enumerate(documents):
+            doc_chunks = self.chunker.chunk(d)
+            all_chunks.extend(doc_chunks)
+            chunk_tags.extend([None if tags is None else tags[i]] * len(doc_chunks))
         self.embedder.embed_chunks(all_chunks)
         self.retriever.index_batch(all_chunks)
+        if tags is not None:
+            reg = self.retriever.registry
+            for chunk, t in zip(all_chunks, chunk_tags):
+                if t:
+                    reg.set_tags(chunk.id, t)
         self.document_count += len(documents)
         self.chunk_count += len(all_chunks)
         return len(all_chunks)
 
     # -- query ------------------------------------------------------------------
 
-    def query(self, query: str, k: int = 5) -> List[RetrievalResult]:
-        candidates = self.retriever.retrieve(query, k * 2)
+    def query(self, query: str, k: int = 5, tag_filter=None) -> List[RetrievalResult]:
+        candidates = self.retriever.retrieve(query, k * 2, tag_filter=tag_filter)
         return self.reranker.rerank(query, candidates, k)
 
-    def query_batch(self, queries: Sequence[str], k: int = 5) -> List[List[RetrievalResult]]:
+    def query_batch(self, queries: Sequence[str], k: int = 5,
+                    tag_filter=None) -> List[List[RetrievalResult]]:
         """Batched :meth:`query` — the same results per query as the
-        single path, with one device batch for retrieval."""
-        batches = self.retriever.retrieve_batch(queries, k * 2)
+        single path, with one device batch for retrieval. ``tag_filter``
+        is one :class:`~trueno_rag_tpu_torch.retrieve.TagFilter` for every
+        query or a list with one per query."""
+        batches = self.retriever.retrieve_batch(queries, k * 2, tag_filter=tag_filter)
         return [self.reranker.rerank(q, cands, k) for q, cands in zip(queries, batches)]
 
-    def query_with_context(self, query: str, k: int = 5) -> AssembledContext:
-        return self.assembler.assemble(self.query(query, k), query=query)
+    def query_with_context(self, query: str, k: int = 5, tag_filter=None) -> AssembledContext:
+        return self.assembler.assemble(self.query(query, k, tag_filter=tag_filter), query=query)
 
-    def query_with_context_batch(self, queries: Sequence[str], k: int = 5) -> List[AssembledContext]:
+    def query_with_context_batch(self, queries: Sequence[str], k: int = 5,
+                                 tag_filter=None) -> List[AssembledContext]:
         return [
             self.assembler.assemble(results, query=q)
-            for q, results in zip(queries, self.query_batch(queries, k))
+            for q, results in zip(queries, self.query_batch(queries, k, tag_filter=tag_filter))
         ]
 
 
@@ -347,7 +375,8 @@ class RagPipelineBuilder:
         return self
 
     def with_device(self, device) -> "RagPipelineBuilder":
-        """Where the indexes' tensors live (default: CUDA when present)."""
+        """Where the indexes' tensors live (default: the CUDA device;
+        "cpu" must be asked for)."""
         self._device = device
         return self
 
