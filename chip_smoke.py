@@ -35,10 +35,29 @@ Run from the repository root. Phases, each fatal on failure:
 6. stores on the same corpus (the slice's rows, chunks and BM25 index,
    not ingested again): ``scan_tier="int8"`` (exact) and
    ``scan_tier="compact"`` in the layouts bf16rr, bf16, int8 and bf16r
-   (exact sets after the host patch) answer 2 batches of 256 through
+   (exact sets after the host patch) answer 1 batch of 256 through
    ``query_with_context_batch(k=5)``; then every chunk gets one of 4 tags
    by row and the compact bf16r store and the bf16 tile store answer a
-   batch filtered ``all=["t1"]`` and one filtered ``none=["t0"]``.
+   batch filtered ``all=["t1"]`` and one filtered ``none=["t0"]``;
+7. kernels-K5 (run after phase 2): K5 ``scan_select_v3_indirect`` at the
+   clustered path's shapes (1M x 384, B = 8, tile_n 4096, t_top 16, 120
+   tiles + 8 pad slots) against its plain version and K1 over a copy of
+   the same tiles, its bounds against float64, its tag variant, times;
+8. clustered-1M: the slice's chunks, tags and BM25 index behind
+   ``VectorStoreConfig(scan_tier="clustered")`` with a 1M blob corpus
+   (``convert.retriever_from_state``): 4 batches of 8 and 8 single
+   queries through ``query_with_context_batch(k=5)`` at 50 and at 12
+   dense candidates per query (K5's launch count must rise; every dense
+   set equal to the float64 exact set; fusion equal to the host oracle),
+   a tag-filtered batch, and a 1% mutation that must refresh without
+   k-means and stay exact; the store's build (``prepare_clustered_stream``
+   over host slabs) is timed beside the host build ``prepare_clustered``
+   on the same rows;
+9. clustered-10.5M: ``prepare_clustered_stream`` over 10,485,760 blob rows
+   generated on the card from their ids (its greedy fill held to, and
+   timed against, the plain sequential loop), then the pruned op at B = 8 with
+   fetch dma and gather (identical results, certified sets exact) against
+   the full compact stream, with a torch.profiler trace of each fetch.
 
 The last two lines of standard output are JSON: the per-kernel record, then
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
@@ -47,7 +66,9 @@ The last two lines of standard output are JSON: the per-kernel record, then
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -67,7 +88,24 @@ ROW_AGREE = 0.999
 N_TIER = 10 * (1 << 20)  # 10,485,760 rows: the JAX package's compact design point
 TIER_K = 50
 TIER_SLAB = 1 << 20  # rows prepped at a time at N_TIER
-STORE_BATCHES = 2
+STORE_BATCHES = 1  # 2 until slice 3; cut to keep the smoke within half its time limit
+# the clustered tier (benches/clustered_bench.py's corpus: one Gaussian blob
+# per 4096-row tile, sigma 0.025, near-duplicates planted for 64 centres)
+CL_TILE = 4096
+CL_SIGMA = 0.025
+CL_PLANT = 8  # planted rows per blob at 1M (the bench's default k)
+CL_PLANTED_BLOBS = 64
+CL_BATCH = 8
+CL_BATCHES = 4
+CL_SINGLES = 8
+CL_T_TOP = 16  # the store's t_top for its 50 dense candidates per query
+CL_FEW = 12  # a second pass with 12 dense candidates per query
+CL_MUTATE = 0.01
+CL_SLAB = 1 << 18
+K5_LIVE, K5_PADS = 120, 8  # the tile list at kernels-K5: 128 entries
+N_CL_STREAM = 10 * (1 << 20)  # 10,485,760 rows = 2,560 tiles: the tier's design point
+CL_PROBE = 16
+CL_STREAM_K = 10
 # H100 SXM peaks (NVIDIA data sheet) for the kernels' bounds
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12  # CUDA-core FMA: K1's certified f32 accumulation
@@ -142,9 +180,10 @@ def phase_device():
             log(f"  nvcc: {line.strip()}")
 
 
-def check_sound(vk, rk, m64, q64, valid, bidx, tiles, name):
+def check_sound(vk, rk, m64, q64, valid, bidx, tiles, name, t_top=T_TOP, row0=None):
     """Every emitted value and tile threshold bounds the float64 true score
-    of the rows it covers → the least slack seen."""
+    of the rows it covers → the least slack seen. Output column g covers
+    rows ``row0(g)`` .. + 1023 (default ``g * 1024``)."""
     import torch
 
     from trueno_rag_tpu_torch.ops.kernels.scan_select import SEL
@@ -152,22 +191,23 @@ def check_sound(vk, rk, m64, q64, valid, bidx, tiles, name):
     worst = float("inf")
     for b in bidx:
         for g in tiles:
-            rows = torch.arange(g * SEL, (g + 1) * SEL, device=DEV)
+            r0 = g * SEL if row0 is None else row0(g)
+            rows = torch.arange(r0, r0 + SEL, device=DEV)
             true = m64[rows] @ q64[b]
             true = torch.where(valid[rows] != 0, true, float("-inf"))
             cand = rk[b, :, g].long()
-            cv = vk[b, :T_TOP, g].double()
+            cv = vk[b, :t_top, g].double()
             live = ~torch.isneginf(cv)
-            check(bool(((cand[live] >= g * SEL) & (cand[live] < (g + 1) * SEL)).all()), f"{name}: row outside its tile")
+            check(bool(((cand[live] >= r0) & (cand[live] < r0 + SEL)).all()), f"{name}: row outside its tile")
             if live.any():
-                slack = (cv[live] - true[cand[live] - g * SEL]).min().item()
+                slack = (cv[live] - true[cand[live] - r0]).min().item()
                 check(slack >= 0.0, f"{name}: candidate value below its true score (b={b}, tile={g}, {slack})")
                 worst = min(worst, slack)
             covered = torch.ones(SEL, dtype=torch.bool, device=DEV)
-            covered[cand[live] - g * SEL] = False
+            covered[cand[live] - r0] = False
             rest = true[covered]
             if (~torch.isneginf(rest)).any():
-                slack = vk[b, T_TOP, g].double().item() - rest.max().item()
+                slack = vk[b, t_top, g].double().item() - rest.max().item()
                 check(slack >= 0.0, f"{name}: tile threshold below a covered row's true score (b={b}, tile={g})")
                 worst = min(worst, slack)
     return worst
@@ -461,11 +501,12 @@ def stage_breakdown(pipe, qs) -> None:
         f"fusion {t_fuse:.1f}; retrieve_batch {t_retr:.1f}; rerank + assemble {t_post:.1f}")
 
 
-def check_contexts(contexts, allowed_row=None, registry=None) -> None:
-    """Well-formed contexts; with ``allowed_row``, every chunk passes it."""
+def check_contexts(contexts, allowed_row=None, registry=None, n=None) -> None:
+    """``n`` (default BATCH) well-formed contexts; with ``allowed_row``,
+    every chunk passes it."""
     import numpy as np
 
-    check(len(contexts) == BATCH, "one context per query")
+    check(len(contexts) == (BATCH if n is None else n), "one context per query")
     for ctx in contexts:
         check(len(ctx.chunks) <= K, f"{len(ctx.chunks)} chunks in a context")
         check(allowed_row is not None or len(ctx.chunks) > 0, "an empty context")
@@ -479,14 +520,14 @@ def check_contexts(contexts, allowed_row=None, registry=None) -> None:
 
 def check_fused(strategy, d_r, d_s, s_r, s_s, label) -> None:
     """Device fusion of the candidate lists equals the host fusion oracle
-    (first 8 queries)."""
+    (first 8 queries, or all of fewer)."""
     from trueno_rag_tpu_torch.ops.fusion import fuse_topk
 
     f_r, f_s = fuse_topk(d_r, d_s, s_r, s_s, kind=strategy.kind, param=strategy.device_param)
     f_r, f_s = f_r.cpu().numpy(), f_s.cpu().numpy()
     d_l, s_l = d_r.cpu().numpy(), d_s.cpu().numpy()
     sp_r, sp_s = s_r.cpu().numpy(), s_s.cpu().numpy()
-    for j in range(8):
+    for j in range(min(8, len(d_l))):
         host = dict(strategy.fuse(
             [(int(r), float(s)) for r, s in zip(d_l[j], s_l[j]) if r >= 0],
             [(int(r), float(s)) for r, s in zip(sp_r[j], sp_s[j]) if r >= 0],
@@ -723,6 +764,642 @@ def phase_stores(pipe, seed: int):
     return k1_total, k3_total
 
 
+# -- the clustered tier (slice 3) ----------------------------------------------
+
+
+def mix32(x):
+    """lowbias32, a 32-bit integer hash, over int64 tensors holding values
+    in [0, 2^32) (products wrap; the mask keeps the low 32 bits)."""
+    m32 = 0xFFFFFFFF
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & m32
+    x = x ^ (x >> 15)
+    x = (x * 0x846CA68B) & m32
+    return x ^ (x >> 16)
+
+
+def blob_vectors(ids, which, centers, sigma, seed: int):
+    """Unit rows ``normalize(centers[which] + sigma * noise)`` whose Gaussian
+    noise (Box-Muller over hashed uniforms) is a pure function of
+    (seed, id, column): an id gives the same row on every call."""
+    import torch
+
+    m32 = 0xFFFFFFFF
+    h = mix32((ids.long() * 2654435761 + 7919 * seed + 1) & m32)[:, None]
+    col = torch.arange(DIM, device=ids.device, dtype=torch.int64)[None, :]
+    u1 = (mix32((h + (2 * col + 1) * 0x9E3779B9) & m32).float() + 0.5) * 2.0**-32
+    u2 = mix32((h + (2 * col + 2) * 0x9E3779B9) & m32).float() * 2.0**-32
+    noise = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
+    del u1, u2
+    rows = centers[which.long()] + sigma[:, None] * noise
+    return rows / torch.linalg.vector_norm(rows, dim=1, keepdim=True)
+
+
+def blob_corpus_rows(ids, centers, plant: int, seed: int):
+    """Rows ``ids`` of the blob corpus (benches/clustered_bench.py's
+    defaults): row i belongs to blob i // CL_TILE with spread CL_SIGMA; the
+    first ``plant`` rows of each of the first CL_PLANTED_BLOBS blobs are
+    near-duplicates of the centre (spread 0.01)."""
+    import torch
+
+    ids = ids.long().clamp(min=0)
+    which = (ids // CL_TILE).clamp(max=centers.shape[0] - 1)
+    planted = (ids % CL_TILE < plant) & (ids // CL_TILE < CL_PLANTED_BLOBS)
+    sigma = torch.where(planted, 0.01, CL_SIGMA)
+    return blob_vectors(ids, which, centers, sigma, seed)
+
+
+def blob_queries(centers, blobs, gen):
+    """One query per listed blob: its centre plus 0.005 Gaussian noise."""
+    import torch
+
+    q = centers[torch.as_tensor(blobs, device=DEV)]
+    return q + 0.005 * torch.randn(q.shape, device=DEV, generator=gen)
+
+
+def blob_embedder(vectors):
+    """An Embedder (a stand-in for a model) mapping each query text the
+    smoke made to the vector it chose for it, near a blob centre."""
+    import trueno_rag_tpu_torch as rag
+
+    class BlobEmbedder(rag.Embedder):
+        @property
+        def dimension(self) -> int:
+            return DIM
+
+        @property
+        def model_id(self) -> str:
+            return "chip-smoke-blob-queries"
+
+        def embed(self, text):
+            return vectors[text]
+
+    return BlobEmbedder()
+
+
+def count_cluster_builds():
+    """Wrap the k-means builds of ops/clustered.py → the list of outermost
+    calls made from now on (a build over a store with holes recurses)."""
+    from trueno_rag_tpu_torch.ops import clustered as cl
+
+    calls, depth = [], [0]
+    for name in ("prepare_clustered", "prepare_clustered_device", "prepare_clustered_stream"):
+        fn = getattr(cl, name)
+
+        def counted(*a, _fn=fn, _name=name, **k):
+            if depth[0] == 0:
+                calls.append(_name)
+            depth[0] += 1
+            try:
+                return _fn(*a, **k)
+            finally:
+                depth[0] -= 1
+
+        setattr(cl, name, counted)
+    return calls
+
+
+def plain_greedy_fill(top_alt, margin, t: int, tile_n: int) -> list:
+    """``ops/clustered._greedy_fill`` as the plain sequential loop: rows
+    by falling margin take their first alternative with space; rows with
+    none spill, after every other row, into the lowest cluster with space."""
+    import numpy as np
+
+    visit = np.argsort(-margin, kind="stable")
+    space = np.full(t, tile_n, dtype=np.int64)
+    members = [[] for _ in range(t)]
+    overflow = []
+    for r in visit:
+        for c in top_alt[r]:
+            if space[c] > 0:
+                members[c].append(r)
+                space[c] -= 1
+                break
+        else:
+            overflow.append(r)
+    for r in overflow:
+        c = int(np.flatnonzero(space > 0)[0])
+        members[c].append(r)
+        space[c] -= 1
+    return [np.asarray(x, dtype=np.int32) for x in members]
+
+
+def phase_kernels_k5(seed: int):
+    """K5 scan_select_v3_indirect at the clustered path's shapes (1M x 384,
+    B = 8, tile_n 4096, t_top 16, 120 live tiles + 8 pad slots) against its
+    plain version, float64 soundness, the tag variant, times, and K1 over a
+    copy of the same tiles → K5's record."""
+    import torch
+
+    from trueno_rag_tpu_torch.ops import dense_tiered as dt
+    from trueno_rag_tpu_torch.ops.kernels.scan_select import (
+        BLOCK, SEL, block_bound_maxes, scan_select_v3, scan_select_v3_indirect,
+        scan_select_v3_indirect_reference,
+    )
+
+    gen = torch.Generator(device=DEV).manual_seed(seed + 3)
+    n, b, tile_n, t_top = N_ROWS, CL_BATCH, CL_TILE, CL_T_TOP
+    n_tiles, spt = n // tile_n, tile_n // SEL
+    m = unit_rows(n, gen)
+    q = unit_rows(b, gen)
+    valid = torch.ones(n, dtype=torch.int32, device=DEV)
+    valid[1000:1040] = 0  # a partly masked block of tile 0
+    valid[5 * BLOCK:6 * BLOCK] = 0  # a fully masked block of tile 0
+    n_live = min(K5_LIVE, n_tiles - 1)
+    live = torch.randperm(n_tiles - 1, device=DEV, generator=gen)[:n_live - 1] + 1
+    live = torch.sort(torch.cat([torch.zeros(1, dtype=live.dtype, device=DEV), live])).values
+    ids = torch.cat([live, torch.full((K5_PADS,), n_tiles, dtype=live.dtype, device=DEV)]).to(torch.int32)
+    g_live, g_all = n_live * spt, len(ids) * spt
+    mb, e_l2, a_l2 = dt.prepare_tiered(m)
+    qb, u_q, v_q = dt._bf16_query_bounds(q)
+    args = (qb, mb, e_l2, a_l2, valid, u_q, v_q, ids)
+    eb, ab = block_bound_maxes(e_l2, a_l2)
+    corr = eb[:, None] * u_q[None, :] + ab[:, None] * v_q[None, :]  # [N/128, B]
+    m64, q64 = m.double(), q.double()
+    ids_l = ids.tolist()
+
+    def row0(g):  # the first corpus row of output column g
+        return ids_l[g // spt] * tile_n + (g % spt) * SEL
+
+    def compare(vk, rk, vr, rr, label):
+        check(tuple(vk.shape) == (b, t_top + 1, g_all) and tuple(rk.shape) == (b, t_top, g_all),
+              f"{label}: pack shapes {tuple(vk.shape)}, {tuple(rk.shape)}")
+        check(bool(torch.isneginf(vk[:, :, g_live:]).all()), f"{label}: a pad slot holds a finite value")
+        check(torch.equal(vk[:, :, g_live:], vr[:, :, g_live:]) and torch.equal(rk[:, :, g_live:], rr[:, :, g_live:]),
+              f"{label}: pad slots differ from the plain version")
+        return compare_k1(vk[:, :, :g_live], rk[:, :, :g_live], vr[:, :, :g_live], rr[:, :, :g_live],
+                          mb, qb, corr, label)
+
+    vk, rk = scan_select_v3_indirect(*args, tile_n=tile_n, t_top=t_top)
+    torch.cuda.synchronize()
+    vr, rr = scan_select_v3_indirect_reference(*args, tile_n, t_top)
+    k5_err = compare(vk, rk, vr, rr, "K5 vs plain")
+    cols = torch.randperm(g_live, device=DEV, generator=gen)[:8].tolist() + [0]
+    worst = check_sound(vk, rk, m64, q64, valid, range(b), cols, "K5", t_top=t_top, row0=row0)
+    log(f"K5 soundness: {b} queries x {len(cols)} columns bounded, least slack {worst:.3e}")
+
+    # K1 over a copy of the listed tiles: the same values, rows mapped back
+    sel = ids.long().clamp(max=n_tiles - 1)
+
+    def gather(x):
+        return x.view(n_tiles, tile_n, *x.shape[1:])[sel].reshape(-1, *x.shape[1:])
+
+    gv = (gather(valid).view(-1, tile_n) * (ids.long() < n_tiles)[:, None]).reshape(-1).to(torch.int32)
+    k1_copy_args = (qb, gather(mb), gather(e_l2), gather(a_l2), gv, u_q, v_q)
+    v1, r1 = scan_select_v3(*k1_copy_args, t_top=t_top)
+    pos = r1[:, :, :g_live].long()
+    mapped = sel[pos // tile_n] * tile_n + pos % tile_n
+    check(torch.equal(v1[:, :, :g_live], vk[:, :, :g_live]) and torch.equal(mapped.to(torch.int32), rk[:, :, :g_live]),
+          "K1 over the gathered copy differs from K5 on the live tiles")
+    log("K5 vs K1 over a copy of the same tiles: live columns bit-identical (rows mapped back)")
+
+    # -- tag variant ------------------------------------------------------------
+    bits = torch.randint(0, 16, (n,), device=DEV, generator=gen, dtype=torch.int32)
+    words = [torch.randint(0, 16, (b,), device=DEV, generator=gen, dtype=torch.int32) & w for w in (1, 6, 8)]
+    tags = (bits, *words)
+    vt, rt = scan_select_v3_indirect(*args, tile_n=tile_n, t_top=t_top, tags=tags)
+    vtr, rtr = scan_select_v3_indirect_reference(*args, tile_n, t_top, tags)
+    compare(vt, rt, vtr, rtr, "K5 tags (rows)")
+    live_slots = ~torch.isneginf(vt[:, :t_top, :g_live])
+    rows = rt[:, :, :g_live][live_slots].long()
+    bidx = torch.arange(b, device=DEV)[:, None, None].expand(b, t_top, g_live)[live_slots]
+    rb = bits[rows]
+    ok = ((rb & words[0][bidx]) == words[0][bidx]) & ((words[1][bidx] == 0) | ((rb & words[1][bidx]) != 0)) & (
+        (rb & words[2][bidx]) == 0)
+    check(bool(ok.all()), "K5 emitted a row its filter forbids")
+    t_tag = cuda_ms(lambda: scan_select_v3_indirect(*args, tile_n=tile_n, t_top=t_top, tags=tags), 10)
+    del vr, rr, vtr, rtr, m64, q64
+
+    k5_ms = cuda_ms(lambda: scan_select_v3_indirect(*args, tile_n=tile_n, t_top=t_top), 20)
+    k5_plain = cuda_ms(lambda: scan_select_v3_indirect_reference(*args, tile_n, t_top), 5)
+    k1_copy_ms = cuda_ms(lambda: scan_select_v3(*k1_copy_args, t_top=t_top), 20)
+    gather_ms = cuda_ms(lambda: gather(mb), 10)
+    k5_ms2 = cuda_ms(lambda: scan_select_v3_indirect(*args, tile_n=tile_n, t_top=t_top), 20)
+    rows_live = n_live * tile_n
+    out_bytes = b * (2 * t_top + 1) * g_all * 4
+    k5_bound = bound(b * DIM * 2 + rows_live * (DIM * 2 + 4) + rows_live // BLOCK * 8 + len(ids) * 4 + b * 8
+                     + out_bytes, 2.0 * b * rows_live * DIM, FP32_FLOP_PER_S)
+    log(f"K5 scan_select_v3_indirect at N={n} d={DIM} B={b} tile_n={tile_n} t_top={t_top}, {n_live} tiles + "
+        f"{K5_PADS} pad slots: kernel {k5_ms:.3f} / {k5_ms2:.3f} ms, plain {k5_plain:.3f} ms (median, CUDA "
+        f"events); bound {k5_bound[0]:.3f} ms ({k5_bound[1]}); tagged {t_tag:.3f} ms")
+    log(f"  K1 over a copy of the same tiles {k1_copy_ms:.3f} ms, plus the tile copy {gather_ms:.3f} ms")
+    del m, mb, k1_copy_args
+    torch.cuda.empty_cache()
+    return {"name": "scan_select_v3_indirect", "route": "cuda",
+            "source": "trueno_rag_tpu_torch/csrc/scan_select_v3.cu",
+            "replaces": "trueno_rag_tpu/ops/pallas/scan_select_v2.py:579", "max_abs_err": k5_err,
+            "ms": min(k5_ms, k5_ms2), "plain_ms": k5_plain, "bound_ms": k5_bound[0],
+            "bound_by": k5_bound[1], "library_ms": None}
+
+
+def device_profile(fn, label: str, reps: int = 3) -> None:
+    """Trace ``reps`` calls of ``fn`` with torch.profiler → log the host-clock
+    time per call (tracing included), the device's busy and idle shares of
+    it, and the device ops that took the most time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        us = getattr(e, "self_cuda_time_total", 0.0) if us is None else us
+        if us > 0:
+            rows.append((us / 1e3 / reps, e.count / reps, e.key))
+    busy = sum(r[0] for r in rows)
+    log(f"{label}: {wall:.3f} ms per call traced (host clock); device busy {busy:.3f} ms = {busy / wall:.1%}, "
+        f"idle {1 - busy / wall:.1%}")
+    for ms, count, key in sorted(rows, reverse=True)[:8]:
+        log(f"  device {ms:.3f} ms, {count:g} per call: {key[:100]}")
+
+
+def exact_sets(q, m, valid, k):
+    """Float64 exact top-k row sets (``exact_topk_chunked``)."""
+    _, r = exact_topk_chunked(q, m, valid, k)
+    return [set(x) for x in r.cpu().tolist()]
+
+
+def phase_clustered_store(pipe, seed: int) -> int:
+    """Slice 3's main path: the clustered tier behind the slice's chunks and
+    BM25 index, with a 1M blob corpus in place of the MockEmbedder rows →
+    K5 launches on it."""
+    import numpy as np
+    import torch
+
+    import trueno_rag_tpu_torch as rag
+    from trueno_rag_tpu_torch.chunking import Chunk, ChunkMetadata
+    from trueno_rag_tpu_torch.convert import retriever_from_state
+    from trueno_rag_tpu_torch.ops import clustered as cl
+    from trueno_rag_tpu_torch.ops.kernels.scan_select import scan_select_v3_indirect
+    from trueno_rag_tpu_torch.ops.tags import dense_topk_tagged
+    from trueno_rag_tpu_torch.retrieve import resolve_tag_filters
+
+    base = pipe.retriever
+    reg = base.registry
+    n = reg.capacity_rows
+    gen = torch.Generator(device=DEV).manual_seed(seed + 4)
+    centers = unit_rows(n // CL_TILE, gen)
+    t0 = time.perf_counter()
+    host = np.empty((n, DIM), np.float32)
+    for lo in range(0, n, CL_SLAB):
+        ids = torch.arange(lo, min(lo + CL_SLAB, n), device=DEV)
+        host[lo:lo + len(ids)] = blob_corpus_rows(ids, centers, CL_PLANT, seed).cpu().numpy()
+    log(f"clustered-1M corpus: {n} x {DIM} rows in {n // CL_TILE} blobs (sigma {CL_SIGMA}, {CL_PLANT} planted "
+        f"per blob for {CL_PLANTED_BLOBS} blobs) in {time.perf_counter() - t0:.1f} s")
+
+    # query texts from the slice's vocabulary, each embedded near a chosen
+    # planted blob's centre
+    rng = np.random.default_rng(seed + 5)
+    n_q = CL_BATCHES * CL_BATCH + CL_SINGLES
+    n_pl = min(CL_PLANTED_BLOBS, n // CL_TILE)
+    blobs = rng.choice(n_pl, size=n_q, replace=n_q > n_pl)
+    texts = [" ".join(r) for r in np.array([f"w{i:05d}" for i in range(VOCAB)])[
+        rng.integers(0, VOCAB, size=(n_q, QUERY_WORDS))]]
+    check(len(set(texts)) == n_q, "query texts repeat")
+    qvecs = blob_queries(centers, blobs, gen).cpu().numpy()
+    embedder = blob_embedder(dict(zip(texts, qvecs)))
+
+    t0 = time.perf_counter()
+    vcfg = rag.VectorStoreConfig(scan_tier="clustered", compact_fallback="host")
+    retr = retriever_from_state(
+        embedder, [reg.chunk_of(r) for r in range(n)], host, np.ones(n, bool),
+        rag.BM25Index(device="cpu").state_dict(), config=base.config, vector_config=vcfg, device=DEV,
+        tag_bits=reg.tags_host(n), tag_vocab=reg.tag_state([])[0],
+    )
+    # the slice's BM25 index serves as it is (same rows); its state_dict()
+    # would round-trip 60M postings through Python dicts
+    retr.sparse_index = base.sparse_index
+    log(f"clustered-1M retriever from state: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    h_order, _, _ = cl.prepare_clustered(host, tile_n=CL_TILE)  # the host build, for its time
+    t_host_build = time.perf_counter() - t0
+    check(len(h_order) == n and (np.sort(h_order) == np.arange(n)).all(), "the host build lost or repeated a row")
+    del host, h_order
+    store = retr.vector_store
+    builds = count_cluster_builds()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store.ensure_ready()
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    order, _, _, radii = store._cluster
+    check(builds == ["prepare_clustered_stream"], f"builds {builds}")
+    check(store._device_matrix is None, "the clustered store kept an fp32 device matrix")
+    log(f"clustered-1M store build (stream k-means over host slabs, permuted replicas): {t_build:.1f} s; "
+        f"{len(radii)} tiles, median radius {float(radii.median()):.4f}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated after; the host build prepare_clustered on the same rows: {t_host_build:.1f} s")
+    p = rag.RagPipeline(embedder, pipe.reranker, pipe.chunker, retr, pipe.assembler)
+
+    # each call of the pruned op inside the store: certified flags and the
+    # scanned-tile count (return_stats)
+    seen = []
+    op = cl.dense_topk_compact_bf16r_clustered
+
+    def recording(*a, **kw):
+        out = op(*a, return_stats=True, **kw)
+        seen.append((out[2].cpu().numpy().copy(), int(out[-1])))
+        return out[:-1]
+
+    cl.dense_topk_compact_bf16r_clustered = recording
+    k5_total = 0
+
+    def drive(qs, **kw):
+        """One query_with_context_batch, K5's count set to 0 just before
+        and read just after → (contexts, ms, K5 launches)."""
+        nonlocal k5_total
+        torch.cuda.synchronize()
+        scan_select_v3_indirect.launches = 0
+        t0 = time.perf_counter()
+        ctxs = p.query_with_context_batch(qs, k=K, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n5 = scan_select_v3_indirect.launches
+        k5_total += n5
+        return ctxs, ms, n5
+
+    m_dev = torch.from_numpy(store._host).to(DEV)
+    v_dev = torch.from_numpy(store._valid).to(DEV)
+    counters = ("compact_uncertified", "compact_candidate_patched", "compact_gemm_patched")
+    try:
+        drive(texts[:CL_BATCH])  # first-call set-up
+        runs = [texts[i * CL_BATCH:(i + 1) * CL_BATCH] for i in range(CL_BATCHES)]
+        runs += [[t] for t in texts[CL_BATCHES * CL_BATCH:]]
+        def measure(label):
+            """Every run through query_with_context_batch, then its dense sets
+            against the float64 exact sets and its fusion against the oracle."""
+            cand = retr.config.candidates_per_source
+            n_cert = n_all = 0
+            for i, qs in enumerate(runs):
+                before = [getattr(store, c) for c in counters]
+                seen.clear()
+                ctxs, ms, n5 = drive(qs)
+                check(n5 > 0, f"clustered-1M {label} run {i}: K5 did not launch")
+                check_contexts(ctxs, n=len(qs))
+                ok, scanned = seen[0]
+                n_cert += int(ok.sum())
+                n_all += len(ok)
+                delta = [getattr(store, c) - b for c, b in zip(counters, before)]
+                log(f"clustered-1M {label} B={len(qs)} run {i}: {ms:.1f} ms (host clock, query_with_context_batch "
+                    f"k={K}); scanned {scanned}/{len(radii)} tiles; certified {int(ok.sum())}/{len(ok)}; "
+                    f"uncertified {delta[0]}, candidate-patched {delta[1]}, GEMM-patched {delta[2]}; K5 launches {n5}")
+                qv = np.asarray(embedder.embed_queries(qs), np.float32)
+                want = exact_sets(torch.from_numpy(qv).to(DEV), m_dev, v_dev, cand)
+                seen.clear()
+                s_t, r_t = store.search_arrays(qv, cand)
+                got = [set(x) for x in r_t.cpu().tolist()]
+                check(all(g == w for g, w in zip(got, want)), f"{label} run {i}: a dense set is not the exact set")
+                check(bool((seen[0][0] == ok).all()), f"{label} run {i}: the certificate changed between two calls")
+                s_s, r_s = retr.sparse_index.search_arrays(qs, cand)
+                check_fused(retr.config.fusion, r_t, s_t, r_s, s_s, f"clustered-1M {label} run {i}")
+            log(f"clustered-1M {label}: device-certified {n_cert}/{n_all}; every dense set (certified or patched) "
+                f"equals the float64 exact top-{cand} set over the whole corpus; fused lists match the host oracle")
+
+        measure(f"{retr.config.candidates_per_source} candidates")
+        # fewer dense candidates per query (a top-k that fits the kernel's
+        # 16 per 1024-row tile), the regime the tier certifies in
+        retr.config = dataclasses.replace(base.config, candidates_per_source=CL_FEW)
+        measure(f"{CL_FEW} candidates")
+        device_profile(lambda: p.query_with_context_batch(runs[0], k=K),
+                       f"clustered-1M {CL_FEW} candidates B={CL_BATCH} profile")
+        retr.config = base.config
+        cand = retr.config.candidates_per_source
+
+        # -- one tag-filtered batch ------------------------------------------
+        f = rag.TagFilter(all=("t1",))
+        qs = runs[0]
+        ctxs, ms, n5 = drive(qs, tag_filter=f)
+        check(n5 > 0, "the tag-filtered batch did not ride K5")
+        check_contexts(ctxs, lambda row: row % 4 == 1, retr.registry, n=len(qs))
+        masks = resolve_tag_filters(retr.registry, f, len(qs))
+        qv = np.asarray(embedder.embed_queries(qs), np.float32)
+        s_t, r_t = store.search_arrays(qv, cand, tag_masks=masks)
+        x_s, x_r = dense_topk_tagged(torch.from_numpy(qv).to(DEV), m_dev, v_dev,
+                                     torch.from_numpy(retr.registry.tags_host(n)).to(DEV),
+                                     *(torch.from_numpy(x).to(DEV) for x in masks), cand, "cosine")
+        check(all(set(a) == set(b) for a, b in zip(r_t.cpu().tolist(), x_r.cpu().tolist())),
+              "tagged: a dense set differs from the filtered exact top-k set")
+        log(f"clustered-1M tag batch all=[t1]: {ms:.1f} ms; every chunk passes; dense sets equal the filtered "
+            f"exact top-{cand} sets; K5 launches {n5}")
+        del x_s, x_r
+
+        # -- mutate 1% of the rows within the incremental budget -------------
+        live_rows = np.flatnonzero(store._valid)
+        n_mut = max(3, int(CL_MUTATE * len(live_rows))) // 3
+        pick = rng.choice(live_rows, size=2 * n_mut, replace=False)
+        gone, upd = pick[:n_mut], pick[n_mut:]
+
+        def new_vectors(id0, rows):  # fresh rows of the blobs of ``rows`` (a row's blob is row // CL_TILE)
+            ids = torch.arange(id0, id0 + len(rows), device=DEV)
+            which = torch.from_numpy(np.minimum(rows // CL_TILE, n // CL_TILE - 1)).to(DEV)
+            return blob_vectors(ids, which, centers, torch.full((len(rows),), CL_SIGMA, device=DEV),
+                                seed + 6).cpu().numpy()
+
+        t0 = time.perf_counter()
+        for r in gone.tolist():
+            cid = retr.registry.id_of(int(r))
+            check(store.remove(cid), "remove failed")
+            retr.registry.remove(cid)
+        upd_vec = new_vectors(2 * n, upd)
+        store.insert_many([Chunk(id=retr.registry.id_of(int(r)), document_id="u", content="u", start_offset=0,
+                                 end_offset=1, metadata=ChunkMetadata(), embedding=v.tolist())
+                           for r, v in zip(upd.tolist(), upd_vec)])
+        t_host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store.ensure_ready()
+        torch.cuda.synchronize()
+        t_ref1 = time.perf_counter() - t0
+        ins_vec = new_vectors(3 * n, gone)
+        new_chunks = [Chunk(id=f"new{i}", document_id="n", content="n", start_offset=0, end_offset=1,
+                            metadata=ChunkMetadata(), embedding=v.tolist()) for i, v in enumerate(ins_vec)]
+        store.insert_many(new_chunks)
+        t0 = time.perf_counter()
+        store.ensure_ready()
+        torch.cuda.synchronize()
+        t_ref2 = time.perf_counter() - t0
+        check(builds == ["prepare_clustered_stream"], f"a mutation within budget re-ran k-means: {builds}")
+        new_rows = [retr.registry.row_of(c.id) for c in new_chunks]
+        check(all(store._cluster[0][store._cluster_inv[r]] == r for r in new_rows), "an inserted row has no slot")
+        log(f"clustered-1M mutation: removed {n_mut}, updated {n_mut}, inserted {n_mut} rows "
+            f"({3 * n_mut / len(live_rows):.4f} of live rows; budget {store.config.cluster_incremental_limit}); "
+            f"host-side calls {t_host:.2f} s; incremental refreshes {t_ref1:.3f} s (remove + update) and "
+            f"{t_ref2:.3f} s (insert) against the full build's {t_build:.1f} s; no k-means ran; "
+            f"median radius {float(store._cluster[3].median()):.4f}")
+        m_dev.copy_(torch.from_numpy(store._host))
+        v_dev = torch.from_numpy(store._valid).to(DEV)
+        qs = runs[1]
+        qv = np.asarray(embedder.embed_queries(qs), np.float32)
+        qv = np.concatenate([qv, ins_vec[:4]])  # also ask for freshly inserted rows
+        want = exact_sets(torch.from_numpy(qv).to(DEV), m_dev, v_dev, cand)
+        seen.clear()
+        before = [getattr(store, c) for c in counters]
+        s_t, r_t = store.search_arrays(qv, cand)
+        got = [set(x) for x in r_t.cpu().tolist()]
+        check(all(g == w for g, w in zip(got, want)), "after the mutation: a dense set is not the exact set")
+        check(all(new_rows[i] in got[len(qs) + i] for i in range(4)), "an inserted row is invisible")
+        delta = [getattr(store, c) - b for c, b in zip(counters, before)]
+        log(f"clustered-1M after the mutation: {len(qv)} queries exact (certified {int(seen[0][0].sum())}, "
+            f"scanned {seen[0][1]} tiles; uncertified {delta[0]}, candidate-patched {delta[1]}, GEMM-patched "
+            f"{delta[2]})")
+    finally:
+        cl.dense_topk_compact_bf16r_clustered = op
+    log(f"clustered-1M path (query_with_context_batch calls only): K5 launches {k5_total}")
+    check(k5_total > 0, "the clustered path never launched K5")
+    del m_dev, retr, store, p
+    torch.cuda.empty_cache()
+    return k5_total
+
+
+def phase_clustered_stream(seed: int) -> None:
+    """The clustered tier's design point at the ops level: N_CL_STREAM blob
+    rows generated on the card by their id, built with
+    prepare_clustered_stream (the fp32 corpus never exists), queried at
+    B = 8 with both fetches and against the full compact stream."""
+    import numpy as np
+    import torch
+
+    from trueno_rag_tpu_torch.ops import clustered as cl
+    from trueno_rag_tpu_torch.ops import dense_tiered as dt
+    from trueno_rag_tpu_torch.ops.kernels.scan_select import scan_select_v3, scan_select_v3_indirect
+
+    n, k = N_CL_STREAM, CL_STREAM_K
+    t = n // CL_TILE
+    gen = torch.Generator(device=DEV).manual_seed(seed + 7)
+    centers = unit_rows(t, gen)
+
+    def rows_of(ids):  # the corpus as a pure function of row ids
+        return blob_corpus_rows(torch.as_tensor(np.asarray(ids), device=DEV), centers, k, seed + 8)
+
+    fill, fill_args = cl._greedy_fill, []
+
+    def recorded_fill(*a):
+        fill_args.append(a)
+        return fill(*a)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cl._greedy_fill = recorded_fill
+    try:
+        order, cent, radii = cl.prepare_clustered_stream(rows_of, n, DIM, tile_n=CL_TILE, slab=CL_SLAB)
+    finally:
+        cl._greedy_fill = fill
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    check(len(order) == n and (np.sort(order) == np.arange(n)).all(), "the stream build lost or repeated a row")
+    reps = None
+    for lo in range(0, n, CL_SLAB):
+        ms = rows_of(order[lo:lo + CL_SLAB])
+        parts = dt.prepare_tiered(ms) + dt.prepare_residual(ms)
+        if reps is None:
+            reps = [torch.empty((n,) + x.shape[1:], dtype=x.dtype, device=DEV) for x in parts]
+        for dest, part in zip(reps, parts):
+            dest[lo:lo + part.shape[0]].copy_(part)
+        del ms, parts
+    torch.cuda.synchronize()
+    t_reps = time.perf_counter() - t0 - t_build
+    valid = torch.ones(n, dtype=torch.bool, device=DEV)
+    order_t = torch.from_numpy(order).to(DEV)
+    cent_t, radii_t = torch.from_numpy(cent).to(DEV), torch.from_numpy(radii).to(DEV)
+    log(f"clustered-{n}: stream build {t_build:.1f} s ({t} tiles, median radius {np.median(radii):.4f}), "
+        f"replicas in cluster order {t_reps:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    got = fill(*fill_args[0])
+    t_vec = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want_fill = plain_greedy_fill(*fill_args[0])
+    t_plain = time.perf_counter() - t0
+    check(all(np.array_equal(g, w) for g, w in zip(got, want_fill)), "the greedy fill differs from the plain loop")
+    log(f"clustered-{n}: greedy fill of the build's alternatives {t_vec:.2f} s, the plain sequential loop "
+        f"{t_plain:.2f} s (host clock); placements identical")
+    del fill_args, got, want_fill
+
+    blobs = np.random.default_rng(seed + 9).permutation(min(CL_PLANTED_BLOBS, t))[:CL_BATCH]
+    q = blob_queries(centers, blobs, gen)
+    qn = q / torch.linalg.vector_norm(q, dim=1, keepdim=True)
+    t0 = time.perf_counter()
+    best_s = torch.full((len(q), k + 1), float("-inf"), dtype=torch.float64, device=DEV)
+    best_r = torch.full((len(q), k + 1), -1, dtype=torch.int64, device=DEV)
+    for lo in range(0, n, CL_SLAB):  # float64 exact top-(k+1), streamed (check-only library top-k)
+        s = qn.double() @ rows_of(np.arange(lo, min(lo + CL_SLAB, n))).double().T
+        cat_s = torch.cat([best_s, s], dim=1)
+        cat_r = torch.cat([best_r, torch.arange(lo, lo + s.shape[1], device=DEV).expand(len(q), -1)], dim=1)
+        best_s, i = torch.topk(cat_s, k + 1, dim=1)
+        best_r = torch.gather(cat_r, 1, i)
+    gap = (best_s[:, k - 1] - best_s[:, k]).min().item()
+    check(gap > 0.0, "the float64 reference has a tie at rank k")
+    want = [set(x) for x in best_r[:, :k].cpu().tolist()]
+    log(f"clustered-{n} reference (float64, streamed): {time.perf_counter() - t0:.1f} s; least gap between "
+        f"the k-th and (k+1)-th score {gap:.3e}")
+
+    kw = dict(probe_tiles=CL_PROBE, row_map=order_t, tile_n=CL_TILE, return_stats=True)
+    res = {}
+    for fetch in ("dma", "gather"):
+        torch.cuda.reset_peak_memory_stats()
+        scan_select_v3_indirect.launches = scan_select_v3.launches = 0
+        s, r, ok, scanned = cl.dense_topk_compact_bf16r_clustered(q, *reps, valid, k, cent_t, radii_t,
+                                                                  fetch=fetch, **kw)
+        torch.cuda.synchronize()
+        launched = scan_select_v3_indirect.launches if fetch == "dma" else scan_select_v3.launches
+        check(launched == 1, f"clustered {fetch}: its scan kernel launched {launched} times")
+        check(bool(torch.isfinite(s).all()) and tuple(r.shape) == (len(q), k), f"clustered {fetch}: malformed")
+        ok_l, r_l = ok.cpu().tolist(), r.cpu().tolist()
+        for i in range(len(q)):
+            if ok_l[i]:
+                check(set(r_l[i]) == want[i], f"clustered {fetch}: certified query {i} is not the exact set")
+        res[fetch] = (s, r, ok)
+        captured = {}
+        kernel = scan_select_v3_indirect if fetch == "dma" else scan_select_v3
+        name = kernel.__name__
+
+        def capture(*a, _k=kernel, **kwa):
+            captured["call"] = (a, kwa)
+            return _k(*a, **kwa)
+
+        setattr(cl, name, capture)
+        try:
+            cl.dense_topk_compact_bf16r_clustered(q, *reps, valid, k, cent_t, radii_t, fetch=fetch, **kw)
+        finally:
+            setattr(cl, name, kernel)
+        a, kwa = captured["call"]
+        batch_ms = cuda_ms(lambda: cl.dense_topk_compact_bf16r_clustered(q, *reps, valid, k, cent_t, radii_t,
+                                                                          fetch=fetch, **kw), 10)
+        kern_ms = cuda_ms(lambda: kernel(*a, **kwa), 10)
+        log(f"clustered-{n} B={len(q)} fetch={fetch}: certified {sum(ok_l)}/{len(q)}, every certified set exact; "
+            f"scanned {int(scanned)}/{t} tiles; batch {batch_ms:.3f} ms, {name} alone {kern_ms:.3f} ms (median, "
+            f"CUDA events); peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(all(torch.equal(x, y) for x, y in zip(res["dma"], res["gather"])), "dma and gather results differ")
+    log("clustered dma and gather: scores, rows and certificates identical")
+    for fetch in ("dma", "gather"):
+        device_profile(lambda: cl.dense_topk_compact_bf16r_clustered(q, *reps, valid, k, cent_t, radii_t,
+                                                                     fetch=fetch, **kw),
+                       f"clustered-{n} B={len(q)} fetch={fetch} profile")
+
+    scan_select_v3.launches = 0
+    s, r, ok = dt.dense_topk_compact_bf16r(q, *reps, valid, k)
+    torch.cuda.synchronize()
+    check(scan_select_v3.launches == 1, "full stream: K1 did not launch once")
+    r = torch.where(r >= 0, order_t[r.clamp(min=0).long()], r)
+    ok_l, r_l = ok.cpu().tolist(), r.cpu().tolist()
+    for i in range(len(q)):
+        if ok_l[i]:
+            check(set(r_l[i]) == want[i], f"full stream: certified query {i} is not the exact set")
+    full_ms = cuda_ms(lambda: dt.dense_topk_compact_bf16r(q, *reps, valid, k), 5)
+    log(f"full-stream dense_topk_compact_bf16r at N={n} B={len(q)}: certified {sum(ok_l)}/{len(q)}, every "
+        f"certified set exact; batch {full_ms:.3f} ms (median, CUDA events)")
+    del reps, valid, order_t
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -736,9 +1413,13 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_device()
     k1, k3 = phase_kernels(args.seed)
+    k5 = phase_kernels_k5(args.seed)
     phase_tier(args.seed)
     pipe, k1["launches"] = phase_slice(args.seed)
     _, k3["launches"] = phase_stores(pipe, args.seed)
+    k5["launches"] = phase_clustered_store(pipe, args.seed)
+    del pipe
+    phase_clustered_stream(args.seed)
     log(f"smoke wall time {time.perf_counter() - t_start:.0f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -747,7 +1428,7 @@ def main() -> int:
     log(f"nvidia-smi: {smi.stdout.strip()}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in (k1, k3)]}))
+    print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in (k1, k3, k5)]}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},

@@ -24,6 +24,7 @@ def test_default_device_raises_without_cuda(no_cuda):
 
 @pytest.mark.parametrize("make", [
     lambda: trag.VectorStore(trag.VectorStoreConfig(dimension=8)),
+    lambda: trag.VectorStore(trag.VectorStoreConfig(dimension=8, scan_tier="clustered")),
     lambda: trag.BM25Index(),
     lambda: trag.HybridRetriever(trag.MockEmbedder(8)),
     lambda: trag.RagPipelineBuilder().with_embedder(trag.MockEmbedder(8)).with_reranker(trag.NoOpReranker()).build(),
@@ -42,3 +43,18 @@ def test_entry_points_run_on_the_cpu_when_asked(no_cuda):
          .with_reranker(trag.NoOpReranker()).with_device("cpu").build())
     p.index_documents([trag.Document("alpha beta gamma", id="d")])
     assert p.query("alpha", k=1)[0].chunk.document_id == "d"
+
+
+def test_clustered_store_runs_on_the_cpu_when_asked(no_cuda):
+    """The clustered tier on the CPU: its fetch resolves to the copy-and-scan
+    form there, and a query answers."""
+    import numpy as np
+
+    store = trag.VectorStore(trag.VectorStoreConfig(dimension=8, scan_tier="clustered", scan_tile_n=1024),
+                             device="cpu")
+    rows = np.random.default_rng(0).standard_normal((40, 8)).astype(np.float32)
+    store.insert_many([trag.Chunk(id=f"c{i}", document_id="d", content="x", start_offset=0, end_offset=1,
+                                  metadata=trag.ChunkMetadata(), embedding=r.tolist()) for i, r in enumerate(rows)])
+    hits = store.search(rows[3], 1)
+    assert hits[0][0] == "c3"
+    assert store._cluster[1].device == torch.device("cpu")

@@ -267,3 +267,40 @@ def test_cuda_int8_kernel_is_bit_identical_to_plain_version(tagged):
     vr, rr = scan_select_int8_v3_reference(*args, t_top=T_TOP, tags=tags)
     assert torch.equal(vk, vr)
     assert torch.equal(rk, rr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tagged", [False, True])
+def test_cuda_indirect_kernel_matches_plain_version(tagged):
+    """On the card: K5 against its plain version at d = 384 over a tile
+    list with pads and a repeated id (values within 1e-4; rows equal except
+    at near-ties of the two summation orders; pad slots equal)."""
+    _cuda_or_skip()
+    from trueno_rag_tpu_torch.ops.kernels.scan_select import (
+        scan_select_v3_indirect,
+        scan_select_v3_indirect_reference,
+    )
+
+    rng = np.random.default_rng(8)
+    n, d, b, tile_n = 65536, 384, 8, 4096
+    mb, e, a = dt.prepare_tiered(torch.from_numpy(_unit(rng, n, d)).cuda())
+    qb, u, v = dt._bf16_query_bounds(torch.from_numpy(_unit(rng, b, d)).cuda())
+    valid = torch.ones(n, dtype=torch.int32, device="cuda")
+    valid[5000:5300] = 0
+    ids = torch.tensor([0, 3, 3, 7, 15, 16, 40], dtype=torch.int32, device="cuda")
+    tags = None
+    if tagged:
+        g = torch.Generator().manual_seed(9)
+        tags = tuple(x.cuda() for x in (
+            torch.randint(0, 16, (n,), generator=g, dtype=torch.int32),
+            *(torch.randint(0, 16, (b,), generator=g, dtype=torch.int32) & w for w in (1, 6, 8))))
+    before = scan_select_v3_indirect.launches
+    vk, rk = scan_select_v3_indirect(qb, mb, e, a, valid, u, v, ids, tile_n=tile_n, t_top=8, tags=tags)
+    torch.cuda.synchronize()
+    assert scan_select_v3_indirect.launches == before + 1
+    vr, rr = scan_select_v3_indirect_reference(qb, mb, e, a, valid, u, v, ids, tile_n, 8, tags)
+    assert torch.equal(torch.isneginf(vk), torch.isneginf(vr))
+    fin = torch.isfinite(vr)
+    assert (vk[fin] - vr[fin]).abs().max().item() <= 1e-4
+    assert (rk != rr).float().mean().item() <= 1e-3
+    assert torch.equal(rk[:, :, 20:], rr[:, :, 20:])  # the pad slots

@@ -133,7 +133,7 @@ def test_vector_store_bf16_tier_matches_jax_through_mutations():
     [
         dict(scan_tier="int8", scan_kernel="block"),
         dict(scan_tier="auto", scan_kernel="block"),
-        dict(scan_tier="clustered"),
+        dict(storage_dtype="bfloat16", metric="dot"),
         dict(scan_tier="bf16", scan_kernel="block"),
         dict(storage_dtype="bfloat16"),
     ],

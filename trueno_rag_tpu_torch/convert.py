@@ -10,14 +10,19 @@ The JAX package's ``HybridRetriever`` exposes everything needed:
 - ``sparse_index.state_dict()`` — the BM25 postings and lengths;
 - ``registry.tags_host(registry.capacity_rows)`` and
   ``registry.tag_state([])[0]`` — the per-row tag words and the tag
-  vocabulary (tag string → bit).
+  vocabulary (tag string → bit);
+- on the clustered tier, ``vector_store._cluster[0]``, ``[2]`` and ``[3]``
+  — the layout's order, centroids and radii, carried as ``cluster=``.
 
-Rows are kept as they are, so both packages answer with the same rows.
+Rows are kept as they are, so both packages answer with the same rows. A
+carried clustering is the store's preset: its first clustered build uses
+exactly that layout and runs no k-means, so the query path can be compared
+bit for bit; any mutation before that build voids it.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence
+from typing import Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -44,6 +49,7 @@ def retriever_from_state(
     device=None,
     tag_bits: Optional[np.ndarray] = None,
     tag_vocab: Optional[Mapping[str, int]] = None,
+    cluster: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None,
 ) -> HybridRetriever:
     """A port :class:`HybridRetriever` holding the given index state.
 
@@ -52,7 +58,9 @@ def retriever_from_state(
     the vector store's host mirror (capacity >= len(chunks));
     ``bm25_state`` is a BM25 ``state_dict()``; ``tag_bits [>= len(chunks)]``
     (int) and ``tag_vocab`` carry the registry's tags, so tag filters
-    answer as they did."""
+    answer as they did. ``cluster=(order [T·tile] int32, centroids [T, d]
+    f32, radii [T] f32)`` is a clustering of exactly this state, built for
+    the store's tile (``max(scan_tile_n, 1024)`` rows)."""
     host_matrix = np.asarray(host_matrix, dtype=np.float32)
     valid = np.asarray(valid, dtype=bool)
     if host_matrix.ndim != 2 or valid.shape != (host_matrix.shape[0],):
@@ -95,5 +103,21 @@ def retriever_from_state(
     store._count = int(valid.sum())
     store._dirty = True
     store._dirty_rows = None
+    if cluster is not None:
+        order, centroids, radii = (np.asarray(x) for x in cluster)
+        tile = max(store.config.scan_tile_n, 1024)
+        if (store.config.scan_tier != "clustered" or order.ndim != 1 or len(order) % tile
+                or centroids.shape != (len(order) // tile, host_matrix.shape[1])
+                or radii.shape != (len(order) // tile,)):
+            raise InvalidConfigError(
+                f"cluster= needs scan_tier='clustered' and a layout of {tile}-row tiles "
+                f"(order [T*{tile}], centroids [T, d], radii [T])"
+            )
+        store._cluster_preset = {
+            "tile": tile,
+            "order": order.astype(np.int32),
+            "centroids": centroids.astype(np.float32),
+            "radii": radii.astype(np.float32),
+        }
     retr.sparse_index.load_state_dict(dict(bm25_state))
     return retr

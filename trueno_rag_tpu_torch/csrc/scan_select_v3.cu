@@ -1,4 +1,6 @@
-// scan_select_v3 for Hopper (sm_90a): the certified bf16 tile scan.
+// scan_select_v3 for Hopper (sm_90a): the certified bf16 tile scan, and its
+// tile-indirect form scan_select_v3_indirect (one template, two entry
+// points at the end of this file, so the two cannot drift apart).
 //
 // Replaces the Pallas TPU kernel
 //   trueno_rag_tpu/ops/pallas/scan_select_v2.py::scan_select_v3
@@ -61,6 +63,14 @@ __device__ __forceinline__ void unpack8(uint4 raw, float* f) {
   }
 }
 
+// INDIRECT = false: K1, output column y scans rows y*1024 .. y*1024+1023.
+// INDIRECT = true: K5 (scan_select_v3_indirect), output column y scans
+// 1024-row part (y mod spt) of corpus tile sel = tile_ids[y / spt], with
+// spt = tile_n / 1024. A pad slot (sel outside [0, n_tiles)) loads
+// nothing, scores -inf everywhere, and still emits rows from the unclamped
+// sel (sel*tile_n + offset), as the Pallas kernel does; its bound
+// corrections read the clamped tile's blocks.
+template <bool INDIRECT>
 __global__ void __launch_bounds__(THREADS, 2)
 scan_select_v3_kernel(const __nv_bfloat16* __restrict__ q,  // [B, d]
                       const __nv_bfloat16* __restrict__ m,  // [N, d]
@@ -69,13 +79,14 @@ scan_select_v3_kernel(const __nv_bfloat16* __restrict__ q,  // [B, d]
                       const int* __restrict__ valid,        // [N]
                       const float* __restrict__ uq,         // [B]
                       const float* __restrict__ vq,         // [B]
+                      const int* __restrict__ tile_ids,     // [G] (INDIRECT only)
                       const int* __restrict__ tag_bits,     // [N] or null: no filter
                       const int* __restrict__ t_all,        // [B]
                       const int* __restrict__ t_any,        // [B]
                       const int* __restrict__ t_none,       // [B]
-                      float* __restrict__ v_pack,           // [B, T+1, G]
-                      int* __restrict__ r_pack,             // [B, T, G]
-                      int nq, int d, int g_tiles, int t_top) {
+                      float* __restrict__ v_pack,           // [B, T+1, G']
+                      int* __restrict__ r_pack,             // [B, T, G']
+                      int nq, int d, int g_tiles, int t_top, int tile_n, int n_tiles) {
   __shared__ __align__(16) float As[KC][BLOCK];  // staged rows, depth-major
   __shared__ __align__(16) float Qs[KC][QB];     // staged queries, depth-major
   __shared__ SelectSmem sel;
@@ -87,15 +98,27 @@ scan_select_v3_kernel(const __nv_bfloat16* __restrict__ q,  // [B, d]
   const int qg = tid >> 4;
   const int lane0 = rg * TM;
 
+  int64_t base = (int64_t)tile * SEL;  // first row as emitted
+  int64_t lbase = base;                // first row read
+  bool live = true;                    // uniform over the thread block
+  if (INDIRECT) {
+    const int spt = tile_n / SEL;
+    const int s = __ldg(tile_ids + tile / spt);
+    const int64_t off = (int64_t)(tile % spt) * SEL;
+    live = s >= 0 && s < n_tiles;
+    base = (int64_t)s * tile_n + off;
+    lbase = (int64_t)min(max(s, 0), n_tiles - 1) * tile_n + off;
+  }
+
   for (int blk = 0; blk < BPT; ++blk) {
-    const int64_t row0 = (int64_t)tile * SEL + blk * BLOCK;
+    const int64_t row0 = lbase + blk * BLOCK;
     float acc[TQ][TM];
 #pragma unroll
     for (int i = 0; i < TQ; ++i)
 #pragma unroll
       for (int r = 0; r < TM; ++r) acc[i][r] = 0.0f;
 
-    for (int k0 = 0; k0 < d; k0 += KC) {
+    for (int k0 = 0; live && k0 < d; k0 += KC) {
       // rows: 128 x 4 vectors of 8 bf16; a warp covers 32 rows of one
       // vector column, so the shared stores are conflict-free
 #pragma unroll
@@ -152,12 +175,32 @@ scan_select_v3_kernel(const __nv_bfloat16* __restrict__ q,  // [B, d]
     for (int i = 0; i < TQ; ++i) {
       const QueryFilter f(tag_bits, t_all, t_any, t_none, q0 + qg * TQ + i, nq);
 #pragma unroll
-      for (int r = 0; r < TM; ++r) x[i][r] = (ok[r] && f.pass(bits[r])) ? acc[i][r] : -INFINITY;
+      for (int r = 0; r < TM; ++r)
+        x[i][r] = (live && ok[r] && f.pass(bits[r])) ? acc[i][r] : -INFINITY;
     }
-    block_candidates(x, tid, q0, nq, row0, blk, tile * BPT + blk, eb, ab, uq, vq, sel);
+    block_candidates(x, tid, q0, nq, base + blk * BLOCK, blk, (int)(row0 / BLOCK), eb, ab, uq, vq,
+                     sel);
   }
   __syncthreads();
   tile_tournament(sel, tid, q0, nq, tile, g_tiles, t_top, v_pack, r_pack);
+}
+
+template <bool INDIRECT>
+int launch(const void* q, const void* m, const void* eb, const void* ab, const void* valid,
+           const void* uq, const void* vq, const void* tile_ids, const void* tag_bits,
+           const void* t_all, const void* t_any, const void* t_none, void* v_pack, void* r_pack,
+           int nq, int d, int g_tiles, int t_top, int tile_n, int n_tiles, void* stream) {
+  const dim3 grid((nq + QB - 1) / QB, g_tiles);
+  scan_select_v3_kernel<INDIRECT><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(m),
+      static_cast<const float*>(eb), static_cast<const float*>(ab),
+      static_cast<const int*>(valid), static_cast<const float*>(uq),
+      static_cast<const float*>(vq), static_cast<const int*>(tile_ids),
+      static_cast<const int*>(tag_bits), static_cast<const int*>(t_all),
+      static_cast<const int*>(t_any), static_cast<const int*>(t_none),
+      static_cast<float*>(v_pack), static_cast<int*>(r_pack), nq, d, g_tiles, t_top, tile_n,
+      n_tiles);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -179,14 +222,35 @@ extern "C" int scan_select_v3_launch(const void* q, const void* m, const void* e
   if (bad_shape(nq, d, n, t_top) || d < 8 || d % 8 != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid((nq + QB - 1) / QB, n / SEL);
-  scan_select_v3_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(m),
-      static_cast<const float*>(eb), static_cast<const float*>(ab),
-      static_cast<const int*>(valid), static_cast<const float*>(uq),
-      static_cast<const float*>(vq), static_cast<const int*>(tag_bits),
-      static_cast<const int*>(t_all), static_cast<const int*>(t_any),
-      static_cast<const int*>(t_none), static_cast<float*>(v_pack),
-      static_cast<int*>(r_pack), nq, d, n / SEL, t_top);
-  return (int)cudaGetLastError();
+  return launch<false>(q, m, eb, ab, valid, uq, vq, nullptr, tag_bits, t_all, t_any, t_none,
+                       v_pack, r_pack, nq, d, n / SEL, t_top, SEL, n / SEL, stream);
+}
+
+// scan_select_v3_indirect (K5): replaces the Pallas TPU kernel
+//   trueno_rag_tpu/ops/pallas/scan_select_v2.py::scan_select_v3_indirect
+// (pallas_call at scan_select_v2.py:579), the cluster-pruned tier's
+// selective fetch: K1 over only the g corpus tiles of tile_n rows listed in
+// tile_ids [g] i32 (entries >= n/tile_n are pads), reading those tiles in
+// place. Outputs v_pack [nq, t_top+1, g*tile_n/1024], r_pack
+// [nq, t_top, g*tile_n/1024] with GLOBAL rows. eb/ab are the whole corpus's
+// per-128-row block maxes. What bounds it: the selected tiles' bytes
+// (|tiles|*tile_n*d*2 B) or their FMA work (2*B*|tiles|*tile_n*d), whichever
+// is larger; at small B the work per thread block is K1's, with most of the
+// 64-query group padded. Same requirements as scan_select_v3_launch, plus
+// tile_n a positive multiple of 1024 dividing n, g >= 1, and
+// g*tile_n/1024 <= 65535.
+extern "C" int scan_select_v3_indirect_launch(const void* q, const void* m, const void* eb,
+                                              const void* ab, const void* valid, const void* uq,
+                                              const void* vq, const void* tile_ids,
+                                              const void* tag_bits, const void* t_all,
+                                              const void* t_any, const void* t_none,
+                                              void* v_pack, void* r_pack, int nq, int d, int n,
+                                              int t_top, int tile_n, int g, void* stream) {
+  if (bad_shape(nq, d, n, t_top) || d < 8 || d % 8 != 0 || tile_n < SEL || tile_n % SEL != 0 ||
+      n % tile_n != 0 || g < 1 || (int64_t)g * (tile_n / SEL) > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch<true>(q, m, eb, ab, valid, uq, vq, tile_ids, tag_bits, t_all, t_any, t_none,
+                      v_pack, r_pack, nq, d, g * (tile_n / SEL), t_top, tile_n, n / tile_n,
+                      stream);
 }

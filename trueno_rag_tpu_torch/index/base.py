@@ -139,8 +139,8 @@ class ChunkRegistry:
     def tag_bits_array(self, rows: int) -> "np.ndarray":
         """Per-row tag words as one int64 vector of length ``rows``
         (rows past the registry's extent are 0) — the vectorized form
-        host-side filter resolution needs; a Python loop over
-        tags_of_row costs ~10 ms per 100k rows per dispatch."""
+        host-side filter resolution needs, instead of a Python loop
+        over tags_of_row on every dispatch."""
         import numpy as np
 
         out = np.zeros((rows,), dtype=np.int64)

@@ -1,8 +1,8 @@
 """Dense vector store: device-resident ``[N, d]`` embedding matrix.
 
 PyTorch counterpart of ``trueno_rag_tpu/index/vector_store.py`` for the
-``"none"``, ``"auto"``, ``"bf16"``, ``"int8"`` (tile kernels) and
-``"compact"`` scan tiers. Capability-equivalent to the reference's ``VectorStore``
+``"none"``, ``"auto"``, ``"bf16"``, ``"int8"`` (tile kernels),
+``"compact"`` and ``"clustered"`` scan tiers. Capability-equivalent to the reference's ``VectorStore``
 (reference: index.rs:321-437):
 
 - Embeddings live in one capacity-padded device matrix; inserts write a
@@ -21,7 +21,13 @@ PyTorch counterpart of ``trueno_rag_tpu/index/vector_store.py`` for the
   build slab by slab from the host rows, certified queries return the
   exact top-k set, and uncertified ones are patched exactly from the host
   matrix (``compact_fallback="host"``).
-- Tag filters ride the scan kernels on the compact and bf16 tile tiers.
+- ``scan_tier="clustered"`` is the compact bf16r layout reordered by
+  balanced k-means, so each storage tile is a cluster with a sound
+  centroid+radius bound: a small batch scans only the tiles its queries
+  could draw from (``ops/clustered.py``), with the same exact-set
+  contract; bounded mutations fold into the layout without a re-cluster.
+- Tag filters ride the scan kernels on the compact, clustered and bf16
+  tile tiers.
 
 Validation matches the reference: inserting a chunk without an
 embedding raises :class:`VectorStoreError`; a wrong-size embedding
@@ -55,10 +61,12 @@ class DistanceMetric:
 class VectorStoreConfig:
     """The JAX package's config, field for field (see its docstrings for
     each knob). This store implements ``scan_tier`` "none", "auto",
-    "bf16", "int8" (with ``scan_kernel="tile"``) and "compact" with
-    float32 storage; the other values pass validation but the store
-    raises on them. ``compact_build`` "auto" and "device" prep the
-    compact replicas on the store's device, "host" on the CPU."""
+    "bf16", "int8" (with ``scan_kernel="tile"``), "compact" and
+    "clustered" with float32 storage; the other values pass validation
+    but the store raises on them. ``compact_build`` "auto" and "device"
+    prep the compact replicas on the store's device, "host" on the CPU.
+    ``cluster_fetch`` "auto" scans the clustered tier's probed tiles in
+    place (K5) on a CUDA device and over a copy (K1) on the CPU."""
 
     dimension: int = 384
     metric: str = DistanceMetric.COSINE
@@ -141,11 +149,6 @@ class VectorStoreConfig:
 def _check_ported(config: VectorStoreConfig) -> None:
     """Raise on the configurations the port does not implement yet, so
     none silently takes another path."""
-    if config.scan_tier == "clustered":
-        raise InvalidConfigError(
-            "scan_tier='clustered' is not ported yet (ROADMAP Queue 1: K5 "
-            "scan_select_v3_indirect with ops/clustered.py)"
-        )
     if config.scan_tier in ("bf16", "auto", "int8") and config.scan_kernel != "tile":
         raise InvalidConfigError(
             "scan_kernel='block' (the v1 scan kernels) is not ported yet (ROADMAP)"
@@ -182,6 +185,16 @@ class VectorStore:
         # which tier's layout ``_tier`` holds: a tier switch rebuilds
         self._tier_built_for = None
         self._tag_bits_cache = None  # (tags_version, device tag words)
+        # clustered tier: (order, order on the device, centroids, radii)
+        self._cluster = None
+        self._cluster_inv = None  # row → permuted position, built lazily
+        self._cluster_incremental = 0  # rows placed since the last k-means
+        self._cluster_version = 0  # advances with every layout change
+        self._tag_bits_clustered_cache = None  # ((tags_version, layout), bits)
+        # a clustering carried in (convert.retriever_from_state): consumed
+        # by the first clustered build, voided by any mutation, since stale
+        # radii would be unsound bounds
+        self._cluster_preset = None
         self.tier_fallbacks = 0  # batches with a query re-run or host-patched
         self.tier_fallback_queries = 0  # queries re-run on fp32 (bf16/int8 tiers)
         self.compact_uncertified = 0  # compact-tier queries past the certificate
@@ -246,6 +259,7 @@ class VectorStore:
         self._host[rows] = embs
         self._valid[rows] = True
         self._dirty = True
+        self._cluster_preset = None  # mutated rows void a carried clustering
         if self._dirty_rows is not None:
             if len(self._dirty_rows) + len(uniq) > max(64, self._host.shape[0] // 20):
                 self._dirty_rows = None  # full re-upload beats scatter
@@ -266,6 +280,7 @@ class VectorStore:
 
     def _mark_dirty(self, row: int) -> None:
         self._dirty = True
+        self._cluster_preset = None  # mutated rows void a carried clustering
         if self._dirty_rows is not None:
             self._dirty_rows.add(row)
             # beyond ~5% of capacity a full upload is cheaper than scatter
@@ -291,6 +306,9 @@ class VectorStore:
     def _refresh_device(self) -> None:
         if self._effective_tier() == "compact":
             self._refresh_device_compact()
+            return
+        if self._effective_tier() == "clustered":
+            self._refresh_device_clustered()
             return
         if (
             not self._dirty
@@ -339,6 +357,7 @@ class VectorStore:
         if not self._dirty and self._tier is not None and self._tier_built_for == "compact":
             return
         self._device_matrix = None  # the whole point of this tier
+        self._cluster = None  # the compact layout is row order, not clustered
         if (
             self._tier is not None
             and self._tier_built_for == "compact"
@@ -353,30 +372,33 @@ class VectorStore:
             self._device_valid[rows] = torch.from_numpy(self._valid[idx]).to(self.device)
         else:
             self._tier = None  # free the old replicas before the build
-            self._tier = self._stream_build_tier()
+            # per compact_build, a slab is prepped on the store's device
+            # ("auto" and "device": the upload is raw f32) or on the host
+            # CPU ("host"); the caller's choice, never a fallback
+            prep_dev = torch.device("cpu") if self.config.compact_build == "host" else self.device
+            self._tier = self._stream_build_tier(
+                self._host.shape[0],
+                lambda lo, hi: torch.from_numpy(self._host[lo:hi]).to(prep_dev),
+                self._compact_prep,
+            )
             self._device_valid = torch.from_numpy(self._valid).to(self.device, copy=True)
         self._tier_built_for = "compact"
         self._dirty = False
         self._dirty_rows = set()
 
-    def _stream_build_tier(self):
-        """Full compact replica build, streamed: host fp32 rows are
+    def _stream_build_tier(self, n: int, rows_of, prep):
+        """Full replica build, streamed: f32 rows ``rows_of(lo, hi)`` are
         prepped slab by slab (``compact_prep_rows`` rows) and copied into
-        replicas preallocated on the device, so the transient is one
-        slab's parts, not a second copy of every replica. Per
-        ``compact_build``, a slab is prepped on the store's device
-        ("auto" and "device": the upload is raw f32) or on the host CPU
-        ("host": CPU tensors, copied over once prepped). That is the
-        caller's choice, never a fallback; the prep code is the same
-        either way, so every certificate array is computed from the exact
-        replica bytes it will sit next to."""
-        n = self._host.shape[0]
+        ``n``-row replicas preallocated on the device, so the transient is
+        one slab's parts, not a second copy of every replica. The prep
+        code is the same wherever a slab is prepped, so every certificate
+        array is computed from the exact replica bytes it will sit next
+        to."""
         step = self.config.compact_prep_rows
-        prep_dev = torch.device("cpu") if self.config.compact_build == "host" else self.device
         dests = None
         for lo in range(0, n, step):
-            slab = torch.from_numpy(self._host[lo : lo + step]).to(prep_dev)
-            parts = self._compact_prep(slab)
+            slab = rows_of(lo, min(lo + step, n))
+            parts = prep(slab)
             if dests is None:
                 dests = [
                     torch.empty((n,) + p.shape[1:], dtype=p.dtype, device=self.device)
@@ -386,6 +408,194 @@ class VectorStore:
                 dest[lo : lo + part.shape[0]].copy_(part)  # in place: no second replica
             del parts, slab
         return tuple(dests)
+
+    @staticmethod
+    def _clustered_prep(m: torch.Tensor):
+        """The clustered layout's replica parts of rows ``m`` (f32): the
+        compact bf16r layout."""
+        from trueno_rag_tpu_torch.ops import dense_tiered as dt
+
+        return dt.prepare_tiered(m) + dt.prepare_residual(m)
+
+    def _refresh_device_clustered(self) -> None:
+        """Clustered tier: the compact bf16r replicas in the balanced
+        k-means layout, plus per-tile centroid/radius bounds
+        (ops/clustered.py). Bounded mutations fold into the existing layout
+        (:meth:`_try_incremental_clustered`, radii only widen); anything
+        else re-clusters: from a carried-in clustering if one is set, else
+        on the device, reading a fresh fp32 device matrix when one is
+        resident and host slabs otherwise. The
+        permuted replicas build slab by slab; no fp32 matrix stays on the
+        device."""
+        if (
+            not self._dirty
+            and self._tier is not None
+            and self._cluster is not None
+            and self._tier_built_for == "clustered"
+        ):
+            return
+        from trueno_rag_tpu_torch.ops import clustered as cl
+
+        tile = max(self.config.scan_tile_n, 1024)
+        if self._try_incremental_clustered(tile):
+            self._dirty = False
+            self._dirty_rows = set()
+            return
+        dev_m = self._device_matrix
+        dev_fresh = (
+            dev_m is not None
+            and not self._dirty
+            and dev_m.dtype == torch.float32
+            and dev_m.shape[0] == self._host.shape[0]
+        )
+        preset, self._cluster_preset = self._cluster_preset, None
+        kw = dict(
+            tile_n=tile, metric=self.config.metric, iters=self.config.cluster_kmeans_iters,
+            valid=self._valid,  # capacity padding must not join tiles
+        )
+        if preset is not None and preset["tile"] == tile:
+            # a carried clustering of exactly this host state (any mutation
+            # since cleared it) and this tile size: no k-means
+            order = np.asarray(preset["order"], dtype=np.int32)
+            cent = np.asarray(preset["centroids"], dtype=np.float32)
+            radii = np.asarray(preset["radii"], dtype=np.float32)
+        elif dev_fresh:
+            order, cent, radii = cl.prepare_clustered_device(dev_m, **kw)
+        else:  # the host rows stream to the device slab by slab
+            host = self._host
+            order, cent, radii = cl.prepare_clustered_stream(
+                lambda ids: torch.from_numpy(host[ids]).to(self.device), *host.shape, **kw
+            )
+        self._tier = None  # free the old replicas before the build
+        self._device_matrix = None  # no fp32 matrix on the device (compact contract)
+        if dev_fresh:  # permute slab by slab: no full permuted f32 copy
+            def rows_of(lo, hi):
+                return cl.apply_cluster_order_device(dev_m, order[lo:hi])
+        else:
+            def rows_of(lo, hi):
+                return torch.from_numpy(cl.apply_cluster_order(self._host, order[lo:hi])).to(self.device)
+        self._tier = self._stream_build_tier(len(order), rows_of, self._clustered_prep)
+        del dev_m
+        self._device_valid = torch.from_numpy(cl.apply_cluster_order(self._valid, order, fill=False)).to(self.device)
+        self._cluster = (
+            order,
+            torch.from_numpy(order).to(self.device),
+            torch.from_numpy(cent).to(self.device),
+            torch.from_numpy(radii).to(self.device),
+        )
+        self._cluster_inv = None  # rebuilt lazily by the incremental path
+        self._cluster_incremental = 0  # fresh k-means: the drift budget resets
+        self._cluster_version += 1
+        self._tier_built_for = "clustered"
+        self._dirty = False
+        self._dirty_rows = set()
+
+    def _try_incremental_clustered(self, tile: int) -> bool:
+        """Fold a bounded set of mutated rows into the EXISTING clustered
+        layout instead of re-running k-means: removals become holes,
+        in-place updates keep their slot, new rows fill a hole in their
+        best-scoring tile, and every touched tile's radius WIDENS to the
+        slack-covered f64 distance of the new value, so the tile bound
+        stays a true upper bound. What drifts is pruning selectivity;
+        ``cluster_incremental_limit`` caps it (past that fraction of live
+        rows the caller re-clusters).
+
+        Returns False, and the caller runs the full build, when the budget
+        is spent, a new row finds no hole anywhere, the dirty set is
+        unbounded (capacity growth, bulk mutation) or no clustered layout
+        exists; nothing has been changed then (placement runs on copies and
+        applies only once every row has a slot)."""
+        if (
+            self.config.cluster_incremental_limit <= 0.0
+            or self._cluster is None
+            or self._tier is None
+            or self._tier_built_for != "clustered"
+            or not self._dirty_rows  # None (unbounded) or empty
+        ):
+            return False
+        order_np, order_t, cent_t, radii_t = self._cluster
+        if self._tier[0].shape[0] != len(order_np):
+            return False
+        dirty = sorted(self._dirty_rows)
+        budget = int(self.config.cluster_incremental_limit * max(self._count, 1))
+        if self._cluster_incremental + len(dirty) > budget:
+            return False
+        from trueno_rag_tpu_torch.ops.dense_tiered import _BOUND_EPS, _BOUND_SLACK
+
+        order = order_np.copy()
+        radii = radii_t.cpu().numpy().copy()
+        cent = cent_t.cpu().numpy()
+        if self._cluster_inv is not None and len(self._cluster_inv) == self._host.shape[0]:
+            inv = self._cluster_inv.copy()
+        else:
+            inv = np.full(self._host.shape[0], -1, dtype=np.int64)
+            live = order >= 0
+            inv[order[live]] = np.flatnonzero(live)
+        holes: dict = {}  # tile → hole positions, pop() gives the lowest
+        for p in np.flatnonzero(order < 0)[::-1]:
+            holes.setdefault(int(p) // tile, []).append(int(p))
+
+        sets: list = []  # (permuted position, original row): replica rewrites
+        clears: list = []  # permuted positions that become holes
+        new_rows: list = []
+        for r in dirty:
+            p = int(inv[r])
+            alive = bool(self._valid[r])
+            if p >= 0 and not alive:  # removal: a hole; the radius stays sound
+                order[p] = -1
+                inv[r] = -1
+                holes.setdefault(p // tile, []).append(p)
+                clears.append(p)
+            elif p >= 0:  # in-place update: same slot, widened radius
+                sets.append((p, r))
+            elif alive:
+                new_rows.append(r)
+            # else: inserted and removed between refreshes, never placed
+        if new_rows:
+            xs = self._host[new_rows]  # [M, d] f32
+            # the build's shifted-dot preference (argmin ‖x−µ‖²); quality only
+            sc = xs @ cent.T - 0.5 * np.einsum("td,td->t", cent, cent)[None, :]
+            pref = np.argsort(-sc, axis=1, kind="stable")
+            for i, r in enumerate(new_rows):
+                pos = -1
+                for c in pref[i]:
+                    lst = holes.get(int(c))
+                    if lst:
+                        pos = lst.pop()
+                        break
+                if pos < 0:
+                    return False  # every tile full: re-cluster
+                order[pos] = r
+                inv[r] = pos
+                sets.append((pos, r))
+        # widen radii over the exact stored f32 values (f64, the host
+        # build's slack form)
+        for pos, r in sets:
+            c = pos // tile
+            diff = self._host[r].astype(np.float64) - cent[c].astype(np.float64)
+            need = np.float32(float(np.sqrt((diff * diff).sum())) * _BOUND_SLACK + _BOUND_EPS)
+            if need > radii[c]:
+                radii[c] = need
+
+        # -- apply (host copies are complete; device scatters follow) ------
+        dev = self.device
+        if clears:  # before sets: a cleared hole may be refilled in this batch
+            self._device_valid[torch.tensor(clears, dtype=torch.long, device=dev)] = False
+        if sets:
+            pos_t = torch.tensor([p for p, _ in sets], dtype=torch.long, device=dev)
+            rows = np.asarray([r for _, r in sets], dtype=np.int64)
+            parts = self._clustered_prep(torch.from_numpy(self._host[rows]).to(dev))
+            for full, part in zip(self._tier, parts):
+                full[pos_t] = part
+            self._device_valid[pos_t] = True
+        touched = np.asarray([p for p, _ in sets] + clears, dtype=np.int64)
+        if len(touched):
+            order_t[torch.from_numpy(touched).to(dev)] = torch.from_numpy(order[touched]).to(dev)
+        self._cluster = (order, order_t, cent_t, torch.from_numpy(radii).to(dev))
+        self._cluster_inv = inv
+        self._cluster_incremental += len(dirty)
+        self._cluster_version += 1
+        return True
 
     def _effective_tier(self) -> str:
         """Resolve "auto": the bf16 tier once the store holds
@@ -399,18 +609,19 @@ class VectorStore:
     @property
     def supports_tagged_scan(self) -> bool:
         """True when :meth:`search_arrays` accepts ``tag_masks``: the
-        filter rides the scan kernel (compact tier, or the bf16 tile
-        tier). The retriever keeps filtered queries on the fast tier then,
-        instead of the full fp32 tagged scan."""
+        filter rides the scan kernel (compact or clustered tier, or the
+        bf16 tile tier). The retriever keeps filtered queries on the fast
+        tier then, instead of the full fp32 tagged scan."""
         tier = self._effective_tier()
-        return tier == "compact" or (tier == "bf16" and self.config.scan_kernel == "tile")
+        return tier in ("compact", "clustered") or (tier == "bf16" and self.config.scan_kernel == "tile")
 
     @property
     def is_compact(self) -> bool:
-        """True when this store holds no fp32 device matrix (compact
-        tier): callers that need ``device_matrix`` must take a staged path
-        instead; hybrid and tag-filtered queries stage automatically."""
-        return self._effective_tier() == "compact"
+        """True when this store holds no fp32 device matrix (compact or
+        clustered tier): callers that need ``device_matrix`` must take a
+        staged path instead; hybrid and tag-filtered queries stage
+        automatically."""
+        return self._effective_tier() in ("compact", "clustered")
 
     def _refresh_tier(self, rows=None, updates=None) -> None:
         """Maintain the bf16 or int8 replica. The quantization/residual
@@ -418,6 +629,7 @@ class VectorStore:
         changed rows and scatter them into the replica arrays."""
         tier = self._effective_tier()
         built_for, self._tier_built_for = self._tier_built_for, tier
+        self._cluster = None  # these layouts are row order, not clustered
         if tier == "none":
             self._tier = None
             return
@@ -435,9 +647,9 @@ class VectorStore:
         """The ``[capacity, d]`` device matrix (cosine rows normalized)."""
         if self.is_compact:
             raise InvalidConfigError(
-                "scan_tier='compact' holds no fp32 device matrix (that is its "
-                "memory contract); hybrid and tag-filtered queries run staged "
-                "automatically"
+                f"scan_tier={self._effective_tier()!r} holds no fp32 device matrix "
+                "(that is its memory contract); hybrid and tag-filtered queries "
+                "run staged automatically"
             )
         self._refresh_device()
         return self._device_matrix
@@ -464,8 +676,9 @@ class VectorStore:
         int32 filter words (see
         :func:`trueno_rag_tpu_torch.retrieve.resolve_tag_filters`),
         accepted where the filter rides the scan kernel
-        (:attr:`supports_tagged_scan`): the compact tier (certified exact
-        filtered sets, filter-aware host patch) and the bf16 tile tier
+        (:attr:`supports_tagged_scan`): the compact and clustered tiers
+        (certified exact filtered sets, filter-aware host patch) and the
+        bf16 tile tier
         (exact filtered results; uncertified queries fall back to the
         tagged fp32 scan). Other tiers filter in the retriever through
         :func:`trueno_rag_tpu_torch.ops.tags.dense_topk_tagged`."""
@@ -477,12 +690,14 @@ class VectorStore:
         k_eff = min(k, self._host.shape[0])
         if tag_masks is not None and not self.supports_tagged_scan:
             raise InvalidConfigError(
-                "search_arrays(tag_masks=...) rides the scan kernel: compact "
-                "tier or bf16 tile tier only; other tiers filter via "
+                "search_arrays(tag_masks=...) rides the scan kernel: compact, "
+                "clustered or bf16 tile tier only; other tiers filter via "
                 "ops.tags.dense_topk_tagged"
             )
         if self._effective_tier() == "compact":
             return self._search_compact(q, k_eff, tag_masks)
+        if self._effective_tier() == "clustered":
+            return self._search_clustered(q, k_eff, tag_masks)
         if self._tier is None:
             return dense_topk(q, self._device_matrix, self._device_valid, k_eff, self.config.metric)
         from trueno_rag_tpu_torch.ops import dense_tiered as dt
@@ -555,6 +770,73 @@ class VectorStore:
                 )
                 self.tier_fallbacks += 1
         return torch.from_numpy(scores).to(self.device), torch.from_numpy(rows).to(self.device)
+
+    def _search_clustered(self, q: torch.Tensor, k: int, tag_masks):
+        """The clustered tier's search: the pruned certified scan (K5 in
+        place, or K1 over a copy of the union, per ``cluster_fetch``), then
+        under ``compact_fallback="host"`` the candidate patch and, only for
+        queries the containment cannot settle, the host GEMM patch."""
+        from trueno_rag_tpu_torch.ops import clustered as cl
+
+        order_np, order_t, cent_t, radii_t = self._cluster
+        tags = None
+        if tag_masks is not None:
+            tags = (self._device_tag_bits_clustered(order_np),) + tuple(
+                torch.from_numpy(np.asarray(m, np.int32)).to(self.device) for m in tag_masks
+            )
+        host_fb = self.config.compact_fallback == "host"
+        out = cl.dense_topk_compact_bf16r_clustered(
+            q, *self._tier, self._device_valid, k, cent_t, radii_t,
+            return_candidates=host_fb,
+            probe_tiles=self.config.cluster_probe_tiles,
+            row_map=order_t,  # results in original row ids
+            metric=self.config.metric,
+            # a clustered corpus concentrates its top-k in few tiles: t_top
+            # follows the request, with 4 runner-up slots whose fp32
+            # rescore keeps near-duplicates certifiable; the kernel's pool
+            # holds 16 per 1024-row tile
+            t_top=min(max(self.config.scan_t_top, 8, k + 4), 16),
+            margin_tiles=self.config.scan_margin_tiles,
+            tile_n=max(self.config.scan_tile_n, 1024),
+            fetch=cl.resolve_cluster_fetch(self.config.cluster_fetch, self.device),
+            tags=tags,
+        )
+        scores, rows, ok = out[:3]
+        ok_np = ok.cpu().numpy()
+        if ok_np.all():
+            return scores, rows
+        self.compact_uncertified += int((~ok_np).sum())
+        if host_fb:
+            # the pruned-tile bound is folded into the returned threshold,
+            # so the candidates contain the exact top-k wherever it is
+            # below the exact k-th score; the GEMM only for the rest
+            q_np = q.cpu().numpy()
+            s_np, r_np, unresolved = self._host_candidate_patch(
+                q_np, scores.cpu().numpy(), rows.cpu().numpy(), ok_np, k,
+                out[3].cpu().numpy(), out[4].cpu().numpy(), tag_masks=tag_masks, resolve_rest=False,
+            )
+            if len(unresolved):
+                gm = np.ones_like(ok_np)
+                gm[unresolved] = False
+                s_np, r_np = self._host_exact_patch(q_np, s_np, r_np, gm, k, tag_masks=tag_masks)
+                self.compact_gemm_patched += len(unresolved)
+            scores, rows = torch.from_numpy(s_np).to(self.device), torch.from_numpy(r_np).to(self.device)
+            self.tier_fallbacks += 1
+        return scores, rows
+
+    def _device_tag_bits_clustered(self, order: np.ndarray) -> torch.Tensor:
+        """The registry's tag words in the clustered layout (the kernel
+        reads permuted rows), cached against (tags_version, layout)."""
+        from trueno_rag_tpu_torch.ops.clustered import apply_cluster_order
+
+        version = (self.registry.tags_version, self._cluster_version)
+        cached = self._tag_bits_clustered_cache
+        if cached is not None and cached[0] == version:
+            return cached[1]
+        bits = apply_cluster_order(self.registry.tags_host(self._host.shape[0]), order, fill=0)
+        bits = torch.from_numpy(bits).to(self.device)
+        self._tag_bits_clustered_cache = (version, bits)
+        return bits
 
     def _device_tag_bits(self) -> torch.Tensor:
         """Capacity-sized device copy of the registry's per-row tag

@@ -164,14 +164,20 @@ def _int8_query_bounds(q: torch.Tensor):
     return q_i8, t_q, u_q, v_q
 
 
-def _topk_select(values: torch.Tensor, k: int):
+def _topk_select(values: torch.Tensor, k: int, approx: bool = True):
     """Select top-k indices of ``values [B, G]`` plus a RIGOROUS per-row
-    upper bound on every non-selected entry, by the JAX code's
-    scatter-free count trick: with vmin = min(selected), if EXACTLY k
-    entries are >= vmin the selected set IS {v >= vmin} and the bound is
-    max(v < vmin); a tie at the boundary fails closed via a +inf
-    threshold."""
-    vals, idx = topk_desc(values, k)
+    upper bound on every non-selected entry. ``approx=True`` is the JAX
+    code's ``approx_select`` path, with its scatter-free count trick: with
+    vmin = min(selected), if EXACTLY k entries are >= vmin the selected set
+    IS {v >= vmin} and the bound is max(v < vmin); a tie at the boundary
+    fails closed via a +inf threshold. ``approx=False`` bounds the rest by
+    the (k+1)-th value (-inf when nothing is left out), which stays sound
+    across a boundary of -inf entries."""
+    vals, idx = topk_desc(values, k + 1 if not approx else k)
+    if not approx:
+        if vals.shape[1] > k:
+            return idx[:, :k], vals[:, k]
+        return idx, torch.full(values.shape[:1], NEG_INF, device=values.device)
     vmin = vals.amin(dim=1)
     ge = values >= vmin[:, None]
     count = ge.sum(dim=1)
@@ -241,7 +247,7 @@ def _scan_int8(q, m_i8, s_row, e_l2, a_l2, valid_mask, tile_n, t_top, tags):
     return outs, b_pad
 
 
-def _trim_and_dedup(cand_rows, cand_vals, threshold, k_req, rescore_rows):
+def _trim_and_dedup(cand_rows, cand_vals, threshold, k_req, rescore_rows, approx_select=True):
     """Optional trim of the explicit candidate set to its best
     ``rescore_rows`` (the bound over the rest joins the threshold), then
     row-asc order with repeated rows sentinelled → (cand_rows, threshold)."""
@@ -252,7 +258,7 @@ def _trim_and_dedup(cand_rows, cand_vals, threshold, k_req, rescore_rows):
         if rescore_rows < width:
             # the bound over un-rescored explicit candidates joins the
             # certificate threshold: none of them can beat it
-            v_idx, thr_exp = _topk_select(cand_vals, rescore_rows)
+            v_idx, thr_exp = _topk_select(cand_vals, rescore_rows, approx_select)
             threshold = torch.maximum(threshold, thr_exp)
             cand_rows = torch.gather(cand_rows, 1, v_idx)
     cand_rows, _ = torch.sort(cand_rows, dim=1)  # row-asc tie order
@@ -307,14 +313,14 @@ def _metric_queries(queries, metric, kinds=("cosine", "dot")):
     raise InvalidConfigError(f"tiered scan supports {'/'.join(kinds)}, got {metric!r}")
 
 
-def _tile_candidates(outs, b_pad, k, margin_tiles, t_top):
+def _tile_candidates(outs, b_pad, k, margin_tiles, t_top, approx_select=True):
     """Tile selection over the packed scan outputs → (cand_rows,
     cand_vals, threshold). ``outs`` = (v_pack [B_pad, T+1, G'], r_pack
     [B_pad, T, G']); rows are already global."""
     v_pack, r_pack = outs
     g = v_pack.shape[2]
     kb = min(k + margin_tiles, g)
-    t_idx, thr_out = _topk_select(v_pack[:, 0, :], kb)
+    t_idx, thr_out = _topk_select(v_pack[:, 0, :], kb, approx_select)
     t_idx, _ = torch.sort(t_idx, dim=1)
     vg = torch.gather(v_pack, 2, t_idx[:, None, :].expand(b_pad, t_top + 1, kb))
     rg = torch.gather(r_pack, 2, t_idx[:, None, :].expand(b_pad, t_top, kb))
@@ -652,7 +658,7 @@ def _trim_rescore_verify_compact(
     cand_rows, cand_vals, threshold, q, m_bf16, bf_e_l2, bf_a_l2,
     valid_mask, n, bsz, b_pad, k_req, rescore_rows,
     residual=None, residual2=None, return_bounds=False, tags=None,
-    return_candidates=False,
+    return_candidates=False, approx_select=True,
 ):
     """Compact-tier tail: bf16 rescore with per-candidate interval
     bounds and the SET certificate.
@@ -678,7 +684,9 @@ def _trim_rescore_verify_compact(
     # ``threshold`` here bounds the TRUE score of every row NOT in
     # ``cand_rows`` (the store's host candidate patch uses it)
     cont_rows, cont_thr = cand_rows, threshold
-    cand_rows, threshold = _trim_and_dedup(cand_rows, cand_vals, threshold, k_req, rescore_rows)
+    cand_rows, threshold = _trim_and_dedup(
+        cand_rows, cand_vals, threshold, k_req, rescore_rows, approx_select
+    )
 
     # -- bf16 rescore + per-candidate interval ----------------------------
     safe_rows = torch.clamp(cand_rows, max=n - 1).long()

@@ -5,6 +5,10 @@ PyTorch versions:
   counterpart of the Pallas TPU kernel
   ``trueno_rag_tpu/ops/pallas/scan_select_v2.py::scan_select_v3``. It
   scores ``bf16(m)·bf16(q)`` in f32.
+- ``scan_select_v3_indirect`` (the same source, a second entry point):
+  the bf16 scan over only a listed set of corpus tiles, read in place —
+  the cluster-pruned tier's selective fetch, counterpart of
+  ``scan_select_v2.py::scan_select_v3_indirect``.
 - ``scan_select_int8_v3`` (``csrc/scan_select_int8_v3.cu``): the int8
   scan, counterpart of ``scan_select_v2.py::scan_select_int8_v3``. It
   scores ``(f32(Σ q_i8·m_i8)·s_row)·t_q`` with an exact integer dot.
@@ -54,6 +58,7 @@ NVCC_FLAGS = [
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRY = {
     "scan_select_v3_launch": ("scan_select_v3.cu", [_P] * 13 + [_I] * 4 + [_P]),
+    "scan_select_v3_indirect_launch": ("scan_select_v3.cu", [_P] * 14 + [_I] * 6 + [_P]),
     "scan_select_int8_v3_launch": ("scan_select_int8_v3.cu", [_P] * 15 + [_I] * 4 + [_P]),
 }
 
@@ -182,9 +187,10 @@ def _check(q, m, dtype, d_mult, vectors, tags, t_top) -> None:
         raise InvalidConfigError(f"all inputs must be on one device, got {sorted(map(str, devices))}")
 
 
-def _launch(name: str, inputs, aligned, tags, b: int, d: int, n: int, t_top: int):
-    """Allocate the packs and launch entry point ``name`` on the current
-    stream of the inputs' device; raises if the launch is refused."""
+def _launch(name: str, inputs, aligned, tags, g_out: int, t_top: int, ints):
+    """Allocate the packs (``g_out`` selection-tile columns) and launch
+    entry point ``name`` on the current stream of the inputs' device with
+    the trailing int arguments ``ints``; raises if the launch is refused."""
     dev = inputs[0].device
     if dev.type != "cuda":
         raise InvalidConfigError(f"{name[:-7]} runs on cpu or cuda tensors, got {dev}")
@@ -194,14 +200,15 @@ def _launch(name: str, inputs, aligned, tags, b: int, d: int, n: int, t_top: int
     if any(t.data_ptr() % 16 for t in list(aligned) + tag_list[:1]):
         raise InvalidConfigError(f"{name[:-7]}: q, m and the per-row arrays must be 16-byte aligned")
     lib = _load()[name]
-    v_pack = torch.empty((b, t_top + 1, n // SEL), dtype=torch.float32, device=dev)
-    r_pack = torch.empty((b, t_top, n // SEL), dtype=torch.int32, device=dev)
+    b = inputs[0].shape[0]
+    v_pack = torch.empty((b, t_top + 1, g_out), dtype=torch.float32, device=dev)
+    r_pack = torch.empty((b, t_top, g_out), dtype=torch.int32, device=dev)
     tag_ptrs = [t.data_ptr() for t in tag_list] or [None] * 4
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, name)(
             *(t.data_ptr() for t in inputs), *tag_ptrs,
-            v_pack.data_ptr(), r_pack.data_ptr(), b, d, n, t_top, stream,
+            v_pack.data_ptr(), r_pack.data_ptr(), *ints, stream,
         )
     if err != 0:
         raise RuntimeError(f"{name[:-7]} kernel launch failed: cudaError {err}")
@@ -231,13 +238,72 @@ def scan_select_v3(
     eb, ab = block_bound_maxes(e_l2, a_l2)
     out = _launch(
         "scan_select_v3_launch", (q_bf16, m_bf16, eb, ab, valid_i32, u_q, v_q),
-        (q_bf16, m_bf16, valid_i32), tags, b, d, n, t_top,
+        (q_bf16, m_bf16, valid_i32), tags, n // SEL, t_top, (b, d, n, t_top),
     )
     scan_select_v3.launches += 1
     return out
 
 
 scan_select_v3.launches = 0
+
+
+def scan_select_v3_indirect(
+    q_bf16: torch.Tensor,  # [B, d] bf16 (pre-normalized for cosine)
+    m_bf16: torch.Tensor,  # [N, d] bf16, N a multiple of tile_n
+    e_l2: torch.Tensor,  # [N] f32
+    a_l2: torch.Tensor,  # [N] f32
+    valid_i32: torch.Tensor,  # [N] int32 (0/1)
+    u_q: torch.Tensor,  # [B] f32, >= 0
+    v_q: torch.Tensor,  # [B] f32, >= 0
+    tile_ids: torch.Tensor,  # [G] int32 — corpus tiles to scan; >= N/tile_n pads
+    tile_n: int = 2048,
+    t_top: int = TILE_T,
+    tags: Optional[Tuple[torch.Tensor, ...]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 scan over only the ``G`` corpus tiles of ``tile_n`` rows
+    listed in ``tile_ids``, read in place → (v_pack [B, T+1, G·tile_n/1024]
+    f32, r_pack [B, T, G·tile_n/1024] int32 GLOBAL rows). Counterpart of
+    ``scan_select_v2.py::scan_select_v3_indirect``: output column j covers
+    part j mod (tile_n/1024) of tile ``tile_ids[j // (tile_n/1024)]``; a
+    pad slot scores -inf everywhere and emits rows from its unclamped id,
+    which the tail's sentinel handling drops. The bound corrections use
+    the whole corpus's block maxes.
+
+    CPU tensors run :func:`scan_select_v3_indirect_reference`; CUDA tensors
+    launch the kernel (counted in ``scan_select_v3_indirect.launches``) or
+    raise."""
+    _check_indirect(q_bf16, m_bf16, e_l2, a_l2, valid_i32, u_q, v_q, tile_ids, tile_n, t_top, tags)
+    if q_bf16.device.type == "cpu":
+        return scan_select_v3_indirect_reference(
+            q_bf16, m_bf16, e_l2, a_l2, valid_i32, u_q, v_q, tile_ids, tile_n, t_top, tags
+        )
+    b, d = q_bf16.shape
+    n = m_bf16.shape[0]
+    g = tile_ids.shape[0]
+    eb, ab = block_bound_maxes(e_l2, a_l2)
+    out = _launch(
+        "scan_select_v3_indirect_launch", (q_bf16, m_bf16, eb, ab, valid_i32, u_q, v_q, tile_ids),
+        (q_bf16, m_bf16, valid_i32), tags, g * (tile_n // SEL), t_top, (b, d, n, t_top, tile_n, g),
+    )
+    scan_select_v3_indirect.launches += 1
+    return out
+
+
+scan_select_v3_indirect.launches = 0
+
+
+def _check_indirect(q_bf16, m_bf16, e_l2, a_l2, valid_i32, u_q, v_q, tile_ids, tile_n, t_top, tags):
+    _check_v3(q_bf16, m_bf16, e_l2, a_l2, valid_i32, u_q, v_q, t_top, tags)
+    n = m_bf16.shape[0]
+    if tile_n < SEL or tile_n % SEL or n % tile_n:
+        raise InvalidConfigError(f"tile_n must be a multiple of {SEL} dividing N={n}, got {tile_n}")
+    if tile_ids.dtype != torch.int32 or tile_ids.dim() != 1 or tile_ids.shape[0] < 1:
+        raise InvalidConfigError(f"tile_ids must be a non-empty int32 vector, got {tile_ids.dtype} "
+                                 f"{tuple(tile_ids.shape)}")
+    if tile_ids.shape[0] * (tile_n // SEL) > 65535:
+        raise InvalidConfigError("at most 65,535 selection tiles per call")
+    if tile_ids.device != q_bf16.device:
+        raise InvalidConfigError("tile_ids must be on the inputs' device")
 
 
 def _check_v3(q_bf16, m_bf16, e_l2, a_l2, valid_i32, u_q, v_q, t_top, tags) -> None:
@@ -285,7 +351,7 @@ def scan_select_int8_v3(
     eb, ab = block_bound_maxes(e_l2, a_l2)
     out = _launch(
         "scan_select_int8_v3_launch", (q_i8, m_i8, s_row, eb, ab, valid_i32, t_q, u_q, v_q),
-        (q_i8, m_i8, s_row, valid_i32), tags, b, d, n, t_top,
+        (q_i8, m_i8, s_row, valid_i32), tags, n // SEL, t_top, (b, d, n, t_top),
     )
     scan_select_int8_v3.launches += 1
     return out
@@ -364,6 +430,34 @@ def scan_select_v3_reference(
     _check_v3(q_bf16, m_bf16, e_l2, a_l2, valid_i32, u_q, v_q, t_top, tags)
     s = _mask(m_bf16.float() @ q_bf16.float().T, valid_i32, tags)  # [N, B]
     return _select_reference(s, e_l2, a_l2, u_q, v_q, t_top)
+
+
+def scan_select_v3_indirect_reference(
+    q_bf16, m_bf16, e_l2, a_l2, valid_i32, u_q, v_q, tile_ids, tile_n: int = 2048,
+    t_top: int = TILE_T, tags=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the tile-indirect kernel, on any device:
+    the listed tiles gathered (ids clamped into range, pad slots marked
+    invalid), :func:`scan_select_v3_reference`'s scoring and
+    :func:`_select_reference` on the copy, then each local row mapped to
+    ``tile_ids[slot]·tile_n + offset`` with the unclamped id."""
+    _check_indirect(q_bf16, m_bf16, e_l2, a_l2, valid_i32, u_q, v_q, tile_ids, tile_n, t_top, tags)
+    n, d = m_bf16.shape
+    n_tiles = n // tile_n
+    sel = tile_ids.long()
+    ok = (sel >= 0) & (sel < n_tiles)
+    ids = sel.clamp(0, n_tiles - 1)
+
+    def gather(x):  # [N, ...] → the listed tiles, [G·tile_n, ...]
+        return x.view(n_tiles, tile_n, *x.shape[1:])[ids].reshape(-1, *x.shape[1:])
+
+    valid_sel = (gather(valid_i32).view(-1, tile_n) * ok[:, None]).reshape(-1)
+    tags_sel = None if tags is None else (gather(tags[0]),) + tuple(tags[1:])
+    s = _mask(gather(m_bf16).float() @ q_bf16.float().T, valid_sel, tags_sel)
+    v_pack, r_pack = _select_reference(s, gather(e_l2), gather(a_l2), u_q, v_q, t_top)
+    local = r_pack.long()
+    rows = sel[local // tile_n] * tile_n + local % tile_n
+    return v_pack, rows.to(torch.int32)
 
 
 def scan_select_int8_v3_reference(
