@@ -57,7 +57,32 @@ Run from the repository root. Phases, each fatal on failure:
    generated on the card from their ids (its greedy fill held to, and
    timed against, the plain sequential loop), then the pruned op at B = 8 with
    fetch dma and gather (identical results, certified sets exact) against
-   the full compact stream, with a torch.profiler trace of each fetch.
+   the full compact stream, with a torch.profiler trace of each fetch;
+10. kernels-K4 (run after phase 7): K4 ``block_attention`` against its
+   plain version at (a) BH = 32, T = 8192, hd = 128, causal, half the rows
+   without their last 1,000 keys, (b) the Nemotron ingest shape, 8 rows x
+   32 heads at T = 1024 with ragged masks and an all-PAD row (which must
+   equal the mean of V), (c) T = 528, hd = 64, causal and not: every
+   element within 2^-7 x max|V| of its head, the mean within 2^-12; times
+   beside the plain version, SDPA with the same boolean mask and SDPA
+   ``is_causal``;
+11. nemotron-8k: ``NemotronEmbedder(NemotronConfig.full())`` (4096-d, 32
+   layers, 32 heads, MLP 14,336, seeded bf16 weights on the card) embeds 8
+   texts of 8,190 words (T = 8192, 32 K4 launches): tokens/s, peak
+   memory, K4's share of device time (torch.profiler), unit norms, two
+   calls bit-identical, and a 600-word text padded into an 8k batch equal
+   to itself alone (T = 608, cosine >= 0.999);
+12. nemotron-rag: a RagPipeline over that embedder ingests 512 one-chunk
+   documents of 990-1,022 words (K4 in every layer of every batch) and
+   answers 8 batches of 8 short queries (the materialized path): dense
+   top-5 equal to the float64 exact top-5, fusion equal to the host oracle;
+13. encoder-1M: ``EncoderEmbedder(EncoderConfig.minilm_l6())`` through
+   ``index_documents`` over 1,048,576 documents like slice 1's; 4 batches
+   of 256 staged on the bf16 tier (K1), one batch with ``fused=True`` over
+   the fp32 matrix and 32 queries with ``fused=True`` on a compact bf16r
+   store of the same rows (K1 + the host patch), every dense set equal to
+   the exact path; then the cross-encoder reranks 32 queries x 50
+   candidates.
 
 The last two lines of standard output are JSON: the per-kernel record, then
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
@@ -67,6 +92,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -106,7 +132,21 @@ K5_LIVE, K5_PADS = 120, 8  # the tile list at kernels-K5: 128 entries
 N_CL_STREAM = 10 * (1 << 20)  # 10,485,760 rows = 2,560 tiles: the tier's design point
 CL_PROBE = 16
 CL_STREAM_K = 10
+# slice 4: K4 and the neural embedders
+K4_TOL_MAX = 2.0**-7  # one flipped bf16 rounding of a probability plus the output's own rounding
+K4_TOL_MEAN = 2.0**-12
+K4_A = (32, 8192, 128)  # BH, T, hd: the 8k context, 32 heads of one text
+K4_B = (8, 32, 1024)  # rows, heads, T: a Nemotron ingest batch (hd 128)
+K4_C = (64, 528, 64)  # BH, T, hd: T no multiple of the 64-row tile
+NEMO_B = 8  # texts per 8k batch (the embedder's batch size)
+NEMO_WORDS = 8190  # + [CLS] and [SEP] = T 8192, the full context
+NR_DOCS = 512  # nemotron-rag: ~1,000-word one-chunk documents
+NR_QUERY_BATCHES = 8
+CP_QUERIES = 32  # the fused compact batch: its uncertified queries are patched on the host
+CE_QUERIES = 32
+CE_CANDIDATES = 50
 # H100 SXM peaks (NVIDIA data sheet) for the kernels' bounds
+BF16_FLOP_PER_S = 989e12  # tensor cores, dense: K4's products
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12  # CUDA-core FMA: K1's certified f32 accumulation
 INT8_OP_PER_S = 1979e12  # tensor cores: K3's exact integer dot
@@ -160,7 +200,7 @@ def phase_device():
     import torch
 
     from trueno_rag_tpu_torch.ops.dense import require_fp32
-    from trueno_rag_tpu_torch.ops.kernels import scan_select as ks
+    from trueno_rag_tpu_torch.ops.kernels import build
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -173,9 +213,9 @@ def phase_device():
     check(not torch.backends.cudnn.allow_tf32, "TF32 cudnn is on")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    ks.build_library(force=True)
+    build.build_library(force=True)
     log(f"kernel build (parallel nvcc): {time.perf_counter() - t0:.1f} s")
-    for line in ks.build_log.splitlines():
+    for line in build.build_log.splitlines():
         if line.startswith("==") or "registers" in line or "spill" in line or "smem" in line:
             log(f"  nvcc: {line.strip()}")
 
@@ -992,14 +1032,16 @@ def phase_kernels_k5(seed: int):
             "bound_by": k5_bound[1], "library_ms": None}
 
 
-def device_profile(fn, label: str, reps: int = 3) -> None:
-    """Trace ``reps`` calls of ``fn`` with torch.profiler → log the host-clock
-    time per call (tracing included), the device's busy and idle shares of
-    it, and the device ops that took the most time."""
+def device_profile(fn, label: str, reps: int = 3, warm: bool = True):
+    """Trace ``reps`` calls of ``fn`` with torch.profiler (after one untraced
+    call if ``warm``) → log the host-clock time per call (tracing included),
+    the device's busy and idle shares of it, and the device ops that took
+    the most time; return [(device ms per call, calls per call, name)]."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1011,13 +1053,16 @@ def device_profile(fn, label: str, reps: int = 3) -> None:
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         us = getattr(e, "self_cuda_time_total", 0.0) if us is None else us
-        if us > 0:
+        # host-side entries (aten:: ops, the runtime's "Command Buffer Full")
+        # carry their kernels' device time again: count the kernels only
+        if us > 0 and not e.key.startswith("aten::") and e.key != "Command Buffer Full":
             rows.append((us / 1e3 / reps, e.count / reps, e.key))
     busy = sum(r[0] for r in rows)
     log(f"{label}: {wall:.3f} ms per call traced (host clock); device busy {busy:.3f} ms = {busy / wall:.1%}, "
         f"idle {1 - busy / wall:.1%}")
     for ms, count, key in sorted(rows, reverse=True)[:8]:
         log(f"  device {ms:.3f} ms, {count:g} per call: {key[:100]}")
+    return rows
 
 
 def exact_sets(q, m, valid, k):
@@ -1400,6 +1445,375 @@ def phase_clustered_stream(seed: int) -> None:
     torch.cuda.empty_cache()
 
 
+def k4_inputs(bh: int, t: int, hd: int, lengths, gen):
+    """Seeded bf16 q, k, v [bh, t, hd] on the card and a right-padded key
+    mask with the given per-row lengths."""
+    import torch
+
+    q, k, v = (torch.randn(bh, t, hd, device=DEV, generator=gen).to(torch.bfloat16) for _ in range(3))
+    lengths = torch.as_tensor(lengths, device=DEV)
+    mask = torch.arange(t, device=DEV)[None, :] < lengths[:, None]
+    return q, k, v, mask
+
+
+def compare_k4(got, want, v, heads: int, label: str):
+    """The kernel against its plain version: every element within
+    K4_TOL_MAX·max|V| of its head, the mean within K4_TOL_MEAN·max|V|, no
+    NaN → the largest error as a share of its head's max|V|."""
+    import torch
+
+    check(bool(torch.isfinite(got.float()).all()), f"{label}: non-finite kernel output")
+    scale = v.float().abs().amax(dim=(1, 2))  # [BH]
+    err = (got.float() - want.float()).abs() / scale[:, None, None]
+    worst, mean = err.max().item(), err.mean().item()
+    log(f"{label}: max |kernel - plain| {worst:.3e} x max|V| (tolerance {K4_TOL_MAX:.3e}), "
+        f"mean {mean:.3e} (tolerance {K4_TOL_MEAN:.3e})")
+    check(worst <= K4_TOL_MAX, f"{label}: an element differs by {worst} x max|V|")
+    check(mean <= K4_TOL_MEAN, f"{label}: the mean difference is {mean} x max|V|")
+    return worst
+
+
+def phase_kernels_k4(seed: int):
+    """K4 against its plain version at (a) the 8k shape, (b) the Nemotron
+    ingest shape with ragged masks and an all-PAD row, (c) a ragged T; its
+    times beside the plain version, SDPA and the bound → the K4 record."""
+    import torch
+    import torch.nn.functional as F
+
+    from trueno_rag_tpu_torch.ops.kernels.attention import block_attention, block_attention_reference
+
+    gen = torch.Generator(device=DEV).manual_seed(seed + 11)
+    src = "trueno_rag_tpu_torch/csrc/block_attention.cu"
+
+    # (a) BH = 32, T = 8192, hd = 128, causal; half the rows lose their last 1000 keys
+    bh, t, hd = K4_A
+    q, k, v, mask = k4_inputs(bh, t, hd, [t - 1000 if i % 2 else t for i in range(bh)], gen)
+    got = block_attention(q, k, v, mask, causal=True)
+    torch.cuda.synchronize()
+    want = block_attention_reference(q, k, v, mask, causal=True)
+    err_a = compare_k4(got, want, v, 1, f"K4 (a) BH={bh} T={t} hd={hd} causal")
+    del got, want
+    ms_a = cuda_ms(lambda: block_attention(q, k, v, mask, causal=True), 5)
+    plain_a = cuda_ms(lambda: block_attention_reference(q, k, v, mask, causal=True), 2)
+    ms_a2 = cuda_ms(lambda: block_attention(q, k, v, mask, causal=True), 5)
+    keep = mask[:, None, :] & torch.ones(t, t, dtype=torch.bool, device=DEV).tril()[None]  # [BH, T, T]
+    qs, ks_, vs = (x[None] for x in (q, k, v))  # [1, BH, T, hd]: heads on dim 1
+    lib_a = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks_, vs, attn_mask=keep[None]), 3)
+    del keep
+    flash_a = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks_, vs, is_causal=True), 5)
+    flop_a = 2.0 * bh * t * t * hd  # the causal half of one pass's two products
+    bound_a = bound(4 * bh * t * hd * 2 + bh * t, flop_a, BF16_FLOP_PER_S)
+    log(f"K4 (a): kernel {ms_a:.3f} / {ms_a2:.3f} ms, plain {plain_a:.3f} ms, SDPA with the boolean "
+        f"causal-and-key mask {lib_a:.3f} ms, SDPA is_causal (no key mask) {flash_a:.3f} ms (median, CUDA "
+        f"events); bound {bound_a[0]:.3f} ms ({bound_a[1]})")
+    log(f"  K4 (a) rate {3 * 2.0 * bh * t * t * hd / (min(ms_a, ms_a2) * 1e-3) / 1e12:.1f} TFLOP/s bf16 "
+        f"(the kernel's three full products / time)")
+    del q, k, v, mask, qs, ks_, vs
+
+    # (b) the Nemotron ingest shape: B = 8 rows x 32 heads, T = 1024, one all-PAD row
+    b, heads, t = K4_B
+    lengths = [t, t - 14, t - 21, 0, t - 7, t - 26, t, t - 16][:b]
+    q, k, v, mask = k4_inputs(b * heads, t, hd, lengths, gen)
+    got = block_attention(q, k, v, mask, causal=True, heads=heads)
+    torch.cuda.synchronize()
+    want = block_attention_reference(q, k, v, mask, causal=True, heads=heads)
+    compare_k4(got, want, v, heads, f"K4 (b) BH={b * heads} T={t} ragged, all-PAD row 3")
+    pad = slice(3 * heads, 4 * heads)  # no kept key: the plain mean of V over T keys
+    mean_v = v[pad].float().mean(dim=1, keepdim=True).expand(-1, t, -1)
+    compare_k4(got[pad], mean_v, v[pad], 1, "K4 (b) all-PAD row against the mean of V")
+    ms_b = cuda_ms(lambda: block_attention(q, k, v, mask, causal=True, heads=heads), 10)
+    plain_b = cuda_ms(lambda: block_attention_reference(q, k, v, mask, causal=True, heads=heads), 3)
+    bound_b = bound(4 * b * heads * t * hd * 2 + b * t, 2.0 * b * heads * t * t * hd, BF16_FLOP_PER_S)
+    log(f"K4 (b): kernel {ms_b:.3f} ms, plain {plain_b:.3f} ms (median, CUDA events); bound "
+        f"{bound_b[0]:.3f} ms ({bound_b[1]})")
+    del q, k, v, mask, got, want
+
+    # (c) T = 528 (no multiple of 64 or 128), hd = 64, both causal values
+    bh, t, hd = K4_C
+    for causal in (True, False):
+        q, k, v, mask = k4_inputs(bh, t, hd, [t - 7 * i for i in range(bh - 1)] + [0], gen)
+        got = block_attention(q, k, v, mask, causal=causal)
+        torch.cuda.synchronize()
+        compare_k4(got, block_attention_reference(q, k, v, mask, causal=causal), v, 1,
+                   f"K4 (c) BH={bh} T={t} hd={hd} causal={causal}")
+    del q, k, v, mask, got
+    torch.cuda.empty_cache()
+    return {"name": "block_attention", "route": "cuda", "source": src,
+            "replaces": "trueno_rag_tpu/ops/pallas/attention.py:70", "max_abs_err": err_a,
+            "ms": min(ms_a, ms_a2), "plain_ms": plain_a, "bound_ms": bound_a[0], "bound_by": bound_a[1],
+            "library_ms": lib_a}
+
+
+def long_texts(rng, n: int, lo: int, hi: int):
+    """``n`` texts of lo..hi words from the slice's vocabulary."""
+    import numpy as np
+
+    words = np.array([f"w{i:05d}" for i in range(VOCAB)])
+    return [" ".join(words[rng.integers(0, VOCAB, size=int(ln))]) for ln in rng.integers(lo, hi + 1, size=n)]
+
+
+def phase_nemotron_8k(seed: int):
+    """Nemotron at full width on 8 texts of 8,190 words (T = 8192) →
+    (embedder, K4 launches)."""
+    import numpy as np
+    import torch
+
+    import trueno_rag_tpu_torch as rag
+    from trueno_rag_tpu_torch.ops.kernels.attention import block_attention
+
+    cfg = rag.NemotronConfig.full()
+    t0 = time.perf_counter()
+    emb = rag.NemotronEmbedder(config=cfg, seed=seed, device=DEV)
+    torch.cuda.synchronize()
+    log(f"nemotron full ({cfg.hidden_dim}-d, {cfg.num_layers} layers, {cfg.num_heads} heads, MLP {cfg.mlp_dim}, "
+        f"vocab {cfg.vocab_size}): seeded bf16 weights on the card in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    rng = np.random.default_rng(seed + 12)
+    texts = long_texts(rng, NEMO_B, NEMO_WORDS, NEMO_WORDS)
+    ids = emb.tokenizer.encode_batch(texts)
+    check(ids.shape == (NEMO_B, cfg.max_len), f"token batch {ids.shape}, expected ({NEMO_B}, {cfg.max_len})")
+    # the first call (library set-up included) is traced for K4's share
+    rows = device_profile(lambda: emb.embed_batch(texts), "nemotron-8k profile (first batch)", reps=1, warm=False)
+    busy = sum(r[0] for r in rows)
+    k4 = sum(r[0] for r in rows if "block_attention" in r[2])
+    log(f"nemotron-8k: K4 {k4:.1f} ms of {busy:.1f} ms device time = {k4 / busy:.1%}")
+    out = emb.embed_batch(texts)
+    torch.cuda.reset_peak_memory_stats()
+    block_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out2 = emb.embed_batch(texts)
+    torch.cuda.synchronize()
+    dt_s = time.perf_counter() - t0
+    launches = block_attention.launches  # the rest of the phase keeps counting
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == cfg.num_layers, f"K4 launched {launches} times in one 8k batch, expected {cfg.num_layers}")
+    check(out2.shape == (NEMO_B, cfg.hidden_dim) and np.isfinite(out2).all(), "nemotron-8k: malformed embeddings")
+    norms = np.linalg.norm(out2, axis=1)
+    check(bool((np.abs(norms - 1.0) <= 1e-3).all()), f"nemotron-8k: norms {norms}")
+    check(np.array_equal(out, out2), "nemotron-8k: two calls differ")
+    tokens = int((ids != 0).sum())
+    log(f"nemotron-8k: B={NEMO_B} T={ids.shape[1]}: {dt_s:.2f} s = {tokens / dt_s:.0f} tokens/s (host clock, "
+        f"synchronized); K4 launches {launches}; peak allocated {peak / 2**30:.2f} GiB; norms within "
+        f"{np.abs(norms - 1).max():.1e} of 1; two calls bit-identical")
+
+    # a short text padded into an 8k batch (block path, ragged T = 608 alone)
+    short = long_texts(rng, 1, 600, 600)[0]
+    together = emb.embed_batch([short, texts[0]])
+    alone = emb.embed_batch([short])
+    check(emb.tokenizer.encode_batch([short]).shape[1] == 608, "the short text is not T = 608")
+    cos = float(together[0] @ alone[0])
+    log(f"nemotron-8k: a 600-word text in an 8k batch vs alone (T=608, block path): cosine {cos:.6f}")
+    check(cos >= 0.999, f"nemotron-8k: padded and alone differ (cosine {cos})")
+    return emb, block_attention.launches
+
+
+def phase_nemotron_rag(emb, seed: int) -> int:
+    """A RagPipeline over the full-width Nemotron embedder: ingest ~1,000-word
+    documents (block path), answer short queries (naive path) → K4 launches."""
+    import numpy as np
+    import torch
+
+    import trueno_rag_tpu_torch as rag
+    from trueno_rag_tpu_torch.ops.kernels.attention import block_attention
+
+    rng = np.random.default_rng(seed + 13)
+    docs = [rag.Document(t, id=f"ndoc{i}") for i, t in enumerate(long_texts(rng, NR_DOCS, 990, 1022))]
+    pipe = (
+        rag.RagPipelineBuilder()
+        .with_embedder(emb)
+        .with_reranker(rag.LexicalReranker())
+        .with_chunker(rag.RecursiveChunker(chunk_size=16384, overlap=0))
+        .with_device(DEV)
+        .build()
+    )
+    block_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_chunks = pipe.index_documents(docs)
+    torch.cuda.synchronize()
+    t_ingest = time.perf_counter() - t0
+    launches = block_attention.launches
+    check(n_chunks == NR_DOCS, f"nemotron-rag: {n_chunks} chunks for {NR_DOCS} documents")
+    tokens = sum(len(emb.tokenizer.encode(d.content)) for d in docs)
+    n_batches = -(-NR_DOCS // emb.batch_size)
+    log(f"nemotron-rag ingest: {n_chunks} chunks, {tokens} tokens in {t_ingest:.1f} s = {n_chunks / t_ingest:.1f} "
+        f"chunks/s, {tokens / t_ingest:.0f} tokens/s (host clock); K4 launches {launches} "
+        f"({n_batches} batches x {emb.nemotron_config.num_layers} layers)")
+    check(launches == n_batches * emb.nemotron_config.num_layers, "nemotron-rag: K4 did not run every ingest layer")
+
+    retr = pipe.retriever
+    store = retr.vector_store
+    words = np.array([f"w{i:05d}" for i in range(VOCAB)])
+    batches = [[" ".join(words[rng.integers(0, VOCAB, size=int(n))]) for n in rng.integers(3, 13, size=8)]
+               for _ in range(NR_QUERY_BATCHES)]
+    pipe.query_with_context_batch(batches[0], k=K)  # warm-up
+    block_attention.launches = 0
+    lat = []
+    for qs in batches:
+        t0 = time.perf_counter()
+        contexts = pipe.query_with_context_batch(qs, k=K)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        check_contexts(contexts, n=len(qs))
+    check(block_attention.launches == 0, "nemotron-rag: short queries took the block path")
+    log(f"nemotron-rag queries: {len(batches)} batches of 8, median {sorted(lat)[len(lat) // 2] * 1e3:.1f} ms per "
+        f"batch, {8 * len(lat) / sum(lat):.1f} queries/s (host clock, query_with_context_batch k={K}, naive path)")
+    host = store._host[store._valid].astype(np.float64)
+    for i, qs in enumerate(batches):
+        qv = np.asarray(emb.embed_queries(qs), dtype=np.float32)
+        s_t, r_t = store.search_arrays(qv, K)
+        qn = qv.astype(np.float64) / np.linalg.norm(qv.astype(np.float64), axis=1, keepdims=True)
+        s64 = qn @ host.T
+        want = np.lexsort((np.broadcast_to(np.arange(host.shape[0]), s64.shape), -s64), axis=1)[:, :K]
+        check(np.array_equal(r_t.cpu().numpy(), want), f"nemotron-rag batch {i}: dense top-{K} != float64 exact")
+        cand = retr.config.candidates_per_source
+        s_d, r_d = store.search_arrays(qv, cand)
+        s_s, r_s = retr.sparse_index.search_arrays(qs, cand)
+        check_fused(retr.config.fusion, r_d, s_d, r_s, s_s, f"nemotron-rag batch {i}")
+    log(f"nemotron-rag: dense top-{K} equal to the float64 exact top-{K} for all {8 * len(batches)} queries; "
+        f"fused lists match the host oracle")
+    return launches
+
+
+def phase_encoder_1m(seed: int) -> int:
+    """MiniLM-L6 through index_documents at 1M one-chunk documents, then the
+    staged bf16 tier (K1), the fused query over the fp32 matrix and the fused
+    compact query (K1 + host patch), then the cross-encoder → K1 launches."""
+    import numpy as np
+    import torch
+
+    import trueno_rag_tpu_torch as rag
+    from trueno_rag_tpu_torch.ops import hybrid as hy
+    from trueno_rag_tpu_torch.ops.dense import dense_topk
+    from trueno_rag_tpu_torch.ops.kernels.scan_select import scan_select_v3
+
+    rng = np.random.default_rng(seed + 14)
+    t0 = time.perf_counter()
+    docs = [rag.Document(t, id=f"edoc{i}") for i, t in enumerate(make_texts(rng, N_ROWS, DOC_WORDS))]
+    log(f"encoder-1M documents: {len(docs)} generated in {time.perf_counter() - t0:.1f} s")
+    emb = rag.EncoderEmbedder(config=rag.EncoderConfig.minilm_l6(), seed=seed, device=DEV)
+    pipe = (
+        rag.RagPipelineBuilder()
+        .with_embedder(emb)
+        .with_reranker(rag.LexicalReranker())
+        .with_vector_config(rag.VectorStoreConfig(dimension=emb.dimension, scan_tier="auto"))
+        .with_device(DEV)
+        .build()
+    )
+    retr = pipe.retriever
+    store = retr.vector_store
+    t0 = time.perf_counter()
+    n_chunks = pipe.index_documents(docs)
+    t_ingest = time.perf_counter() - t0
+    del docs
+    check(n_chunks == N_ROWS, f"encoder-1M: indexed {n_chunks} chunks")
+    check(store._effective_tier() == "bf16", f"encoder-1M: tier {store._effective_tier()!r}, expected 'bf16'")
+    log(f"encoder-1M ingest (chunk + MiniLM-L6 embed on the card + index): {n_chunks} chunks in {t_ingest:.1f} s = "
+        f"{n_chunks / t_ingest:.0f} chunks/s (host clock)")
+    retr.ensure_ready()
+    cand = retr.config.candidates_per_source
+    batches = query_batches(rng, N_BATCHES + 1)
+
+    def exact_rows(qs):
+        q = emb.embed_queries_device(qs)
+        return dense_topk(q, store.device_matrix, store.device_valid, cand, "cosine")[1]
+
+    # staged (fused=None on the bf16 tier): K1
+    pipe.query_with_context_batch(batches[0], k=K)  # warm-up
+    scan_select_v3.launches = 0
+    lat = []
+    for qs in batches[:N_BATCHES]:
+        t0 = time.perf_counter()
+        check_contexts(pipe.query_with_context_batch(qs, k=K))
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    launches = scan_select_v3.launches
+    check(launches >= N_BATCHES, f"encoder-1M staged: K1 launched {launches} times")
+    for i, qs in enumerate(batches[:N_BATCHES]):
+        _, r_t = store.search_arrays(np.asarray(emb.embed_queries(qs), np.float32), cand)
+        check(torch.equal(r_t, exact_rows(qs)), f"encoder-1M staged batch {i}: rows differ from the exact path")
+    log(f"encoder-1M staged (bf16 tier, K1 launches {launches}): median {sorted(lat)[len(lat) // 2] * 1e3:.1f} ms per "
+        f"batch of {BATCH}, {BATCH * len(lat) / sum(lat):.0f} queries/s; dense rows equal to the exact path")
+
+    # fused=True over the fp32 matrix (fused_hybrid_query)
+    qs = batches[N_BATCHES]
+    calls = []
+    fused = hy.fused_hybrid_query
+    hy.fused_hybrid_query = lambda *a, **kw: calls.append(1) or fused(*a, **kw)
+    try:
+        retr.config = dataclasses.replace(retr.config, fused=True)
+        retr.retrieve_batch(qs, 2 * K)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = retr.retrieve_batch(qs, 2 * K)
+        torch.cuda.synchronize()
+        t_fused = time.perf_counter() - t0
+    finally:
+        hy.fused_hybrid_query = fused
+        retr.config = dataclasses.replace(retr.config, fused=None)
+    check(len(calls) == 2 and len(res) == BATCH and all(res), "encoder-1M: the fused query did not run")
+    ids, bids, blo, bhi = retr._fused_preamble(qs)
+    out = fused(emb.params, ids, store.device_matrix, store.device_valid, bids, blo, bhi,
+                retr.sparse_index._snap["blocks"], encoder_config=emb.encoder_config, cand=cand, k=2 * K)
+    want = exact_rows(qs)
+    check(all(set(a) == set(b) for a, b in zip(out[2][:BATCH].tolist(), want.tolist())),
+          "encoder-1M fused: dense row sets differ from the exact path")
+    log(f"encoder-1M fused=True over the fp32 matrix: {t_fused * 1e3:.1f} ms per batch of {BATCH} = "
+        f"{BATCH / t_fused:.0f} queries/s (retrieve_batch, host clock); dense sets equal to the exact path")
+
+    # fused=True on a compact bf16r store of the same rows
+    cp = sibling_pipeline(pipe, rag.VectorStoreConfig(dimension=emb.dimension, scan_tier="compact",
+                                                      compact_scan="bf16r"))
+    cr = cp.retriever
+    cr.config = dataclasses.replace(retr.config, fused=True)
+    cr.ensure_ready()
+    cs = cr.vector_store
+    qs_c = qs[:CP_QUERIES]
+    patched = []
+    patch = cs._compact_exact_patch
+    cs._compact_exact_patch = lambda *a, **kw: patched.append(patch(*a, **kw)) or patched[-1]
+    scan_select_v3.launches = 0
+    t0 = time.perf_counter()
+    handle = cr.retrieve_batch_submit(qs_c, 2 * K)
+    res = cr.retrieve_batch_collect(handle)
+    torch.cuda.synchronize()
+    t_compact = time.perf_counter() - t0
+    n_k1 = scan_select_v3.launches  # the scan, plus any widened retry of the host patch
+    check(handle[0] == "fused_compact" and n_k1 >= 1, "encoder-1M: the fused compact query did not run K1")
+    launches += n_k1
+    b = len(qs_c)
+    ok = handle[1][6].cpu().numpy()[:b]
+    d_r = patched[-1][1] if patched else handle[1][2].cpu().numpy()
+    check(all(set(x) == set(y) for x, y in zip(d_r[:b].tolist(), exact_rows(qs_c).tolist())),
+          "encoder-1M fused compact: dense row sets (after the host patch) differ from the exact path")
+    check(len(res) == b and all(res), "encoder-1M fused compact: empty results")
+    log(f"encoder-1M fused=True on a compact bf16r store: {t_compact * 1e3:.1f} ms per batch of {b} = "
+        f"{b / t_compact:.0f} queries/s (submit + collect, first call, host clock); certified {int(ok.sum())}/{b} "
+        f"(the rest host-patched: {cs.compact_candidate_patched} by candidates, {cs.compact_gemm_patched} by "
+        f"GEMM); K1 launches {n_k1}; dense sets equal to the exact path")
+    del cp, cr, cs
+    torch.cuda.empty_cache()
+
+    # the cross-encoder reranks 32 queries x 50 candidates
+    ce = rag.CrossEncoderReranker(config=rag.EncoderConfig.minilm_l6(), seed=seed, device=DEV)
+    qs = batches[0][:CE_QUERIES]
+    cands = retr.retrieve_batch(qs, CE_CANDIDATES)
+    ce.rerank(qs[0], cands[0], K)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reranked = [ce.rerank(q, c, K) for q, c in zip(qs, cands)]
+    torch.cuda.synchronize()
+    t_ce = time.perf_counter() - t0
+    for r in reranked:
+        s = [x.rerank_score for x in r]
+        check(len(r) == K and all(0.0 < x < 1.0 for x in s) and s == sorted(s, reverse=True),
+              "cross-encoder: malformed rerank")
+    log(f"cross-encoder (MiniLM-L6 trunk) reranks {len(qs)} queries x {CE_CANDIDATES} candidates in "
+        f"{t_ce * 1e3:.1f} ms = {len(qs) * CE_CANDIDATES / t_ce:.0f} pairs/s (host clock)")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1414,12 +1828,21 @@ def main() -> int:
     phase_device()
     k1, k3 = phase_kernels(args.seed)
     k5 = phase_kernels_k5(args.seed)
+    k4 = phase_kernels_k4(args.seed)
     phase_tier(args.seed)
     pipe, k1["launches"] = phase_slice(args.seed)
     _, k3["launches"] = phase_stores(pipe, args.seed)
     k5["launches"] = phase_clustered_store(pipe, args.seed)
     del pipe
     phase_clustered_stream(args.seed)
+    emb, k4["launches"] = phase_nemotron_8k(args.seed)
+    k4["launches"] += phase_nemotron_rag(emb, args.seed)
+    del emb
+    gc.collect()
+    torch.cuda.empty_cache()
+    k1["launches"] += phase_encoder_1m(args.seed)
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest", "TF32 was turned on during the run")
     log(f"smoke wall time {time.perf_counter() - t_start:.0f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1428,7 +1851,7 @@ def main() -> int:
     log(f"nvidia-smi: {smi.stdout.strip()}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in (k1, k3, k5)]}))
+    print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in (k1, k3, k4, k5)]}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},

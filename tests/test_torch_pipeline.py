@@ -142,14 +142,15 @@ def test_retriever_from_jax_state_answers_like_jax():
 
 
 def test_unported_paths_raise():
-    from trueno_rag_tpu_torch.ops.tags import fused_hybrid_query_tagged
-
+    """The learned-sparse source is not ported; the fused path (ported,
+    tests/test_torch_fused.py) keeps the JAX package's contract that
+    fused=True needs an encoder embedder."""
     p = _pipeline(trag, "none", n=50)
-    with pytest.raises(trag.InvalidConfigError, match="ROADMAP"):
-        fused_hybrid_query_tagged()
-    p.retriever.config.fused = True
-    with pytest.raises(trag.QueryError, match="ROADMAP"):
-        p.retriever.retrieve_batch(QUERIES, K)
+    jp = _pipeline(jrag, "none", n=50)
+    for pipe, rag in ((p, trag), (jp, jrag)):
+        pipe.retriever.config.fused = True
+        with pytest.raises(rag.QueryError, match="fused=True requires"):
+            pipe.retriever.retrieve_batch(QUERIES, K)
     with pytest.raises(trag.InvalidConfigError, match="ROADMAP"):
         p.retriever.attach_learned_sparse(object())
 

@@ -1,12 +1,16 @@
 """trueno_rag_tpu_torch — the PyTorch + CUDA port of ``trueno_rag_tpu``.
 
 The hybrid RAG query path of the JAX package, for one NVIDIA H100:
-chunking, embedders, a device-resident dense store (exact fp32; the
-certified bf16 and int8 tile tiers; the compact tier, which keeps no
-fp32 matrix on the card), tag filters, block-table BM25, on-device rank
-fusion, reranking and context assembly with citations. The tile scans
-are the hand-written CUDA kernels in ``csrc/``. The JAX package stays the
-reference; this package imports ``torch`` and never ``jax``.
+chunking, embedders (hash, TF-IDF and the neural models of
+:mod:`~trueno_rag_tpu_torch.models`: the MiniLM/BGE-class encoder, the
+4096-d Nemotron-class embedder and the cross-encoder reranker), a
+device-resident dense store (exact fp32; the certified bf16 and int8 tile
+tiers; the compact and clustered tiers, which keep no fp32 matrix on the
+card), tag filters, block-table BM25, on-device rank fusion, the
+encoder-fused query path, reranking and context assembly with citations.
+The tile scans and the long-context attention are the hand-written CUDA
+kernels in ``csrc/``. The JAX package stays the reference; this package
+imports ``torch`` and never ``jax``.
 """
 
 from trueno_rag_tpu_torch.errors import (
@@ -81,6 +85,13 @@ from trueno_rag_tpu_torch.retrieve import (
     RetrievalResult,
     TagFilter,
 )
+from trueno_rag_tpu_torch.models import (
+    CrossEncoderReranker,
+    EncoderConfig,
+    EncoderEmbedder,
+    NemotronConfig,
+    NemotronEmbedder,
+)
 
 __version__ = "0.1.0"
 
@@ -134,6 +145,11 @@ __all__ = [
     "MockCrossEncoderReranker",
     "NoOpReranker",
     "Reranker",
+    "CrossEncoderReranker",
+    "EncoderConfig",
+    "EncoderEmbedder",
+    "NemotronConfig",
+    "NemotronEmbedder",
     "AssembledContext",
     "AssemblyStrategy",
     "Citation",

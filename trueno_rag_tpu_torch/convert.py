@@ -1,5 +1,7 @@
-"""State carried across: build the port's retriever from the JAX
-package's index state, given as plain Python and numpy objects.
+"""State carried across from the JAX package, given as plain Python and
+numpy objects: the retriever's index state (:func:`retriever_from_state`)
+and the models' parameters (:func:`encoder_params_from_jax`,
+:func:`nemotron_params_from_jax`, :func:`cross_encoder_params_from_jax`).
 
 The JAX package's ``HybridRetriever`` exposes everything needed:
 
@@ -22,9 +24,10 @@ bit for bit; any mutation before that build voids it.
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from trueno_rag_tpu_torch.chunking import Chunk
 from trueno_rag_tpu_torch.embed import Embedder
@@ -121,3 +124,47 @@ def retriever_from_state(
         }
     retr.sparse_index.load_state_dict(dict(bm25_state))
     return retr
+
+
+def _layered(params: Mapping[str, Any], layer_keys, matrices, device) -> Dict[str, Any]:
+    """JAX parameters (arrays; per-layer weights stacked on a leading
+    ``[L]`` axis) → the port's dict: one entry per layer under ``"layers"``,
+    the ``matrices`` in bf16, everything else f32, on ``device``."""
+    def put(x, dtype=torch.float32):
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(device=device, dtype=dtype)
+
+    out: Dict[str, Any] = {k: put(v) for k, v in params.items() if k not in layer_keys}
+    out["layers"] = [
+        {k: put(np.asarray(params[k])[i], torch.bfloat16 if k in matrices else torch.float32)
+         for k in layer_keys}
+        for i in range(np.asarray(params[layer_keys[0]]).shape[0])
+    ]
+    return out
+
+
+def encoder_params_from_jax(params: Mapping[str, Any], device) -> Dict[str, Any]:
+    """``init_encoder_params``' output of the JAX package (or a loaded
+    checkpoint) → :mod:`~trueno_rag_tpu_torch.models.encoder`'s layout. The
+    token and position tables stay f32."""
+    from trueno_rag_tpu_torch.models.encoder import LAYER_KEYS, MATRICES
+
+    return _layered(params, LAYER_KEYS, MATRICES, device)
+
+
+def cross_encoder_params_from_jax(params: Mapping[str, Any], device) -> Dict[str, Any]:
+    """The JAX cross-encoder's parameters (the encoder's plus the f32 head
+    ``score_w``/``score_b`` and an optional ``pooler_w``/``pooler_b``) →
+    :mod:`~trueno_rag_tpu_torch.models.cross_encoder`'s layout."""
+    return encoder_params_from_jax(params, device)
+
+
+def nemotron_params_from_jax(params: Mapping[str, Any], device) -> Dict[str, Any]:
+    """``init_nemotron_params``' output of the JAX package (or
+    ``load_nemotron_gguf``'s) → :mod:`~trueno_rag_tpu_torch.models.nemotron`'s
+    layout; the token table in bf16 (gathering it equals the JAX package's
+    cast after the gather)."""
+    from trueno_rag_tpu_torch.models.nemotron import LAYER_KEYS, MATRICES
+
+    out = _layered(params, LAYER_KEYS, MATRICES, device)
+    out["tok_emb"] = out["tok_emb"].to(torch.bfloat16)
+    return out

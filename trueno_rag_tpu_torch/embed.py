@@ -7,8 +7,8 @@ Capability-equivalent to the reference's ``src/embed.rs``: the
 ``TfIdfEmbedder`` (embed.rs:199-308) and the free similarity functions
 (embed.rs:310-342).
 
-Neural encoders subclass :class:`Embedder` so the whole pipeline is
-backend-agnostic (the JAX package's ``models`` are not ported yet).
+Neural encoders (:mod:`trueno_rag_tpu_torch.models`) subclass
+:class:`Embedder` so the whole pipeline is backend-agnostic.
 
 All embedders return host ``np.ndarray`` float32; device-resident
 matrices are owned by the indexes (``trueno_rag_tpu_torch.index``).

@@ -23,124 +23,24 @@ that fails the query's tag predicate (``ops/tags.py::tag_pred``) scores
 -inf before selection, like an invalid row.
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to
-the kernel, or the call raises. Each kernel source is built with its own
-``nvcc`` (all started together) at first use, into ``build/kernels/`` at
-the repository root.
+the kernel, or the call raises. The kernels are built at first use by
+:mod:`~trueno_rag_tpu_torch.ops.kernels.build`.
 """
 
 from __future__ import annotations
 
-import ctypes
-import os
-import shutil
-import subprocess
-import threading
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from trueno_rag_tpu_torch.errors import InvalidConfigError
+from trueno_rag_tpu_torch.ops.kernels.build import entry
 from trueno_rag_tpu_torch.ops.tags import tag_pred
 
 BLOCK = 128  # rows per bound block
 SEL = 1024  # rows per selection tile (one emitted candidate set)
 TILE_T = 8  # default candidates kept per tile
 MAX_T_TOP = 2 * (SEL // BLOCK)  # the tournament pool: 16 slots
-
-_PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_CSRC = os.path.join(_PKG, "csrc")
-_BUILD = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
-# each kernel's C entry point: name → (source, ctypes argument types)
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_ENTRY = {
-    "scan_select_v3_launch": ("scan_select_v3.cu", [_P] * 13 + [_I] * 4 + [_P]),
-    "scan_select_v3_indirect_launch": ("scan_select_v3.cu", [_P] * 14 + [_I] * 6 + [_P]),
-    "scan_select_int8_v3_launch": ("scan_select_int8_v3.cu", [_P] * 15 + [_I] * 4 + [_P]),
-}
-
-_libs: Optional[Dict[str, ctypes.CDLL]] = None
-_lib_lock = threading.Lock()
-build_log = ""  # nvcc's output (register and shared-memory use) of the last build
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    candidates = [os.path.join(home, "bin", "nvcc")] if home else []
-    candidates += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
-    for c in candidates:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME)")
-
-
-def _lib_path(source: str) -> str:
-    return os.path.join(_BUILD, f"libtrag_{os.path.splitext(source)[0]}.so")
-
-
-def build_library(force: bool = False) -> Dict[str, str]:
-    """Compile each kernel source in ``csrc/`` into its own shared library
-    unless an up-to-date build exists (newer than the source and every
-    ``.cuh``); returns {source: library path}. The ``nvcc`` processes run
-    together. Each library is written to a temporary name and renamed, so
-    concurrent processes never load a partial file."""
-    global build_log
-    headers = [os.path.join(_CSRC, f) for f in os.listdir(_CSRC) if f.endswith(".cuh")]
-    sources = sorted({src for src, _ in _ENTRY.values()})
-    paths = {src: _lib_path(src) for src in sources}
-    stale = [
-        src for src in sources
-        if force or not os.path.exists(paths[src]) or any(
-            os.path.getmtime(paths[src]) < os.path.getmtime(f)
-            for f in headers + [os.path.join(_CSRC, src)]
-        )
-    ]
-    if not stale:
-        return paths
-    os.makedirs(_BUILD, exist_ok=True)
-    nvcc = _nvcc()
-    procs = []
-    for src in stale:
-        tmp = f"{paths[src]}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, src)]
-        procs.append((src, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )))
-    logs, failed = [], []
-    for src, tmp, proc in procs:
-        try:
-            out, _ = proc.communicate(timeout=600)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            out, _ = proc.communicate()
-        logs.append(f"== {src}\n{out}")
-        if proc.returncode != 0:
-            failed.append(src)
-        else:
-            os.replace(tmp, paths[src])
-    build_log = "\n".join(logs)
-    if failed:
-        raise RuntimeError(f"nvcc failed for {failed}:\n{build_log}")
-    return paths
-
-
-def _load() -> Dict[str, ctypes.CDLL]:
-    global _libs
-    with _lib_lock:
-        if _libs is None:
-            paths = build_library()
-            libs = {}
-            for name, (src, argtypes) in _ENTRY.items():
-                lib = ctypes.CDLL(paths[src])
-                fn = getattr(lib, name)
-                fn.restype = ctypes.c_int
-                fn.argtypes = argtypes
-                libs[name] = lib
-            _libs = libs
-        return _libs
 
 
 def block_bound_maxes(e_l2: torch.Tensor, a_l2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -199,14 +99,14 @@ def _launch(name: str, inputs, aligned, tags, g_out: int, t_top: int, ints):
         raise InvalidConfigError(f"{name[:-7]} needs contiguous inputs")
     if any(t.data_ptr() % 16 for t in list(aligned) + tag_list[:1]):
         raise InvalidConfigError(f"{name[:-7]}: q, m and the per-row arrays must be 16-byte aligned")
-    lib = _load()[name]
+    fn = entry(name)
     b = inputs[0].shape[0]
     v_pack = torch.empty((b, t_top + 1, g_out), dtype=torch.float32, device=dev)
     r_pack = torch.empty((b, t_top, g_out), dtype=torch.int32, device=dev)
     tag_ptrs = [t.data_ptr() for t in tag_list] or [None] * 4
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, name)(
+        err = fn(
             *(t.data_ptr() for t in inputs), *tag_ptrs,
             v_pack.data_ptr(), r_pack.data_ptr(), *ints, stream,
         )

@@ -22,7 +22,6 @@ from typing import Tuple
 
 import torch
 
-from trueno_rag_tpu_torch.errors import InvalidConfigError
 from trueno_rag_tpu_torch.ops.bm25 import bm25_topk_blocks
 from trueno_rag_tpu_torch.ops.dense import NEG_INF, similarity_scores, topk_masked
 from trueno_rag_tpu_torch.ops.fusion import _sort_desc, fuse_topk
@@ -86,13 +85,39 @@ def filter_candidates_by_tags(
     return _sort_desc(rows, scores)
 
 
-def fused_hybrid_query_tagged(*args, **kwargs):
-    """The encoder-fused tagged query (encoder forward + filtered hybrid
-    in one program) needs the encoder, which is not ported yet."""
-    raise InvalidConfigError(
-        "fused_hybrid_query_tagged needs the encoder, which is not ported yet "
-        "(ROADMAP Queue 1: K4 block_attention with the models)"
+def fused_hybrid_query_tagged(
+    encoder_params,
+    token_ids: torch.Tensor,  # [B, T]
+    matrix: torch.Tensor,
+    valid_mask: torch.Tensor,
+    tag_bits: torch.Tensor,
+    t_all: torch.Tensor,
+    t_any: torch.Tensor,
+    t_none: torch.Tensor,
+    block_ids: torch.Tensor,
+    block_lo: torch.Tensor,
+    block_hi: torch.Tensor,
+    blocks: torch.Tensor,
+    encoder_config,
+    cand: int = 50,
+    k: int = 10,
+    metric: str = "cosine",
+    fusion_kind: str = "rrf",
+    fusion_param: float = 60.0,
+):
+    """Tag-filtered sibling of :func:`ops.hybrid.fused_hybrid_query`:
+    encoder forward + filtered dense top-c + BM25 top-c (post-filtered) +
+    fusion + final top-k → (f_rows [B,k], f_scores [B,k], d_rows, d_scores,
+    s_rows, s_scores)."""
+    from trueno_rag_tpu_torch.models.encoder import encoder_forward
+
+    q = encoder_forward(encoder_params, token_ids, encoder_config)
+    f_rows, f_scores, d_rows, d_scores, s_rows, s_scores = hybrid_query_arrays_tagged(
+        q, matrix, valid_mask, tag_bits, t_all, t_any, t_none,
+        block_ids, block_lo, block_hi, blocks,
+        cand=cand, metric=metric, fusion_kind=fusion_kind, fusion_param=fusion_param,
     )
+    return f_rows[:, :k], f_scores[:, :k], d_rows, d_scores, s_rows, s_scores
 
 
 def hybrid_query_arrays_tagged(

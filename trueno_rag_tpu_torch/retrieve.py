@@ -18,8 +18,15 @@ bf16 tile tiers; elsewhere the dense scores are masked before their
 top-k (:mod:`~trueno_rag_tpu_torch.ops.tags`). BM25 candidates are
 filtered after their top-k, before fusion.
 
-Not ported yet (each raises, see ROADMAP): the learned-sparse third
-source and the encoder-fused one-program path.
+With an :class:`~trueno_rag_tpu_torch.models.encoder.EncoderEmbedder` the
+query may take the encoder-fused path (:meth:`HybridRetriever.retrieve_batch_fused`):
+token ids go to the card, the encoder's output feeds the dense scan
+directly. ``HybridRetrieverConfig.fused`` selects it as the JAX package
+does: ``None`` takes it only on tier "none" (past the tier crossover the
+staged certified scan is faster), ``True`` forces it over the fp32 matrix
+or the compact bf16r replicas, ``False`` never takes it.
+
+Not ported yet (raises, see ROADMAP): the learned-sparse third source.
 """
 
 from __future__ import annotations
@@ -64,9 +71,9 @@ class RetrievalResult:
 @dataclass
 class HybridRetrieverConfig:
     """Reference defaults: 50 candidates per source, RRF(60) fusion,
-    both sources enabled. ``fused`` mirrors the JAX package's field; the
-    encoder-fused path it selects is not ported yet (``fused=True``
-    raises)."""
+    both sources enabled. ``fused``: the encoder-fused query path — None
+    (auto: fused on tier "none" with an encoder embedder), True (always;
+    raises where it cannot run) or False (never)."""
 
     candidates_per_source: int = 50
     fusion: FusionStrategy = field(default_factory=FusionStrategy.rrf)
@@ -231,10 +238,42 @@ class HybridRetriever:
         use_sparse = self.config.use_sparse
         if not use_dense and not use_sparse:
             raise QueryError("all retrieval sources disabled")
-        if self.config.fused is True:
-            raise QueryError("the encoder-fused path (fused=True) is not ported yet (ROADMAP)")
+        if self.config.fused is True and not (use_dense and use_sparse):
+            # a disabled source must not silently degrade the explicit
+            # fused contract to the staged path
+            raise QueryError(
+                "fused=True requires BOTH sources (use_dense and "
+                "use_sparse); disable fused or enable the source"
+            )
         if len(self.registry) == 0:
             return [[] for _ in queries]
+        if use_dense and use_sparse and self.config.fused is not False:
+            from trueno_rag_tpu_torch.models.encoder import EncoderEmbedder
+
+            if isinstance(self.embedder, EncoderEmbedder):
+                tier = self.vector_store._effective_tier()
+                if self.config.fused is True:
+                    if tier == "clustered":
+                        # the fused compact query reads the row-order
+                        # replicas; the clustered layout stages
+                        raise QueryError(
+                            "fused=True is not available on scan_tier='clustered' "
+                            "(leave fused=None; the staged path serves it)"
+                        )
+                    if self.vector_store.is_compact and tag_filter is not None:
+                        raise QueryError(
+                            "fused=True on a compact store does not support tag "
+                            "filters; leave fused=None (the staged compact path "
+                            "serves filters)"
+                        )
+                    return self.retrieve_batch_fused(queries, k, fusion=fusion, tag_filter=tag_filter)
+                # fused=None: the fused query scans the fp32 matrix — right
+                # below the tier crossover; once a scan tier is engaged the
+                # staged certified scan serves the query
+                if tier == "none":
+                    return self.retrieve_batch_fused(queries, k, fusion=fusion, tag_filter=tag_filter)
+            elif self.config.fused is True:
+                raise QueryError("fused=True requires an EncoderEmbedder")
         cand = self.config.candidates_per_source
         strategy = fusion or self.config.fusion
 
@@ -295,13 +334,16 @@ class HybridRetriever:
             s_scores, s_rows = self._sparse_candidates(queries, cand, masks)
             f_rows, f_scores = s_rows, s_scores
 
-        f_rows = f_rows.cpu().numpy()
-        f_scores = f_scores.cpu().numpy()
         d_maps = self._score_maps(d_rows, d_scores) if use_dense else [{}] * b
         s_maps = self._score_maps(s_rows, s_scores) if use_sparse else [{}] * b
+        return self._hydrate(b, k, f_rows.cpu().numpy(), f_scores.cpu().numpy(), d_maps, s_maps,
+                             fused_is_real=use_dense and use_sparse)
 
+    def _hydrate(self, b: int, k: int, f_rows, f_scores, d_maps, s_maps,
+                 fused_is_real: bool = True) -> List[List[RetrievalResult]]:
+        """The first ``b`` queries' final rows (host arrays, -1 = none) →
+        results with their per-source scores, at most ``k`` per query."""
         out: List[List[RetrievalResult]] = []
-        fused_is_real = use_dense and use_sparse
         for i in range(b):
             results: List[RetrievalResult] = []
             for row, score in zip(f_rows[i], f_scores[i]):
@@ -361,6 +403,185 @@ class HybridRetriever:
             {int(r): float(s) for r, s in zip(rows[i], scores[i]) if r >= 0}
             for i in range(rows.shape[0])
         ]
+
+    # -- the encoder-fused path -------------------------------------------------
+
+    def retrieve_batch_submit(self, queries: Sequence[str], k: int,
+                              fusion: Optional[FusionStrategy] = None,
+                              tag_filter=None):
+        """Two-phase retrieval, phase 1: launch the device work and return
+        without waiting for results; :meth:`retrieve_batch_collect` fetches,
+        patches and hydrates. The split applies on the fused compact path
+        (encoder embedder + compact bf16r store, no tag filter), so a
+        serving loop can overlap one batch's host patch with the next
+        batch's device scan; every other configuration completes inline
+        here. Do not mutate the index between submit and collect."""
+        from trueno_rag_tpu_torch.models.encoder import EncoderEmbedder
+
+        store = self.vector_store
+        splittable = (
+            self.config.fused is not False
+            and self.config.use_dense and self.config.use_sparse
+            and tag_filter is None
+            and bool(queries)
+            and len(self.registry) > 0
+            and store._effective_tier() == "compact"
+            and store.config.compact_scan == "bf16r"
+            and isinstance(self.embedder, EncoderEmbedder)
+        )
+        if splittable:
+            if any(not q.strip() for q in queries):
+                raise QueryError("empty query")
+            out, ctx = self._fused_compact_submit(queries, k, *self._fused_preamble(queries), fusion, None)
+            return ("fused_compact", out, ctx)
+        return ("done", self.retrieve_batch(queries, k, fusion=fusion, tag_filter=tag_filter), None)
+
+    def retrieve_batch_collect(self, handle) -> List[List[RetrievalResult]]:
+        """Two-phase retrieval, phase 2: the host side of a
+        :meth:`retrieve_batch_submit` (fetch, exact patch, hydration)."""
+        kind, payload, ctx = handle
+        if kind == "done":
+            return payload
+        return self._fused_compact_collect(payload, ctx)
+
+    def _fused_preamble(self, queries: Sequence[str]):
+        """Host half of the fused query: tokenize (the batch padded to a
+        power of two with all-PAD rows, as in the JAX package), refresh the
+        BM25 snapshot and build the block slot lists (padded queries get
+        none) → (token_ids, bids, blo, bhi) on the device."""
+        emb = self.embedder
+        ids = emb.tokenizer.encode_batch([emb.config.query_prefix + q for q in queries])
+        b_pad = 1
+        while b_pad < len(queries):
+            b_pad *= 2
+        if b_pad != ids.shape[0]:
+            ids = np.pad(ids, ((0, b_pad - ids.shape[0]), (0, 0)))
+        self.sparse_index._refresh_snapshot()
+        bids, blo, bhi = self.sparse_index.gather_block_tensors(
+            list(queries) + ["\0"] * (b_pad - len(queries))
+        )
+        return torch.from_numpy(ids).to(self.device), bids, blo, bhi
+
+    def retrieve_batch_fused(self, queries: Sequence[str], k: int,
+                             fusion: Optional[FusionStrategy] = None,
+                             tag_filter=None) -> List[List[RetrievalResult]]:
+        """The encoder-fused query path (needs an EncoderEmbedder):
+        tokenization and BM25 slot lists on the host, then encoder forward +
+        dense scan + BM25 + fusion + top-k on the card
+        (:func:`~trueno_rag_tpu_torch.ops.hybrid.fused_hybrid_query`, its
+        tagged sibling, or on a compact store
+        :func:`~trueno_rag_tpu_torch.ops.hybrid.fused_hybrid_query_compact`)."""
+        from trueno_rag_tpu_torch.models.encoder import EncoderEmbedder
+        from trueno_rag_tpu_torch.ops.dense import require_fp32
+
+        if not isinstance(self.embedder, EncoderEmbedder):
+            raise QueryError("fused path requires an EncoderEmbedder")
+        if not queries:
+            return []
+        if any(not q.strip() for q in queries):
+            raise QueryError("empty query")
+        if len(self.registry) == 0:
+            return [[] for _ in queries]
+        pre = self._fused_preamble(queries)
+        if self.vector_store.is_compact:
+            out, ctx = self._fused_compact_submit(queries, k, *pre, fusion, tag_filter)
+            return self._fused_compact_collect(out, ctx)
+        require_fp32()
+        emb, store = self.embedder, self.vector_store
+        token_ids, bids, blo, bhi = pre
+        strategy = fusion or self.config.fusion
+        kw = dict(
+            encoder_config=emb.encoder_config, cand=self.config.candidates_per_source, k=k,
+            metric=store.config.metric, fusion_kind=strategy.kind, fusion_param=strategy.device_param,
+        )
+        blocks = self.sparse_index._snap["blocks"]
+        if tag_filter is not None:
+            from trueno_rag_tpu_torch.ops.tags import fused_hybrid_query_tagged
+
+            b_pad = token_ids.shape[0]
+            masks = tuple(np.pad(m, (0, b_pad - len(queries)))
+                          for m in resolve_tag_filters(self.registry, tag_filter, len(queries)))
+            out = fused_hybrid_query_tagged(
+                emb.params, token_ids, store.device_matrix, store.device_valid,
+                store._device_tag_bits(), *self._device_masks(masks), bids, blo, bhi, blocks, **kw,
+            )
+        else:
+            from trueno_rag_tpu_torch.ops.hybrid import fused_hybrid_query
+
+            out = fused_hybrid_query(
+                emb.params, token_ids, store.device_matrix, store.device_valid,
+                bids, blo, bhi, blocks, **kw,
+            )
+        f_rows, f_scores, d_rows, d_scores, s_rows, s_scores = out
+        return self._hydrate(len(queries), k, f_rows.cpu().numpy(), f_scores.cpu().numpy(),
+                             self._score_maps(d_rows, d_scores), self._score_maps(s_rows, s_scores))
+
+    def _fused_compact_submit(self, queries, k, token_ids, bids, blo, bhi, fusion, tag_filter):
+        """Device half of the fused compact query: one launch sequence, no
+        host sync → (device outputs, ctx) for :meth:`_fused_compact_collect`."""
+        from trueno_rag_tpu_torch.ops.hybrid import fused_hybrid_query_compact
+
+        store = self.vector_store
+        if tag_filter is not None:
+            raise QueryError(
+                "the fused compact path does not support tag filters; "
+                "use the staged path (fused=None)"
+            )
+        if store._effective_tier() != "compact" or store.config.compact_scan != "bf16r":
+            # the fused compact query takes the six bf16r replica arrays in
+            # row order; other layouts would misalign them
+            raise QueryError(
+                "the fused compact path requires scan_tier='compact' with "
+                f"compact_scan='bf16r' (store has {store._effective_tier()!r}, "
+                f"{store.config.compact_scan!r}); use the staged path (fused=None)"
+            )
+        store._refresh_device()  # materialize the compact replicas
+        cand = self.config.candidates_per_source
+        strategy = fusion or self.config.fusion
+        out = fused_hybrid_query_compact(
+            self.embedder.params, token_ids, *store._tier, store._device_valid, bids, blo, bhi,
+            self.sparse_index._snap["blocks"], encoder_config=self.embedder.encoder_config,
+            cand=cand, k=k, metric=store.config.metric, fusion_kind=strategy.kind,
+            fusion_param=strategy.device_param, tile_n=store.config.scan_tile_n,
+        )
+        return out, (list(queries), k, cand, strategy)
+
+    def _fused_compact_collect(self, out, ctx) -> List[List[RetrievalResult]]:
+        """Host half of the fused compact query: fetch, the store's staged
+        exact patch of uncertified queries (candidate containment → widened
+        retry → host GEMM, using the query's own encoder outputs), host
+        re-fusion of only the patched queries, hydration."""
+        queries, k, cand, strategy = ctx
+        store = self.vector_store
+        (f_rows, f_scores, d_rows, d_scores, s_rows, s_scores, ok, cand_rows, thr, qvecs) = out
+        b = len(queries)
+        f_rows, f_scores = f_rows.cpu().numpy().copy(), f_scores.cpu().numpy().copy()
+        ok_np = ok.cpu().numpy()[:b]
+        d_maps = self._score_maps(d_rows, d_scores)
+        s_maps = self._score_maps(s_rows, s_scores)
+        if not ok_np.all():
+            store.compact_uncertified += int((~ok_np).sum())
+            ok_pad = np.concatenate([ok_np, np.ones(d_rows.shape[0] - b, bool)])
+            d_s, d_r = store._compact_exact_patch(
+                qvecs, d_scores.cpu().numpy(), d_rows.cpu().numpy(), ok_pad, cand,
+                cand_rows.cpu().numpy(), thr.cpu().numpy(), None,
+                containment_retry=store.config.compact_retry is not False,
+            )
+            store.tier_fallbacks += 1
+            s_r, s_s = s_rows.cpu().numpy(), s_scores.cpu().numpy()
+            for qi in np.flatnonzero(~ok_np):
+                # the host fusion oracle over the exact dense list and the
+                # device BM25 list
+                dense_list = [(int(r), float(x)) for r, x in zip(d_r[qi], d_s[qi]) if r >= 0]
+                sparse_list = [(int(r), float(x)) for r, x in zip(s_r[qi], s_s[qi]) if r >= 0]
+                fused = strategy.fuse(dense_list, sparse_list)[:k]
+                f_rows[qi, :] = -1
+                f_scores[qi, :] = float("-inf")
+                for j, (rid, sc) in enumerate(fused):
+                    f_rows[qi, j] = rid
+                    f_scores[qi, j] = sc
+                d_maps[qi] = dict(dense_list)
+        return self._hydrate(b, k, f_rows, f_scores, d_maps, s_maps)
 
     def retrieve_dense(self, query: str, k: int) -> List[RetrievalResult]:
         """Vector-only retrieval."""
