@@ -35,7 +35,8 @@ Run from the repository root. Phases, each fatal on failure:
 6. stores on the same corpus (the slice's rows, chunks and BM25 index,
    not ingested again): ``scan_tier="int8"`` (exact) and
    ``scan_tier="compact"`` in the layouts bf16rr, bf16, int8 and bf16r
-   (exact sets after the host patch) answer 1 batch of 256 through
+   (exact sets after the host patch) answer 1 batch of 256 (32 on compact
+   int8, whose host patch costs ~0.25 s a query) through
    ``query_with_context_batch(k=5)``; then every chunk gets one of 4 tags
    by row and the compact bf16r store and the bf16 tile store answer a
    batch filtered ``all=["t1"]`` and one filtered ``none=["t0"]``;
@@ -82,7 +83,33 @@ Run from the repository root. Phases, each fatal on failure:
    the fp32 matrix and 32 queries with ``fused=True`` on a compact bf16r
    store of the same rows (K1 + the host patch), every dense set equal to
    the exact path; then the cross-encoder reranks 32 queries x 50
-   candidates.
+   candidates;
+14. kernels-K6K7 (run after phase 10), at the JAX package's serving shapes
+   (``bench.py::bench_maxsim_1m`` and ``bench_maxsim_2m_int8_store``):
+   K6 ``maxsim_scan16_scores`` over 1,048,576 chunks x 32 x 128 unit bf16
+   tokens made on the card (the zero-copy pack) at (B, Lq) = (8, 8),
+   (32, 8) and (8, 32), within 2·κ·C1·n_max of its plain version, its bound
+   U = s + W at least the float64 MaxSim on 4,096 sampled chunks; K7
+   ``maxsim_scan_int8_scores`` over 2,097,152 x 32 x 128 int8 tokens with
+   scales at (8, 8), bit-identical to its plain version, U sound likewise;
+   times beside the plain versions and the bounds; then
+   ``maxsim_topk_scan16_fused`` and ``maxsim_topk_int8_store`` on random
+   and planted queries: at least 75% certified, every certified set equal
+   to the float64 exact top-10 set;
+15. late-interaction-262k: ``LateInteractionRetriever(EncoderConfig.minilm_l6(),
+   max_len=32)`` with the CLI's tiered token store (384-d, 32 tokens)
+   indexes 262,144 one-chunk documents of 30 words and answers 4 batches
+   of 8 spans of indexed documents and a tag-filtered batch through
+   ``retrieve_batch(k=10)`` (K6); the same rows, through ``load_rows``, on
+   bf16 storage with the int8 tier (K7), with the zero-copy bf16 tier
+   (K6), on the token-pruned scan (1 batch) and on the exact scan: on
+   each tiered store its kernel held against its plain version on the
+   store's own replica at a batch's shapes (K6 within 2·κ·C1·n_max, K7
+   bit for bit) and at least 75% of the queries certified; every answer
+   equal to the float64 exact top-10 of the stored values, the f32 stores
+   equal row for row, ``e_max`` non-zero; then
+   ``LateInteractionReranker`` reranks 32 queries x 50 candidates, its
+   scores held to float64 on a sample.
 
 The last two lines of standard output are JSON: the per-kernel record, then
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
@@ -145,11 +172,29 @@ NR_QUERY_BATCHES = 8
 CP_QUERIES = 32  # the fused compact batch: its uncertified queries are patched on the host
 CE_QUERIES = 32
 CE_CANDIDATES = 50
+# slice 5: late interaction (MaxSim), K6 and K7
+MS_N6 = 1 << 20  # bench.py::bench_maxsim_1m: 1M chunks x 32 x 128, the zero-copy bf16 pack
+MS_N7 = 2 << 20  # bench.py::bench_maxsim_2m_int8_store: 2M chunks, int8 primary storage
+MS_LT, MS_H = 32, 128
+MS_SHAPES = ((8, 8), (32, 8), (8, 32))  # (B, Lq): the bench's point, then its sweep
+MS_K = 10
+MS_SAMPLE = 4096  # chunks whose float64 MaxSim each bound U must cover
+MS_SLAB = 1 << 15  # chunks made or scored in float64 at a time
+LI_N = 262_144  # late-interaction-262k: one-chunk documents (BEIR TREC-COVID's 171,332 fit)
+LI_WORDS = 30
+LI_MAX_LEN = 32  # the CLI's multi-vector store: max_len 32, 32 tokens per chunk
+LI_ENCODE_BATCH = 1024
+LI_BATCH = 8
+LI_BATCHES = 4
+LI_K = 10
+RR_QUERIES = 32
+RR_CANDIDATES = 50
+MIN_CERTIFIED = 0.75  # share of queries a certified MaxSim tier must prove (a K6/K7 scoring high proves none)
 # H100 SXM peaks (NVIDIA data sheet) for the kernels' bounds
-BF16_FLOP_PER_S = 989e12  # tensor cores, dense: K4's products
+BF16_FLOP_PER_S = 989e12  # tensor cores, dense: the peak for bf16 operands (K1, K4, K5, K6)
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12  # CUDA-core FMA: K1's certified f32 accumulation
-INT8_OP_PER_S = 1979e12  # tensor cores: K3's exact integer dot
+FP32_FLOP_PER_S = 67e12  # CUDA-core fp32 FMA: the ceiling K1, K5 and K6 chose for their certified accumulation
+INT8_OP_PER_S = 1979e12  # tensor cores: K3's and K7's exact integer dot
 
 
 def log(msg: str) -> None:
@@ -328,9 +373,11 @@ def phase_kernels(seed: int):
     k1_ms2 = cuda_ms(lambda: scan_select_v3(*k1_args, t_top=T_TOP), 20)
     flop = 2.0 * BATCH * N_ROWS * DIM
     out_bytes = BATCH * (2 * T_TOP + 1) * g_sel * 4
-    k1_bound = bound(BATCH * DIM * 2 + N_ROWS * DIM * 2 + N_ROWS * 12 + BATCH * 8 + out_bytes, flop, FP32_FLOP_PER_S)
+    k1_bound = bound(BATCH * DIM * 2 + N_ROWS * DIM * 2 + N_ROWS * 12 + BATCH * 8 + out_bytes, flop,
+                     BF16_FLOP_PER_S)
     log(f"K1 scan_select_v3 at N={N_ROWS} d={DIM} B={BATCH}: kernel {k1_ms:.3f} / {k1_ms2:.3f} ms, "
-        f"plain {k1_plain:.3f} ms (median, CUDA events); bound {k1_bound[0]:.3f} ms ({k1_bound[1]})")
+        f"plain {k1_plain:.3f} ms (median, CUDA events); bound {k1_bound[0]:.3f} ms ({k1_bound[1]}); "
+        f"its fp32 CUDA-core ceiling {flop / FP32_FLOP_PER_S * 1e3:.3f} ms")
     log(f"  K1 rate {flop / (min(k1_ms, k1_ms2) * 1e-3) / 1e12:.1f} TFLOP/s fp32 FMA (2*B*N*d / time)")
 
     # -- K3 -----------------------------------------------------------------
@@ -710,14 +757,15 @@ def phase_stores(pipe, seed: int):
         k1_total, k3_total = k1_total + k1, k3_total + k3
         return ctxs, k1, k3
 
-    configs = [
-        ("int8", dict(scan_tier="int8")),
-        ("compact bf16rr", dict(scan_tier="compact", compact_scan="bf16rr")),
-        ("compact bf16", dict(scan_tier="compact", compact_scan="bf16")),
-        ("compact int8", dict(scan_tier="compact", compact_scan="int8")),
-        ("compact bf16r", dict(scan_tier="compact", compact_scan="bf16r", compact_fallback="host")),
+    configs = [  # (name, store config, queries per batch)
+        ("int8", dict(scan_tier="int8"), BATCH),
+        ("compact bf16rr", dict(scan_tier="compact", compact_scan="bf16rr"), BATCH),
+        ("compact bf16", dict(scan_tier="compact", compact_scan="bf16"), BATCH),
+        # depth cut: its host GEMM patch costs ~0.25 s per query, twice (query and check)
+        ("compact int8", dict(scan_tier="compact", compact_scan="int8"), CP_QUERIES),
+        ("compact bf16r", dict(scan_tier="compact", compact_scan="bf16r", compact_fallback="host"), BATCH),
     ]
-    for name, kw in configs:
+    for name, kw, nq in configs:
         p = sibling_pipeline(pipe, rag.VectorStoreConfig(**kw))
         store = p.retriever.vector_store
         t0 = time.perf_counter()
@@ -728,27 +776,27 @@ def phase_stores(pipe, seed: int):
         lat, k1, k3 = [], 0, 0
         for qs in batches:
             t0 = time.perf_counter()
-            ctxs, n1, n3 = drive(p, qs)
+            ctxs, n1, n3 = drive(p, qs[:nq])
             torch.cuda.synchronize()
             lat.append((time.perf_counter() - t0) * 1e3)
-            check_contexts(ctxs)
+            check_contexts(ctxs, n=nq)
             k1, k3 = k1 + n1, k3 + n3
         check((k3 if "int8" in name else k1) > 0, f"store {name}: its scan kernel never launched")
         counters = (f"uncertified {store.compact_uncertified}, candidate-patched {store.compact_candidate_patched}, "
                     f"GEMM-patched {store.compact_gemm_patched}, retry-certified {store.compact_retry_certified}"
                     if store.is_compact else f"fp32 re-runs {store.tier_fallback_queries}")
-        log(f"store {name}: {STORE_BATCHES} batches of {BATCH} in {', '.join(f'{t:.1f}' for t in lat)} ms "
+        log(f"store {name}: {STORE_BATCHES} batches of {nq} in {', '.join(f'{t:.1f}' for t in lat)} ms "
             f"(host clock); launches K1 {k1}, K3 {k3}; {counters}")
         for i, (qv, qs) in enumerate(zip(qvs, batches)):
-            s_t, r_t = store.search_arrays(qv, cand)
-            x_s, x_r = exact[i]
+            s_t, r_t = store.search_arrays(qv[:nq], cand)
+            x_s, x_r = (x[:nq] for x in exact[i])
             if store.is_compact:
                 check(all(set(a) == set(b) for a, b in zip(r_t.cpu().tolist(), x_r.cpu().tolist())),
                       f"store {name} batch {i}: a row set differs from the float64 exact top-k set")
             else:
                 check(torch.equal(r_t, x_r) and torch.equal(s_t, x_s),
                       f"store {name} batch {i}: rows or scores differ from the exact fp32 path")
-            s_s, r_s = base.sparse_index.search_arrays(qs, cand)
+            s_s, r_s = base.sparse_index.search_arrays(qs[:nq], cand)
             check_fused(strategy, r_t, s_t, r_s, s_s, f"store {name} batch {i}")
         log(f"store {name}: dense results {'exact as sets after the host patch' if store.is_compact else 'identical to the exact fp32 path'}; "
             f"fused lists match the host oracle")
@@ -1018,10 +1066,11 @@ def phase_kernels_k5(seed: int):
     rows_live = n_live * tile_n
     out_bytes = b * (2 * t_top + 1) * g_all * 4
     k5_bound = bound(b * DIM * 2 + rows_live * (DIM * 2 + 4) + rows_live // BLOCK * 8 + len(ids) * 4 + b * 8
-                     + out_bytes, 2.0 * b * rows_live * DIM, FP32_FLOP_PER_S)
+                     + out_bytes, 2.0 * b * rows_live * DIM, BF16_FLOP_PER_S)
     log(f"K5 scan_select_v3_indirect at N={n} d={DIM} B={b} tile_n={tile_n} t_top={t_top}, {n_live} tiles + "
         f"{K5_PADS} pad slots: kernel {k5_ms:.3f} / {k5_ms2:.3f} ms, plain {k5_plain:.3f} ms (median, CUDA "
-        f"events); bound {k5_bound[0]:.3f} ms ({k5_bound[1]}); tagged {t_tag:.3f} ms")
+        f"events); bound {k5_bound[0]:.3f} ms ({k5_bound[1]}); its fp32 CUDA-core ceiling "
+        f"{2.0 * b * rows_live * DIM / FP32_FLOP_PER_S * 1e3:.3f} ms; tagged {t_tag:.3f} ms")
     log(f"  K1 over a copy of the same tiles {k1_copy_ms:.3f} ms, plus the tile copy {gather_ms:.3f} ms")
     del m, mb, k1_copy_args
     torch.cuda.empty_cache()
@@ -1814,6 +1863,510 @@ def phase_encoder_1m(seed: int) -> int:
     return launches
 
 
+# -- late interaction (slice 5) -------------------------------------------------
+
+
+def maxsim64(q, qm, tokens, t_mask, valid, stored=None, slab: int = MS_SLAB):
+    """float64 MaxSim of every query against every chunk → [B, N] f64 (-inf
+    at invalid chunks): the per-token dots, the masked max and the Lq-sum in
+    float64 over the stored values (``stored(lo, hi)``, default the slab of
+    ``tokens`` upcast)."""
+    import torch
+
+    b, lq, h = q.shape
+    n, lt = t_mask.shape
+    qd = torch.where(qm[:, :, None], q, 0.0).double().reshape(b * lq, h)
+    out = torch.empty((b, n), dtype=torch.float64, device=DEV)
+    for lo in range(0, n, slab):
+        hi = min(n, lo + slab)
+        t = stored(lo, hi) if stored is not None else tokens[lo:hi]
+        sim = (t.double().reshape(-1, h) @ qd.T).view(hi - lo, lt, b, lq)
+        sim.masked_fill_(~t_mask[lo:hi][:, :, None, None], float("-inf"))
+        best = sim.amax(dim=1)
+        best = torch.where(qm[None] & torch.isfinite(best), best, 0.0)
+        out[:, lo:hi] = best.sum(dim=2).T
+        del sim, best
+    return out.masked_fill_(~valid[None, :], float("-inf"))
+
+
+def exact_rows64(q, qm, tokens, t_mask, valid, k, stored=None):
+    """The float64 exact top-k, rounded to f32 once and ordered (score
+    desc, row asc) → rows [B, k] (-1 at invalid slots), on the host."""
+    import torch
+
+    from trueno_rag_tpu_torch.ops.dense import topk_desc
+
+    s, r = topk_desc(maxsim64(q, qm, tokens, t_mask, valid, stored).float(), k)
+    return torch.where(torch.isneginf(s), -1, r).cpu().numpy()
+
+
+def check_certified(rows, cert, want, label):
+    """Every certified query's row set equals the float64 exact set →
+    (certified count, how many of them also match in order)."""
+    import numpy as np
+
+    cert = np.asarray(cert)
+    for i in np.flatnonzero(cert):
+        check(set(rows[i].tolist()) == set(want[i].tolist()),
+              f"{label}: certified query {i} differs from the float64 exact top-{want.shape[1]} set")
+    return int(cert.sum()), int(sum(np.array_equal(rows[i], want[i]) for i in np.flatnonzero(cert)))
+
+
+def planted_queries(tokens, lq, b, gen, stored=None):
+    """``b`` queries at stored chunks: a chunk's first ``lq`` tokens (its
+    stored values) plus N(0, 0.1²) noise → q [B, Lq, H] f32."""
+    import torch
+
+    n = tokens.shape[0]
+    idx = torch.randperm(n, device=DEV, generator=gen)[:b]
+    base = stored(idx) if stored is not None else tokens[idx].float()
+    return base[:, :lq] + 0.1 * torch.randn(base[:, :lq].shape, device=DEV, generator=gen)
+
+
+def phase_kernels_k6k7(seed: int):
+    """K6 and K7 at the JAX package's serving shapes (bench_maxsim_1m,
+    bench_maxsim_2m_int8_store): against their plain versions, U sound
+    against float64, times and bounds, then the tiers they serve →
+    (K6 record, K7 record)."""
+    import numpy as np
+    import torch
+
+    from trueno_rag_tpu_torch.ops import maxsim as ms
+    from trueno_rag_tpu_torch.ops.kernels.maxsim_scan import (
+        maxsim_scan16_scores, maxsim_scan16_scores_reference, maxsim_scan_int8_scores,
+        maxsim_scan_int8_scores_reference,
+    )
+
+    gen = torch.Generator(device=DEV).manual_seed(seed + 15)
+    lt, h = MS_LT, MS_H
+    src = "trueno_rag_tpu_torch/csrc/maxsim_scan.cu"
+
+    def unit_slab(rows):
+        t = torch.randn((rows, lt, h), device=DEV, generator=gen)
+        return t / torch.linalg.vector_norm(t, dim=2, keepdim=True)
+
+    # -- K6 over the zero-copy bf16 pack: 1M x 32 x 128 unit tokens ---------
+    n = MS_N6
+    t0 = time.perf_counter()
+    tok16 = torch.empty((n, lt, h), dtype=torch.bfloat16, device=DEV)
+    for lo in range(0, n, MS_SLAB):
+        tok16[lo:lo + MS_SLAB] = unit_slab(min(MS_SLAB, n - lo))
+    t_mask = torch.ones((n, lt), dtype=torch.bool, device=DEV)
+    valid = torch.ones(n, dtype=torch.bool, device=DEV)
+    e_max, n_max = ms.prepare_maxsim_self16(tok16, t_mask)
+    torch.cuda.synchronize()
+    log(f"kernels-K6: {n} x {lt} x {h} bf16 unit tokens ({tok16.numel() * 2 / 1e9:.2f} GB) and the zero-copy pack "
+        f"made on the card in {time.perf_counter() - t0:.1f} s")
+    rec6 = None
+    for bq, lq in MS_SHAPES:
+        q = torch.randn((bq, lq, h), device=DEV, generator=gen)  # the bench's queries
+        qm = torch.ones((bq, lq), dtype=torch.bool, device=DEV)
+        q16, a_c, c1, q_w = ms._scan16_query_pack(q, qm)
+        got = maxsim_scan16_scores(q16, tok16, t_mask, valid)
+        torch.cuda.synchronize()
+        want = maxsim_scan16_scores_reference(q16, tok16, t_mask, valid)
+        check(bool(torch.isfinite(got).all()), f"K6 ({bq}, {lq}): non-finite scores")
+        err = (got - want).abs()
+        tol = 2 * (h + lq) * 2.0**-23 * c1[:, None] * n_max[None, :]
+        check(bool((err <= tol).all()), f"K6 ({bq}, {lq}): differs from its plain version by {err.max().item():.3e} "
+                                        f"(2·κ·C1·n_max >= {tol.min().item():.3e})")
+        max_err = err.max().item()
+        del want, err, tol
+        idx = torch.randperm(n, device=DEV, generator=gen)[:MS_SAMPLE]
+        u = got[:, idx].double() + ms._scan16_fused_widths(a_c, c1, q_w, e_max[idx], n_max[idx], h, lq).double()
+        slack = (u - maxsim64(q, qm, tok16[idx], t_mask[idx], valid[idx])).min().item()
+        check(slack >= 0.0, f"K6 ({bq}, {lq}): U below the float64 MaxSim on a sampled chunk ({slack})")
+        ms_k = cuda_ms(lambda: maxsim_scan16_scores(q16, tok16, t_mask, valid), 10)
+        ms_p = cuda_ms(lambda: maxsim_scan16_scores_reference(q16, tok16, t_mask, valid), 3)
+        ms_k2 = cuda_ms(lambda: maxsim_scan16_scores(q16, tok16, t_mask, valid), 10)
+        flop = 2.0 * bq * lq * n * lt * h
+        bnd = bound(n * lt * h * 2 + n * lt + n + bq * n * 4 + bq * lq * h * 2, flop, BF16_FLOP_PER_S)
+        log(f"K6 B={bq} Lq={lq}: kernel {ms_k:.3f} / {ms_k2:.3f} ms, plain {ms_p:.3f} ms (median, CUDA events); bound "
+            f"{bnd[0]:.3f} ms ({bnd[1]}); its fp32 CUDA-core ceiling {flop / FP32_FLOP_PER_S * 1e3:.3f} ms; "
+            f"{flop / (min(ms_k, ms_k2) * 1e-3) / 1e12:.1f} TFLOP/s fp32; max |kernel - plain| {max_err:.3e}; "
+            f"U - float64 >= {slack:.3e} on {MS_SAMPLE} sampled chunks")
+        if rec6 is None:  # the bench's point: B = 8, Lq = 8
+            rec6 = {"name": "maxsim_scan16_scores", "route": "cuda", "source": src,
+                    "replaces": "trueno_rag_tpu/ops/pallas/maxsim_scan.py:268", "max_abs_err": max_err,
+                    "ms": min(ms_k, ms_k2), "plain_ms": ms_p, "bound_ms": bnd[0], "bound_by": bnd[1],
+                    "library_ms": None}
+        del got, u
+        # the tier it serves: random queries, then a batch planted at stored chunks
+        qp = planted_queries(tok16, lq, bq, gen)
+        for label, qq in (("random", q), ("planted", qp)):
+            s, r, cert = ms.maxsim_topk_scan16_fused(qq, qm, tok16, t_mask, tok16, e_max, n_max, valid, MS_K)
+            want_r = exact_rows64(qq, qm, tok16, t_mask, valid, MS_K)
+            n_cert, n_order = check_certified(r.cpu().numpy(), cert.cpu().numpy(), want_r,
+                                              f"maxsim_topk_scan16_fused {label} B={bq} Lq={lq}")
+            check(n_cert >= MIN_CERTIFIED * bq, f"maxsim_topk_scan16_fused {label} B={bq} Lq={lq}: "
+                                                f"certified {n_cert}/{bq}")
+            t_ms = cuda_ms(lambda: ms.maxsim_topk_scan16_fused(qq, qm, tok16, t_mask, tok16, e_max, n_max, valid,
+                                                               MS_K), 3)
+            log(f"  maxsim_topk_scan16_fused (zero-copy bf16, N={n}) {label} B={bq} Lq={lq}: {t_ms:.3f} ms per batch = "
+                f"{bq / t_ms * 1e3:.1f} queries/s (CUDA events); certified {n_cert}/{bq}, every certified set equal "
+                f"to the float64 exact top-{MS_K} set ({n_order} in the same order)")
+    del tok16, t_mask, valid, e_max, n_max
+    torch.cuda.empty_cache()
+
+    # -- K7 over int8 primary storage: 2M x 32 x 128 --------------------------
+    n = MS_N7
+    t0 = time.perf_counter()
+    tok8 = torch.empty((n, lt, h), dtype=torch.int8, device=DEV)
+    s_tok = torch.empty((n, lt), dtype=torch.float32, device=DEV)
+    n_max = torch.empty(n, dtype=torch.float32, device=DEV)
+    t_mask = torch.ones((n, lt), dtype=torch.bool, device=DEV)
+    valid = torch.ones(n, dtype=torch.bool, device=DEV)
+    for lo in range(0, n, MS_SLAB):
+        t8, st, _, nm = ms._int8_slab(unit_slab(min(MS_SLAB, n - lo)), t_mask[lo:lo + MS_SLAB])
+        tok8[lo:lo + MS_SLAB], s_tok[lo:lo + MS_SLAB], n_max[lo:lo + MS_SLAB] = t8, st, nm
+    torch.cuda.synchronize()
+    log(f"kernels-K7: {n} x {lt} x {h} int8 tokens with scales ({(tok8.numel() + s_tok.numel() * 4) / 1e9:.2f} GB, "
+        f"no float corpus) made on the card in {time.perf_counter() - t0:.1f} s")
+
+    def stored8(lo, hi=None):  # the dequantized stored values f32(tok8)·s_tok
+        sl = lo if hi is None else slice(lo, hi)
+        return tok8[sl].float() * s_tok[sl][..., None]
+
+    bq, lq = MS_SHAPES[0]
+    q = torch.randn((bq, lq, h), device=DEV, generator=gen)
+    qm = torch.ones((bq, lq), dtype=torch.bool, device=DEV)
+    _, q8, t_q, _, vsum, qsum_w = ms._int8_query_pack(q, qm)
+    got = maxsim_scan_int8_scores(q8, t_q, tok8, s_tok, t_mask, valid)
+    torch.cuda.synchronize()
+    want = maxsim_scan_int8_scores_reference(q8, t_q, tok8, s_tok, t_mask, valid)
+    check(torch.equal(got, want), f"K7: not bit-identical to its plain version (max |diff| "
+                                  f"{(got - want).abs().max().item():.3e})")
+    idx = torch.randperm(n, device=DEV, generator=gen)[:MS_SAMPLE]
+    w = ((vsum + ms._tier_rounding_coeff(lq, h) * qsum_w)[:, None] * n_max[idx][None, :]) * ms._BOUND_SLACK \
+        + ms._BOUND_EPS
+    slack = (got[:, idx].double() + w.double()
+             - maxsim64(q, qm, None, t_mask[idx], valid[idx], lambda a, b: stored8(idx[a:b]))).min().item()
+    check(slack >= 0.0, f"K7: U below the float64 MaxSim on a sampled chunk ({slack})")
+    del want
+    ms_k = cuda_ms(lambda: maxsim_scan_int8_scores(q8, t_q, tok8, s_tok, t_mask, valid), 10)
+    ms_p = cuda_ms(lambda: maxsim_scan_int8_scores_reference(q8, t_q, tok8, s_tok, t_mask, valid), 3)
+    ms_k2 = cuda_ms(lambda: maxsim_scan_int8_scores(q8, t_q, tok8, s_tok, t_mask, valid), 10)
+    ops = 2.0 * bq * lq * n * lt * h
+    bnd = bound(n * lt * h + n * lt * 4 + n * lt + n + bq * n * 4 + bq * lq * (h + 4), ops, INT8_OP_PER_S)
+    log(f"K7 B={bq} Lq={lq}: kernel {ms_k:.3f} / {ms_k2:.3f} ms, plain {ms_p:.3f} ms (median, CUDA events); bound "
+        f"{bnd[0]:.3f} ms ({bnd[1]}); {ops / (min(ms_k, ms_k2) * 1e-3) / 1e12:.1f} TOP/s int8; bit-identical to the "
+        f"plain version; U - float64 >= {slack:.3e} on {MS_SAMPLE} sampled chunks")
+    rec7 = {"name": "maxsim_scan_int8_scores", "route": "cuda", "source": src,
+            "replaces": "trueno_rag_tpu/ops/pallas/maxsim_scan.py:344", "max_abs_err": 0.0,
+            "ms": min(ms_k, ms_k2), "plain_ms": ms_p, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+    del got
+    qp = planted_queries(tok8, lq, bq, gen, stored=stored8)
+    for label, qq in (("random", q), ("planted", qp)):
+        s, r, cert = ms.maxsim_topk_int8_store(qq, qm, tok8, s_tok, t_mask, n_max, valid, MS_K)
+        want_r = exact_rows64(qq, qm, None, t_mask, valid, MS_K, stored=stored8)
+        n_cert, n_order = check_certified(r.cpu().numpy(), cert.cpu().numpy(), want_r,
+                                          f"maxsim_topk_int8_store {label}")
+        check(n_cert >= MIN_CERTIFIED * bq, f"maxsim_topk_int8_store {label}: certified {n_cert}/{bq}")
+        t_ms = cuda_ms(lambda: ms.maxsim_topk_int8_store(qq, qm, tok8, s_tok, t_mask, n_max, valid, MS_K), 3)
+        log(f"  maxsim_topk_int8_store (int8 primary, N={n}) {label} B={bq} Lq={lq}: {t_ms:.3f} ms per batch = "
+            f"{bq / t_ms * 1e3:.1f} queries/s (CUDA events); certified {n_cert}/{bq}, every certified set equal to "
+            f"the float64 exact top-{MS_K} set ({n_order} in the same order)")
+    del tok8, s_tok, n_max, t_mask, valid
+    torch.cuda.empty_cache()
+    return rec6, rec7
+
+
+def li_queries(rng, texts, n):
+    """``n`` queries, each a span of 6-12 words of an indexed document."""
+    out = []
+    for i in rng.integers(0, len(texts), size=n):
+        words = texts[i].split()
+        ln = int(rng.integers(6, 13))
+        lo = int(rng.integers(0, len(words) - ln + 1))
+        out.append(" ".join(words[lo:lo + ln]))
+    return out
+
+
+def li_drive(retr, batches, k, tag_filter=None):
+    """retrieve_batch over ``batches`` with the K6 and K7 counts set to 0
+    just before and read just after → (results, ms per batch, K6, K7)."""
+    import torch
+
+    from trueno_rag_tpu_torch.ops.kernels.maxsim_scan import maxsim_scan16_scores, maxsim_scan_int8_scores
+
+    maxsim_scan16_scores.launches = maxsim_scan_int8_scores.launches = 0
+    res, lat = [], []
+    for qs in batches:
+        t0 = time.perf_counter()
+        res.append(retr.retrieve_batch(qs, k, tag_filter=tag_filter))
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return res, lat, maxsim_scan16_scores.launches, maxsim_scan_int8_scores.launches
+
+
+def li_unit_queries(retr, qs):
+    """A batch encoded and L2-normalized as ``TokenVectorStore.search_arrays``
+    does → (q [B, Lq, H] f32, q_mask [B, Lq]) on the card."""
+    import numpy as np
+    import torch
+
+    q, qm = retr._encode(qs)
+    norms = np.sqrt(np.einsum("bij,bij->bi", q, q))[:, :, None]
+    q = q / np.where(norms > 0.0, norms, 1.0)
+    return torch.from_numpy(q).to(DEV), torch.from_numpy(qm).to(DEV)
+
+
+def li_kernel_check(retr, qs, label):
+    """The tiered store's kernel on the store's own replica at one batch's
+    shapes, held against its plain version on the same inputs: K6 within
+    2·κ·C1·n_max per entry, K7 bit for bit → max |kernel - plain|. Called
+    outside ``li_drive``, so these launches are not the path's."""
+    import torch
+
+    from trueno_rag_tpu_torch.ops import maxsim as ms
+    from trueno_rag_tpu_torch.ops.kernels.maxsim_scan import (
+        maxsim_scan16_scores, maxsim_scan16_scores_reference, maxsim_scan_int8_scores,
+        maxsim_scan_int8_scores_reference,
+    )
+
+    store = retr.store
+    _, t_mask, valid = store._device()
+    tier = store._device_tier()
+    q, qm = li_unit_queries(retr, qs)
+    b, lq, h = q.shape
+    if tier[0] == "int8":
+        _, tok8, s_tok, _, _ = tier
+        _, q8, t_q, _, _, _ = ms._int8_query_pack(q, qm)
+        got = maxsim_scan_int8_scores(q8, t_q, tok8, s_tok, t_mask, valid)
+        torch.cuda.synchronize()
+        want = maxsim_scan_int8_scores_reference(q8, t_q, tok8, s_tok, t_mask, valid)
+        check(torch.equal(got, want), f"{label}: K7 is not bit-identical to its plain version on the store")
+        err, what = 0.0, f"K7 on the store's int8 replica ({tok8.shape[0]} x {tok8.shape[1]} x {h}) bit-identical"
+    else:
+        _, tok16, _, n_max = tier
+        q16, _, c1, _ = ms._scan16_query_pack(q, qm)
+        got = maxsim_scan16_scores(q16, tok16, t_mask, valid)
+        torch.cuda.synchronize()
+        want = maxsim_scan16_scores_reference(q16, tok16, t_mask, valid)
+        check(torch.equal(torch.isneginf(got), torch.isneginf(want)), f"{label}: K6 and its plain version "
+                                                                        f"disagree on which chunks are invalid")
+        fin = torch.isfinite(want)
+        diff = torch.where(fin, got - want, 0.0).abs()
+        tol = 2 * (h + lq) * 2.0**-23 * c1[:, None] * n_max[None, :]
+        check(bool(torch.isfinite(got[fin]).all()) and bool((diff <= tol).all()),
+              f"{label}: K6 differs from its plain version on the store by {diff.max().item():.3e}")
+        err = diff.max().item()
+        what = (f"K6 on the store's {'primary' if tok16 is store._device()[0] else 'bf16 replica'} "
+                f"({tok16.shape[0]} x {tok16.shape[1]} x {h}) within 2·κ·C1·n_max of its plain version "
+                f"(max |diff| {err:.3e})")
+    log(f"{label}: {what} at B={b} Lq={lq}")
+    return err
+
+
+def li_exact_split(retr, qs, label):
+    """Where the exact scan's time goes, for one batch: ``maxsim_scan_topk``
+    and its f32 scan alone (CUDA events), and the preselection widths it
+    tried (its ``blockwise_topk`` calls)."""
+    from trueno_rag_tpu_torch.ops import maxsim as ms
+
+    store = retr.store
+    tokens, t_mask, valid = store._device()
+    q, qm = li_unit_queries(retr, qs)
+    block = store.config.scan_block
+    widths = []
+    topk = ms.blockwise_topk
+    ms.blockwise_topk = lambda s, kk, *a: widths.append(kk) or topk(s, kk, *a)
+    try:
+        t_all = cuda_ms(lambda: ms.maxsim_scan_topk(q, qm, tokens, t_mask, valid, LI_K, block, store._d_norm), 3)
+    finally:
+        ms.blockwise_topk = topk
+    t_scan = cuda_ms(lambda: ms._scan_scores(q, qm, tokens, t_mask, valid, block), 3)
+    log(f"{label}: maxsim_scan_topk {t_all:.1f} ms per batch of {q.shape[0]} (CUDA events), of which the f32 scan "
+        f"{t_scan:.1f} ms; preselection widths tried {sorted(set(widths))}")
+
+
+def li_check(retr, batches, results, k, label, allowed=None):
+    """Every answer equals the float64 exact top-k of the store's stored
+    values (as rows; ``allowed`` joins the valid mask) → the answers as
+    row arrays."""
+    import numpy as np
+    import torch
+
+    store = retr.store
+    tokens, t_mask, valid = store._device()
+    if allowed is not None:
+        valid = valid & torch.from_numpy(allowed).to(DEV)
+    rows_all = []
+    for qs, res in zip(batches, results):
+        q, qm = li_unit_queries(retr, qs)
+        want = exact_rows64(q, qm, tokens, t_mask, valid, k)
+        got = np.full((len(qs), k), -1, np.int64)
+        for i, hits in enumerate(res):
+            rows = [store.registry.row_of(h.chunk.id) for h in hits]
+            got[i, :len(rows)] = rows
+        check(np.array_equal(got, want), f"{label}: an answer differs from the float64 exact top-{k}")
+        rows_all.append(got)
+    return rows_all
+
+
+def phase_late_interaction(seed: int):
+    """Slice 5's main path: LateInteractionRetriever (MiniLM-L6, seeded
+    weights) with the CLI's tiered token store at 262,144 one-chunk
+    documents; then the same rows in the bf16-storage (K7), zero-copy bf16
+    (K6), token-pruned and exact stores; then the reranker → (K6 launches,
+    K7 launches)."""
+    import numpy as np
+    import torch
+
+    import trueno_rag_tpu_torch as rag
+    from trueno_rag_tpu_torch.chunking import Chunk, chunk_id_from_int
+    from trueno_rag_tpu_torch.models.encoder import encoder_token_states, pad_batch_pow2
+    from trueno_rag_tpu_torch.models.late_interaction import _l2_tokens
+
+    rng = np.random.default_rng(seed + 16)
+    t0 = time.perf_counter()
+    texts = make_texts(rng, LI_N, LI_WORDS)
+    chunks = [Chunk(document_id=f"ldoc{i}", content=t, start_offset=0, end_offset=len(t), id=chunk_id_from_int(i))
+              for i, t in enumerate(texts)]
+    log(f"late-interaction: {LI_N} one-chunk documents of {LI_WORDS} words made in {time.perf_counter() - t0:.1f} s")
+    enc = rag.EncoderConfig.minilm_l6()
+
+    def store_config(**kw):
+        return rag.TokenStoreConfig(hidden_dim=enc.hidden_dim, max_tokens=LI_MAX_LEN, initial_capacity=LI_N, **kw)
+
+    retr = rag.LateInteractionRetriever(config=enc, seed=seed, max_len=LI_MAX_LEN, device=DEV,
+                                        store_config=store_config(scan="tiered"))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    retr.index_batch(chunks, encode_batch=LI_ENCODE_BATCH)
+    torch.cuda.synchronize()
+    t_ingest = time.perf_counter() - t0
+    check(len(retr) == LI_N, f"late-interaction: {len(retr)} chunks indexed")
+    t0 = time.perf_counter()
+    retr.ensure_ready()
+    torch.cuda.synchronize()
+    t_ready = time.perf_counter() - t0
+    store = retr.store
+    _, e_max, n_max = store._tier[1:]
+    nonempty = torch.from_numpy(store._t_mask.any(axis=1) & store._valid).to(DEV)
+    check(bool((e_max[nonempty] > 0).all()), "late-interaction: a zero bf16 residual bound (folded round trip?)")
+    log(f"late-interaction ingest (MiniLM-L6 token states on the card + host token store): {LI_N} chunks in "
+        f"{t_ingest:.1f} s = {LI_N / t_ingest:.0f} chunks/s (host clock); device replica + bf16 pack "
+        f"{t_ready:.1f} s; e_max > 0 on all {int(nonempty.sum())} non-empty chunks (min {e_max[nonempty].min().item():.3e}); "
+        f"peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    batches = [li_queries(rng, texts, LI_BATCH) for _ in range(LI_BATCHES)]
+    li_kernel_check(retr, batches[0], "late-interaction tiered")
+    retr.retrieve_batch(batches[0], LI_K)  # warm-up
+    store.uncertified = 0
+    res, lat, k6, k7 = li_drive(retr, batches, LI_K)
+    check(k6 >= LI_BATCHES and k7 == 0, f"late-interaction tiered: K6 launched {k6} times, K7 {k7}")
+    k6_total, k7_total = k6, 0
+    rows_main = li_check(retr, batches, res, LI_K, "late-interaction tiered")
+    n_q = LI_BATCHES * LI_BATCH
+    check(n_q - store.uncertified >= MIN_CERTIFIED * n_q,
+          f"late-interaction tiered: certified {n_q - store.uncertified}/{n_q}, below {MIN_CERTIFIED}")
+    log(f"late-interaction tiered (f32 storage, K6 on the bf16 replica): {LI_BATCHES} batches of {LI_BATCH}, median "
+        f"{sorted(lat)[len(lat) // 2]:.1f} ms per batch = {LI_BATCH * len(lat) / sum(lat) * 1e3:.1f} queries/s "
+        f"(retrieve_batch, host clock); certified {n_q - store.uncertified}/{n_q} (at least {MIN_CERTIFIED:.0%} "
+        f"required); K6 launches {k6}; every answer equal to the float64 exact top-{LI_K}")
+
+    rows = device_profile(lambda: retr.retrieve_batch(batches[0], LI_K), "late-interaction-262k profile (one batch)")
+    busy = sum(r[0] for r in rows)
+    k6_ms = sum(r[0] for r in rows if "maxsim_scan" in r[2])
+    check(busy > 0, "late-interaction-262k: the trace shows no device time")
+    log(f"late-interaction-262k: K6 {k6_ms:.1f} ms of {busy:.1f} ms device time per batch = {k6_ms / busy:.1%}")
+
+    # a tag-filtered batch: one of 4 tags per chunk, by row
+    reg = store.registry
+    for row in range(LI_N):
+        reg.set_tags(chunk_id_from_int(row), [f"t{row % 4}"])
+    allowed = (np.arange(store._host.shape[0]) % 4) == 1
+    res_t, lat_t, k6, _ = li_drive(retr, batches[:1], LI_K, tag_filter=rag.TagFilter(all=("t1",)))
+    k6_total += k6
+    li_check(retr, batches[:1], res_t, LI_K, "late-interaction tagged", allowed=allowed)
+    check(all(reg.row_of(h.chunk.id) % 4 == 1 for q in res_t[0] for h in q), "late-interaction tagged: a row fails")
+    log(f"late-interaction tag batch all=[t1]: {lat_t[0]:.1f} ms (host clock); K6 launches {k6}; every chunk passes, "
+        f"answers equal the filtered float64 exact top-{LI_K}")
+
+    # the same rows in sibling stores, through load_rows (no re-encoding)
+    siblings = [
+        ("bf16 storage, scan_dtype auto (int8, K7)", dict(scan="tiered", storage_dtype="bfloat16")),
+        ("bf16 storage, scan_dtype bfloat16 (zero-copy K6)",
+         dict(scan="tiered", storage_dtype="bfloat16", scan_dtype="bfloat16")),
+        ("scan token", dict(scan="token")),
+        ("scan exact", dict(scan="exact")),
+    ]
+    for name, kw in siblings:
+        sib = rag.LateInteractionRetriever(config=enc, params=retr.params, max_len=LI_MAX_LEN, device=DEV,
+                                           store_config=store_config(**kw))
+        t0 = time.perf_counter()
+        sib.store.load_rows(chunks, store._host[:LI_N], store._t_mask[:LI_N])
+        sib.ensure_ready()
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        if kw["scan"] == "tiered":
+            li_kernel_check(sib, batches[0], f"late-interaction {name}")
+        qb = batches[:1] if kw["scan"] == "token" else batches
+        sib.retrieve_batch(qb[0], LI_K)  # warm-up
+        sib.store.uncertified = 0
+        torch.cuda.reset_peak_memory_stats()
+        res_s, lat_s, k6, k7 = li_drive(sib, qb, LI_K)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rows = li_check(sib, qb, res_s, LI_K, f"late-interaction {name}")
+        if kw.get("storage_dtype") != "bfloat16":  # the same stored values as the main store
+            check(all(np.array_equal(a, b) for a, b in zip(rows, rows_main)),
+                  f"late-interaction {name}: rows differ from the tiered store")
+        if "K7" in name:
+            check(k7 >= len(qb) and k6 == 0, f"late-interaction {name}: K7 launched {k7} times, K6 {k6}")
+        if "K6" in name:
+            check(k6 >= len(qb) and k7 == 0, f"late-interaction {name}: K6 launched {k6} times, K7 {k7}")
+        k6_total, k7_total = k6_total + k6, k7_total + k7
+        n_q = len(qb) * LI_BATCH
+        if kw["scan"] == "tiered":
+            check(n_q - sib.store.uncertified >= MIN_CERTIFIED * n_q,
+                  f"late-interaction {name}: certified {n_q - sib.store.uncertified}/{n_q}, below {MIN_CERTIFIED}")
+        cert = "" if kw["scan"] == "exact" else f"certified {n_q - sib.store.uncertified}/{n_q}; "
+        log(f"late-interaction {name}: load_rows + device build {t_load:.1f} s; {len(qb)} batch(es) of {LI_BATCH}, "
+            f"median {sorted(lat_s)[len(lat_s) // 2]:.1f} ms per batch (host clock); {cert}launches K6 {k6}, K7 {k7}; "
+            f"peak allocated {peak:.2f} GiB in the queries; every answer equal to the float64 exact top-{LI_K}"
+            f"{'' if kw.get('storage_dtype') == 'bfloat16' else ' and to the tiered store row for row'}")
+        if kw["scan"] == "exact":
+            li_exact_split(sib, qb[0], f"late-interaction {name}")
+        del sib
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # late-interaction-rerank: the MiniLM-L6 trunk reranks 32 queries x 50 candidates
+    rr = rag.LateInteractionReranker(config=enc, params=retr.params, max_len=LI_MAX_LEN, device=DEV)
+    qs = [q for b in batches for q in b][:RR_QUERIES]
+    cands = retr.retrieve_batch(qs, RR_CANDIDATES)
+    rr.rerank(qs[0], cands[0], K)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reranked = [rr.rerank(q, c, K) for q, c in zip(qs, cands)]
+    torch.cuda.synchronize()
+    t_rr = time.perf_counter() - t0
+    worst = 0.0
+    for i in range(0, RR_QUERIES, RR_QUERIES // 4):  # a sample, against float64
+        contents = [c.chunk.content for c in cands[i]]
+        got = rr.score_batch(qs[i], contents)
+        ids_q = torch.from_numpy(rr.tokenizer.encode_batch([qs[i]])).to(DEV)
+        ids_d = torch.from_numpy(pad_batch_pow2(rr.tokenizer.encode_batch(contents))).to(DEV)
+        qt, qmk = encoder_token_states(rr.params, ids_q, enc)
+        dt, dmk = encoder_token_states(rr.params, ids_d, enc)
+        qt, dt = _l2_tokens(qt[0]).double(), _l2_tokens(dt[: len(contents)]).double()
+        sim = torch.einsum("qh,kth->kqt", qt, dt).masked_fill(~dmk[: len(contents), None, :], float("-inf"))
+        best = sim.amax(dim=2)
+        want = torch.where(qmk[0][None, :] & torch.isfinite(best), best, 0.0).sum(dim=1).cpu().numpy()
+        worst = max(worst, float(np.abs(got - want).max()))
+        order = [r.chunk.id for r in reranked[i]]
+        check(order == [cands[i][j].chunk.id for j in np.lexsort((np.arange(len(want)), -got))[:K]],
+              "late-interaction-rerank: order differs from the scores")
+    check(worst <= 1e-4, f"late-interaction-rerank: scores differ from float64 by {worst:.3e}")
+    log(f"late-interaction-rerank (MiniLM-L6 trunk): {RR_QUERIES} queries x {RR_CANDIDATES} candidates in "
+        f"{t_rr * 1e3:.1f} ms = {RR_QUERIES * RR_CANDIDATES / t_rr:.0f} pairs/s (host clock); scores within "
+        f"{worst:.1e} of float64 MaxSim on a sample")
+    log(f"late-interaction path (retrieve_batch calls only): launches K6 {k6_total}, K7 {k7_total}")
+    check(k6_total > 0 and k7_total > 0, "the late-interaction path missed a kernel")
+    return k6_total, k7_total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1829,6 +2382,7 @@ def main() -> int:
     k1, k3 = phase_kernels(args.seed)
     k5 = phase_kernels_k5(args.seed)
     k4 = phase_kernels_k4(args.seed)
+    k6, k7 = phase_kernels_k6k7(args.seed)
     phase_tier(args.seed)
     pipe, k1["launches"] = phase_slice(args.seed)
     _, k3["launches"] = phase_stores(pipe, args.seed)
@@ -1841,6 +2395,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     k1["launches"] += phase_encoder_1m(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    k6["launches"], k7["launches"] = phase_late_interaction(args.seed)
     check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
           and torch.get_float32_matmul_precision() == "highest", "TF32 was turned on during the run")
     log(f"smoke wall time {time.perf_counter() - t_start:.0f} s")
@@ -1851,7 +2408,7 @@ def main() -> int:
     log(f"nvidia-smi: {smi.stdout.strip()}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in (k1, k3, k4, k5)]}))
+    print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in (k1, k3, k4, k5, k6, k7)]}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},

@@ -3,14 +3,15 @@
 The hybrid RAG query path of the JAX package, for one NVIDIA H100:
 chunking, embedders (hash, TF-IDF and the neural models of
 :mod:`~trueno_rag_tpu_torch.models`: the MiniLM/BGE-class encoder, the
-4096-d Nemotron-class embedder and the cross-encoder reranker), a
-device-resident dense store (exact fp32; the certified bf16 and int8 tile
-tiers; the compact and clustered tiers, which keep no fp32 matrix on the
-card), tag filters, block-table BM25, on-device rank fusion, the
-encoder-fused query path, reranking and context assembly with citations.
-The tile scans and the long-context attention are the hand-written CUDA
-kernels in ``csrc/``. The JAX package stays the reference; this package
-imports ``torch`` and never ``jax``.
+4096-d Nemotron-class embedder, the cross-encoder reranker and the
+late-interaction (MaxSim) reranker and retriever over a multi-vector
+token store), a device-resident dense store (exact fp32; the certified
+bf16 and int8 tile tiers; the compact and clustered tiers, which keep no
+fp32 matrix on the card), tag filters, block-table BM25, on-device rank
+fusion, the encoder-fused query path, reranking and context assembly with
+citations. The tile scans, the long-context attention and the MaxSim
+scans are the hand-written CUDA kernels in ``csrc/``. The JAX package
+stays the reference; this package imports ``torch`` and never ``jax``.
 """
 
 from trueno_rag_tpu_torch.errors import (
@@ -56,6 +57,8 @@ from trueno_rag_tpu_torch.index import (
     ChunkRegistry,
     DistanceMetric,
     SparseIndex,
+    TokenStoreConfig,
+    TokenVectorStore,
     VectorStore,
     VectorStoreConfig,
 )
@@ -89,6 +92,8 @@ from trueno_rag_tpu_torch.models import (
     CrossEncoderReranker,
     EncoderConfig,
     EncoderEmbedder,
+    LateInteractionReranker,
+    LateInteractionRetriever,
     NemotronConfig,
     NemotronEmbedder,
 )
@@ -134,6 +139,8 @@ __all__ = [
     "SparseIndex",
     "VectorStore",
     "VectorStoreConfig",
+    "TokenStoreConfig",
+    "TokenVectorStore",
     "FusionStrategy",
     "HybridRetriever",
     "HybridRetrieverConfig",
@@ -148,6 +155,8 @@ __all__ = [
     "CrossEncoderReranker",
     "EncoderConfig",
     "EncoderEmbedder",
+    "LateInteractionReranker",
+    "LateInteractionRetriever",
     "NemotronConfig",
     "NemotronEmbedder",
     "AssembledContext",

@@ -1,6 +1,7 @@
 """State carried across from the JAX package, given as plain Python and
-numpy objects: the retriever's index state (:func:`retriever_from_state`)
-and the models' parameters (:func:`encoder_params_from_jax`,
+numpy objects: the retriever's index state (:func:`retriever_from_state`),
+a token store's state (:func:`token_store_from_state`,
+:func:`late_interaction_from_state`) and the models' parameters (:func:`encoder_params_from_jax`,
 :func:`nemotron_params_from_jax`, :func:`cross_encoder_params_from_jax`).
 
 The JAX package's ``HybridRetriever`` exposes everything needed:
@@ -24,6 +25,7 @@ bit for bit; any mutation before that build voids it.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -39,6 +41,38 @@ from trueno_rag_tpu_torch.retrieve import HybridRetriever, HybridRetrieverConfig
 def _port_chunk(c) -> Chunk:
     """A chunk object of either package → the port's :class:`Chunk`."""
     return Chunk.from_dict(c.to_dict())
+
+
+def _tag_words(chunks: Sequence, tag_bits, tag_vocab) -> np.ndarray:
+    """The per-row tag words of ``chunks`` (zeros without tags)."""
+    if (tag_bits is None) != (tag_vocab is None):
+        raise InvalidConfigError("tag_bits and tag_vocab come together")
+    if tag_bits is None:
+        return np.zeros(len(chunks), np.int64)
+    tag_bits = np.asarray(tag_bits).astype(np.int64)
+    if tag_bits.shape[0] < len(chunks):
+        raise InvalidConfigError("tag_bits must cover every chunk row")
+    return tag_bits[: len(chunks)]
+
+
+def _fill_registry(reg, chunks: Sequence, bits: np.ndarray, tag_vocab) -> None:
+    """Put ``chunks`` (``None`` = a free row) into an empty registry at
+    their rows, with their tag words and the tag vocabulary."""
+    for row, c in enumerate(chunks):
+        if c is None:
+            reg._row_to_id.append(None)
+            reg._chunks.append(None)
+            reg._tags.append(0)
+            reg._free.append(row)
+        else:
+            pc = _port_chunk(c)
+            reg._row_to_id.append(pc.id)
+            reg._chunks.append(pc)
+            reg._tags.append(int(bits[row]))
+            reg._id_to_row[pc.id] = row
+    if tag_vocab is not None:
+        reg._tag_bits = {str(t): int(b) for t, b in tag_vocab.items()}
+        reg.tags_version += 1
 
 
 def retriever_from_state(
@@ -70,36 +104,14 @@ def retriever_from_state(
         raise InvalidConfigError("host_matrix must be [capacity, d] with a [capacity] valid mask")
     if len(chunks) > host_matrix.shape[0]:
         raise InvalidConfigError("more chunk rows than matrix rows")
-    if (tag_bits is None) != (tag_vocab is None):
-        raise InvalidConfigError("tag_bits and tag_vocab come together")
-    bits = np.zeros(len(chunks), np.int64)
-    if tag_bits is not None:
-        tag_bits = np.asarray(tag_bits).astype(np.int64)
-        if tag_bits.shape[0] < len(chunks):
-            raise InvalidConfigError("tag_bits must cover every chunk row")
-        bits = tag_bits[: len(chunks)]
+    bits = _tag_words(chunks, tag_bits, tag_vocab)
     retr = HybridRetriever(embedder, config=config, vector_config=vector_config, device=device)
     if host_matrix.shape[1] != retr.vector_store.config.dimension:
         raise InvalidConfigError(
             f"matrix width {host_matrix.shape[1]} != store dimension "
             f"{retr.vector_store.config.dimension}"
         )
-    reg = retr.registry
-    for row, c in enumerate(chunks):
-        if c is None:
-            reg._row_to_id.append(None)
-            reg._chunks.append(None)
-            reg._tags.append(0)
-            reg._free.append(row)
-        else:
-            pc = _port_chunk(c)
-            reg._row_to_id.append(pc.id)
-            reg._chunks.append(pc)
-            reg._tags.append(int(bits[row]))
-            reg._id_to_row[pc.id] = row
-    if tag_vocab is not None:
-        reg._tag_bits = {str(t): int(b) for t, b in tag_vocab.items()}
-        reg.tags_version += 1
+    _fill_registry(retr.registry, chunks, bits, tag_vocab)
     store = retr.vector_store
     store._host = host_matrix.copy()
     store._valid = valid.copy()
@@ -168,3 +180,88 @@ def nemotron_params_from_jax(params: Mapping[str, Any], device) -> Dict[str, Any
     out = _layered(params, LAYER_KEYS, MATRICES, device)
     out["tok_emb"] = out["tok_emb"].to(torch.bfloat16)
     return out
+
+
+def _store_config(config):
+    """A token store config of either package, or a mapping of its fields
+    → the port's :class:`TokenStoreConfig`."""
+    from trueno_rag_tpu_torch.index.token_store import TokenStoreConfig
+
+    if config is None or isinstance(config, TokenStoreConfig):
+        return config or TokenStoreConfig()
+    fields = dict(config) if isinstance(config, Mapping) else dict(vars(config))
+    return TokenStoreConfig(**fields)
+
+
+def token_store_from_state(
+    chunks: Sequence,
+    tokens: np.ndarray,
+    t_mask: np.ndarray,
+    valid: np.ndarray,
+    config=None,
+    device=None,
+    tag_bits: Optional[np.ndarray] = None,
+    tag_vocab: Optional[Mapping[str, int]] = None,
+):
+    """A port :class:`~trueno_rag_tpu_torch.index.token_store.TokenVectorStore`
+    holding a JAX token store's state: ``chunks[row]`` (``None`` = a free
+    row), its host mirror ``tokens [capacity, Lt, H]`` f32 (already
+    normalized), ``t_mask [capacity, Lt]`` and ``valid [capacity]``, its
+    ``TokenStoreConfig`` (either package's, or a mapping of the fields)
+    and the registry's tags (``registry.tags_host(capacity)`` and
+    ``registry.tag_state([])[0]``). Rows are kept as they are, so both
+    packages answer with the same rows."""
+    from trueno_rag_tpu_torch.index.token_store import TokenVectorStore
+
+    cfg = _store_config(config)
+    tokens = np.asarray(tokens, dtype=np.float32)
+    t_mask = np.asarray(t_mask, dtype=bool)
+    valid = np.asarray(valid, dtype=bool)
+    cap = tokens.shape[0]
+    if (tokens.shape[1:] != (cfg.max_tokens, cfg.hidden_dim) or t_mask.shape != (cap, cfg.max_tokens)
+            or valid.shape != (cap,)):
+        raise InvalidConfigError(
+            f"tokens must be [capacity, {cfg.max_tokens}, {cfg.hidden_dim}] with t_mask [capacity, "
+            f"{cfg.max_tokens}] and valid [capacity]"
+        )
+    if len(chunks) > cap:
+        raise InvalidConfigError("more chunk rows than token rows")
+    store = TokenVectorStore(cfg, device=device)
+    _fill_registry(store.registry, chunks, _tag_words(chunks, tag_bits, tag_vocab), tag_vocab)
+    store._host = tokens.copy()
+    store._t_mask = t_mask.copy()
+    store._valid = valid.copy()
+    store._count = int(valid.sum())
+    store._dirty = True
+    return store
+
+
+def late_interaction_from_state(
+    chunks: Sequence,
+    tokens: np.ndarray,
+    t_mask: np.ndarray,
+    valid: np.ndarray,
+    store_config=None,
+    encoder_params: Optional[Mapping[str, Any]] = None,
+    encoder_config=None,
+    max_len: int = 32,
+    seed: int = 0,
+    device=None,
+    tag_bits: Optional[np.ndarray] = None,
+    tag_vocab: Optional[Mapping[str, int]] = None,
+):
+    """A port :class:`~trueno_rag_tpu_torch.models.late_interaction.LateInteractionRetriever`
+    over :func:`token_store_from_state`'s store, with the JAX retriever's
+    encoder parameters (``retr.params``, carried by
+    :func:`encoder_params_from_jax`; seeded weights when ``None``) and
+    ``encoder_config`` (the port's :class:`EncoderConfig`)."""
+    from trueno_rag_tpu_torch.models.late_interaction import LateInteractionRetriever
+
+    store = token_store_from_state(chunks, tokens, t_mask, valid, store_config, device, tag_bits, tag_vocab)
+    params = None if encoder_params is None else encoder_params_from_jax(encoder_params, store.device)
+    # a one-row placeholder store, replaced by the carried one
+    retr = LateInteractionRetriever(config=encoder_config, params=params, seed=seed, max_len=max_len,
+                                    store_config=dataclasses.replace(store.config, initial_capacity=1),
+                                    device=store.device)
+    retr.store = store
+    return retr

@@ -8,14 +8,17 @@ reranking, the counterparts of the JAX package's ``models``:
   attention is the CUDA kernel ``block_attention``;
 - :mod:`~trueno_rag_tpu_torch.models.cross_encoder` — the neural
   cross-encoder reranker;
+- :mod:`~trueno_rag_tpu_torch.models.late_interaction` — ColBERT-style
+  MaxSim: the late-interaction reranker and the corpus-scale retriever
+  over the token store (its tiered scan is the CUDA kernels K6/K7);
 - :mod:`~trueno_rag_tpu_torch.models.gguf` — GGUF model files;
 - :mod:`~trueno_rag_tpu_torch.models.tokenization` — WordPiece.
 
 Weights: no network here, so constructors draw seeded random weights
 from a ``torch.Generator`` on the model's device, or take a parameter
 dict (``convert.py`` carries the JAX package's across; ``from_gguf``
-reads a model file). Not ported yet (ROADMAP Queue 1): late interaction,
-SPLADE, the Hugging Face importers and device-side GGUF dequantization.
+reads a model file). Not ported yet (ROADMAP Queue 1): SPLADE, the
+Hugging Face importers and device-side GGUF dequantization.
 """
 
 from trueno_rag_tpu_torch.models.encoder import (
@@ -38,6 +41,13 @@ from trueno_rag_tpu_torch.models.cross_encoder import (
     cross_encoder_scores,
     init_cross_encoder_params,
 )
+from trueno_rag_tpu_torch.models.late_interaction import (
+    LateInteractionReranker,
+    LateInteractionRetriever,
+    late_interaction_scores,
+    maxsim,
+    maxsim_oracle,
+)
 from trueno_rag_tpu_torch.models.gguf import load_nemotron_gguf, read_gguf, write_gguf
 from trueno_rag_tpu_torch.models.tokenization import WordPieceTokenizer
 
@@ -56,6 +66,11 @@ __all__ = [
     "CrossEncoderReranker",
     "cross_encoder_scores",
     "init_cross_encoder_params",
+    "LateInteractionReranker",
+    "LateInteractionRetriever",
+    "late_interaction_scores",
+    "maxsim",
+    "maxsim_oracle",
     "load_nemotron_gguf",
     "read_gguf",
     "write_gguf",

@@ -31,6 +31,10 @@ ENTRY = {
     "scan_select_int8_v3_launch": ("scan_select_int8_v3.cu", [_P] * 15 + [_I] * 4 + [_P]),
     # q, k, v, key_mask, out, bh, t, hd, heads, causal, scale, stream
     "block_attention_launch": ("block_attention.cu", [_P] * 5 + [_I] * 5 + [_F, _P]),
+    # q16, tok16, t_mask, valid, out, nq, lq, n, lt, h, stream
+    "maxsim_scan16_launch": ("maxsim_scan.cu", [_P] * 5 + [_I] * 5 + [_P]),
+    # q8, t_q, tok8, s_tok, t_mask, valid, out, nq, lq, n, lt, h, stream
+    "maxsim_scan_int8_launch": ("maxsim_scan.cu", [_P] * 7 + [_I] * 5 + [_P]),
 }
 
 _fns: Optional[Dict[str, object]] = None

@@ -1,0 +1,195 @@
+"""The late-interaction scans as CUDA kernels for Hopper, plus their plain
+PyTorch versions (``csrc/maxsim_scan.cu``):
+
+- ``maxsim_scan16_scores``: the bf16 MaxSim of every query against every
+  chunk, counterpart of the Pallas TPU kernel
+  ``trueno_rag_tpu/ops/pallas/maxsim_scan.py::maxsim_scan16_scores``;
+- ``maxsim_scan_int8_scores``: the int8 form (an exact integer dot, the
+  token scale after the dot, the query scale after the max), counterpart
+  of ``maxsim_scan.py::maxsim_scan_int8_scores``.
+
+Both → ``[B, N]`` f32: ``Σᵢ maxⱼ`` over the chunk's valid tokens, an empty
+chunk's best counting 0, -inf at invalid chunks. The Lq-sum runs over i in
+ascending order in the kernels and the plain versions alike. The int8
+kernel is bit-identical to its plain version; the bf16 kernel sums each
+dot's exact products in another f32 order than the plain version's
+matmul, within the certificate's ``κ = (H+Lq)·2⁻²³`` share per program.
+
+Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to
+the kernel, or the call raises. The kernels are built at first use by
+:mod:`~trueno_rag_tpu_torch.ops.kernels.build`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from trueno_rag_tpu_torch.errors import InvalidConfigError
+from trueno_rag_tpu_torch.ops.dense import require_fp32
+from trueno_rag_tpu_torch.ops.kernels.build import entry
+
+NEG_INF = float("-inf")
+_PLAIN_ELEMS = 1 << 26  # f32 interaction entries per slab of the plain versions (256 MiB)
+
+
+def _check(q, tok, t_mask, valid, q_dtype, tok_dtype, name: str) -> None:
+    if q.dim() != 3 or tok.dim() != 3 or q.shape[2] != tok.shape[2]:
+        raise InvalidConfigError(f"{name}: need q [B, Lq, H] and tokens [N, Lt, H], got "
+                                 f"{tuple(q.shape)}, {tuple(tok.shape)}")
+    if q.dtype != q_dtype or tok.dtype != tok_dtype:
+        raise InvalidConfigError(f"{name}: q must be {q_dtype} and tokens {tok_dtype}, got {q.dtype}, {tok.dtype}")
+    n, lt = tok.shape[0], tok.shape[1]
+    if t_mask.dtype != torch.bool or tuple(t_mask.shape) != (n, lt):
+        raise InvalidConfigError(f"{name}: t_mask must be bool [{n}, {lt}], got {t_mask.dtype} {tuple(t_mask.shape)}")
+    if valid.dtype != torch.bool or tuple(valid.shape) != (n,):
+        raise InvalidConfigError(f"{name}: valid must be bool [{n}], got {valid.dtype} {tuple(valid.shape)}")
+    if q.shape[0] < 1 or q.shape[1] < 1 or n < 1 or lt < 1:
+        raise InvalidConfigError(f"{name}: empty input {tuple(q.shape)}, {tuple(tok.shape)}")
+
+
+def _launch(name: str, tensors, aligned, ints, b: int, n: int, dev) -> torch.Tensor:
+    """Launch entry point ``name`` on the current stream of ``dev`` over
+    ``tensors`` (all contiguous; the ``aligned`` ones read as 16-byte
+    vectors) → the ``[b, n]`` f32 output."""
+    if dev.type != "cuda":
+        raise InvalidConfigError(f"{name[:-7]} runs on cpu or cuda tensors, got {dev}")
+    if len({t.device for t in tensors}) != 1:
+        raise InvalidConfigError(f"{name[:-7]}: all inputs must be on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise InvalidConfigError(f"{name[:-7]} needs contiguous inputs")
+    if any(t.data_ptr() % 16 for t in aligned):
+        raise InvalidConfigError(f"{name[:-7]}: the query and token tensors must be 16-byte aligned")
+    out = torch.empty((b, n), dtype=torch.float32, device=dev)
+    fn = entry(name)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*(t.data_ptr() for t in tensors), out.data_ptr(), *ints, stream)
+    if err != 0:
+        raise RuntimeError(f"{name[:-7]} kernel launch failed: cudaError {err}")
+    return out
+
+
+def _max_sum(sims: torch.Tensor, t_mask: torch.Tensor, b: int, lq: int, t_q=None) -> torch.Tensor:
+    """``sims [S, Lt, B·Lq]`` (overwritten) → ``[B, S]``: the masked max
+    over Lt (an empty chunk's -inf best counts 0), then the Lq-sum over i
+    in ascending order, each query token's best multiplied by its scale
+    ``t_q [B, Lq]`` first when one is given."""
+    sims.masked_fill_(~t_mask[:, :, None], NEG_INF)
+    best = sims.amax(dim=1)
+    best = torch.where(torch.isfinite(best), best, 0.0).view(-1, b, lq)
+    s = torch.zeros(best.shape[:2], dtype=torch.float32, device=best.device)
+    for i in range(lq):
+        s = s + (best[:, :, i] if t_q is None else t_q[None, :, i] * best[:, :, i])
+    return s.T
+
+
+def _slabs(n: int, lt: int, h: int, bl: int):
+    step = max(1, _PLAIN_ELEMS // (lt * max(h, bl)))
+    return ((lo, min(n, lo + step)) for lo in range(0, n, step))
+
+
+def maxsim_scan16_scores(
+    q16: torch.Tensor,  # [B, Lq, H] bf16 (padding tokens zeroed)
+    tok16: torch.Tensor,  # [N, Lt, H] bf16 replica (or the bf16 primary itself)
+    t_mask: torch.Tensor,  # [N, Lt] bool
+    valid: torch.Tensor,  # [N] bool
+) -> torch.Tensor:
+    """→ ``[B, N]`` f32 bf16 MaxSim scores (-inf at invalid chunks).
+
+    CPU tensors run :func:`maxsim_scan16_scores_reference`; CUDA tensors
+    launch the kernel (counted in ``maxsim_scan16_scores.launches``) or
+    raise. The kernel reads ``tok16`` in place and needs H % 8 == 0."""
+    _check(q16, tok16, t_mask, valid, torch.bfloat16, torch.bfloat16, "maxsim_scan16_scores")
+    if q16.device.type == "cpu":
+        return maxsim_scan16_scores_reference(q16, tok16, t_mask, valid)
+    b, lq, h = q16.shape
+    n, lt = t_mask.shape
+    if h % 8:
+        raise InvalidConfigError(f"maxsim_scan16_scores: the kernel needs H % 8 == 0, got {h}")
+    q16 = q16.contiguous()
+    out = _launch("maxsim_scan16_launch", (q16, tok16, t_mask, valid), (q16, tok16),
+                  (b, lq, n, lt, h), b, n, q16.device)
+    maxsim_scan16_scores.launches += 1
+    return out
+
+
+maxsim_scan16_scores.launches = 0
+
+
+def maxsim_scan16_scores_reference(q16, tok16, t_mask, valid) -> torch.Tensor:
+    """Plain PyTorch version of the bf16 kernel, on any device: per slab of
+    chunks an f32 matmul of the bf16 values (exact products, TF32 off),
+    then :func:`_max_sum`."""
+    _check(q16, tok16, t_mask, valid, torch.bfloat16, torch.bfloat16, "maxsim_scan16_scores")
+    require_fp32()
+    b, lq, h = q16.shape
+    n, lt = t_mask.shape
+    qf = q16.reshape(b * lq, h).float()
+    out = torch.empty((b, n), dtype=torch.float32, device=q16.device)
+    for lo, hi in _slabs(n, lt, h, b * lq):
+        sims = (tok16[lo:hi].reshape(-1, h).float() @ qf.T).view(hi - lo, lt, b * lq)
+        out[:, lo:hi] = _max_sum(sims, t_mask[lo:hi], b, lq)
+    return out.masked_fill_(~valid[None, :], NEG_INF)
+
+
+def _check_int8(q8, t_q, tok8, s_tok, t_mask, valid) -> None:
+    name = "maxsim_scan_int8_scores"
+    _check(q8, tok8, t_mask, valid, torch.int8, torch.int8, name)
+    if t_q.dtype != torch.float32 or tuple(t_q.shape) != tuple(q8.shape[:2]):
+        raise InvalidConfigError(f"{name}: t_q must be f32 {tuple(q8.shape[:2])}, got {t_q.dtype} {tuple(t_q.shape)}")
+    if s_tok.dtype != torch.float32 or tuple(s_tok.shape) != tuple(t_mask.shape):
+        raise InvalidConfigError(f"{name}: s_tok must be f32 {tuple(t_mask.shape)}, got {s_tok.dtype} "
+                                 f"{tuple(s_tok.shape)}")
+    if q8.shape[2] * 127 * 127 >= 1 << 24:
+        raise InvalidConfigError(f"{name}: H*127^2 must stay below 2^24 (the integer dot exact in f32)")
+
+
+def maxsim_scan_int8_scores(
+    q8: torch.Tensor,  # [B, Lq, H] int8 (padding tokens all zero)
+    t_q: torch.Tensor,  # [B, Lq] f32 per-query-token scales
+    tok8: torch.Tensor,  # [N, Lt, H] int8 replica
+    s_tok: torch.Tensor,  # [N, Lt] f32 per-token scales
+    t_mask: torch.Tensor,  # [N, Lt] bool
+    valid: torch.Tensor,  # [N] bool
+) -> torch.Tensor:
+    """→ ``[B, N]`` f32 int8 MaxSim scores (-inf at invalid chunks), in the
+    order ``f32(dot)·s_tok``, masked max over Lt, ``Σᵢ t_qᵢ·bestᵢ`` over i
+    ascending (the Pallas kernel's: scale after the max).
+
+    CPU tensors run
+    :func:`maxsim_scan_int8_scores_reference`; CUDA tensors launch the
+    kernel (counted in ``maxsim_scan_int8_scores.launches``) or raise. The
+    kernel needs H % 16 == 0."""
+    _check_int8(q8, t_q, tok8, s_tok, t_mask, valid)
+    if q8.device.type == "cpu":
+        return maxsim_scan_int8_scores_reference(q8, t_q, tok8, s_tok, t_mask, valid)
+    b, lq, h = q8.shape
+    n, lt = t_mask.shape
+    if h % 16:
+        raise InvalidConfigError(f"maxsim_scan_int8_scores: the kernel needs H % 16 == 0, got {h}")
+    q8 = q8.contiguous()
+    out = _launch("maxsim_scan_int8_launch", (q8, t_q.contiguous(), tok8, s_tok, t_mask, valid), (q8, tok8),
+                  (b, lq, n, lt, h), b, n, q8.device)
+    maxsim_scan_int8_scores.launches += 1
+    return out
+
+
+maxsim_scan_int8_scores.launches = 0
+
+
+def maxsim_scan_int8_scores_reference(q8, t_q, tok8, s_tok, t_mask, valid) -> torch.Tensor:
+    """Plain PyTorch version of the int8 kernel, on any device: per slab an
+    f32 matmul of the int8 values (exact in any order: every partial sum is
+    an integer below 2²⁴), the token scale, then :func:`_max_sum` with the
+    query scales. Its output equals the kernel's bit for bit."""
+    _check_int8(q8, t_q, tok8, s_tok, t_mask, valid)
+    require_fp32()
+    b, lq, h = q8.shape
+    n, lt = t_mask.shape
+    qf = q8.reshape(b * lq, h).float()
+    out = torch.empty((b, n), dtype=torch.float32, device=q8.device)
+    for lo, hi in _slabs(n, lt, h, b * lq):
+        dots = tok8[lo:hi].reshape(-1, h).float() @ qf.T  # [S·Lt, B·Lq]
+        sims = (dots * s_tok[lo:hi].reshape(-1, 1)).view(hi - lo, lt, b * lq)
+        out[:, lo:hi] = _max_sum(sims, t_mask[lo:hi], b, lq, t_q)
+    return out.masked_fill_(~valid[None, :], NEG_INF)
