@@ -111,6 +111,33 @@ Run from the repository root. Phases, each fatal on failure:
    ``LateInteractionReranker`` reranks 32 queries x 50 candidates, its
    scores held to float64 on a sample.
 
+16. kernels-K8K9 (run after phase 2), at the slice's shapes (1,048,576
+   unit rows, d = 384, B = 256, top 2 and 4): K8 ``scan_select`` against
+   its plain version (values within 1e-4, lanes equal on >= 99.9% of slots
+   with every difference at a near-tie), K9 ``scan_select_int8`` bit for
+   bit, both sound against float64 (every emitted value at least its row's
+   true score, v_{top+1} at least every row of its block not emitted),
+   times beside the plain versions;
+17. kernels-K2 (after phase 16), the same shapes in fp32: K2
+   ``score_blockmax`` within 2(d+1)·2⁻²⁴ of torch.matmul (TF32 off; two
+   f32 sums of the same unit-vector products), its maxima exactly the max
+   of its scores, K2b ``blockmax_only``'s equal to them;
+   ``dense_topk_blockmax`` and ``dense_topk_twopass`` equal to
+   ``dense_topk`` (their launches counted there); times beside
+   torch.matmul + amax;
+18. odd-widths (after phase 14), d = H = 100: K1, K3, K5, K8 and K9 over
+   65,536 rows and K6, K7 over 8,192 x 16 tokens against their plain
+   versions; a bf16-tier batch of 256 equal to the exact fp32 path and a
+   zero-copy token-store batch of 8 equal to its exact scan;
+19. block-stores (after phase 6), on the slice's 1M corpus (siblings, no
+   second ingest): ``VectorStoreConfig(scan_tier="bf16"|"int8"|"auto",
+   scan_kernel="block")`` and ``(storage_dtype="bfloat16")`` each answer a
+   batch of 256 through ``query_with_context_batch(k=5)``: K8's and K9's
+   launch counts must rise, the block tiers' dense candidates equal the
+   exact fp32 ``dense_topk`` rows and scores (certified fraction logged),
+   the bf16-storage store's equal the float64 top-k over its own
+   bf16-rounded rows up to near-ties.
+
 The last two lines of standard output are JSON: the per-kernel record, then
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
 """
@@ -190,6 +217,12 @@ LI_K = 10
 RR_QUERIES = 32
 RR_CANDIDATES = 50
 MIN_CERTIFIED = 0.75  # share of queries a certified MaxSim tier must prove (a K6/K7 scoring high proves none)
+K8_TOPS = (2, 4)  # kernels-K8K9: the store's scan_block_top, then the kernel's default
+K2_K = 10  # kernels-K2: k of the two top-k functions
+ODD_D = 100  # odd-widths: a width no kernel vector divides
+ODD_N = 65536
+ODD_TOK_N, ODD_LT = 8192, 16
+
 # H100 SXM peaks (NVIDIA data sheet) for the kernels' bounds
 BF16_FLOP_PER_S = 989e12  # tensor cores, dense: the peak for bf16 operands (K1, K4, K5, K6)
 HBM_BYTES_PER_S = 3.35e12
@@ -2367,6 +2400,448 @@ def phase_late_interaction(seed: int):
     return k6_total, k7_total
 
 
+# -- slice 6: the block kernels, the fp32 block-max kernels, the block and
+# bf16-storage stores, odd widths ---------------------------------------------
+
+
+def check_block_sound(out, top, true, qs, name):
+    """Every emitted value bounds the float64 true score of its row, and
+    v_{top+1} every row of its block it did not emit (queries ``qs``;
+    ``true`` [N, len(qs)] with -inf on invalid rows) → the least slack."""
+    import torch
+
+    from trueno_rag_tpu_torch.ops.kernels.scan_select_v1 import BLOCK
+
+    tb = true.view(-1, BLOCK, true.shape[1])  # [G, 128, Q]
+    vals = torch.stack([out[t][qs].T for t in range(top + 1)]).double()  # [top+1, G, Q]
+    seen = torch.zeros(tb.shape, dtype=torch.bool, device=DEV)
+    worst = float("inf")
+    for t in range(top):
+        lanes = out[top + 1 + t][qs].T.long()[:, None, :]  # [G, 1, Q]
+        emitted = torch.gather(tb, 1, lanes)[:, 0, :]
+        live = ~torch.isneginf(emitted)
+        slack = (vals[t] - emitted)[live]
+        check(bool((slack >= 0).all()), f"{name}: an emitted value is below its row's true score")
+        worst = min(worst, slack.min().item())
+        seen.scatter_(1, lanes, True)
+    rest = torch.where(seen, float("-inf"), tb).amax(dim=1)
+    live = ~torch.isneginf(rest)
+    slack = (vals[top] - rest)[live]
+    check(bool((slack >= 0).all()), f"{name}: v_(top+1) is below an unemitted row's true score")
+    return min(worst, slack.min().item())
+
+
+def compare_k8(got, want, top, upper64, label):
+    """K8 against its plain version: -inf slots equal, values within V_TOL,
+    lanes equal on >= ROW_AGREE of the slots and every difference at a
+    near-tie of the two summation orders (``upper64(rows, queries)``: the
+    float64 upper bound of those rows) → max |dv|."""
+    import torch
+
+    from trueno_rag_tpu_torch.ops.kernels.scan_select_v1 import BLOCK
+
+    max_err = 0.0
+    for t in range(top + 1):
+        inf_k, inf_r = torch.isneginf(got[t]), torch.isneginf(want[t])
+        check(torch.equal(inf_k, inf_r), f"{label}: -inf slots differ at v{t + 1}")
+        check(bool(torch.isfinite(got[t][~inf_k]).all()), f"{label}: non-finite kernel values")
+        max_err = max(max_err, (got[t][~inf_k] - want[t][~inf_r]).abs().max().item())
+    check(max_err <= V_TOL, f"{label}: values differ by {max_err}")
+    lk, lr = torch.stack(got[top + 1:]), torch.stack(want[top + 1:])  # [top, B, G]
+    diff = lk != lr
+    agree = 1.0 - diff.float().mean().item()
+    _, bi, gi = torch.nonzero(diff, as_tuple=True)
+    gap = 0.0
+    if bi.numel():
+        gap = (upper64(gi * BLOCK + lk[diff].long(), bi) - upper64(gi * BLOCK + lr[diff].long(), bi)).abs().max().item()
+    log(f"{label}: values max |diff| {max_err:.3e} (tolerance {V_TOL}); lanes agree {agree:.6f} "
+        f"({int(diff.sum())} differ, max |dv| {gap:.3e})")
+    check(agree >= ROW_AGREE, f"{label}: lane agreement {agree} < {ROW_AGREE}")
+    check(gap <= V_TOL, f"{label}: a differing lane is not a near-tie (|dv| = {gap})")
+    return max_err
+
+
+def phase_kernels_k8k9(seed: int):
+    """K8 scan_select and K9 scan_select_int8 at the slice's shapes (N =
+    1,048,576 unit rows, d = 384, B = 256, top 2 and 4) against their plain
+    versions, their bounds against float64 and times → (K8, K9 records)."""
+    import torch
+
+    from trueno_rag_tpu_torch.ops import dense_tiered as dt
+    from trueno_rag_tpu_torch.ops.kernels.scan_select_v1 import (
+        BLOCK, scan_select, scan_select_int8, scan_select_int8_reference, scan_select_reference,
+    )
+
+    gen = torch.Generator(device=DEV).manual_seed(seed + 21)
+    m = unit_rows(N_ROWS, gen)
+    q = unit_rows(BATCH, gen)
+    valid = torch.ones(N_ROWS, dtype=torch.int32, device=DEV)
+    valid[1000:1040] = 0  # a partly masked block
+    valid[5 * BLOCK:6 * BLOCK] = 0  # a fully masked block
+    g = N_ROWS // BLOCK
+    qs = torch.randperm(BATCH, device=DEV, generator=gen)[:16]
+    true = torch.where(valid[:, None] != 0, m.double() @ q[qs].double().T, float("-inf"))  # [N, 16]
+
+    mb, e_l2, a_l2 = dt.prepare_tiered(m)
+    qb, u_q, v_q = dt._bf16_query_bounds(q)
+    args8 = (qb, mb, e_l2, a_l2, valid, u_q, v_q)
+
+    def upper64(rows, bidx):
+        s = (mb[rows].double() * qb[bidx].double()).sum(dim=-1)
+        return s + e_l2[rows].double() * u_q[bidx].double() + a_l2[rows].double() * v_q[bidx].double()
+
+    m_i8, s_row, i8_e, i8_a = dt.prepare_int8(m)
+    q_i8, t_q, u8, v8 = dt._int8_query_bounds(q)
+    args9 = (q_i8, m_i8, s_row, i8_e, i8_a, valid, t_q, u8, v8)
+    k8_err = k9_err = 0.0
+    for top in K8_TOPS:
+        got = scan_select(*args8, tile_n=1024, top=top)
+        torch.cuda.synchronize()
+        check(len(got) == 2 * top + 1 and tuple(got[0].shape) == (BATCH, g), "K8 output shapes")
+        want = scan_select_reference(*args8, tile_n=1024, top=top)
+        k8_err = max(k8_err, compare_k8(got, want, top, upper64, f"K8 vs plain (top {top})"))
+        worst = check_block_sound(got, top, true, qs, f"K8 top {top}")
+        log(f"K8 soundness (top {top}): 16 queries x {g} blocks bounded, least slack {worst:.3e}")
+        del got, want
+        got = scan_select_int8(*args9, tile_n=1024, top=top)
+        torch.cuda.synchronize()
+        want = scan_select_int8_reference(*args9, tile_n=1024, top=top)
+        for t, (a, b) in enumerate(zip(got, want)):
+            if t <= top:
+                k9_err = max(k9_err, (a - b).abs().nan_to_num(0.0).max().item())  # -inf - -inf is nan
+            check(torch.equal(a, b), f"K9 (top {top}) output {t} differs from the plain version")
+        log(f"K9 vs plain (top {top}): values and lanes bit-identical ({sum(x.numel() for x in got)} entries)")
+        worst = check_block_sound(got, top, true, qs, f"K9 top {top}")
+        log(f"K9 soundness (top {top}): 16 queries x {g} blocks bounded, least slack {worst:.3e}")
+        del got, want
+    del true
+
+    top = K8_TOPS[0]  # the store's scan_block_top
+    k8_ms = cuda_ms(lambda: scan_select(*args8, tile_n=1024, top=top), 20)
+    k8_plain = cuda_ms(lambda: scan_select_reference(*args8, tile_n=1024, top=top), 3)
+    k8_ms2 = cuda_ms(lambda: scan_select(*args8, tile_n=1024, top=top), 20)
+    k9_ms = cuda_ms(lambda: scan_select_int8(*args9, tile_n=1024, top=top), 20)
+    k9_plain = cuda_ms(lambda: scan_select_int8_reference(*args9, tile_n=1024, top=top), 3)
+    k9_ms2 = cuda_ms(lambda: scan_select_int8(*args9, tile_n=1024, top=top), 20)
+    k8_top4 = cuda_ms(lambda: scan_select(*args8, tile_n=1024, top=4), 10)
+    k9_top4 = cuda_ms(lambda: scan_select_int8(*args9, tile_n=1024, top=4), 10)
+    flop = 2.0 * BATCH * N_ROWS * DIM
+    out_bytes = BATCH * (2 * top + 1) * g * 4
+    k8_bound = bound(BATCH * DIM * 2 + N_ROWS * DIM * 2 + N_ROWS * 12 + BATCH * 8 + out_bytes, flop,
+                     BF16_FLOP_PER_S)
+    k9_bound = bound(BATCH * DIM + N_ROWS * DIM + N_ROWS * 16 + BATCH * 12 + out_bytes, flop, INT8_OP_PER_S)
+    log(f"K8 scan_select at N={N_ROWS} d={DIM} B={BATCH} top {top}: kernel {k8_ms:.3f} / {k8_ms2:.3f} ms, "
+        f"plain {k8_plain:.3f} ms (median, CUDA events); top 4 {k8_top4:.3f} ms; bound {k8_bound[0]:.3f} ms "
+        f"({k8_bound[1]}); its fp32 CUDA-core ceiling {flop / FP32_FLOP_PER_S * 1e3:.3f} ms; rate "
+        f"{flop / (min(k8_ms, k8_ms2) * 1e-3) / 1e12:.1f} TFLOP/s")
+    log(f"K9 scan_select_int8 at N={N_ROWS} d={DIM} B={BATCH} top {top}: kernel {k9_ms:.3f} / {k9_ms2:.3f} ms, "
+        f"plain {k9_plain:.3f} ms (median, CUDA events); top 4 {k9_top4:.3f} ms; bound {k9_bound[0]:.3f} ms "
+        f"({k9_bound[1]}); rate {flop / (min(k9_ms, k9_ms2) * 1e-3) / 1e12:.1f} TOP/s")
+    del m, mb, m_i8
+    torch.cuda.empty_cache()
+    src = "trueno_rag_tpu_torch/csrc/scan_select_v1.cu"
+    return (
+        {"name": "scan_select", "route": "cuda", "source": src,
+         "replaces": "trueno_rag_tpu/ops/pallas/scan_select.py:107", "max_abs_err": k8_err,
+         "ms": min(k8_ms, k8_ms2), "plain_ms": k8_plain, "bound_ms": k8_bound[0],
+         "bound_by": k8_bound[1], "library_ms": None},
+        {"name": "scan_select_int8", "route": "cuda", "source": src,
+         "replaces": "trueno_rag_tpu/ops/pallas/scan_select_int8.py:107", "max_abs_err": k9_err,
+         "ms": min(k9_ms, k9_ms2), "plain_ms": k9_plain, "bound_ms": k9_bound[0],
+         "bound_by": k9_bound[1], "library_ms": None},
+    )
+
+
+def phase_kernels_k2(seed: int):
+    """K2 score_blockmax and K2b blockmax_only at N = 1,048,576 unit rows,
+    d = 384, B = 256 in fp32 against their plain version (torch.matmul, TF32
+    off), their top-k functions (the port's pallas_dense_topk and
+    pallas_dense_topk_twopass) against dense_topk, times beside torch.matmul
+    + amax → (K2, K2b records)."""
+    import torch
+
+    from trueno_rag_tpu_torch.ops.dense import dense_topk
+    from trueno_rag_tpu_torch.ops.kernels.dense_score import (
+        BLOCK, blockmax_only, dense_topk_blockmax, dense_topk_twopass, score_blockmax, score_blockmax_reference,
+    )
+
+    gen = torch.Generator(device=DEV).manual_seed(seed + 23)
+    m = unit_rows(N_ROWS, gen)
+    q = unit_rows(BATCH, gen)
+    valid = torch.ones(N_ROWS, dtype=torch.bool, device=DEV)
+    valid[1000:1040] = False
+    valid[5 * BLOCK:6 * BLOCK] = False
+    s, bm = score_blockmax(q, m, valid)
+    bm2 = blockmax_only(q, m, valid)
+    torch.cuda.synchronize()
+    s_r, bm_r = score_blockmax_reference(q, m, valid)
+    # two f32 evaluations of the same unit-vector dot: each within
+    # (d+1)·2⁻²⁴·Σ|q_i m_i| ≤ (d+1)·2⁻²⁴ of the true value
+    tol = 2 * (DIM + 1) * 2.0**-24
+    check(torch.equal(torch.isneginf(s), torch.isneginf(s_r)), "K2: -inf entries differ from the plain version")
+    fin = torch.isfinite(s_r)
+    k2_err = (s[fin] - s_r[fin]).abs().max().item()
+    check(k2_err <= tol, f"K2 scores differ from torch.matmul by {k2_err} > {tol}")
+    check(torch.equal(bm, s.view(BATCH, -1, BLOCK).amax(dim=2)), "K2's maxima are not the max of its scores")
+    check(torch.equal(bm2, bm), "K2b's maxima differ from K2's")
+    bm_err = (bm - bm_r).abs().nan_to_num(0.0).max().item()
+    log(f"K2 vs plain (torch.matmul, TF32 off): scores max |diff| {k2_err:.3e} (tolerance {tol:.3e}: two f32 "
+        f"sums of d = {DIM} products); maxima exactly the max of K2's scores; K2b's maxima equal K2's "
+        f"(max |diff| to plain {bm_err:.3e})")
+    del s, bm, bm2, s_r, bm_r, fin
+    torch.cuda.empty_cache()
+
+    x_s, x_r = dense_topk(q, m, valid, K2_K, "cosine")
+    launches = {}
+    for fn, counted in ((dense_topk_blockmax, score_blockmax), (dense_topk_twopass, blockmax_only)):
+        score_blockmax.launches = blockmax_only.launches = 0
+        t_s, t_r = fn(q, m, valid, K2_K, "cosine")
+        launches[counted.__name__] = counted.launches
+        check(counted.launches > 0, f"{fn.__name__} never launched {counted.__name__}")
+        check(torch.equal(t_r, x_r) and torch.equal(t_s, x_s), f"{fn.__name__}: rows or scores differ from dense_topk")
+    t_bm = cuda_ms(lambda: dense_topk_blockmax(q, m, valid, K2_K, "cosine"), 3)
+    t_tp = cuda_ms(lambda: dense_topk_twopass(q, m, valid, K2_K, "cosine"), 3)
+    t_dt = cuda_ms(lambda: dense_topk(q, m, valid, K2_K, "cosine"), 3)
+    log(f"top-{K2_K} at N={N_ROWS} B={BATCH}: dense_topk_blockmax {t_bm:.3f} ms, dense_topk_twopass {t_tp:.3f} ms, "
+        f"dense_topk {t_dt:.3f} ms (CUDA events); rows and scores identical for all {BATCH} queries")
+
+    k2_ms = cuda_ms(lambda: score_blockmax(q, m, valid), 10)
+    k2b_ms = cuda_ms(lambda: blockmax_only(q, m, valid), 10)
+    plain = cuda_ms(lambda: score_blockmax_reference(q, m, valid), 5)
+    lib = cuda_ms(lambda: torch.matmul(q, m.T).view(BATCH, -1, BLOCK).amax(dim=2), 5)
+    k2_ms2 = cuda_ms(lambda: score_blockmax(q, m, valid), 10)
+    k2b_ms2 = cuda_ms(lambda: blockmax_only(q, m, valid), 10)
+    flop = 2.0 * BATCH * N_ROWS * DIM
+    in_bytes = N_ROWS * DIM * 4 + BATCH * DIM * 4 + N_ROWS
+    bm_bytes = BATCH * (N_ROWS // BLOCK) * 4
+    k2_bound = bound(in_bytes + BATCH * N_ROWS * 4 + bm_bytes, flop, FP32_FLOP_PER_S)
+    k2b_bound = bound(in_bytes + bm_bytes, flop, FP32_FLOP_PER_S)
+    log(f"K2 score_blockmax at N={N_ROWS} d={DIM} B={BATCH} f32: kernel {k2_ms:.3f} / {k2_ms2:.3f} ms, plain "
+        f"{plain:.3f} ms, torch.matmul + amax {lib:.3f} ms (median, CUDA events); bound {k2_bound[0]:.3f} ms "
+        f"({k2_bound[1]}); rate {flop / (min(k2_ms, k2_ms2) * 1e-3) / 1e12:.1f} TFLOP/s")
+    log(f"K2b blockmax_only: kernel {k2b_ms:.3f} / {k2b_ms2:.3f} ms; bound {k2b_bound[0]:.3f} ms ({k2b_bound[1]}); "
+        f"rate {flop / (min(k2b_ms, k2b_ms2) * 1e-3) / 1e12:.1f} TFLOP/s")
+    del m, q, valid
+    torch.cuda.empty_cache()
+    src = "trueno_rag_tpu_torch/csrc/dense_score.cu"
+    return (
+        {"name": "score_blockmax", "route": "cuda", "source": src,
+         "replaces": "trueno_rag_tpu/ops/pallas/dense_score.py:75", "launches": launches["score_blockmax"],
+         "max_abs_err": k2_err, "ms": min(k2_ms, k2_ms2), "plain_ms": plain, "bound_ms": k2_bound[0],
+         "bound_by": k2_bound[1], "library_ms": lib},
+        {"name": "blockmax_only", "route": "cuda", "source": src,
+         "replaces": "trueno_rag_tpu/ops/pallas/dense_score.py:124", "launches": launches["blockmax_only"],
+         "max_abs_err": bm_err, "ms": min(k2b_ms, k2b_ms2), "plain_ms": plain, "bound_ms": k2b_bound[0],
+         "bound_by": k2b_bound[1], "library_ms": lib},
+    )
+
+
+def check_bf16_storage(store, qv, s_t, r_t, label):
+    """The bf16-storage store's dense candidates against the float64 top-k
+    over its own bf16-rounded rows: position by position within 1e-6 (the
+    store normalizes queries in f32 and rounds each float64 score once),
+    so rows may differ only at such near-ties → the share of equal rows."""
+    import torch
+
+    m64 = store.device_matrix.double()
+    q64 = torch.from_numpy(qv).to(DEV).double()
+    q64 = q64 / torch.linalg.vector_norm(q64, dim=1, keepdim=True)
+    valid = store.device_valid
+    k = r_t.shape[1]
+    check(bool((r_t >= 0).all()), f"{label}: a missing row")
+    agree, worst = 0, 0.0
+    for lo in range(0, q64.shape[0], 32):
+        sc = torch.where(valid[None, :], q64[lo:lo + 32] @ m64.T, float("-inf"))  # [32, N]
+        top_v, top_i = torch.topk(sc, k, dim=1)  # check-only library call
+        got = torch.gather(sc, 1, r_t[lo:lo + 32].long())
+        worst = max(worst, (got - top_v).abs().max().item(), (s_t[lo:lo + 32].double() - got).abs().max().item())
+        agree += int((r_t[lo:lo + 32].long() == top_i).sum())
+    check(worst <= 1e-6, f"{label}: scores differ from the float64 top-k by {worst}")
+    del m64
+    return agree / r_t.numel()
+
+
+def phase_block_stores(pipe, seed: int):
+    """The slice's main path: ``scan_kernel="block"`` on the bf16, int8 and
+    auto tiers and ``storage_dtype="bfloat16"``, each a sibling of the 1M
+    pipeline (no second ingest) answering one batch of 256 through
+    ``query_with_context_batch(k=5)`` → (K8 launches, K9 launches)."""
+    import numpy as np
+    import torch
+
+    import trueno_rag_tpu_torch as rag
+    from trueno_rag_tpu_torch.ops.dense import dense_topk
+    from trueno_rag_tpu_torch.ops.kernels.scan_select_v1 import scan_select, scan_select_int8
+
+    base = pipe.retriever
+    bstore = base.vector_store
+    cand = base.config.candidates_per_source
+    rng = np.random.default_rng(seed + 6)
+    qs = query_batches(rng, 1)[0]
+    qv = np.asarray(base.embedder.embed_queries(qs), dtype=np.float32)
+    x_s, x_r = dense_topk(torch.from_numpy(qv).to(DEV), bstore.device_matrix, bstore.device_valid, cand, "cosine")
+    configs = [
+        ("bf16 block", dict(scan_tier="bf16", scan_kernel="block"), "bf16"),
+        ("int8 block", dict(scan_tier="int8", scan_kernel="block"), "int8"),
+        ("auto block", dict(scan_tier="auto", scan_kernel="block"), "bf16"),
+        ("bf16 storage", dict(storage_dtype="bfloat16"), "none"),
+    ]
+    k8_total = k9_total = 0
+    for name, kw, tier in configs:
+        p = sibling_pipeline(pipe, rag.VectorStoreConfig(**kw))
+        store = p.retriever.vector_store
+        t0 = time.perf_counter()
+        p.retriever.ensure_ready()
+        torch.cuda.synchronize()
+        log(f"store {name}: device build {time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        check(store._effective_tier() == tier, f"store {name}: tier {store._effective_tier()!r}, expected {tier!r}")
+        fb0 = store.tier_fallback_queries
+        scan_select.launches = scan_select_int8.launches = 0
+        t0 = time.perf_counter()
+        ctxs = p.query_with_context_batch(qs, k=K)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n8, n9 = scan_select.launches, scan_select_int8.launches
+        k8_total, k9_total = k8_total + n8, k9_total + n9
+        fell = store.tier_fallback_queries - fb0
+        check_contexts(ctxs)
+        s_t, r_t = store.search_arrays(qv, cand)
+        if tier == "none":
+            check(n8 == n9 == 0, f"store {name}: a block kernel launched on tier none")
+            check(store.device_matrix.dtype == torch.bfloat16, f"store {name}: the device matrix is not bf16")
+            agree = check_bf16_storage(store, qv, s_t, r_t, f"store {name}")
+            result = (f"dense candidates equal the float64 top-{cand} of its bf16 rows up to near-ties "
+                      f"({agree:.4f} of rows identical)")
+        else:
+            n_kernel, n_other = (n9, n8) if tier == "int8" else (n8, n9)
+            check(n_kernel > 0 and n_other == 0, f"store {name}: launches K8 {n8}, K9 {n9}")
+            check(torch.equal(r_t, x_r) and torch.equal(s_t, x_s),
+                  f"store {name}: rows or scores differ from the exact fp32 path")
+            result = (f"certified {(BATCH - fell) / BATCH:.4f} ({fell} of {BATCH} re-ran on fp32); dense rows and "
+                      f"scores identical to the exact fp32 dense_topk")
+        s_s, r_s = base.sparse_index.search_arrays(qs, cand)
+        check_fused(base.config.fusion, r_t, s_t, r_s, s_s, f"store {name}")
+        log(f"store {name}: 1 batch of {BATCH} in {ms:.1f} ms (host clock, query_with_context_batch k={K}) = "
+            f"{BATCH / ms * 1e3:.0f} queries/s; launches K8 {n8}, K9 {n9}; {result}; fused lists match the host oracle")
+        if name == "bf16 block":
+            stage_breakdown(p, qs)
+        del p, store, ctxs
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"block stores path (query_with_context_batch calls only): launches K8 {k8_total}, K9 {k9_total}")
+    check(k8_total > 0 and k9_total > 0, "the block stores path missed a kernel")
+    return k8_total, k9_total
+
+
+def phase_odd_widths(seed: int):
+    """d (H) = 100 on the card: K1, K3, K5, K8 and K9 over 65,536 rows and K6,
+    K7 over 8,192 chunks x 16 tokens against their plain versions; then one
+    bf16-tier batch (K1) and one zero-copy token-store batch (K6) at that
+    width → (K1 launches, K6 launches) of the two batches."""
+    import numpy as np
+    import torch
+
+    import trueno_rag_tpu_torch as rag
+    from trueno_rag_tpu_torch.ops import dense_tiered as dt
+    from trueno_rag_tpu_torch.ops.dense import dense_topk
+    from trueno_rag_tpu_torch.ops.kernels import maxsim_scan as km
+    from trueno_rag_tpu_torch.ops.kernels import scan_select as ks
+    from trueno_rag_tpu_torch.ops.kernels import scan_select_v1 as k1v
+
+    d = ODD_D
+    gen = torch.Generator(device=DEV).manual_seed(seed + 25)
+    m = torch.randn((ODD_N, d), device=DEV, generator=gen)
+    m /= torch.linalg.vector_norm(m, dim=1, keepdim=True)
+    q = torch.randn((BATCH, d), device=DEV, generator=gen)
+    q /= torch.linalg.vector_norm(q, dim=1, keepdim=True)
+    valid = torch.ones(ODD_N, dtype=torch.int32, device=DEV)
+    valid[1000:1040] = 0
+    mb, e, a = dt.prepare_tiered(m)
+    qb, u, v = dt._bf16_query_bounds(q)
+    m_i8, s_row, e8, a8 = dt.prepare_int8(m)
+    q_i8, t_q, u8, v8 = dt._int8_query_bounds(q)
+
+    def close(got, want, label):
+        vk, vr = got[0], want[0]
+        check(torch.equal(torch.isneginf(vk), torch.isneginf(vr)), f"{label}: -inf slots differ")
+        fin = torch.isfinite(vr)
+        err = (vk[fin] - vr[fin]).abs().max().item()
+        agree = 1.0 - (got[1] != want[1]).float().mean().item()
+        check(err <= V_TOL and agree >= ROW_AGREE, f"{label}: max |diff| {err}, rows agree {agree}")
+        return f"{label} within {err:.1e} (rows agree {agree:.4f})"
+
+    notes = [close(ks.scan_select_v3(qb, mb, e, a, valid, u, v, t_top=T_TOP),
+                   ks.scan_select_v3_reference(qb, mb, e, a, valid, u, v, T_TOP), "K1")]
+    ids = torch.tensor([0, 3, 7, 15, 16], dtype=torch.int32, device=DEV)
+    notes.append(close(ks.scan_select_v3_indirect(qb[:8], mb, e, a, valid, u[:8], v[:8], ids, tile_n=4096, t_top=8),
+                       ks.scan_select_v3_indirect_reference(qb[:8], mb, e, a, valid, u[:8], v[:8], ids, 4096, 8),
+                       "K5"))
+    args3 = (q_i8, m_i8, s_row, e8, a8, valid, t_q, u8, v8)
+    got, want = ks.scan_select_int8_v3(*args3, t_top=T_TOP), ks.scan_select_int8_v3_reference(*args3, T_TOP)
+    check(all(torch.equal(x, y) for x, y in zip(got, want)), "K3 at d = 100 differs from its plain version")
+    got = k1v.scan_select(qb, mb, e, a, valid, u, v, tile_n=1024, top=2)
+    want = k1v.scan_select_reference(qb, mb, e, a, valid, u, v, tile_n=1024, top=2)
+    notes.append(close((torch.stack(got[:3]), torch.stack(got[3:])), (torch.stack(want[:3]), torch.stack(want[3:])),
+                       "K8"))
+    got = k1v.scan_select_int8(*args3, tile_n=1024, top=2)
+    want = k1v.scan_select_int8_reference(*args3, tile_n=1024, top=2)
+    check(all(torch.equal(x, y) for x, y in zip(got, want)), "K9 at d = 100 differs from its plain version")
+    tok = torch.randn((ODD_TOK_N, ODD_LT, d), device=DEV, generator=gen)
+    tok /= torch.linalg.vector_norm(tok, dim=2, keepdim=True)
+    tq = torch.randn((8, 8, d), device=DEV, generator=gen)
+    t_mask = torch.rand((ODD_TOK_N, ODD_LT), device=DEV, generator=gen) < 0.8
+    tvalid = torch.ones(ODD_TOK_N, dtype=torch.bool, device=DEV)
+    tok16, tq16 = tok.to(torch.bfloat16), tq.to(torch.bfloat16)
+    got = km.maxsim_scan16_scores(tq16, tok16, t_mask, tvalid)
+    want = km.maxsim_scan16_scores_reference(tq16, tok16, t_mask, tvalid)
+    k6_err = (got - want).abs().max().item()
+    check(k6_err <= V_TOL, f"K6 at H = 100: max |diff| {k6_err}")
+    tok8, s_tok, _ = dt._quantize_rows(tok.reshape(-1, d), clip=True)
+    tq8, t_qq, _ = dt._quantize_rows(tq.reshape(-1, d), clip=True)
+    args7 = (tq8.view(8, 8, d), t_qq.view(8, 8), tok8.view(ODD_TOK_N, ODD_LT, d), s_tok.view(ODD_TOK_N, ODD_LT),
+             t_mask, tvalid)
+    check(torch.equal(km.maxsim_scan_int8_scores(*args7), km.maxsim_scan_int8_scores_reference(*args7)),
+          "K7 at H = 100 differs from its plain version")
+    log(f"odd widths (d = H = {d}): {'; '.join(notes)}; K6 within {k6_err:.1e}; K3, K7 and K9 bit-identical")
+
+    # one bf16-tier batch at d = 100 through the store
+    host = m.cpu().numpy()
+    store = rag.VectorStore(rag.VectorStoreConfig(dimension=d, scan_tier="bf16", initial_capacity=ODD_N), device=DEV)
+    store.insert_many([rag.Chunk(document_id="d", content=f"c{i}", start_offset=0, end_offset=2, embedding=host[i],
+                                 id=f"r{i}") for i in range(ODD_N)])
+    qv = q.cpu().numpy()
+    ks.scan_select_v3.launches = 0
+    s_t, r_t = store.search_arrays(qv, K)
+    k1 = ks.scan_select_v3.launches
+    check(k1 > 0, "the d = 100 bf16 store never launched K1")
+    x_s, x_r = dense_topk(q, store.device_matrix, store.device_valid, K, "cosine")
+    check(torch.equal(r_t, x_r) and torch.equal(s_t, x_s), "the d = 100 bf16 store differs from the exact fp32 path")
+    # one token-store batch at H = 100: bf16 storage, read in place by K6
+    cfg = dict(hidden_dim=d, max_tokens=ODD_LT, storage_dtype="bfloat16")
+    chunks = [rag.Chunk(document_id="d", content=f"c{i}", start_offset=0, end_offset=2, id=rag.chunk_id_from_int(i))
+              for i in range(ODD_TOK_N)]
+    tstore = rag.TokenVectorStore(rag.TokenStoreConfig(scan="tiered", scan_dtype="bfloat16", **cfg), device=DEV)
+    exact = rag.TokenVectorStore(rag.TokenStoreConfig(scan="exact", **cfg), device=DEV)
+    toks, tms = tok.cpu().numpy(), t_mask.cpu().numpy()
+    tstore.load_rows(chunks, toks, tms)
+    exact.load_rows(chunks, toks, tms)
+    plant = [11, ODD_TOK_N // 2]
+    qt = np.concatenate([toks[plant][:, :8], tq[:6].cpu().numpy()])
+    km.maxsim_scan16_scores.launches = 0
+    s_k, r_k = tstore.search_arrays(qt, None, 10)
+    k6 = km.maxsim_scan16_scores.launches
+    check(k6 > 0, "the H = 100 token store never launched K6")
+    s_e, r_e = exact.search_arrays(qt, None, 10)
+    check(np.array_equal(r_k, r_e) and np.array_equal(s_k, s_e), "the H = 100 token store differs from its exact scan")
+    check(r_k[:2, 0].tolist() == plant, "the H = 100 token store missed a planted chunk")
+    log(f"odd widths: a bf16-tier batch of {BATCH} at d = {d} equals the exact fp32 path (K1 launches {k1}); a "
+        f"zero-copy token-store batch of 8 at H = {d} equals its exact scan (K6 launches {k6})")
+    del m, mb, m_i8, tok, tok16, tok8, store, tstore, exact
+    torch.cuda.empty_cache()
+    return k1, k6
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2380,12 +2855,16 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_device()
     k1, k3 = phase_kernels(args.seed)
+    k8, k9 = phase_kernels_k8k9(args.seed)
+    k2, k2b = phase_kernels_k2(args.seed)
     k5 = phase_kernels_k5(args.seed)
     k4 = phase_kernels_k4(args.seed)
     k6, k7 = phase_kernels_k6k7(args.seed)
+    k1_odd, k6_odd = phase_odd_widths(args.seed)
     phase_tier(args.seed)
     pipe, k1["launches"] = phase_slice(args.seed)
     _, k3["launches"] = phase_stores(pipe, args.seed)
+    k8["launches"], k9["launches"] = phase_block_stores(pipe, args.seed)
     k5["launches"] = phase_clustered_store(pipe, args.seed)
     del pipe
     phase_clustered_stream(args.seed)
@@ -2398,6 +2877,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     k6["launches"], k7["launches"] = phase_late_interaction(args.seed)
+    k1["launches"] += k1_odd
+    k6["launches"] += k6_odd
     check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
           and torch.get_float32_matmul_precision() == "highest", "TF32 was turned on during the run")
     log(f"smoke wall time {time.perf_counter() - t_start:.0f} s")
@@ -2408,7 +2889,7 @@ def main() -> int:
     log(f"nvidia-smi: {smi.stdout.strip()}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in (k1, k3, k4, k5, k6, k7)]}))
+    print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in (k1, k2, k2b, k3, k4, k5, k6, k7, k8, k9)]}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},

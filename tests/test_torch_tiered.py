@@ -14,7 +14,6 @@ from trueno_rag_tpu.index.vector_store import VectorStoreConfig as JVectorStoreC
 from trueno_rag_tpu.ops import dense as jdense
 from trueno_rag_tpu.ops import dense_tiered as jdt
 from trueno_rag_tpu_torch.chunking import Chunk as TChunk
-from trueno_rag_tpu_torch.errors import InvalidConfigError
 from trueno_rag_tpu_torch.index.vector_store import VectorStore as TVectorStore
 from trueno_rag_tpu_torch.index.vector_store import VectorStoreConfig as TVectorStoreConfig
 from trueno_rag_tpu_torch.ops import dense as tdense
@@ -139,5 +138,23 @@ def test_vector_store_bf16_tier_matches_jax_through_mutations():
     ],
 )
 def test_unported_store_configurations_raise(cfg):
-    with pytest.raises(InvalidConfigError, match="ROADMAP"):
-        TVectorStore(TVectorStoreConfig(**cfg), device="cpu")
+    """These five configurations raised in the port until the block
+    kernels (K8, K9) and bf16 storage were ported; each must now answer as
+    the JAX store does (auto past its crossover, so it runs the block
+    kernel). Scores within 1e-5, as the tier tests above."""
+    rng = np.random.default_rng(9)
+    n, d = 1500, 16
+    kw = dict(dimension=d, initial_capacity=512, scan_tier_auto_rows=1000, **cfg)
+    js = JVectorStore(JVectorStoreConfig(**kw))
+    ts = TVectorStore(TVectorStoreConfig(**kw), device="cpu")
+    embs = rng.standard_normal((n, d)).astype(np.float32)
+    ids = [f"id{i}" for i in range(n)]
+    js.insert_many(_chunks(JChunk, embs, ids))
+    ts.insert_many(_chunks(TChunk, embs, ids))
+    assert js.remove(ids[7]) and ts.remove(ids[7])
+    q = rng.standard_normal((5, d)).astype(np.float32)
+    j_s, j_r = js.search_arrays(q, 9)
+    t_s, t_r = ts.search_arrays(q, 9)
+    np.testing.assert_array_equal(t_r.numpy(), np.asarray(j_r))
+    np.testing.assert_allclose(t_s.numpy(), np.asarray(j_s), rtol=0, atol=1e-5)
+    assert ts._effective_tier() == js._effective_tier()

@@ -29,7 +29,12 @@
 // full depth the tile's dots fold into a running max (masked tokens are
 // skipped), so the [B*Lq, N*Lt] interaction never leaves registers. The
 // bests then pass through shared memory for the ordered Lq-sum. The
-// [N, Lt, H] replica is read in place at any N, Lt and B: the Pallas
+// [N, Lt, H] replica is read in place at any N, Lt, B and H: a width H
+// that is not a multiple of the 16-byte vector (8 bf16, 16 int8) has no
+// aligned rows and a ragged last vector, so those loads go byte by byte
+// with the columns past H read as zero (row_load.cuh), which adds exactly
+// 0 to every dot; the zero-copy tier keeps reading the stored tokens in
+// place at any width. The Pallas
 // wrapper's TPU workarounds (the Lt-to-32 pad copy, the ragged-tail split,
 // the VMEM-sized tiles and query slabs) have no counterpart here.
 //
@@ -65,6 +70,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "row_load.cuh"
 
 namespace {
 
@@ -105,7 +112,7 @@ __device__ __forceinline__ void unpack_bf16x8(uint4 raw, float* f) {
   }
 }
 
-template <bool INT8>
+template <bool INT8, bool ALIGNED>
 __global__ void __launch_bounds__(THREADS, 2)
 maxsim_scan_kernel(const void* __restrict__ q_,          // [B*Lq, H] bf16 or int8
                    const float* __restrict__ tq,         // [B*Lq] query scales (int8) or null
@@ -154,9 +161,13 @@ maxsim_scan_kernel(const void* __restrict__ q_,          // [B*Lq, H] bf16 or in
           const int part = v >> 7;
           const int kk = k0 + part * (INT8 ? 16 : 8);
           uint4 raw = make_uint4(0, 0, 0, 0);
-          if (c0 + c < n && kk < h) {
-            const int64_t off = ((c0 + c) * lt + j) * (int64_t)h + kk;
-            raw = __ldg(reinterpret_cast<const uint4*>(static_cast<const char*>(tok_) + off * ES));
+          if (ALIGNED) {  // written out: the shared helper measured 7% slower here
+            if (c0 + c < n && kk < h) {
+              const int64_t off = ((c0 + c) * lt + j) * (int64_t)h + kk;
+              raw = __ldg(reinterpret_cast<const uint4*>(static_cast<const char*>(tok_) + off * ES));
+            }
+          } else if (c0 + c < n) {
+            raw = load_row16<ES, false>(tok_, ((c0 + c) * lt + j) * (int64_t)h, kk, h);
           }
           if constexpr (INT8) {
             sm.u.stage.tok[part * 4 + 0][c] = (int)raw.x;
@@ -177,8 +188,12 @@ maxsim_scan_kernel(const void* __restrict__ q_,          // [B*Lq, H] bf16 or in
           const int kk = k0 + part * (INT8 ? 16 : 8);
           const int64_t flat = row0 + sub * RT + r;
           uint4 raw = make_uint4(0, 0, 0, 0);
-          if (sub * RT + r < rows && flat < all_rows && kk < h) {
-            raw = __ldg(reinterpret_cast<const uint4*>(static_cast<const char*>(q_) + (flat * h + kk) * ES));
+          if (ALIGNED) {
+            if (sub * RT + r < rows && flat < all_rows && kk < h) {
+              raw = __ldg(reinterpret_cast<const uint4*>(static_cast<const char*>(q_) + (flat * h + kk) * ES));
+            }
+          } else if (sub * RT + r < rows && flat < all_rows) {
+            raw = load_row16<ES, false>(q_, flat * h, kk, h);
           }
           if constexpr (INT8) {
             sm.u.stage.q[part * 4 + 0][r] = (int)raw.x;
@@ -297,8 +312,8 @@ int group_size(int lq) {
   return qg < 1 ? 1 : (qg > QG_MAX ? QG_MAX : qg);
 }
 
-bool bad_shape(int nq, int lq, int n, int lt, int h, int h_mult) {
-  return nq < 1 || lq < 1 || n < 1 || lt < 1 || h < h_mult || h % h_mult != 0 ||
+bool bad_shape(int nq, int lq, int n, int lt, int h) {
+  return nq < 1 || lq < 1 || n < 1 || lt < 1 || h < 1 ||
          (nq + group_size(lq) - 1) / group_size(lq) > 65535;
 }
 
@@ -307,16 +322,16 @@ bool bad_shape(int nq, int lq, int n, int lt, int h, int h_mult) {
 // Plain C entry points (bound with ctypes). Shapes: q [nq, lq, h] (bf16 or
 // int8), tq [nq, lq] f32 (int8 only), tok [n, lt, h] (bf16 or int8), s_tok
 // [n, lt] f32 (int8 only), t_mask [n, lt] bool, valid [n] bool, out [nq, n]
-// f32. Requires h % 8 == 0 (bf16) or h % 16 == 0 with h*127^2 < 2^24
-// (int8), q and tok 16-byte aligned. Launch on `stream`, allocate nothing,
+// f32. Any h >= 1 (h*127^2 < 2^24 for int8); q and tok 16-byte aligned. Launch on `stream`, allocate nothing,
 // and return cudaGetLastError() (0 on success).
 extern "C" int maxsim_scan16_launch(const void* q16, const void* tok16, const void* t_mask,
                                     const void* valid, void* out, int nq, int lq, int n, int lt,
                                     int h, void* stream) {
-  if (bad_shape(nq, lq, n, lt, h, 8)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(nq, lq, n, lt, h)) return (int)cudaErrorInvalidValue;
   const int qg = group_size(lq);
   const dim3 grid((n + CT - 1) / CT, (nq + qg - 1) / qg);
-  maxsim_scan_kernel<false><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = rows_aligned<2>(h) ? maxsim_scan_kernel<false, true> : maxsim_scan_kernel<false, false>;
+  kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       q16, nullptr, tok16, nullptr, static_cast<const unsigned char*>(t_mask),
       static_cast<const unsigned char*>(valid), static_cast<float*>(out), nq, lq, n, lt, h, qg);
   return (int)cudaGetLastError();
@@ -326,12 +341,13 @@ extern "C" int maxsim_scan_int8_launch(const void* q8, const void* tq, const voi
                                        const void* s_tok, const void* t_mask, const void* valid,
                                        void* out, int nq, int lq, int n, int lt, int h,
                                        void* stream) {
-  if (bad_shape(nq, lq, n, lt, h, 16) || (long long)h * 127 * 127 >= (1 << 24)) {
+  if (bad_shape(nq, lq, n, lt, h) || (long long)h * 127 * 127 >= (1 << 24)) {
     return (int)cudaErrorInvalidValue;
   }
   const int qg = group_size(lq);
   const dim3 grid((n + CT - 1) / CT, (nq + qg - 1) / qg);
-  maxsim_scan_kernel<true><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = rows_aligned<1>(h) ? maxsim_scan_kernel<true, true> : maxsim_scan_kernel<true, false>;
+  kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       q8, static_cast<const float*>(tq), tok8, static_cast<const float*>(s_tok),
       static_cast<const unsigned char*>(t_mask), static_cast<const unsigned char*>(valid),
       static_cast<float*>(out), nq, lq, n, lt, h, qg);

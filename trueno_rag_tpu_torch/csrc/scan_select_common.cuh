@@ -16,6 +16,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "row_load.cuh"
+
 namespace scan_select {
 
 constexpr int BLOCK = 128;        // rows per bound block

@@ -48,6 +48,7 @@ namespace {
 constexpr int KB = 64;      // int8 depth staged per step
 constexpr int KW = KB / 4;  // as 32-bit words of 4 int8 each
 
+template <bool ALIGNED>
 __global__ void __launch_bounds__(THREADS, 2)
 scan_select_int8_v3_kernel(const int8_t* __restrict__ q,      // [B, d]
                            const int8_t* __restrict__ m,      // [N, d]
@@ -99,24 +100,22 @@ scan_select_int8_v3_kernel(const int8_t* __restrict__ q,      // [B, d]
         const int r = tid & (BLOCK - 1);
         const int part = (tid >> 7) + 2 * j;
         const int kk = k0 + part * 16;
-        int4 w = make_int4(0, 0, 0, 0);
-        if (kk < d) w = __ldg(reinterpret_cast<const int4*>(m + (row0 + r) * d + kk));
-        As[part * 4 + 0][r] = w.x;
-        As[part * 4 + 1][r] = w.y;
-        As[part * 4 + 2][r] = w.z;
-        As[part * 4 + 3][r] = w.w;
+        const uint4 w = load_row16<1, ALIGNED>(m, (row0 + r) * d, kk, d);
+        As[part * 4 + 0][r] = (int)w.x;
+        As[part * 4 + 1][r] = (int)w.y;
+        As[part * 4 + 2][r] = (int)w.z;
+        As[part * 4 + 3][r] = (int)w.w;
       }
       {
         const int qq = tid & (QB - 1);
         const int part = tid >> 6;
         const int kk = k0 + part * 16;
-        int4 w = make_int4(0, 0, 0, 0);
-        if (kk < d && q0 + qq < nq)
-          w = __ldg(reinterpret_cast<const int4*>(q + (int64_t)(q0 + qq) * d + kk));
-        Qs[part * 4 + 0][qq] = w.x;
-        Qs[part * 4 + 1][qq] = w.y;
-        Qs[part * 4 + 2][qq] = w.z;
-        Qs[part * 4 + 3][qq] = w.w;
+        uint4 w = make_uint4(0, 0, 0, 0);
+        if (q0 + qq < nq) w = load_row16<1, ALIGNED>(q, (int64_t)(q0 + qq) * d, kk, d);
+        Qs[part * 4 + 0][qq] = (int)w.x;
+        Qs[part * 4 + 1][qq] = (int)w.y;
+        Qs[part * 4 + 2][qq] = (int)w.z;
+        Qs[part * 4 + 3][qq] = (int)w.w;
       }
       __syncthreads();
 #pragma unroll 8
@@ -165,7 +164,8 @@ scan_select_int8_v3_kernel(const int8_t* __restrict__ q,      // [B, d]
 // tq/uq/vq [nq] f32, and either all four tag arrays (tag_bits [n] i32;
 // t_all/t_any/t_none [nq] i32) or none (null pointers: no filter);
 // outputs v_pack [nq, t_top+1, n/1024] f32, r_pack [nq, t_top, n/1024]
-// i32. Requires n % 1024 == 0, d % 16 == 0 with d*127^2 < 2^24, 16-byte
+// i32. Requires n % 1024 == 0, d*127^2 < 2^24 (any d >= 1: a width that
+// is not a multiple of 16 reads its rows through row_load.cuh), 16-byte
 // aligned q/m/s_row/valid/tag_bits, 1 <= t_top <= 16. Launches on
 // `stream`, allocates nothing, and returns cudaGetLastError() (0 on
 // success).
@@ -176,11 +176,12 @@ extern "C" int scan_select_int8_v3_launch(const void* q, const void* m, const vo
                                           const void* t_any, const void* t_none, void* v_pack,
                                           void* r_pack, int nq, int d, int n, int t_top,
                                           void* stream) {
-  if (bad_shape(nq, d, n, t_top) || d % 16 != 0 || (long long)d * 127 * 127 >= (1 << 24)) {
+  if (bad_shape(nq, d, n, t_top) || (long long)d * 127 * 127 >= (1 << 24)) {
     return (int)cudaErrorInvalidValue;
   }
   const dim3 grid((nq + QB - 1) / QB, n / SEL);
-  scan_select_int8_v3_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = rows_aligned<1>(d) ? scan_select_int8_v3_kernel<true> : scan_select_int8_v3_kernel<false>;
+  kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(q), static_cast<const int8_t*>(m),
       static_cast<const float*>(s_row), static_cast<const float*>(eb),
       static_cast<const float*>(ab), static_cast<const int*>(valid),

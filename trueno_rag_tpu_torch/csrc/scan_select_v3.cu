@@ -70,7 +70,7 @@ __device__ __forceinline__ void unpack8(uint4 raw, float* f) {
 // nothing, scores -inf everywhere, and still emits rows from the unclamped
 // sel (sel*tile_n + offset), as the Pallas kernel does; its bound
 // corrections read the clamped tile's blocks.
-template <bool INDIRECT>
+template <bool INDIRECT, bool ALIGNED>
 __global__ void __launch_bounds__(THREADS, 2)
 scan_select_v3_kernel(const __nv_bfloat16* __restrict__ q,  // [B, d]
                       const __nv_bfloat16* __restrict__ m,  // [N, d]
@@ -127,12 +127,7 @@ scan_select_v3_kernel(const __nv_bfloat16* __restrict__ q,  // [B, d]
         const int part = (tid >> 7) + 2 * j;
         const int kk = k0 + part * 8;
         float f[8];
-        if (kk < d) {
-          unpack8(__ldg(reinterpret_cast<const uint4*>(m + (row0 + r) * d + kk)), f);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) f[e] = 0.0f;
-        }
+        unpack8(load_row16<2, ALIGNED>(m, (row0 + r) * d, kk, d), f);
 #pragma unroll
         for (int e = 0; e < 8; ++e) As[part * 8 + e][r] = f[e];
       }
@@ -141,8 +136,8 @@ scan_select_v3_kernel(const __nv_bfloat16* __restrict__ q,  // [B, d]
         const int part = tid >> 6;
         const int kk = k0 + part * 8;
         float f[8];
-        if (kk < d && q0 + qq < nq) {
-          unpack8(__ldg(reinterpret_cast<const uint4*>(q + (int64_t)(q0 + qq) * d + kk)), f);
+        if (q0 + qq < nq) {
+          unpack8(load_row16<2, ALIGNED>(q, (int64_t)(q0 + qq) * d, kk, d), f);
         } else {
 #pragma unroll
           for (int e = 0; e < 8; ++e) f[e] = 0.0f;
@@ -191,7 +186,8 @@ int launch(const void* q, const void* m, const void* eb, const void* ab, const v
            const void* t_all, const void* t_any, const void* t_none, void* v_pack, void* r_pack,
            int nq, int d, int g_tiles, int t_top, int tile_n, int n_tiles, void* stream) {
   const dim3 grid((nq + QB - 1) / QB, g_tiles);
-  scan_select_v3_kernel<INDIRECT><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = rows_aligned<2>(d) ? scan_select_v3_kernel<INDIRECT, true> : scan_select_v3_kernel<INDIRECT, false>;
+  kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(m),
       static_cast<const float*>(eb), static_cast<const float*>(ab),
       static_cast<const int*>(valid), static_cast<const float*>(uq),
@@ -210,7 +206,8 @@ int launch(const void* q, const void* m, const void* eb, const void* ab, const v
 // either all four tag arrays (tag_bits [n] i32; t_all/t_any/t_none [nq]
 // i32) or none (null pointers: no filter); outputs v_pack
 // [nq, t_top+1, n/1024] f32, r_pack [nq, t_top, n/1024] i32. Requires
-// n % 1024 == 0, d % 8 == 0, 16-byte aligned q/m/valid/tag_bits,
+// n % 1024 == 0, 16-byte aligned q/m/valid/tag_bits (any d >= 1: a
+// width that is not a multiple of 8 reads its rows through row_load.cuh),
 // 1 <= t_top <= 16. Launches on `stream`, allocates nothing, and returns
 // cudaGetLastError() (0 on success).
 extern "C" int scan_select_v3_launch(const void* q, const void* m, const void* eb,
@@ -219,9 +216,7 @@ extern "C" int scan_select_v3_launch(const void* q, const void* m, const void* e
                                      const void* t_any, const void* t_none, void* v_pack,
                                      void* r_pack, int nq, int d, int n, int t_top,
                                      void* stream) {
-  if (bad_shape(nq, d, n, t_top) || d < 8 || d % 8 != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (bad_shape(nq, d, n, t_top)) return (int)cudaErrorInvalidValue;
   return launch<false>(q, m, eb, ab, valid, uq, vq, nullptr, tag_bits, t_all, t_any, t_none,
                        v_pack, r_pack, nq, d, n / SEL, t_top, SEL, n / SEL, stream);
 }
@@ -246,7 +241,7 @@ extern "C" int scan_select_v3_indirect_launch(const void* q, const void* m, cons
                                               const void* t_any, const void* t_none,
                                               void* v_pack, void* r_pack, int nq, int d, int n,
                                               int t_top, int tile_n, int g, void* stream) {
-  if (bad_shape(nq, d, n, t_top) || d < 8 || d % 8 != 0 || tile_n < SEL || tile_n % SEL != 0 ||
+  if (bad_shape(nq, d, n, t_top) || tile_n < SEL || tile_n % SEL != 0 ||
       n % tile_n != 0 || g < 1 || (int64_t)g * (tile_n / SEL) > 65535) {
     return (int)cudaErrorInvalidValue;
   }

@@ -1,8 +1,7 @@
 """Dense vector store: device-resident ``[N, d]`` embedding matrix.
 
-PyTorch counterpart of ``trueno_rag_tpu/index/vector_store.py`` for the
-``"none"``, ``"auto"``, ``"bf16"``, ``"int8"`` (tile kernels),
-``"compact"`` and ``"clustered"`` scan tiers. Capability-equivalent to the reference's ``VectorStore``
+PyTorch counterpart of ``trueno_rag_tpu/index/vector_store.py``, every
+scan tier and storage type. Capability-equivalent to the reference's ``VectorStore``
 (reference: index.rs:321-437):
 
 - Embeddings live in one capacity-padded device matrix; inserts write a
@@ -14,8 +13,11 @@ PyTorch counterpart of ``trueno_rag_tpu/index/vector_store.py`` for the
 - Removal tombstones the row (mask False + zero row) and recycles it
   through the shared :class:`~trueno_rag_tpu_torch.index.base.ChunkRegistry`.
 - ``scan_tier="bf16"`` (or ``"auto"`` past ``scan_tier_auto_rows``)
-  keeps a bf16 replica that the certified tile scan reads, ``"int8"`` an
-  int8 one; results stay exactly those of the fp32 path.
+  keeps a bf16 replica that the certified scan reads (the tile kernel, or
+  with ``scan_kernel="block"`` the block kernel), ``"int8"`` an int8 one;
+  results stay exactly those of the fp32 path.
+- ``storage_dtype="bfloat16"`` stores the device matrix itself in bf16
+  (tier "none"), scored with f32 accumulation: approximate, not certified.
 - ``scan_tier="compact"`` keeps NO fp32 matrix on the device: the
   replicas of ``compact_scan`` ("bf16r", "bf16rr", "bf16" or "int8")
   build slab by slab from the host rows, certified queries return the
@@ -60,13 +62,15 @@ class DistanceMetric:
 @dataclass
 class VectorStoreConfig:
     """The JAX package's config, field for field (see its docstrings for
-    each knob). This store implements ``scan_tier`` "none", "auto",
-    "bf16", "int8" (with ``scan_kernel="tile"``), "compact" and
-    "clustered" with float32 storage; the other values pass validation
-    but the store raises on them. ``compact_build`` "auto" and "device"
-    prep the compact replicas on the store's device, "host" on the CPU.
-    ``cluster_fetch`` "auto" scans the clustered tier's probed tiles in
-    place (K5) on a CUDA device and over a copy (K1) on the CPU."""
+    each knob), every value implemented. ``storage_dtype="bfloat16"``
+    keeps the device matrix in bf16 (half the bytes, ~1e-3 relative score
+    error; scores accumulate in f32) on ``scan_tier="none"``.
+    ``scan_kernel`` "tile" runs the bf16/int8 tiers on the tile kernels
+    (K1, K3), "block" on the block kernels (K8, K9).
+    ``compact_build`` "auto" and "device" prep the compact replicas on the
+    store's device, "host" on the CPU. ``cluster_fetch`` "auto" scans the
+    clustered tier's probed tiles in place (K5) on a CUDA device and over
+    a copy (K1) on the CPU."""
 
     dimension: int = 384
     metric: str = DistanceMetric.COSINE
@@ -146,19 +150,6 @@ class VectorStoreConfig:
                 raise InvalidConfigError("scan_tier supports cosine/dot metrics only")
 
 
-def _check_ported(config: VectorStoreConfig) -> None:
-    """Raise on the configurations the port does not implement yet, so
-    none silently takes another path."""
-    if config.scan_tier in ("bf16", "auto", "int8") and config.scan_kernel != "tile":
-        raise InvalidConfigError(
-            "scan_kernel='block' (the v1 scan kernels) is not ported yet (ROADMAP)"
-        )
-    if config.storage_dtype != "float32":
-        raise InvalidConfigError(
-            "storage_dtype='bfloat16' is not ported yet (ROADMAP); use float32"
-        )
-
-
 class VectorStore:
     def __init__(
         self,
@@ -167,7 +158,6 @@ class VectorStore:
         device=None,
     ) -> None:
         self.config = config or VectorStoreConfig()
-        _check_ported(self.config)
         self.device = resolve_device(device)
         # a shared registry's lifecycle is owned by the sharer; a private
         # registry is tombstoned directly
@@ -325,12 +315,13 @@ class VectorStore:
             idx = np.fromiter(self._dirty_rows, dtype=np.int64)
             rows = torch.from_numpy(idx).to(self.device)
             updates = torch.from_numpy(self._host[idx]).to(self.device)
-            self._device_matrix[rows] = updates
+            self._device_matrix[rows] = updates.to(self._device_matrix.dtype)
             self._device_valid[rows] = torch.from_numpy(self._valid[idx]).to(self.device)
             self._refresh_tier(rows=rows, updates=updates)
         else:
             # copy=True: on the CPU a plain .to() would alias the host mirror
-            self._device_matrix = torch.from_numpy(self._host).to(self.device, copy=True)
+            dtype = torch.bfloat16 if self.config.storage_dtype == "bfloat16" else torch.float32
+            self._device_matrix = torch.from_numpy(self._host).to(self.device, dtype=dtype, copy=True)
             self._device_valid = torch.from_numpy(self._valid).to(self.device, copy=True)
             self._refresh_tier()
         self._dirty = False
@@ -644,7 +635,8 @@ class VectorStore:
 
     @property
     def device_matrix(self) -> torch.Tensor:
-        """The ``[capacity, d]`` device matrix (cosine rows normalized)."""
+        """The ``[capacity, d]`` device matrix (cosine rows normalized), in
+        the ``storage_dtype``."""
         if self.is_compact:
             raise InvalidConfigError(
                 f"scan_tier={self._effective_tier()!r} holds no fp32 device matrix "
@@ -705,19 +697,18 @@ class VectorStore:
         kw = dict(
             metric=self.config.metric,
             rescore_rows=self.config.scan_rescore_rows,
-            t_top=self.config.scan_t_top,
-            margin_tiles=self.config.scan_margin_tiles,
             tile_n=self.config.scan_tile_n,
         )
-        if self._effective_tier() == "bf16":
-            scores, rows, n_fallback = dt.dense_topk_tiered2_checked(
-                q, self._device_matrix, *self._tier, self._device_valid, k_eff,
-                tags=self._scan_tags(tag_masks), **kw,
-            )
+        bf16 = self._effective_tier() == "bf16"
+        if self.config.scan_kernel == "block":
+            checked = dt.dense_topk_tiered_checked if bf16 else dt.dense_topk_int8_checked
+            kw.update(block_top=self.config.scan_block_top)
         else:
-            scores, rows, n_fallback = dt.dense_topk_int8_tiered2_checked(
-                q, self._device_matrix, *self._tier, self._device_valid, k_eff, **kw,
-            )
+            checked = dt.dense_topk_tiered2_checked if bf16 else dt.dense_topk_int8_tiered2_checked
+            kw.update(t_top=self.config.scan_t_top, margin_tiles=self.config.scan_margin_tiles)
+            if bf16:
+                kw.update(tags=self._scan_tags(tag_masks))
+        scores, rows, n_fallback = checked(q, self._device_matrix, *self._tier, self._device_valid, k_eff, **kw)
         if n_fallback:
             self.tier_fallbacks += 1
             self.tier_fallback_queries += n_fallback

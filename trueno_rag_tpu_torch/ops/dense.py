@@ -89,8 +89,33 @@ def normalize_queries(queries: torch.Tensor) -> torch.Tensor:
     return queries / torch.where(qn == 0.0, torch.ones_like(qn), qn)
 
 
+_SLAB_ROWS = 1 << 18  # rows of a bf16 matrix widened to f32 at a time
+
+
+def _f32_slabs(matrix: torch.Tensor):
+    """``(first row, f32 rows)`` slabs of ``matrix``: the matrix itself when
+    it is f32; a bf16 matrix (``storage_dtype="bfloat16"``) widened a slab
+    at a time, so its products accumulate in f32 without a full f32 copy."""
+    if matrix.dtype == torch.float32:
+        yield 0, matrix
+        return
+    for lo in range(0, matrix.shape[0], _SLAB_ROWS):
+        yield lo, matrix[lo:lo + _SLAB_ROWS].float()
+
+
+def _cross(queries: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor:
+    """``queries @ matrix.T`` in f32 over :func:`_f32_slabs`."""
+    if matrix.dtype == torch.float32:
+        return queries @ matrix.T
+    out = torch.empty((queries.shape[0], matrix.shape[0]), dtype=torch.float32, device=queries.device)
+    for lo, slab in _f32_slabs(matrix):
+        out[:, lo:lo + slab.shape[0]] = queries @ slab.T
+    return out
+
+
 def similarity_scores(queries: torch.Tensor, matrix: torch.Tensor, metric: str = "cosine") -> torch.Tensor:
-    """Score a query batch ``[B, d]`` against a corpus ``[N, d]`` → ``[B, N]``.
+    """Score a query batch ``[B, d]`` against a corpus ``[N, d]`` → ``[B, N]``
+    (f32 accumulation; the corpus may be float32 or bfloat16).
 
     - ``cosine``: stored rows are L2-normalized at insert; queries are
       normalized here, so the score is one matmul.
@@ -98,13 +123,13 @@ def similarity_scores(queries: torch.Tensor, matrix: torch.Tensor, metric: str =
     - ``euclidean``: the *negated* L2 distance, so higher is better.
     """
     if metric == "cosine":
-        return normalize_queries(queries) @ matrix.T
+        return _cross(normalize_queries(queries), matrix)
     if metric == "dot":
-        return queries @ matrix.T
+        return _cross(queries, matrix)
     if metric == "euclidean":
-        sq_m = torch.sum(matrix * matrix, dim=-1)
+        cross = _cross(queries, matrix)
+        sq_m = torch.cat([torch.sum(slab * slab, dim=-1) for _, slab in _f32_slabs(matrix)])
         sq_q = torch.sum(queries * queries, dim=-1, keepdim=True)
-        cross = queries @ matrix.T
         d2 = torch.clamp(sq_q + sq_m[None, :] - 2.0 * cross, min=0.0)
         return -torch.sqrt(d2)
     raise InvalidConfigError(f"unknown metric: {metric!r}")
@@ -171,6 +196,75 @@ def topk_masked(queries, matrix, masked, k: int, metric: str = "cosine", algorit
         q = normalize_queries(queries) if metric == "cosine" else queries
         top_scores, top_rows = _exact_rerank(q, matrix, top_rows, k)
     return _pad_k(top_scores, top_rows, k)
+
+
+def blockwise_topk_approx(scores: torch.Tensor, k: int, block: int = 128):
+    """:func:`blockwise_topk` with an on-device certificate, the
+    counterpart of the JAX package's ``blockwise_topk_approx``: both
+    exclusion thresholds are the max over what was actually NOT selected —
+    thr1 over the unselected blocks' maxima, thr2 over the unselected
+    rows of the selected blocks — and ``certified = kth > max(thr1, thr2)``
+    (or nothing was excluded) proves the returned set is the exact top-k
+    of ``scores``; an exact tie at the k boundary fails closed. The JAX
+    code selects with ``approx_max_k``; PyTorch has none, so both
+    selections here are exact (:func:`topk_desc`) and can return no
+    duplicate. → (scores [B,k], rows [B,k], certified [B] bool)."""
+    b, n = scores.shape
+    g = -(-n // block)
+    if g * block != n:
+        scores = torch.nn.functional.pad(scores, (0, g * block - n), value=NEG_INF)
+    sb = scores.view(b, g, block)
+    bmax = sb.amax(dim=2)
+    nb = min(k, g)
+    _, bidx = topk_desc(bmax, nb)
+    thr1 = bmax.scatter(1, bidx, NEG_INF).amax(dim=1)
+    bidx, _ = torch.sort(bidx, dim=1)  # candidates in global-row order
+    cand = torch.gather(sb, 1, bidx[:, :, None].expand(b, nb, block)).reshape(b, nb * block)
+    k_eff = min(k, nb * block)
+    top_scores, flat_idx = topk_desc(cand, k_eff)  # (score desc, row asc)
+    thr2 = cand.scatter(1, flat_idx, NEG_INF).amax(dim=1)
+    blk = torch.gather(bidx, 1, flat_idx // block)
+    rows = (blk * block + flat_idx % block).to(torch.int32)
+    rows = torch.where(torch.isneginf(top_scores), -1, rows)
+    threshold = torch.maximum(thr1, thr2)
+    certified = (top_scores[:, k_eff - 1] > threshold) | torch.isneginf(threshold)
+    top_scores, rows = _pad_k(top_scores, rows, k)
+    return top_scores, rows, certified
+
+
+def dense_topk_approx(
+    queries: torch.Tensor,
+    matrix: torch.Tensor,
+    valid_mask: torch.Tensor,
+    k: int,
+    metric: str = "cosine",
+):
+    """Full f32 scoring + certified selection (:func:`blockwise_topk_approx`)
+    → (scores, rows, certified [B]). For cosine/dot the certified set is
+    the best ``min(2k, N)`` rows of the scan, re-ranked by
+    :func:`exact_scores` as :func:`dense_topk` does, so a certified query
+    answers exactly as :func:`dense_topk`."""
+    masked = torch.where(valid_mask[None, :], similarity_scores(queries, matrix, metric), NEG_INF)
+    if metric == "euclidean":
+        return blockwise_topk_approx(masked, k)
+    _, top_rows, ok = blockwise_topk_approx(masked, min(2 * k, matrix.shape[0]))
+    q = normalize_queries(queries) if metric == "cosine" else queries
+    top_scores, top_rows = _pad_k(*_exact_rerank(q, matrix, top_rows, k), k)
+    return top_scores, top_rows, ok
+
+
+def dense_topk_approx_checked(queries, matrix, valid_mask, k, metric="cosine"):
+    """Exactness-contract wrapper: the certified path, with the
+    uncertified queries (ties at the selection boundary) re-run on
+    :func:`dense_topk` → (scores, rows, used_fallback)."""
+    s, r, ok = dense_topk_approx(queries, matrix, valid_mask, k, metric)
+    bad = torch.nonzero(~ok).flatten()
+    if bad.numel() == 0:
+        return s, r, False
+    fb_s, fb_r = dense_topk(queries[bad], matrix, valid_mask, k, metric)
+    s, r = s.clone(), r.clone()
+    s[bad], r[bad] = fb_s, fb_r
+    return s, r, True
 
 
 def dense_topk_oracle(queries, matrix, valid_mask, k, metric="cosine"):

@@ -1,12 +1,15 @@
 """Tiered dense top-k: a quantized tile scan + a verified rescore — exact
 results without the full fp32 scan.
 
-PyTorch counterpart of ``trueno_rag_tpu/ops/dense_tiered.py``'s tile
-tiers. One pass over a quantized replica of the corpus emits, per
-1024-row tile, a few candidate rows with rigorous upper bounds on their
-true scores plus a bound on every other row of the tile
+PyTorch counterpart of ``trueno_rag_tpu/ops/dense_tiered.py``. One pass
+over a quantized replica of the corpus emits, per 1024-row tile, a few
+candidate rows with rigorous upper bounds on their true scores plus a
+bound on every other row of the tile
 (:mod:`~trueno_rag_tpu_torch.ops.kernels.scan_select`: the bf16 kernel
-``scan_select_v3`` or the int8 kernel ``scan_select_int8_v3``);
+``scan_select_v3`` or the int8 kernel ``scan_select_int8_v3``) — or, on
+the block tiers (:func:`dense_topk_tiered`, :func:`dense_topk_int8`), per
+128-row block the top rows by per-row bound and a bound on the rest
+(:mod:`~trueno_rag_tpu_torch.ops.kernels.scan_select_v1`);
 exactness is recovered with interval arithmetic:
 
 1. **Bound**: with M = A + E (A = the dequantized row) and q = b + f,
@@ -49,6 +52,7 @@ from trueno_rag_tpu_torch.ops.dense import (
     NEG_INF, _pad_k, dense_topk, exact_scores, normalize_queries, require_fp32, topk_desc,
 )
 from trueno_rag_tpu_torch.ops.kernels.scan_select import SEL, scan_select_int8_v3, scan_select_v3
+from trueno_rag_tpu_torch.ops.kernels.scan_select_v1 import BLOCK, TOP, scan_select, scan_select_int8
 from trueno_rag_tpu_torch.ops.tags import dense_topk_tagged, tag_pred
 
 # Safety inflation on the analytic bound: absorbs f32 rounding in the
@@ -193,10 +197,9 @@ def _pad_to(x: torch.Tensor, size: int, value=0) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, 0) * (x.dim() - 1) + (0, extra), value=value)
 
 
-def _padded_sizes(bsz: int, n: int, tile_n: int):
-    """The kernels' padding: the batch to a multiple of 8, the corpus to
-    a multiple of the tile (at least one 1024-row selection tile)."""
-    tile = max(tile_n, SEL)
+def _padded_sizes(bsz: int, n: int, tile: int):
+    """The kernels' padding, as in the JAX package: the batch to a multiple
+    of 8, the corpus to a multiple of ``tile`` rows (at least one tile)."""
     return max(8, -(-bsz // 8) * 8), max(-(-n // tile) * tile, tile)
 
 
@@ -221,7 +224,7 @@ def _tags_live(tags, safe_rows, b_pad: int) -> torch.Tensor:
 
 def _scan_bf16(q, m_bf16, e_l2, a_l2, valid_mask, tile_n, t_top, tags):
     """Bound coefficients, padding and the bf16 scan (K1) → (packs, b_pad)."""
-    b_pad, n_pad = _padded_sizes(q.shape[0], m_bf16.shape[0], tile_n)
+    b_pad, n_pad = _padded_sizes(q.shape[0], m_bf16.shape[0], max(tile_n, SEL))
     qb, u_q, v_q = _bf16_query_bounds(q)
     outs = scan_select_v3(
         _pad_to(qb, b_pad).contiguous(), _pad_to(m_bf16, n_pad), _pad_to(e_l2, n_pad),
@@ -235,7 +238,7 @@ def _scan_bf16(q, m_bf16, e_l2, a_l2, valid_mask, tile_n, t_top, tags):
 def _scan_int8(q, m_i8, s_row, e_l2, a_l2, valid_mask, tile_n, t_top, tags):
     """Bound coefficients, padding and the int8 scan (K3) → (packs, b_pad).
     Padded rows and queries get scale 1, as in the JAX package."""
-    b_pad, n_pad = _padded_sizes(q.shape[0], m_i8.shape[0], tile_n)
+    b_pad, n_pad = _padded_sizes(q.shape[0], m_i8.shape[0], max(tile_n, SEL))
     q_i8, t_q, u_q, v_q = _int8_query_bounds(q)
     outs = scan_select_int8_v3(
         _pad_to(q_i8, b_pad).contiguous(), _pad_to(m_i8, n_pad), _pad_to(s_row, n_pad, 1.0),
@@ -274,13 +277,15 @@ def _trim_and_dedup(cand_rows, cand_vals, threshold, k_req, rescore_rows, approx
 
 def _trim_rescore_verify(
     cand_rows, cand_vals, threshold, q, matrix, valid_mask, n, bsz, b_pad,
-    k_req, rescore_rows, tags=None,
+    k_req, rescore_rows, tags=None, approx_select=True,
 ):
     """Certificate tail: optional trim of the explicit candidate set,
     exact fp32 rescore, deterministic (score desc, row asc) top-k and
     the strict-beat verification. ``cand_rows`` must already map -inf
     candidates to distinct ``_ROW_SENTINEL`` slots."""
-    cand_rows, threshold = _trim_and_dedup(cand_rows, cand_vals, threshold, k_req, rescore_rows)
+    cand_rows, threshold = _trim_and_dedup(
+        cand_rows, cand_vals, threshold, k_req, rescore_rows, approx_select
+    )
 
     # -- exact rescore of the candidates (the exact path's arithmetic) -----
     safe_rows = torch.clamp(cand_rows, max=n - 1).long()
@@ -413,6 +418,157 @@ def _checked_fallback(s, r, ok, queries, matrix, valid_mask, k, metric, tags=Non
     s[bad] = fb_s
     r[bad] = fb_r
     return s, r, int(bad.numel())
+
+
+# ---------------------------------------------------------------------------
+# Block-kernel tiers (scan_kernel="block"): the scan emits, per 128-row
+# block, the top+1 per-row upper bounds and the top lanes (K8 bf16, K9
+# int8); the tail selects blocks, not tiles.
+# ---------------------------------------------------------------------------
+
+
+def _select_rescore_verify(
+    outs, q, matrix, valid_mask, bsz, b_pad, k, margin_blocks, rescore_rows,
+    approx_select=True, top=TOP,
+):
+    """The block tiers' tail: block selection by v1, exact fp32 rescore of
+    the selected blocks' top ``top`` rows and the strict-beat certificate.
+    ``outs`` = (v1..v_{top+1}, i1..i_top) [B_pad, G] from K8 or K9; ``q`` is
+    the f32 query batch (metric applied), unpadded [bsz, d]. Every row is
+    covered by one bound: an unselected block → its v1 ≤ thr_out; an
+    unseen row of a selected block → its v_{top+1} ≤ thr_in; a candidate
+    the trim drops → the trim's own bound (:func:`_trim_and_dedup`)."""
+    v_top, i_top = outs[: top + 1], outs[top + 1 :]
+    g = v_top[0].shape[1]
+
+    # -- block selection by v1 -------------------------------------------
+    kb = min(k + margin_blocks, g)
+    b_idx, thr_out = _topk_select(v_top[0], kb, approx_select)
+    b_idx, _ = torch.sort(b_idx, dim=1)
+    thr_in = torch.gather(v_top[top], 1, b_idx).amax(dim=1)  # unseen rows of selected blocks
+    threshold = torch.maximum(thr_out, thr_in)
+
+    # -- candidates: the top rows of each selected block -------------------
+    slot = torch.arange(kb, device=b_idx.device) * top
+    rows, vals = [], []
+    for t in range(top):
+        v_t = torch.gather(v_top[t], 1, b_idx)
+        r_t = b_idx * BLOCK + torch.gather(i_top[t], 1, b_idx)
+        rows.append(torch.where(torch.isneginf(v_t), _ROW_SENTINEL + slot + t, r_t))
+        vals.append(v_t)
+    cand_rows = torch.cat(rows, dim=1).to(torch.int32)  # [B_pad, top·kb]
+    cand_vals = torch.cat(vals, dim=1)
+    return _trim_rescore_verify(
+        cand_rows, cand_vals, threshold, q, matrix, valid_mask, matrix.shape[0], bsz,
+        b_pad, k, rescore_rows, approx_select=approx_select,
+    )
+
+
+def dense_topk_tiered(
+    queries: torch.Tensor,  # [B, d] f32
+    matrix: torch.Tensor,  # [N, d] f32 (cosine rows pre-normalized)
+    m_bf16: torch.Tensor,  # [N, d] bf16 scan copy
+    e_l2: torch.Tensor,  # [N] f32 — ‖row − bf16(row)‖₂
+    a_l2: torch.Tensor,  # [N] f32 — ‖bf16(row)‖₂
+    valid_mask: torch.Tensor,  # [N] bool
+    k: int,
+    margin_blocks: int = 64,
+    metric: str = "cosine",
+    tile_n: int = 1024,
+    rescore_rows: int | None = None,
+    approx_select: bool = True,
+    block_top: int = TOP,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Certified bf16 block scan (K8) + exact fp32 rescore → (scores [B,k],
+    rows [B,k], certified [B] bool), the counterpart of the JAX package's
+    ``dense_topk_tiered``. Where ``certified[i]`` holds, query i's result is
+    provably the exact fp32 top-k in (score desc, row asc) order. The
+    corpus pads to a multiple of ``tile_n`` (a multiple of 128) rows."""
+    q = _metric_queries(queries, metric)
+    n = matrix.shape[0]
+    b_pad, n_pad = _padded_sizes(q.shape[0], n, tile_n)
+    qb, u_q, v_q = _bf16_query_bounds(q)
+    outs = scan_select(
+        _pad_to(qb, b_pad).contiguous(), _pad_to(m_bf16, n_pad), _pad_to(e_l2, n_pad),
+        _pad_to(a_l2, n_pad), _pad_to(valid_mask, n_pad, False).to(torch.int32),
+        _pad_to(u_q, b_pad).contiguous(), _pad_to(v_q, b_pad).contiguous(),
+        tile_n=tile_n, top=block_top,
+    )
+    return _select_rescore_verify(
+        outs, q, matrix, valid_mask, q.shape[0], b_pad, k, margin_blocks, rescore_rows,
+        approx_select, block_top,
+    )
+
+
+def dense_topk_tiered_checked(
+    queries, matrix, m_bf16, e_l2, a_l2, valid_mask, k,
+    margin_blocks=64, metric="cosine", tile_n=1024, rescore_rows=None,
+    approx_select=True, block_top=TOP,
+):
+    """Exactness-contract wrapper of :func:`dense_topk_tiered`: uncertified
+    queries re-run on the fp32 path. Returns (scores, rows, n_fallback)."""
+    s, r, ok = dense_topk_tiered(
+        queries, matrix, m_bf16, e_l2, a_l2, valid_mask, k,
+        margin_blocks=margin_blocks, metric=metric, tile_n=tile_n,
+        rescore_rows=rescore_rows, approx_select=approx_select, block_top=block_top,
+    )
+    return _checked_fallback(s, r, ok, queries, matrix, valid_mask, k, metric)
+
+
+def dense_topk_int8(
+    queries: torch.Tensor,  # [B, d] f32
+    matrix: torch.Tensor,  # [N, d] f32 (cosine rows pre-normalized)
+    m_i8: torch.Tensor,  # [N, d] int8 scan copy (prepare_int8)
+    s_row: torch.Tensor,  # [N] f32 row scales
+    e_l2: torch.Tensor,  # [N] f32
+    a_l2: torch.Tensor,  # [N] f32
+    valid_mask: torch.Tensor,  # [N] bool
+    k: int,
+    margin_blocks: int = 64,
+    metric: str = "cosine",
+    tile_n: int = 1024,
+    use_int8_mxu: bool = True,
+    rescore_rows: int | None = None,
+    approx_select: bool = True,
+    block_top: int = TOP,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """int8 block scan (K9) + exact fp32 rescore — the int8 sibling of
+    :func:`dense_topk_tiered`, same contract; counterpart of the JAX
+    package's ``dense_topk_int8``. ``use_int8_mxu`` has no effect (see
+    :func:`~trueno_rag_tpu_torch.ops.kernels.scan_select_v1.scan_select_int8`).
+    Padded rows and queries get scale 1, as in the JAX package."""
+    del use_int8_mxu
+    q = _metric_queries(queries, metric)
+    n = matrix.shape[0]
+    b_pad, n_pad = _padded_sizes(q.shape[0], n, tile_n)
+    q_i8, t_q, u_q, v_q = _int8_query_bounds(q)
+    outs = scan_select_int8(
+        _pad_to(q_i8, b_pad).contiguous(), _pad_to(m_i8, n_pad), _pad_to(s_row, n_pad, 1.0),
+        _pad_to(e_l2, n_pad), _pad_to(a_l2, n_pad),
+        _pad_to(valid_mask, n_pad, False).to(torch.int32),
+        _pad_to(t_q, b_pad, 1.0).contiguous(), _pad_to(u_q, b_pad).contiguous(),
+        _pad_to(v_q, b_pad).contiguous(), tile_n=tile_n, top=block_top,
+    )
+    return _select_rescore_verify(
+        outs, q, matrix, valid_mask, q.shape[0], b_pad, k, margin_blocks, rescore_rows,
+        approx_select, block_top,
+    )
+
+
+def dense_topk_int8_checked(
+    queries, matrix, m_i8, s_row, e_l2, a_l2, valid_mask, k,
+    margin_blocks=64, metric="cosine", tile_n=1024, use_int8_mxu=True,
+    rescore_rows=None, approx_select=True, block_top=TOP,
+):
+    """Exactness-contract wrapper of :func:`dense_topk_int8`: uncertified
+    queries re-run on the fp32 path. Returns (scores, rows, n_fallback)."""
+    s, r, ok = dense_topk_int8(
+        queries, matrix, m_i8, s_row, e_l2, a_l2, valid_mask, k,
+        margin_blocks=margin_blocks, metric=metric, tile_n=tile_n,
+        use_int8_mxu=use_int8_mxu, rescore_rows=rescore_rows,
+        approx_select=approx_select, block_top=block_top,
+    )
+    return _checked_fallback(s, r, ok, queries, matrix, valid_mask, k, metric)
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,14 @@ ENTRY = {
     "scan_select_v3_launch": ("scan_select_v3.cu", [_P] * 13 + [_I] * 4 + [_P]),
     "scan_select_v3_indirect_launch": ("scan_select_v3.cu", [_P] * 14 + [_I] * 6 + [_P]),
     "scan_select_int8_v3_launch": ("scan_select_int8_v3.cu", [_P] * 15 + [_I] * 4 + [_P]),
+    # q, m, e_l2, a_l2, valid, u_q, v_q, v_out, i_out, nq, d, n, top, stream
+    "scan_select_v1_launch": ("scan_select_v1.cu", [_P] * 9 + [_I] * 4 + [_P]),
+    # q, m, s_row, e_l2, a_l2, valid, t_q, u_q, v_q, v_out, i_out, nq, d, n, top, stream
+    "scan_select_int8_v1_launch": ("scan_select_v1.cu", [_P] * 11 + [_I] * 4 + [_P]),
+    # q, m, valid, scores, bmax, nq, d, n, stream
+    "score_blockmax_launch": ("dense_score.cu", [_P] * 5 + [_I] * 3 + [_P]),
+    # q, m, valid, bmax, nq, d, n, stream
+    "blockmax_only_launch": ("dense_score.cu", [_P] * 4 + [_I] * 3 + [_P]),
     # q, k, v, key_mask, out, bh, t, hd, heads, causal, scale, stream
     "block_attention_launch": ("block_attention.cu", [_P] * 5 + [_I] * 5 + [_F, _P]),
     # q16, tok16, t_mask, valid, out, nq, lq, n, lt, h, stream

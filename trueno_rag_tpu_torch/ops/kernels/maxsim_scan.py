@@ -14,6 +14,10 @@ ascending order in the kernels and the plain versions alike. The int8
 kernel is bit-identical to its plain version; the bf16 kernel sums each
 dot's exact products in another f32 order than the plain version's
 matmul, within the certificate's ``κ = (H+Lq)·2⁻²³`` share per program.
+Any width H: a width that is not a multiple of the kernels' 16-byte
+vector is read byte by byte with zero columns past H
+(``csrc/row_load.cuh``), so the zero-copy tier reads the stored tokens in
+place at any H.
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to
 the kernel, or the call raises. The kernels are built at first use by
@@ -98,14 +102,12 @@ def maxsim_scan16_scores(
 
     CPU tensors run :func:`maxsim_scan16_scores_reference`; CUDA tensors
     launch the kernel (counted in ``maxsim_scan16_scores.launches``) or
-    raise. The kernel reads ``tok16`` in place and needs H % 8 == 0."""
+    raise. The kernel reads ``tok16`` in place, at any H."""
     _check(q16, tok16, t_mask, valid, torch.bfloat16, torch.bfloat16, "maxsim_scan16_scores")
     if q16.device.type == "cpu":
         return maxsim_scan16_scores_reference(q16, tok16, t_mask, valid)
     b, lq, h = q16.shape
     n, lt = t_mask.shape
-    if h % 8:
-        raise InvalidConfigError(f"maxsim_scan16_scores: the kernel needs H % 8 == 0, got {h}")
     q16 = q16.contiguous()
     out = _launch("maxsim_scan16_launch", (q16, tok16, t_mask, valid), (q16, tok16),
                   (b, lq, n, lt, h), b, n, q16.device)
@@ -158,15 +160,13 @@ def maxsim_scan_int8_scores(
 
     CPU tensors run
     :func:`maxsim_scan_int8_scores_reference`; CUDA tensors launch the
-    kernel (counted in ``maxsim_scan_int8_scores.launches``) or raise. The
-    kernel needs H % 16 == 0."""
+    kernel (counted in ``maxsim_scan_int8_scores.launches``) or raise, at
+    any H."""
     _check_int8(q8, t_q, tok8, s_tok, t_mask, valid)
     if q8.device.type == "cpu":
         return maxsim_scan_int8_scores_reference(q8, t_q, tok8, s_tok, t_mask, valid)
     b, lq, h = q8.shape
     n, lt = t_mask.shape
-    if h % 16:
-        raise InvalidConfigError(f"maxsim_scan_int8_scores: the kernel needs H % 16 == 0, got {h}")
     q8 = q8.contiguous()
     out = _launch("maxsim_scan_int8_launch", (q8, t_q.contiguous(), tok8, s_tok, t_mask, valid), (q8, tok8),
                   (b, lq, n, lt, h), b, n, q8.device)

@@ -59,8 +59,10 @@ def _check_vectors(named: Sequence[Tuple[str, torch.Tensor, torch.dtype, int]]) 
             raise InvalidConfigError(f"{name} must be {dt} [{ln}], got {t.dtype} {tuple(t.shape)}")
 
 
-def _check(q, m, dtype, d_mult, vectors, tags, t_top) -> None:
-    """Shapes, types and devices common to both scans."""
+def _check(q, m, dtype, vectors, tags, t_top) -> None:
+    """Shapes, types and devices common to both scans (any width d >= 1:
+    the kernels read a width that is not a multiple of their 16-byte
+    vector through ``csrc/row_load.cuh``)."""
     if q.dim() != 2 or m.dim() != 2 or q.shape[1] != m.shape[1]:
         raise InvalidConfigError(f"need q [B, d] and m [N, d], got {tuple(q.shape)}, {tuple(m.shape)}")
     b, d = q.shape
@@ -69,8 +71,8 @@ def _check(q, m, dtype, d_mult, vectors, tags, t_top) -> None:
         raise InvalidConfigError(f"q and m must be {dtype} (got {q.dtype}, {m.dtype})")
     if b < 1 or n < SEL or n % SEL:
         raise InvalidConfigError(f"need B >= 1 and N a positive multiple of {SEL}, got B={b}, N={n}")
-    if d < d_mult or d % d_mult:
-        raise InvalidConfigError(f"d must be a positive multiple of {d_mult}, got {d}")
+    if d < 1:
+        raise InvalidConfigError(f"d must be positive, got {d}")
     named = [(name, t, dt, n if per_row else b) for name, t, dt, per_row in vectors]
     if tags is not None:
         if len(tags) != 4:
@@ -208,7 +210,7 @@ def _check_indirect(q_bf16, m_bf16, e_l2, a_l2, valid_i32, u_q, v_q, tile_ids, t
 
 def _check_v3(q_bf16, m_bf16, e_l2, a_l2, valid_i32, u_q, v_q, t_top, tags) -> None:
     f32 = torch.float32
-    _check(q_bf16, m_bf16, torch.bfloat16, 8, [
+    _check(q_bf16, m_bf16, torch.bfloat16, [
         ("e_l2", e_l2, f32, True), ("a_l2", a_l2, f32, True),
         ("valid", valid_i32, torch.int32, True), ("u_q", u_q, f32, False),
         ("v_q", v_q, f32, False),
@@ -262,7 +264,7 @@ scan_select_int8_v3.launches = 0
 
 def _check_int8(q_i8, m_i8, s_row, e_l2, a_l2, valid_i32, t_q, u_q, v_q, t_top, tags) -> None:
     f32 = torch.float32
-    _check(q_i8, m_i8, torch.int8, 16, [
+    _check(q_i8, m_i8, torch.int8, [
         ("s_row", s_row, f32, True), ("e_l2", e_l2, f32, True), ("a_l2", a_l2, f32, True),
         ("valid", valid_i32, torch.int32, True), ("t_q", t_q, f32, False),
         ("u_q", u_q, f32, False), ("v_q", v_q, f32, False),
