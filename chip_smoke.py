@@ -46,7 +46,7 @@ Run from the repository root. Phases, each fatal on failure:
    the same tiles, its bounds against float64, its tag variant, times;
 8. clustered-1M: the slice's chunks, tags and BM25 index behind
    ``VectorStoreConfig(scan_tier="clustered")`` with a 1M blob corpus
-   (``convert.retriever_from_state``): 4 batches of 8 and 8 single
+   (``convert.retriever_from_state``): 2 batches of 8 and 4 single
    queries through ``query_with_context_batch(k=5)`` at 50 and at 12
    dense candidates per query (K5's launch count must rise; every dense
    set equal to the float64 exact set; fusion equal to the host oracle),
@@ -136,7 +136,27 @@ Run from the repository root. Phases, each fatal on failure:
    launch counts must rise, the block tiers' dense candidates equal the
    exact fp32 ``dense_topk`` rows and scores (certified fraction logged),
    the bf16-storage store's equal the float64 top-k over its own
-   bf16-rounded rows up to near-ties.
+   bf16-rounded rows up to near-ties;
+20. kernels-K12 (after phase 4): a BM25 index over 17,825,792 documents of
+   slice 1's text law (postings made on the card in slabs, packed by the
+   index's own snapshot past ``MAX_BLOCK_ROWS`` = 2^24), B = 256 queries:
+   K12a ``fetch_contribs`` and K12b ``fetch_contribs8`` over the index's
+   segment plan against their plain version, rows and contributions bit
+   for bit, times beside it and the bound; the tail's time; the index's
+   ``search_arrays`` top-50 equal to the plain ``bm25_topk_segments``;
+   ``bm25_topk_dma`` over the aligned plan at both widths (the only
+   caller of K12a: the segment path runs K12b, so the ``kernels`` line
+   counts K12a's launches on the path as 0);
+21. segments-17.8M: the same rows as 384-d unit vectors with their bf16
+   replica on the card; the staged query (K1 dense top-50, the segment
+   BM25 with K12, RRF 60) at B = 256 timed by stage, 8 single queries, and
+   ``hybrid_query_arrays_segments`` at B = 32 equal to the staged rows;
+22. segments-store-1M (after phase 19), a code-path check: the 1M
+   pipeline's BM25 index re-snapshotted with ``MAX_BLOCK_ROWS`` moved to
+   2^19; ``query_with_context_batch`` (K1 + K12), single queries, a tag
+   batch and a tier-none sibling (``hybrid_query_arrays_segments``) against
+   the block path's answers on the same queries (BM25 equal up to counted
+   near-ties); then the threshold and the block table restored.
 
 The last two lines of standard output are JSON: the per-kernel record, then
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
@@ -176,8 +196,8 @@ CL_SIGMA = 0.025
 CL_PLANT = 8  # planted rows per blob at 1M (the bench's default k)
 CL_PLANTED_BLOBS = 64
 CL_BATCH = 8
-CL_BATCHES = 4
-CL_SINGLES = 8
+CL_BATCHES = 2  # 4 until slice 7, and 8 singles: depth cut for the smoke's time
+CL_SINGLES = 4
 CL_T_TOP = 16  # the store's t_top for its 50 dense candidates per query
 CL_FEW = 12  # a second pass with 12 dense candidates per query
 CL_MUTATE = 0.01
@@ -222,6 +242,15 @@ K2_K = 10  # kernels-K2: k of the two top-k functions
 ODD_D = 100  # odd-widths: a width no kernel vector divides
 ODD_N = 65536
 ODD_TOK_N, ODD_LT = 8192, 16
+# slice 7: the BM25 segment path
+N_SEG = (1 << 24) + (1 << 20)  # 17,825,792 rows: past the block table's f32-exact 2^24
+SEG_SLAB = 1 << 20  # documents whose postings are made and sorted at a time
+SEG_DENSE_CHUNK = 64  # queries per K1 call at 17.8M: bounds an fp32 re-run's [B, N] scores
+SEG_RUNS = 2  # staged batches at 17.8M (the first pays the set-up)
+SEG_SINGLES = 8  # single queries through search_arrays
+SEG_FUSED_B = 32  # hybrid_query_arrays_segments at 17.8M: its [B, N] fp32 scores take B x 71 MB
+SEG_STORE_THRESHOLD = 1 << 19  # the moved MAX_BLOCK_ROWS of segments-store-1M, below its 1M rows
+BM25_ULPS = 16  # BM25 scores of two panel shapes: within 16 ulps of the panel's mass (bm25_near_ties)
 
 # H100 SXM peaks (NVIDIA data sheet) for the kernels' bounds
 BF16_FLOP_PER_S = 989e12  # tensor cores, dense: the peak for bf16 operands (K1, K4, K5, K6)
@@ -2842,6 +2871,375 @@ def phase_odd_widths(seed: int):
     return k1, k6
 
 
+# -- the BM25 segment path past 2^24 rows (slice 7) ------------------------------
+
+
+def seg_postings(n: int, seed: int):
+    """The text law's postings for ``n`` one-chunk documents, made on the
+    card slab by slab: DOC_WORDS word ids per document, uniform over VOCAB,
+    from a generator seeded per slab; repeated words become tf. Pass 1
+    counts each term's documents, pass 2 makes the slabs again and scatters
+    them into CSR order (term, then row) → host (indptr int64 [V+1], rows
+    int32 [P], tfs f32 [P])."""
+    import torch
+
+    def slab(i, lo, hi):
+        gen = torch.Generator(device=DEV).manual_seed(seed * 1_000_003 + i)
+        ids = torch.randint(0, VOCAB, (hi - lo, DOC_WORDS), device=DEV, generator=gen)
+        key = ids * (hi - lo) + torch.arange(hi - lo, device=DEV)[:, None]
+        key, tf = torch.unique(key.reshape(-1), sorted=True, return_counts=True)
+        return key // (hi - lo), key % (hi - lo), tf
+
+    bounds = [(i, lo, min(lo + SEG_SLAB, n)) for i, lo in enumerate(range(0, n, SEG_SLAB))]
+    df = torch.zeros(VOCAB, dtype=torch.int64, device=DEV)
+    for i, lo, hi in bounds:
+        df += torch.bincount(slab(i, lo, hi)[0], minlength=VOCAB)
+    indptr = torch.zeros(VOCAB + 1, dtype=torch.int64, device=DEV)
+    indptr[1:] = torch.cumsum(df, 0)
+    p = int(indptr[-1])
+    rows = torch.empty(p, dtype=torch.int32, device=DEV)
+    tfs = torch.empty(p, dtype=torch.float32, device=DEV)
+    cursor = indptr[:-1].clone()
+    for i, lo, hi in bounds:
+        term, local, tf = slab(i, lo, hi)
+        cnt = torch.bincount(term, minlength=VOCAB)
+        pos = cursor[term] + torch.arange(term.shape[0], device=DEV) - (torch.cumsum(cnt, 0) - cnt)[term]
+        rows[pos] = (local + lo).to(torch.int32)
+        tfs[pos] = tf.to(torch.float32)
+        cursor += cnt
+    check(torch.equal(cursor, indptr[1:]), "postings: a term's run was not filled exactly")
+    return indptr.cpu().numpy(), rows.cpu().numpy(), tfs.cpu().numpy()
+
+
+def seg_index(n: int, seed: int):
+    """A BM25 index over ``n`` documents of the text law past the block
+    threshold, fed the way the native export feeds it
+    (``BM25Index._refresh_snapshot``): the index's own packing runs."""
+    import numpy as np
+    import torch
+
+    from trueno_rag_tpu_torch.index.bm25 import BM25Index
+
+    t0 = time.perf_counter()
+    indptr, rows, tfs = seg_postings(n, seed)
+    t_post = time.perf_counter() - t0
+    idx = BM25Index(device=DEV, use_native=False)
+    idx._doc_len = range(n)  # avg_doc_length reads only its length (a dict of n rows: ~2 GB of host memory)
+    idx._total_len = DOC_WORDS * n  # every document has DOC_WORDS tokens
+    df = np.maximum(np.diff(indptr), 1).astype(np.float64)
+    idf = np.log((n - df + 0.5) / (df + 0.5) + 1.0).astype(np.float32)
+    doc_len = np.full(n, DOC_WORDS, dtype=np.float32)
+    vocab = {f"w{i:05d}": i for i in range(VOCAB)}
+    t0 = time.perf_counter()
+    idx._finish_snapshot(vocab, indptr, rows, tfs, idf, doc_len, n)
+    torch.cuda.synchronize()
+    t_snap = time.perf_counter() - t0
+    packed = idx._snap["packed"]
+    p = len(rows)
+    check(idx._snap["blocks"] is None and tuple(packed.shape) == (p + 256, 4), "the snapshot did not take the segments")
+    head = torch.from_numpy(rows[:SEG_SLAB]).to(DEV)
+    check(torch.equal(packed[:SEG_SLAB, 0].contiguous().view(torch.int32), head)
+          and torch.equal(packed[p - SEG_SLAB:p, 1].cpu(), torch.from_numpy(tfs[p - SEG_SLAB:])),
+          "packed postings disagree with the CSR arrays")
+    log(f"segment index: {n} documents, {p} postings ({p / n:.2f} per document, {p / VOCAB:.0f} per term) made on "
+        f"the card in {t_post:.1f} s; snapshot (host pack_postings + upload of {packed.numel() * 4 / 1e9:.2f} GB) "
+        f"{t_snap:.1f} s")
+    return idx, p
+
+
+def bm25_near_ties(s_a, r_a, s_b, r_b, mass, label) -> int:
+    """Two BM25 top-k answers ``(scores, rows)`` (host arrays) of one batch
+    whose candidate tails ran at other panel shapes → the number of queries
+    whose rows differ. A run's score is the difference of two f32 prefix
+    sums of up to the panel's contribution mass ``mass[i]`` (ROADMAP Queue
+    3, "BM25 rounding"), each within a few ulps of it in any scan order:
+    scores must agree within BM25_ULPS ulps of the mass, and a row that only
+    one answer holds must tie with the last rank within that band."""
+    import numpy as np
+
+    n = 0
+    for i in range(len(r_a)):
+        if np.array_equal(r_a[i], r_b[i]):
+            continue
+        n += 1
+        tol = BM25_ULPS * 2.0**-24 * float(mass[i])
+        fin = np.isfinite(s_a[i])
+        check(np.array_equal(fin, np.isfinite(s_b[i])), f"{label} query {i}: different hit counts")
+        check(bool(np.all(np.abs(s_a[i][fin] - s_b[i][fin]) <= tol)), f"{label} query {i}: scores differ past {tol}")
+        score = {**dict(zip(r_a[i].tolist(), s_a[i].tolist())), **dict(zip(r_b[i].tolist(), s_b[i].tolist()))}
+        last = max(s_a[i][fin][-1], s_b[i][fin][-1])
+        for r in set(r_a[i].tolist()) ^ set(r_b[i].tolist()):
+            check(score[r] - last <= tol, f"{label} query {i}: row {r} differs past a near-tie at the last rank")
+    return n
+
+
+def phase_kernels_k12(seed: int):
+    """K12a fetch_contribs and K12b fetch_contribs8 at the segment path's
+    shape: 17,825,792 documents, B = 256 queries of QUERY_WORDS words, against
+    their plain version (bit for bit), times, bound, the tail → (K12a, K12b
+    records, the index, the queries)."""
+    import numpy as np
+    import torch
+
+    from trueno_rag_tpu_torch.ops.bm25 import _candidate_topk, bm25_topk_segments, slab_contribs
+    from trueno_rag_tpu_torch.ops.kernels import bm25_fetch as bf
+
+    torch.cuda.reset_peak_memory_stats()
+    idx, _ = seg_index(N_SEG, seed)
+    rng = np.random.default_rng(seed + 17)
+    qs = query_batches(rng, 1)[0]
+    t0 = time.perf_counter()
+    starts, lens = idx._gather_segments(qs)
+    t_gather = (time.perf_counter() - t0) * 1e3
+    n_seg = (lens > 0).sum(axis=1)
+    log(f"kernels-K12: _gather_segments {t_gather:.1f} ms (host) for {BATCH} queries: {n_seg.mean():.1f} segments "
+        f"per query (max {n_seg.max()}), S = {starts.shape[1]}, {starts.size} slots")
+    packed, avgdl = idx._snap["packed"], idx._snap["avgdl"]
+    st, ln = (torch.from_numpy(x).to(DEV).reshape(-1) for x in (starts, lens))
+    n_slots = st.shape[0]
+    r_p, c_p = slab_contribs(st, torch.zeros_like(st), ln, packed, avgdl)
+    plain_ms = cuda_ms(lambda: slab_contribs(st, torch.zeros_like(st), ln, packed, avgdl), 3)
+    rows = torch.empty_like(r_p)
+    contribs = torch.empty_like(c_p)
+    # bytes the function must move: each live posting once, both outputs, the slot lists
+    live = int(lens.sum())
+    k12_bound = bound(16 * live + 8 * n_slots * 256 + 8 * n_slots, 12 * live, FP32_FLOP_PER_S)
+    recs = {}
+    for kern in (bf.fetch_contribs, bf.fetch_contribs8):
+        name = kern.__name__
+        rows.fill_(0)
+        contribs.fill_(-1.0)
+        bf._launch(name, st, None, ln, packed, 1, avgdl, 1.2, 0.75, rows, contribs)
+        torch.cuda.synchronize()
+        check(torch.equal(rows, r_p), f"{name}: rows differ from the plain version")
+        check(torch.equal(contribs.view(torch.int32), c_p.view(torch.int32)),
+              f"{name}: contributions differ from the plain version")
+        err = (contribs - c_p).abs().max().item()
+        ms = cuda_ms(lambda: bf._launch(name, st, None, ln, packed, 1, avgdl, 1.2, 0.75, rows, contribs), 10)
+        one = cuda_ms(lambda: bf._launch(name, st[:starts.shape[1]], None, ln[:starts.shape[1]], packed, 1, avgdl,
+                                         1.2, 0.75, rows, contribs), 10)
+        recs[name] = {"name": name, "route": "cuda", "source": "trueno_rag_tpu_torch/csrc/bm25_fetch.cu",
+                      "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": k12_bound[0], "bound_by": k12_bound[1], "library_ms": None}
+        log(f"{name} (segment plan, {n_slots} slots, {live} live postings): kernel {ms:.3f} ms, one query "
+            f"({starts.shape[1]} slots) {one:.4f} ms; plain {plain_ms:.3f} ms (median, CUDA events); bound "
+            f"{k12_bound[0]:.3f} ms ({k12_bound[1]}); {16 * live / 1e9:.3f} GB of postings read at "
+            f"{(16 * live + 8 * n_slots * 256) / (ms * 1e-3) / 1e12:.2f} TB/s; rows and contributions bit-identical "
+            f"to the plain version")
+    recs["fetch_contribs"]["replaces"] = "trueno_rag_tpu/ops/pallas/bm25_fetch.py:89"
+    recs["fetch_contribs8"]["replaces"] = "trueno_rag_tpu/ops/pallas/bm25_fetch.py:152"
+    tail_ms = cuda_ms(lambda: _candidate_topk(r_p.view(BATCH, -1), c_p.view(BATCH, -1), TIER_K), 3)
+    mass = c_p.view(BATCH, -1).double().sum(dim=1).cpu().numpy()
+    del r_p, c_p, rows, contribs
+    torch.cuda.empty_cache()
+    sw, rw = bm25_topk_segments(st.view(BATCH, -1), ln.view(BATCH, -1), packed, avgdl, TIER_K)
+    sg, rg = idx.search_arrays(qs, TIER_K)
+    check(torch.equal(rg, rw) and torch.equal(sg, sw), "search_arrays differs from the plain bm25_topk_segments")
+    check(bool((rg[:, 0] >= 0).all()), "a query found no BM25 hit")
+    log(f"kernels-K12: tail (row sort, prefix sums, top-{TIER_K} over [{BATCH}, {starts.shape[1] * 256}]) "
+        f"{tail_ms:.3f} ms; search_arrays top-{TIER_K} equals the plain bm25_topk_segments row for row and "
+        f"score for score; panel mass per query {mass.min():.0f}-{mass.max():.0f}")
+
+    # the aligned plan of the JAX package's bm25_topk_dma, both widths
+    t0 = time.perf_counter()
+    bids, lo, hi, s_slots, _ = bf.gather_aligned_segments(idx._snap["indptr"], None, idx._snap["vocab"],
+                                                          idx._tokenize, qs, packed.shape[0] - 256)
+    t_plan = time.perf_counter() - t0
+    bids, lo, hi = (torch.from_numpy(x).to(DEV) for x in (bids, lo, hi))
+    # K12a runs only here, in the aligned plan of bm25_topk_dma: these
+    # launches are not the main path's and stay out of the records
+    bf.fetch_contribs.launches = bf.fetch_contribs8.launches = 0
+    s_a, r_a = bf.bm25_topk_dma(bids, lo, hi, packed, avgdl, TIER_K, s_slots, wide=False)
+    s_b, r_b = bf.bm25_topk_dma(bids, lo, hi, packed, avgdl, TIER_K, s_slots, wide=True)
+    check(bf.fetch_contribs.launches == bf.fetch_contribs8.launches == 1, "bm25_topk_dma: not one launch per width")
+    check(torch.equal(r_a, r_b) and torch.equal(s_a, s_b), "bm25_topk_dma: the two widths differ")
+    near = bm25_near_ties(s_a.cpu().numpy(), r_a.cpu().numpy(), sg.cpu().numpy(), rg.cpu().numpy(), mass,
+                          "aligned plan")
+    log(f"kernels-K12: bm25_topk_dma over the aligned plan ({s_slots} slots per query, host plan {t_plan:.1f} s): "
+        f"one launch of each width, both identical; equal to the segment plan's top-{TIER_K} but for {near} of {BATCH} queries whose "
+        f"rows differ at near-ties ({BM25_ULPS} ulps of the panel mass); peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return recs["fetch_contribs"], recs["fetch_contribs8"], idx, qs
+
+
+def phase_segments_17m(idx, qs, seed: int):
+    """The slice's path at 17,825,792 rows, ops level: unit rows x 384 and
+    their bf16 replica made on the card beside the segment index; the staged
+    query (K1 dense top-50, the index's segment BM25 with K12, RRF 60) at
+    B = 256, single queries through the index, and
+    hybrid_query_arrays_segments at B = SEG_FUSED_B against the staged path
+    on the same queries → (K12a launches, K12b launches) on this path."""
+    import torch
+
+    from trueno_rag_tpu_torch.ops import dense_tiered as dt
+    from trueno_rag_tpu_torch.ops.bm25 import slab_contribs
+    from trueno_rag_tpu_torch.ops.fusion import fuse_topk
+    from trueno_rag_tpu_torch.ops.hybrid import hybrid_query_arrays_segments
+    from trueno_rag_tpu_torch.ops.kernels.bm25_fetch import fetch_contribs, fetch_contribs8
+    from trueno_rag_tpu_torch.ops.kernels.scan_select import scan_select_v3
+
+    n = N_SEG
+    gen = torch.Generator(device=DEV).manual_seed(seed + 29)
+    t0 = time.perf_counter()
+    m = unit_rows(n, gen)
+    mb = torch.empty(n, DIM, dtype=torch.bfloat16, device=DEV)
+    e = torch.empty(n, device=DEV)
+    a = torch.empty(n, device=DEV)
+    for lo in range(0, n, TIER_SLAB):
+        for dest, part in zip((mb, e, a), dt.prepare_tiered(m[lo:lo + TIER_SLAB])):
+            dest[lo:lo + part.shape[0]].copy_(part)
+    valid = torch.ones(n, dtype=torch.bool, device=DEV)
+    q = torch.randn(BATCH, DIM, device=DEV, generator=gen)
+    torch.cuda.synchronize()
+    log(f"segments-17.8M: {n} x {DIM} unit rows + bf16 replica in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated with the packed postings")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def dense(qt):  # query chunks bound an fp32 re-run's [B, N] scores
+        parts = [dt.dense_topk_tiered2_checked(qt[lo:lo + SEG_DENSE_CHUNK], m, mb, e, a, valid, TIER_K)
+                 for lo in range(0, qt.shape[0], SEG_DENSE_CHUNK)]
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]), sum(p[2] for p in parts)
+
+    def staged(qq, qt):
+        (d_s, d_r, n_fb), t_d = timed(lambda: dense(qt))
+        (s_s, s_r), t_s = timed(lambda: idx.search_arrays(qq, TIER_K))
+        (f_r, f_s), t_f = timed(lambda: fuse_topk(d_r, d_s, s_r, s_s, kind="rrf", param=60.0))
+        return (f_r, f_s, d_r, d_s, s_r, s_s), n_fb, (t_d, t_s, t_f)
+
+    packed, avgdl = idx._snap["packed"], idx._snap["avgdl"]
+    torch.cuda.reset_peak_memory_stats()
+    scan_select_v3.launches = fetch_contribs.launches = fetch_contribs8.launches = 0
+    for i in range(SEG_RUNS):
+        out, n_fb, (t_d, t_s, t_f) = staged(qs, q)
+        log(f"segments-17.8M staged batch {i} (B = {BATCH}, host clock, synchronized): dense tier {t_d:.1f} ms "
+            f"(K1, {n_fb} fp32 re-runs), BM25 {t_s:.1f} ms (host slot lists + K12 + tail), fusion {t_f:.1f} ms; "
+            f"total {t_d + t_s + t_f:.1f} ms = {BATCH / (t_d + t_s + t_f) * 1e3:.0f} queries/s")
+    f_r, f_s = out[:2]
+    check(bool(torch.isfinite(f_s[:, 0]).all()) and tuple(f_r.shape) == (BATCH, 2 * TIER_K), "malformed fusion")
+    singles, near = [], 0
+    s_b, r_b = out[5].cpu().numpy(), out[4].cpu().numpy()
+    for i, qq in enumerate(qs[:SEG_SINGLES]):
+        (one_s, one_r), t1 = timed(lambda: idx.search_arrays([qq], TIER_K))
+        singles.append(t1)
+        # a one-row cumsum runs as a device-wide scan whose f32 sums may
+        # associate differently from call to call: the batch's answer
+        # agrees up to near-ties
+        st1, ln1 = idx.gather_segment_tensors([qq])
+        _, c1 = slab_contribs(st1[0], torch.zeros_like(st1[0]), ln1[0], packed, avgdl)
+        near += bm25_near_ties(one_s.cpu().numpy(), one_r.cpu().numpy(), s_b[i:i + 1], r_b[i:i + 1],
+                               [float(c1.double().sum())], f"single query {i}")
+    b = SEG_FUSED_B
+    ref, _, _ = staged(qs[:b], q[:b])
+    st, ln = idx.gather_segment_tensors(qs[:b])
+    k12_before = fetch_contribs.launches + fetch_contribs8.launches
+    hyb, t_h = timed(lambda: hybrid_query_arrays_segments(
+        q[:b], m, valid, st, ln, packed, avgdl, cand=TIER_K, fusion_kind="rrf", fusion_param=60.0))
+    check(fetch_contribs.launches + fetch_contribs8.launches == k12_before + 1,
+          "hybrid_query_arrays_segments: not one K12 launch")
+    for name, x, y in zip(("fused rows", "fused scores", "dense rows", "dense scores", "BM25 rows", "BM25 scores"),
+                          hyb, ref):
+        check(torch.equal(x, y), f"hybrid_query_arrays_segments: {name} differ from the staged path's")
+    n1, na, nb = scan_select_v3.launches, fetch_contribs.launches, fetch_contribs8.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(n1 > 0 and na + nb > 0, f"segments-17.8M launches: K1 {n1}, K12a {na}, K12b {nb}")
+    log(f"segments-17.8M single queries through search_arrays: {', '.join(f'{t:.1f}' for t in singles)} ms, "
+        f"each equal to its batch row ({near} with a near-tie swap); hybrid_query_arrays_segments at B = {b}: {t_h:.1f} ms (host clock; "
+        f"dense by the exact fp32 scan, [{b}, {n}] scores), every output identical to the staged path on the same "
+        f"queries; launches K1 {n1}, K12a {na}, K12b {nb}; peak allocated {peak / 2**30:.1f} GiB")
+    del m, mb, e, a, valid, out, ref, hyb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return na, nb
+
+
+def phase_segments_store(pipe, seed: int):
+    """A code-path check at 1M, not a deployment: hybrid-1M's pipeline with
+    ``ops.bm25.MAX_BLOCK_ROWS`` moved below its row count, so its BM25 index
+    re-snapshots to the segment layout; query_with_context_batch (auto tier:
+    K1 + K12), single queries, a tag-filtered batch and a tier-none sibling
+    (hybrid_query_arrays_segments) against the block path on the same
+    queries; the threshold and the block table restored afterwards →
+    (K12a launches, K12b launches) on this path."""
+    import numpy as np
+    import torch
+
+    import trueno_rag_tpu_torch as rag
+    from trueno_rag_tpu_torch.ops import bm25 as ops_bm25
+    from trueno_rag_tpu_torch.ops.kernels.bm25_fetch import fetch_contribs, fetch_contribs8
+
+    retr = pipe.retriever
+    idx = retr.sparse_index
+    cand = retr.config.candidates_per_source
+    rng = np.random.default_rng(seed + 31)
+    qs = query_batches(rng, 1)[0]
+    blk_res = retr.retrieve_batch(qs, 2 * K)
+    blk_s, blk_r = (x.cpu().numpy() for x in idx.search_arrays(qs, cand))
+    check(idx._snap["blocks"] is not None, "segments-store-1M: the pipeline is not on the block table")
+    saved = ops_bm25.MAX_BLOCK_ROWS
+    ops_bm25.MAX_BLOCK_ROWS = SEG_STORE_THRESHOLD
+    try:
+        idx._dirty = True
+        t0 = time.perf_counter()
+        idx.ensure_ready()
+        torch.cuda.synchronize()
+        check(idx._snap["blocks"] is None, "segments-store-1M: the moved threshold kept the block table")
+        log(f"segments-store-1M: MAX_BLOCK_ROWS moved to {SEG_STORE_THRESHOLD} (a code-path check at "
+            f"{retr.registry.capacity_rows} rows); segment snapshot {time.perf_counter() - t0:.1f} s")
+        fetch_contribs.launches = fetch_contribs8.launches = 0
+        t0 = time.perf_counter()
+        ctxs = pipe.query_with_context_batch(qs, k=K)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        singles = [pipe.query_with_context(q, k=K) for q in qs[:SEG_SINGLES]]
+        tagged = pipe.query_with_context_batch(qs, k=K, tag_filter=rag.TagFilter(all=("t1",)))
+        seg_res = retr.retrieve_batch(qs, 2 * K)
+        sib = sibling_pipeline(pipe, rag.VectorStoreConfig(scan_tier="none"))
+        n_before = fetch_contribs.launches + fetch_contribs8.launches
+        t1 = time.perf_counter()
+        none_res = sib.retriever.retrieve_batch(qs, 2 * K)
+        torch.cuda.synchronize()
+        t_none = (time.perf_counter() - t1) * 1e3
+        na, nb = fetch_contribs.launches, fetch_contribs8.launches
+        check(na + nb == n_before + 1, "the tier-none sibling did not answer through one K12 launch")
+        check(na + nb > 0, f"segments-store-1M launches: K12a {na}, K12b {nb}")
+        del sib
+        gc.collect()
+        torch.cuda.empty_cache()
+        check_contexts(ctxs)
+        check_contexts(singles, n=SEG_SINGLES)
+        check_contexts(tagged, lambda row: row % 4 == 1, retr.registry)
+        key = [[(r.chunk.id, r.fused_score) for r in q] for q in seg_res]
+        check([[(r.chunk.id, r.fused_score) for r in q] for q in none_res] == key,
+              "segments-store-1M: the tier-none one dispatch differs from the staged segment path")
+        st, ln = idx.gather_segment_tensors(qs)
+        _, c = ops_bm25.slab_contribs(st.reshape(-1), torch.zeros_like(st.reshape(-1)), ln.reshape(-1),
+                                      idx._snap["packed"], idx._snap["avgdl"])
+        mass = c.view(BATCH, -1).double().sum(dim=1).cpu().numpy()
+        del c
+        seg_s, seg_r = (x.cpu().numpy() for x in idx.search_arrays(qs, cand))
+        near = bm25_near_ties(seg_s, seg_r, blk_s, blk_r, mass, "segments-store-1M")
+        blk_key = [[(r.chunk.id, r.fused_score) for r in q] for q in blk_res]
+        check(all(key[i] == blk_key[i] for i in range(BATCH) if np.array_equal(seg_r[i], blk_r[i])),
+              "segments-store-1M: fused lists differ from the block path's where BM25 agrees")
+        log(f"segments-store-1M: query_with_context_batch {ms:.1f} ms = {BATCH / ms * 1e3:.0f} queries/s (host clock), "
+            f"{SEG_SINGLES} single queries, a tag batch all=[t1]; launches K12a {na}, K12b {nb}; BM25 top-{cand} equal "
+            f"to the block path's but for {near} of {BATCH} queries whose rows differ at near-ties ({BM25_ULPS} ulps "
+            f"of panel masses {mass.min():.0f}-{mass.max():.0f}); fused lists equal where BM25 agrees; tier-none "
+            f"hybrid_query_arrays_segments {t_none:.1f} ms, fused lists identical to the staged path's")
+    finally:
+        ops_bm25.MAX_BLOCK_ROWS = saved
+        idx._dirty = True
+        idx.ensure_ready()
+    check(idx._snap["blocks"] is not None, "segments-store-1M: the block table was not restored")
+    return na, nb
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2862,9 +3260,18 @@ def main() -> int:
     k6, k7 = phase_kernels_k6k7(args.seed)
     k1_odd, k6_odd = phase_odd_widths(args.seed)
     phase_tier(args.seed)
+    k12a, k12b, seg_idx, seg_qs = phase_kernels_k12(args.seed)
+    k12a["launches"], k12b["launches"] = phase_segments_17m(seg_idx, seg_qs, args.seed)
+    del seg_idx
+    gc.collect()
+    torch.cuda.empty_cache()
     pipe, k1["launches"] = phase_slice(args.seed)
     _, k3["launches"] = phase_stores(pipe, args.seed)
     k8["launches"], k9["launches"] = phase_block_stores(pipe, args.seed)
+    n_a, n_b = phase_segments_store(pipe, args.seed)
+    k12a["launches"] += n_a
+    k12b["launches"] += n_b
+    check(k12b["launches"] > 0, "the segment path never launched fetch_contribs8")
     k5["launches"] = phase_clustered_store(pipe, args.seed)
     del pipe
     phase_clustered_stream(args.seed)
@@ -2889,7 +3296,7 @@ def main() -> int:
     log(f"nvidia-smi: {smi.stdout.strip()}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in (k1, k2, k2b, k3, k4, k5, k6, k7, k8, k9)]}))
+    print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in (k1, k2, k2b, k3, k4, k5, k6, k7, k8, k9, k12a, k12b)]}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},

@@ -7,11 +7,13 @@ chunking, embedders (hash, TF-IDF and the neural models of
 late-interaction (MaxSim) reranker and retriever over a multi-vector
 token store), a device-resident dense store (exact fp32; the certified
 bf16 and int8 tile tiers; the compact and clustered tiers, which keep no
-fp32 matrix on the card), tag filters, block-table BM25, on-device rank
-fusion, the encoder-fused query path, reranking and context assembly with
-citations. The tile scans, the long-context attention and the MaxSim
-scans are the hand-written CUDA kernels in ``csrc/``. The JAX package
-stays the reference; this package imports ``torch`` and never ``jax``.
+fp32 matrix on the card), tag filters, BM25 over the block table and,
+past 2**24 rows, over the packed segment layout, on-device rank fusion,
+the encoder-fused query path, reranking and context assembly with
+citations. The tile scans, the long-context attention, the MaxSim scans
+and the BM25 segment fetch are the hand-written CUDA kernels in
+``csrc/``. The JAX package stays the reference; this package imports
+``torch`` and never ``jax``.
 """
 
 from trueno_rag_tpu_torch.errors import (

@@ -11,10 +11,13 @@ with the same ranking math, tokenizer and parameters (k1=1.2, b=0.75,
 - ``avg_doc_length`` is maintained O(1) from a running total; the
   reference recomputes it over all docs on every add (index.rs:157-164,
   an O(N²) index build).
-- On search, a CSR snapshot is packed into the block table of
-  precomputed contributions and pushed to ``device`` lazily (dirty
-  flag); the query becomes block slots into it and the scoring runs in
-  :func:`trueno_rag_tpu_torch.ops.bm25.bm25_topk_blocks` on device.
+- On search, a CSR snapshot is pushed to ``device`` lazily (dirty flag):
+  the block table of precomputed contributions while the row capacity
+  stays below 2**24 (the query becomes block slots and the scoring runs
+  in :func:`trueno_rag_tpu_torch.ops.bm25.bm25_topk_blocks`), past it the
+  packed postings (the query becomes ``(start, len)`` runs, fetched with
+  the contribution computed on device:
+  :func:`trueno_rag_tpu_torch.ops.kernels.bm25_fetch.bm25_topk_fetch`).
 
 ``search_host`` is the scalar oracle with loop-level reference
 semantics, used by tests to pin the device path to exact parity.
@@ -33,6 +36,14 @@ from trueno_rag_tpu_torch.device import resolve_device
 from trueno_rag_tpu_torch.index.base import ChunkRegistry
 from trueno_rag_tpu_torch.ops.bm25 import bucket_len
 from trueno_rag_tpu_torch.text import STOPWORDS, tokenize
+
+
+def _term_of(indptr, n_postings: int) -> np.ndarray:
+    """The term id of every posting of the CSR layout ``indptr`` (zeros
+    for the degenerate empty-index shapes)."""
+    n_terms = len(indptr) - 1
+    term_of = np.repeat(np.arange(max(n_terms, 0), dtype=np.int32), np.maximum(np.diff(indptr), 0))
+    return term_of if len(term_of) == n_postings else np.zeros(n_postings, dtype=np.int32)
 
 
 class BM25Index:
@@ -60,7 +71,7 @@ class BM25Index:
         self._total_len = 0
         # device snapshot
         self._dirty = True
-        self._snap = None  # {vocab, indptr, blocks (device block table)}
+        self._snap = None  # {vocab, indptr, avgdl, blocks | packed (device)}
         # Native bulk-build path: postings accumulate inside the C++
         # builder (trueno_rag_tpu_torch.native); Python dicts materialize
         # lazily only when the index is mutated (remove / re-add) or
@@ -223,6 +234,12 @@ class BM25Index:
     def _refresh_snapshot(self) -> None:
         if not self._dirty and self._snap is not None:
             return
+        self._finish_snapshot(*self._csr())
+
+    def _csr(self):
+        """The host CSR of the current postings → ``(vocab, indptr, rows,
+        tfs, idf, doc_len, n_rows)``, terms sorted, rows ascending within
+        a term."""
         n_rows = self.registry.capacity_rows
         if self._native_builder is not None:
             export = self._native_builder.export()
@@ -240,8 +257,7 @@ class BM25Index:
                 tfs = np.zeros(1, dtype=np.float32)
             doc_len = np.zeros(max(n_rows, 1), dtype=np.float32)
             doc_len[export["doc_len_rows"]] = export["doc_len_vals"]
-            self._finish_snapshot(vocab, indptr, rows, tfs, idf, doc_len, n_rows)
-            return
+            return vocab, indptr, rows, tfs, idf, doc_len, n_rows
         terms = sorted(self._postings.keys())
         vocab = {t: i for i, t in enumerate(terms)}
         sizes = [len(self._postings[t]) for t in terms]
@@ -260,32 +276,73 @@ class BM25Index:
         doc_len = np.zeros(max(n_rows, 1), dtype=np.float32)
         for row, ln in self._doc_len.items():
             doc_len[row] = ln
-        self._finish_snapshot(vocab, indptr, rows, tfs, idf, doc_len, n_rows)
+        return vocab, indptr, rows, tfs, idf, doc_len, n_rows
 
     def _finish_snapshot(self, vocab, indptr, rows, tfs, idf, doc_len, n_rows) -> None:
-        """Common snapshot tail: the block table for the block-gather
-        path (ops.bm25.bm25_topk_blocks), on ``self.device``. Past the
-        f32-exact row range (>= 2**24 rows) packing raises: the segment
-        path for such corpora is not ported yet."""
-        from trueno_rag_tpu_torch.ops.bm25 import pack_posting_blocks
+        """Common snapshot tail, on ``self.device``: the block table for
+        the block-gather path (ops.bm25.bm25_topk_blocks) while the row
+        capacity stays below ``ops.bm25.MAX_BLOCK_ROWS`` (read now, so the
+        threshold can be moved); past it, the packed postings of the
+        segment path (ops.bm25.pack_postings), whose lane 0 carries row
+        bits exact for any row count."""
+        from trueno_rag_tpu_torch.ops.bm25 import MAX_BLOCK_ROWS, pack_posting_blocks, pack_postings
 
-        n_terms = len(indptr) - 1
-        if n_terms > 0:
-            term_of = np.repeat(np.arange(n_terms), np.maximum(np.diff(indptr), 0))
+        term_of = _term_of(indptr, len(rows))
+        avgdl = np.float32(self.avg_doc_length)
+        if max(n_rows, 1) < MAX_BLOCK_ROWS:
+            table = pack_posting_blocks(rows, tfs, doc_len, idf, term_of, avgdl, k1=self.k1, b=self.b)
+            layout = {"blocks": torch.from_numpy(table).to(self.device), "packed": None}
         else:
-            term_of = np.zeros(0, dtype=np.int64)
-        if len(term_of) != len(rows):  # degenerate empty-index shapes
-            term_of = np.zeros(len(rows), dtype=np.int64)
-        table = pack_posting_blocks(
-            rows, tfs, doc_len, idf, term_of,
-            np.float32(self.avg_doc_length), k1=self.k1, b=self.b,
-        )
-        self._snap = {
-            "vocab": vocab,
-            "indptr": indptr,
-            "blocks": torch.from_numpy(table).to(self.device),
-        }
+            packed = pack_postings(rows, tfs, doc_len, idf, term_of)
+            layout = {"blocks": None, "packed": torch.from_numpy(packed).to(self.device)}
+        self._snap = {"vocab": vocab, "indptr": indptr, "avgdl": float(avgdl), **layout}
         self._dirty = False
+
+    def _get_packed(self) -> torch.Tensor:
+        """The segment path's packed postings on ``self.device``; below
+        the block threshold built on demand from the index's postings (the
+        on-device oracle of the block path) and kept until the next
+        snapshot."""
+        from trueno_rag_tpu_torch.ops.bm25 import pack_postings
+
+        self._refresh_snapshot()
+        snap = self._snap
+        if snap["packed"] is None:
+            _, indptr, rows, tfs, idf, doc_len, _ = self._csr()
+            packed = pack_postings(rows, tfs, doc_len, idf, _term_of(indptr, len(rows)))
+            snap["packed"] = torch.from_numpy(packed).to(self.device)
+        return snap["packed"]
+
+    def _gather_segments(self, queries: Sequence[str]):
+        """Compile queries into contiguous-run (start, len) pairs over the
+        packed postings (long posting lists split into SEGMENT_LEN runs)
+        → int32 ``(starts [B, S], lens [B, S])``, the input of
+        ops.bm25.bm25_topk_segments. The JAX package's arrays, built with
+        numpy: each query's runs in term order, ``S`` a power-of-two
+        bucket of at least 64, unused slots at the padding row
+        (``indptr[-1]``) with length 0."""
+        from trueno_rag_tpu_torch.ops.bm25 import SEGMENT_LEN
+
+        snap = self._snap
+        indptr = np.asarray(snap["indptr"], dtype=np.int64)
+        vocab = snap["vocab"]
+        tids = [[t for t in map(vocab.get, self._tokenize(q)) if t is not None] for q in queries]
+        q_of = np.repeat(np.arange(len(queries)), [len(t) for t in tids])
+        tid = np.asarray([t for ts in tids for t in ts], dtype=np.int64)
+        t_lo, t_hi = indptr[tid], indptr[tid + 1]
+        n_seg = (t_hi - t_lo + SEGMENT_LEN - 1) // SEGMENT_LEN  # 0 for an empty term
+        per_query = np.bincount(q_of, weights=n_seg, minlength=len(queries)).astype(np.int64)
+        S = bucket_len(max(1, int(per_query.max(initial=0))), minimum=64)  # compile-key floor
+        pair = np.repeat(np.arange(len(tid)), n_seg)
+        seg_i = np.arange(len(pair)) - np.repeat(np.cumsum(n_seg) - n_seg, n_seg)
+        start = t_lo[pair] + seg_i * SEGMENT_LEN
+        q = q_of[pair]
+        slot = np.arange(len(pair)) - (np.cumsum(per_query) - per_query)[q]
+        starts = np.full((len(queries), S), int(indptr[-1]), dtype=np.int32)
+        lens = np.zeros((len(queries), S), dtype=np.int32)
+        starts[q, slot] = start
+        lens[q, slot] = np.minimum(SEGMENT_LEN, t_hi[pair] - start)
+        return starts, lens
 
     def _gather_blocks(self, queries: Sequence[str]):
         """Compile queries into BLOCK_LEN-aligned (block, lo, hi) slot
@@ -333,14 +390,26 @@ class BM25Index:
             torch.from_numpy(a).to(self.device) for a in self._gather_blocks(queries)
         )
 
+    def gather_segment_tensors(self, queries: Sequence[str]):
+        """Segment runs of ``queries`` as int32 tensors on ``self.device``."""
+        return tuple(
+            torch.from_numpy(a).to(self.device) for a in self._gather_segments(queries)
+        )
+
     def search_arrays(self, queries: Sequence[str], k: int):
         """Device-level batched search → ``(scores [B,k], rows [B,k])``
-        via the block-gather path."""
+        via the block-gather path, or past the block threshold the segment
+        path (the fetch kernel on the card, ops.kernels.bm25_fetch)."""
         from trueno_rag_tpu_torch.ops.bm25 import bm25_topk_blocks
+        from trueno_rag_tpu_torch.ops.kernels.bm25_fetch import bm25_topk_fetch
 
         self._refresh_snapshot()
-        bids, lo, hi = self.gather_block_tensors(queries)
-        return bm25_topk_blocks(bids, lo, hi, self._snap["blocks"], k=k)
+        snap = self._snap
+        if snap["blocks"] is not None:
+            bids, lo, hi = self.gather_block_tensors(queries)
+            return bm25_topk_blocks(bids, lo, hi, snap["blocks"], k=k)
+        starts, lens = self.gather_segment_tensors(queries)
+        return bm25_topk_fetch(starts, lens, snap["packed"], snap["avgdl"], k, k1=self.k1, b=self.b)
 
     def search(self, query: str, k: int) -> List[Tuple[str, float]]:
         """Host-facing search: ``[(chunk_id, score)]``, score>0 only,

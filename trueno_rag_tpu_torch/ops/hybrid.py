@@ -2,8 +2,9 @@
 device tensors, and the encoder-fused variants that take query token ids.
 
 PyTorch counterpart of ``trueno_rag_tpu/ops/hybrid.py``'s
-``hybrid_query_arrays``, ``fused_hybrid_query`` and
-``fused_hybrid_query_compact``. The fused variants run the encoder forward
+``hybrid_query_arrays``, ``hybrid_query_arrays_segments`` (the BM25
+segment path, for corpora past the block table's f32-exact row range),
+``fused_hybrid_query`` and ``fused_hybrid_query_compact``. The fused variants run the encoder forward
 on the card and hand its output straight to the dense scan, so no query
 vector crosses to the host on the way (eager PyTorch, so no single
 compiled program as in the JAX package).
@@ -18,6 +19,7 @@ import torch
 from trueno_rag_tpu_torch.models.encoder import EncoderConfig, encoder_forward
 from trueno_rag_tpu_torch.ops.bm25 import bm25_topk_blocks
 from trueno_rag_tpu_torch.ops.dense import dense_topk
+from trueno_rag_tpu_torch.ops.kernels.bm25_fetch import bm25_topk_fetch
 from trueno_rag_tpu_torch.ops.fusion import fuse_topk
 
 
@@ -38,6 +40,32 @@ def hybrid_query_arrays(
     caller can attach per-source scores."""
     d_scores, d_rows = dense_topk(qvecs, matrix, valid_mask, cand, metric)
     s_scores, s_rows = bm25_topk_blocks(block_ids, block_lo, block_hi, blocks, k=cand)
+    f_rows, f_scores = fuse_topk(
+        d_rows, d_scores, s_rows, s_scores, kind=fusion_kind, param=fusion_param
+    )
+    return f_rows, f_scores, d_rows, d_scores, s_rows, s_scores
+
+
+def hybrid_query_arrays_segments(
+    qvecs: torch.Tensor,  # [B, d] query vectors (any embedder)
+    matrix: torch.Tensor,
+    valid_mask: torch.Tensor,
+    seg_starts: torch.Tensor,  # [B, S] BM25 segment runs
+    seg_lens: torch.Tensor,  # [B, S]
+    packed: torch.Tensor,  # [P + SEGMENT_LEN, 4] packed postings
+    avgdl,
+    cand: int = 50,
+    metric: str = "cosine",
+    fusion_kind: str = "rrf",
+    fusion_param: float = 60.0,
+    k1: float = 1.2,
+    b: float = 0.75,
+) -> Tuple[torch.Tensor, ...]:
+    """Segment-path variant of :func:`hybrid_query_arrays` for corpora
+    whose row ids exceed the f32-exact block-table range; on the card its
+    BM25 half runs the fetch kernel (``ops.kernels.bm25_fetch``)."""
+    d_scores, d_rows = dense_topk(qvecs, matrix, valid_mask, cand, metric)
+    s_scores, s_rows = bm25_topk_fetch(seg_starts, seg_lens, packed, avgdl, cand, k1=k1, b=b)
     f_rows, f_scores = fuse_topk(
         d_rows, d_scores, s_rows, s_scores, kind=fusion_kind, param=fusion_param
     )

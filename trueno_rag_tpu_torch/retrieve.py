@@ -269,8 +269,10 @@ class HybridRetriever:
                     return self.retrieve_batch_fused(queries, k, fusion=fusion, tag_filter=tag_filter)
                 # fused=None: the fused query scans the fp32 matrix — right
                 # below the tier crossover; once a scan tier is engaged the
-                # staged certified scan serves the query
-                if tier == "none":
+                # staged certified scan serves the query, and so it does
+                # once the corpus outgrew the block-table BM25 layout
+                self.sparse_index._refresh_snapshot()
+                if tier == "none" and self.sparse_index._snap["blocks"] is not None:
                     return self.retrieve_batch_fused(queries, k, fusion=fusion, tag_filter=tag_filter)
             elif self.config.fused is True:
                 raise QueryError("fused=True requires an EncoderEmbedder")
@@ -306,26 +308,40 @@ class HybridRetriever:
                 from trueno_rag_tpu_torch.ops.dense import require_fp32
 
                 require_fp32()
-                self.sparse_index._refresh_snapshot()
-                bids, blo, bhi = self.sparse_index.gather_block_tensors(queries)
+                sparse = self.sparse_index
+                sparse._refresh_snapshot()
                 q_t = torch.from_numpy(qvecs).to(self.device)
                 kw = dict(
                     cand=cand, metric=store.config.metric,
                     fusion_kind=strategy.kind, fusion_param=strategy.device_param,
                 )
-                blocks = self.sparse_index._snap["blocks"]
-                if masks is not None:
+                blocks = sparse._snap["blocks"]
+                if blocks is not None and masks is not None:
                     from trueno_rag_tpu_torch.ops.tags import hybrid_query_arrays_tagged
 
                     f_rows, f_scores, d_rows, d_scores, s_rows, s_scores = hybrid_query_arrays_tagged(
                         q_t, store.device_matrix, store.device_valid, store._device_tag_bits(),
-                        *self._device_masks(masks), bids, blo, bhi, blocks, **kw,
+                        *self._device_masks(masks), *sparse.gather_block_tensors(queries), blocks, **kw,
                     )
-                else:
+                elif blocks is not None:
                     from trueno_rag_tpu_torch.ops.hybrid import hybrid_query_arrays
 
                     f_rows, f_scores, d_rows, d_scores, s_rows, s_scores = hybrid_query_arrays(
-                        q_t, store.device_matrix, store.device_valid, bids, blo, bhi, blocks, **kw,
+                        q_t, store.device_matrix, store.device_valid,
+                        *sparse.gather_block_tensors(queries), blocks, **kw,
+                    )
+                elif masks is not None:
+                    raise QueryError(
+                        "tag filters are not supported on the segment BM25 path "
+                        "(corpora past the f32-exact block range)"
+                    )
+                else:  # rows past the f32-exact block range: segment path
+                    from trueno_rag_tpu_torch.ops.hybrid import hybrid_query_arrays_segments
+
+                    f_rows, f_scores, d_rows, d_scores, s_rows, s_scores = hybrid_query_arrays_segments(
+                        q_t, store.device_matrix, store.device_valid,
+                        *sparse.gather_segment_tensors(queries), sparse._snap["packed"],
+                        sparse._snap["avgdl"], k1=sparse.k1, b=sparse.b, **kw,
                     )
         elif use_dense:
             d_scores, d_rows = self._dense_candidates(qvecs, cand, masks)
@@ -448,7 +464,8 @@ class HybridRetriever:
         """Host half of the fused query: tokenize (the batch padded to a
         power of two with all-PAD rows, as in the JAX package), refresh the
         BM25 snapshot and build the block slot lists (padded queries get
-        none) → (token_ids, bids, blo, bhi) on the device."""
+        none) → (token_ids, bids, blo, bhi) on the device. Raises
+        QueryError past the block-table BM25 layout."""
         emb = self.embedder
         ids = emb.tokenizer.encode_batch([emb.config.query_prefix + q for q in queries])
         b_pad = 1
@@ -457,6 +474,11 @@ class HybridRetriever:
         if b_pad != ids.shape[0]:
             ids = np.pad(ids, ((0, b_pad - ids.shape[0]), (0, 0)))
         self.sparse_index._refresh_snapshot()
+        if self.sparse_index._snap["blocks"] is None:
+            raise QueryError(
+                "fused path requires the block-table BM25 layout "
+                "(corpus rows must stay below 2**24); use the staged path"
+            )
         bids, blo, bhi = self.sparse_index.gather_block_tensors(
             list(queries) + ["\0"] * (b_pad - len(queries))
         )
