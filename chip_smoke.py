@@ -156,7 +156,28 @@ Run from the repository root. Phases, each fatal on failure:
    2^19; ``query_with_context_batch`` (K1 + K12), single queries, a tag
    batch and a tier-none sibling (``hybrid_query_arrays_segments``) against
    the block path's answers on the same queries (BM25 equal up to counted
-   near-ties); then the threshold and the block table restored.
+   near-ties); then the threshold and the block table restored;
+23. kernels-K10 (after phase 7), on phase 2's corpus and batch: K10a
+   ``scan_select_v2`` and K10c ``scan_select_int8_v2`` (t_top 4), and K10b
+   ``scan_select_v2_indirect`` at phase 7's shapes (B = 8, tile_n 4096,
+   t_top 16, 120 tiles + 8 pads), the v2 scans with each row's own bound:
+   K10a/K10b against their plain versions as K1 is, K10c bit for bit,
+   K10a and K10c also with both tag patterns, all three sound against
+   float64 and every emitted value its row's own float64 upper bound; K1,
+   K5, K10a and K10b over the f32 rows (the inline-cast layout)
+   bit-identical to their bf16-replica runs, and K1 and K5 there also
+   against their plain versions fed the f32 rows;
+   ``dense_topk_tiered2_checked(m_bf16=None)`` equal to the replica run
+   (scores, rows, fallbacks) at k = 50; the certified share of the bf16
+   tier's own tail (k = 50) fed K10a's packs, then K1's, and K10c's, then
+   K3's, on the same 256 queries, every certified query exact; times of
+   each beside K1, K3 and K5 in the same call. Then the slice's path: each
+   K10 entry point once (K10a and K10b on the f32 rows) and the inline-cast
+   tier, with the counts set to 0 just before and read just after, each
+   result equal to its checked run; the ``kernels`` line takes K10's
+   launches from there, and K1's count adds the tier's. No other phase
+   reaches K10: its counts are set to 0 after this phase and checked
+   still 0 at the end of the run.
 
 The last two lines of standard output are JSON: the per-kernel record, then
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
@@ -203,6 +224,7 @@ CL_FEW = 12  # a second pass with 12 dense candidates per query
 CL_MUTATE = 0.01
 CL_SLAB = 1 << 18
 K5_LIVE, K5_PADS = 120, 8  # the tile list at kernels-K5: 128 entries
+K10_CERT_K = 50  # kernels-K10's certification measurement: dense candidates per query
 N_CL_STREAM = 10 * (1 << 20)  # 10,485,760 rows = 2,560 tiles: the tier's design point
 CL_PROBE = 16
 CL_STREAM_K = 10
@@ -360,12 +382,13 @@ def check_sound(vk, rk, m64, q64, valid, bidx, tiles, name, t_top=T_TOP, row0=No
     return worst
 
 
-def compare_k1(vk, rk, vr, rr, mb, qb, corr, label):
-    """K1 against its plain version: -inf slots equal, values within V_TOL,
-    rows equal but at near-ties of the two summation orders → max |dv|."""
+def compare_k1(vk, rk, vr, rr, mb, qb, terms, label):
+    """K1 (or another bf16 tile scan) against its plain version: -inf slots
+    equal, values within V_TOL, rows equal but at near-ties of the two
+    summation orders → max |dv|. ``terms(rows, queries)``: the float64
+    bound terms added to those rows' raw scores (a v3 scan's block
+    correction, a v2 scan's per-row bound)."""
     import torch
-
-    from trueno_rag_tpu_torch.ops.kernels.scan_select import BLOCK
 
     inf_k, inf_r = torch.isneginf(vk), torch.isneginf(vr)
     check(torch.equal(inf_k, inf_r), f"{label}: kernel and plain version disagree on -inf slots")
@@ -373,9 +396,9 @@ def compare_k1(vk, rk, vr, rr, mb, qb, corr, label):
     max_err = (vk[~inf_k] - vr[~inf_r]).abs().max().item()
     check(max_err <= V_TOL, f"{label}: v_pack differs by {max_err}")
 
-    def upper(rows, bidx):  # raw bf16 score + block correction, f64
+    def upper(rows, bidx):  # raw bf16 score + bound terms, f64
         s = (mb[rows].double() * qb[bidx].double()).sum(dim=-1)
-        return s + corr[rows // BLOCK, bidx].double()
+        return s + terms(rows, bidx)
 
     diff = rk != rr
     agree = 1.0 - diff.float().mean().item()
@@ -390,6 +413,57 @@ def compare_k1(vk, rk, vr, rr, mb, qb, corr, label):
     return max_err
 
 
+def kernel_inputs(seed: int):
+    """The kernels phases' corpus and batch (the same tensors for one
+    seed): N_ROWS unit rows, BATCH unit queries, a partly and a fully
+    masked block, and the tiles and queries whose bounds are checked
+    against float64 → (generator, m, q, valid, tiles, queries)."""
+    import torch
+
+    from trueno_rag_tpu_torch.ops.kernels.scan_select import BLOCK, SEL
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    m = unit_rows(N_ROWS, gen)
+    q = unit_rows(BATCH, gen)
+    valid = torch.ones(N_ROWS, dtype=torch.int32, device=DEV)
+    valid[1000:1040] = 0  # a partly masked block
+    valid[5 * BLOCK:6 * BLOCK] = 0  # a fully masked block
+    g_sub = torch.randperm(N_ROWS // SEL, device=DEV, generator=gen)[:8].tolist() + [0]
+    qs = torch.randperm(BATCH, device=DEV, generator=gen)[:16].tolist()
+    return gen, m, q, valid, g_sub, qs
+
+
+def tag_filter(pattern: str, b: int, gen):
+    """A tag filter over N_ROWS rows and ``b`` queries: one random 4-bit
+    word per 128-row block ("blocks") or per row ("rows"), and per-query
+    all/any/none words → (tags, allowed [b, N] bool)."""
+    import torch
+
+    from trueno_rag_tpu_torch.ops.kernels.scan_select import BLOCK
+
+    if pattern == "blocks":  # one tag word per 128-row block
+        bits = torch.randint(0, 16, (N_ROWS // BLOCK,), device=DEV, generator=gen,
+                             dtype=torch.int32).repeat_interleave(BLOCK)
+    else:
+        bits = torch.randint(0, 16, (N_ROWS,), device=DEV, generator=gen, dtype=torch.int32)
+    words = [torch.randint(0, 16, (b,), device=DEV, generator=gen, dtype=torch.int32) & w
+             for w in (1, 6, 8)]  # all / any / none
+    allowed = ((bits[None, :] & words[0][:, None]) == words[0][:, None]) & (
+        (words[1][:, None] == 0) | ((bits[None, :] & words[1][:, None]) != 0)) & (
+        (bits[None, :] & words[2][:, None]) == 0)  # [b, N]
+    check(0.05 < allowed.float().mean().item() < 0.95, "tag filter keeps too few or too many rows")
+    return (bits, *words), allowed
+
+
+def check_filtered(name, v, r, allowed, t_top=T_TOP):
+    """No emitted candidate is a row its query's filter forbids."""
+    import torch
+
+    live = ~torch.isneginf(v[:, :t_top, :])
+    b_idx = torch.arange(v.shape[0], device=DEV)[:, None, None].expand_as(r)
+    check(bool(allowed[b_idx[live], r[live].long()].all()), f"{name} emitted a row its filter forbids")
+
+
 def phase_kernels(seed: int):
     """K1 and K3 against their plain versions, soundness and times; then
     their tag variants. → (K1 record, K3 record)."""
@@ -401,16 +475,9 @@ def phase_kernels(seed: int):
         scan_select_v3, scan_select_v3_reference,
     )
 
-    gen = torch.Generator(device=DEV).manual_seed(seed)
-    m = unit_rows(N_ROWS, gen)
-    q = unit_rows(BATCH, gen)
-    valid = torch.ones(N_ROWS, dtype=torch.int32, device=DEV)
-    valid[1000:1040] = 0  # a partly masked block
-    valid[5 * BLOCK:6 * BLOCK] = 0  # a fully masked block
+    gen, m, q, valid, g_sub, qs = kernel_inputs(seed)
     g_sel = N_ROWS // SEL
     m64, q64 = m.double(), q.double()
-    g_sub = torch.randperm(g_sel, device=DEV, generator=gen)[:8].tolist() + [0]
-    qs = torch.randperm(BATCH, device=DEV, generator=gen)[:16].tolist()
 
     # -- K1 -----------------------------------------------------------------
     mb, e_l2, a_l2 = dt.prepare_tiered(m)
@@ -426,7 +493,11 @@ def phase_kernels(seed: int):
     check(tuple(rk.shape) == (BATCH, T_TOP, g_sel), f"r_pack shape {tuple(rk.shape)}")
     eb, ab = block_bound_maxes(e_l2, a_l2)
     corr = eb[:, None] * u_q[None, :] + ab[:, None] * v_q[None, :]  # [N/128, B]
-    k1_err = compare_k1(vk, rk, vr, rr, mb, qb, corr, "K1 vs plain")
+
+    def terms(rows, b):  # float64 block corrections of rows for queries b
+        return corr[rows // BLOCK, b].double()
+
+    k1_err = compare_k1(vk, rk, vr, rr, mb, qb, terms, "K1 vs plain")
     worst = check_sound(vk, rk, m64, q64, valid, qs, g_sub, "K1")
     log(f"K1 soundness: {len(qs)} queries x {len(g_sub)} tiles bounded, least slack {worst:.3e}")
     del vr, rr
@@ -467,28 +538,15 @@ def phase_kernels(seed: int):
 
     # -- tag variants ---------------------------------------------------------
     for pattern in ("blocks", "rows"):
-        if pattern == "blocks":  # one tag word per 128-row block
-            bits = torch.randint(0, 16, (N_ROWS // BLOCK,), device=DEV, generator=gen,
-                                 dtype=torch.int32).repeat_interleave(BLOCK)
-        else:
-            bits = torch.randint(0, 16, (N_ROWS,), device=DEV, generator=gen, dtype=torch.int32)
-        words = [torch.randint(0, 16, (BATCH,), device=DEV, generator=gen, dtype=torch.int32) & w
-                 for w in (1, 6, 8)]  # all / any / none
-        tags = (bits, *words)
-        allowed = ((bits[None, :] & words[0][:, None]) == words[0][:, None]) & (
-            (words[1][:, None] == 0) | ((bits[None, :] & words[1][:, None]) != 0)) & (
-            (bits[None, :] & words[2][:, None]) == 0)  # [B, N]
-        check(0.05 < allowed.float().mean().item() < 0.95, "tag filter keeps too few or too many rows")
+        tags, allowed = tag_filter(pattern, BATCH, gen)
         vk, rk = scan_select_v3(*k1_args, t_top=T_TOP, tags=tags)
         vr, rr = scan_select_v3_reference(*k1_args, t_top=T_TOP, tags=tags)
-        compare_k1(vk, rk, vr, rr, mb, qb, corr, f"K1 tags ({pattern})")
+        compare_k1(vk, rk, vr, rr, mb, qb, terms, f"K1 tags ({pattern})")
         vk3, rk3 = scan_select_int8_v3(*k3_args, t_top=T_TOP, tags=tags)
         vr3, rr3 = scan_select_int8_v3_reference(*k3_args, t_top=T_TOP, tags=tags)
         check(torch.equal(vk3, vr3) and torch.equal(rk3, rr3), f"K3 tags ({pattern}) differ from the plain version")
         for name, v, r in (("K1", vk, rk), ("K3", vk3, rk3)):
-            live = ~torch.isneginf(v[:, :T_TOP, :])
-            b_idx = torch.arange(BATCH, device=DEV)[:, None, None].expand_as(r)
-            check(bool(allowed[b_idx[live], r[live].long()].all()), f"{name} emitted a row its filter forbids")
+            check_filtered(name, v, r, allowed)
         t1 = cuda_ms(lambda: scan_select_v3(*k1_args, t_top=T_TOP, tags=tags), 10)
         t3 = cuda_ms(lambda: scan_select_int8_v3(*k3_args, t_top=T_TOP, tags=tags), 10)
         log(f"K3 tags ({pattern}): bit-identical to plain; kept {allowed.float().mean().item():.3f} of "
@@ -1068,6 +1126,9 @@ def phase_kernels_k5(seed: int):
     m64, q64 = m.double(), q.double()
     ids_l = ids.tolist()
 
+    def terms(rows, bi):  # float64 block corrections of rows for queries bi
+        return corr[rows // BLOCK, bi].double()
+
     def row0(g):  # the first corpus row of output column g
         return ids_l[g // spt] * tile_n + (g % spt) * SEL
 
@@ -1078,7 +1139,7 @@ def phase_kernels_k5(seed: int):
         check(torch.equal(vk[:, :, g_live:], vr[:, :, g_live:]) and torch.equal(rk[:, :, g_live:], rr[:, :, g_live:]),
               f"{label}: pad slots differ from the plain version")
         return compare_k1(vk[:, :, :g_live], rk[:, :, :g_live], vr[:, :, :g_live], rr[:, :, :g_live],
-                          mb, qb, corr, label)
+                          mb, qb, terms, label)
 
     vk, rk = scan_select_v3_indirect(*args, tile_n=tile_n, t_top=t_top)
     torch.cuda.synchronize()
@@ -1141,6 +1202,305 @@ def phase_kernels_k5(seed: int):
             "replaces": "trueno_rag_tpu/ops/pallas/scan_select_v2.py:579", "max_abs_err": k5_err,
             "ms": min(k5_ms, k5_ms2), "plain_ms": k5_plain, "bound_ms": k5_bound[0],
             "bound_by": k5_bound[1], "library_ms": None}
+
+
+def check_row_upper(vk, rk, upper64, valid, bidx, tiles, name, t_top=T_TOP, row0=None):
+    """The v2 packs carry each row's own bound: every emitted value equals
+    the float64 upper bound ``upper64(rows, b)`` of its row within V_TOL
+    (the f32 rounding of the kernel's dot and bound), and every tile
+    threshold is at least the upper of every row of its tile not emitted,
+    less V_TOL → the largest |value − upper| seen."""
+    import torch
+
+    from trueno_rag_tpu_torch.ops.kernels.scan_select import SEL
+
+    worst = 0.0
+    for b in bidx:
+        for g in tiles:
+            r0 = g * SEL if row0 is None else row0(g)
+            rows = torch.arange(r0, r0 + SEL, device=DEV)
+            up = torch.where(valid[rows] != 0, upper64(rows, b), float("-inf"))
+            cand = rk[b, :, g].long()
+            cv = vk[b, :t_top, g].double()
+            live = ~torch.isneginf(cv)
+            if live.any():
+                dv = (cv[live] - up[cand[live] - r0]).abs().max().item()
+                check(dv <= V_TOL, f"{name}: an emitted value is not its row's own upper bound (b={b}, tile={g}, {dv})")
+                worst = max(worst, dv)
+            covered = torch.ones(SEL, dtype=torch.bool, device=DEV)
+            covered[cand[live] - r0] = False
+            rest = up[covered]
+            if (~torch.isneginf(rest)).any():
+                check(vk[b, t_top, g].double().item() >= rest.max().item() - V_TOL,
+                      f"{name}: tile threshold below a covered row's upper bound (b={b}, tile={g})")
+    return worst
+
+
+def phase_kernels_k10(seed: int):
+    """The v2 tile scans K10a/K10b/K10c and the inline-cast layout, on
+    kernels' corpus (K10a, K10c at 1M x 384, B = 256, t_top 4) and at
+    kernels-K5's shapes (K10b: B = 8, tile_n 4096, t_top 16, 120 tiles + 8
+    pads): each against its plain version (K10c bit for bit), sound
+    against float64 and carrying each row's own bound; K1, K5, K10a and
+    K10b on the f32 rows bit-identical to their bf16-replica runs;
+    ``dense_topk_tiered2_checked(m_bf16=None)`` equal to the replica run;
+    and the certified share of the tier's own tail fed K10a's packs, then
+    K1's, and K10c's, then K3's, on the same queries; then the slice's path
+    with its launches counted → (K10a, K10b, K10c records, K1 launches on
+    that path)."""
+    import torch
+
+    from trueno_rag_tpu_torch.ops import dense_tiered as dt
+    from trueno_rag_tpu_torch.ops.dense import normalize_queries
+    from trueno_rag_tpu_torch.ops.kernels import scan_select as ss
+    from trueno_rag_tpu_torch.ops.kernels.scan_select import BLOCK, SEL
+
+    t_phase = time.perf_counter()
+    gen, m, q, valid, g_sub, qs = kernel_inputs(seed)
+    g_sel = N_ROWS // SEL
+    m64, q64 = m.double(), q.double()
+    mb, e_l2, a_l2 = dt.prepare_tiered(m)
+    qb, u_q, v_q = dt._bf16_query_bounds(q)
+    args = (qb, mb, e_l2, a_l2, valid, u_q, v_q)
+    f32_args = (qb, m) + args[2:]
+    flop = 2.0 * BATCH * N_ROWS * DIM
+    row_ops = 4.0 * BATCH * N_ROWS  # the per-row bound: 2 multiplies and 2 adds per (row, query)
+    out_bytes = BATCH * (2 * T_TOP + 1) * g_sel * 4
+
+    def row_terms(rows, b):  # float64 per-row bound terms e·u + a·v
+        return e_l2[rows].double() * u_q[b].double() + a_l2[rows].double() * v_q[b].double()
+
+    def bf16_upper(rows, b):
+        return mb[rows].double() @ qb[b].double() + row_terms(rows, b)
+
+    # -- K10a -------------------------------------------------------------------
+    va, ra = ss.scan_select_v2(*args, t_top=T_TOP)
+    torch.cuda.synchronize()
+    vr, rr = ss.scan_select_v2_reference(*args, t_top=T_TOP)
+    check(tuple(va.shape) == (BATCH, T_TOP + 1, g_sel) and tuple(ra.shape) == (BATCH, T_TOP, g_sel),
+          f"K10a pack shapes {tuple(va.shape)}, {tuple(ra.shape)}")
+    k10a_err = compare_k1(va, ra, vr, rr, mb, qb, row_terms, "K10a vs plain")
+    worst = check_sound(va, ra, m64, q64, valid, qs, g_sub, "K10a")
+    own = check_row_upper(va, ra, bf16_upper, valid, qs, g_sub, "K10a")
+    log(f"K10a soundness: {len(qs)} queries x {len(g_sub)} tiles bounded, least slack {worst:.3e}; every "
+        f"emitted value its row's own upper bound (max |dv| {own:.3e})")
+    del vr, rr
+    v32, r32 = ss.scan_select_v2(*f32_args, t_top=T_TOP)
+    check(torch.equal(v32, va) and torch.equal(r32, ra), "K10a on the f32 rows differs from its bf16-replica run")
+    v1, r1 = ss.scan_select_v3(*args, t_top=T_TOP)
+    v1f, r1f = ss.scan_select_v3(*f32_args, t_top=T_TOP)
+    check(torch.equal(v1f, v1) and torch.equal(r1f, r1), "K1 on the f32 rows differs from its bf16-replica run")
+    log("K1 and K10a on the f32 rows (inline cast): v_pack and r_pack bit-identical to the bf16 replica's")
+    eb, ab = ss.block_bound_maxes(e_l2, a_l2)
+    corr = eb[:, None] * u_q[None, :] + ab[:, None] * v_q[None, :]  # [N/128, B], K1's block corrections
+    vr, rr = ss.scan_select_v3_reference(*f32_args, t_top=T_TOP)
+    compare_k1(v1f, r1f, vr, rr, mb, qb, lambda rows, b: corr[rows // BLOCK, b].double(),
+               "K1 on the f32 rows vs plain")
+    del v32, r32, v1, r1, v1f, r1f, vr, rr, corr
+    k10a_ms = cuda_ms(lambda: ss.scan_select_v2(*args, t_top=T_TOP), 20)
+    k10a_plain = cuda_ms(lambda: ss.scan_select_v2_reference(*args, t_top=T_TOP), 5)
+    k1_ms = cuda_ms(lambda: ss.scan_select_v3(*args, t_top=T_TOP), 20)
+    k1_f32 = cuda_ms(lambda: ss.scan_select_v3(*f32_args, t_top=T_TOP), 20)
+    k10a_f32 = cuda_ms(lambda: ss.scan_select_v2(*f32_args, t_top=T_TOP), 20)
+    k10a_ms2 = cuda_ms(lambda: ss.scan_select_v2(*args, t_top=T_TOP), 20)
+    vec_bytes = N_ROWS * 12 + BATCH * 8 + out_bytes  # e_l2, a_l2, valid; u, v; the packs
+    k10a_bound = bound(BATCH * DIM * 2 + N_ROWS * DIM * 2 + vec_bytes, flop + row_ops, BF16_FLOP_PER_S)
+    f32_bound = bound(BATCH * DIM * 2 + N_ROWS * DIM * 4 + vec_bytes, flop, BF16_FLOP_PER_S)
+    log(f"K10a scan_select_v2 at N={N_ROWS} d={DIM} B={BATCH}: kernel {k10a_ms:.3f} / {k10a_ms2:.3f} ms, "
+        f"plain {k10a_plain:.3f} ms (median, CUDA events); bound {k10a_bound[0]:.3f} ms ({k10a_bound[1]}); "
+        f"K1 in the same call {k1_ms:.3f} ms")
+    log(f"  f32 rows (inline cast): K1 {k1_f32:.3f} ms, K10a {k10a_f32:.3f} ms; their bound "
+        f"{f32_bound[0]:.3f} ms ({f32_bound[1]})")
+
+    # -- K10c -------------------------------------------------------------------
+    m_i8, s_row, i8_e, i8_a = dt.prepare_int8(m)
+    q_i8, t_q, u8, v8 = dt._int8_query_bounds(q)
+    k10c_args = (q_i8, m_i8, s_row, i8_e, i8_a, valid, t_q, u8, v8)
+    vk3, rk3 = ss.scan_select_int8_v2(*k10c_args, t_top=T_TOP)
+    torch.cuda.synchronize()
+    vr3, rr3 = ss.scan_select_int8_v2_reference(*k10c_args, t_top=T_TOP)
+    k10c_err = (vk3 - vr3).abs().nan_to_num(0.0).max().item()  # -inf - -inf is nan
+    check(torch.equal(vk3, vr3), f"K10c v_pack differs from the plain version (max |diff| {k10c_err})")
+    check(torch.equal(rk3, rr3), "K10c r_pack differs from the plain version")
+    del vr3, rr3
+
+    def int8_upper(rows, b):
+        s = (m_i8[rows].double() @ q_i8[b].double()) * s_row[rows].double() * t_q[b].double()
+        return s + i8_e[rows].double() * u8[b].double() + i8_a[rows].double() * v8[b].double()
+
+    worst = check_sound(vk3, rk3, m64, q64, valid, qs, g_sub, "K10c")
+    own = check_row_upper(vk3, rk3, int8_upper, valid, qs, g_sub, "K10c")
+    log(f"K10c vs plain: v_pack and r_pack bit-identical; soundness: least slack {worst:.3e}; every emitted "
+        f"value its row's own upper bound (max |dv| {own:.3e})")
+    k10c_ms = cuda_ms(lambda: ss.scan_select_int8_v2(*k10c_args, t_top=T_TOP), 20)
+    k10c_plain = cuda_ms(lambda: ss.scan_select_int8_v2_reference(*k10c_args, t_top=T_TOP), 5)
+    k3_ms = cuda_ms(lambda: ss.scan_select_int8_v3(*k10c_args, t_top=T_TOP), 20)
+    k10c_ms2 = cuda_ms(lambda: ss.scan_select_int8_v2(*k10c_args, t_top=T_TOP), 20)
+    k10c_bound = bound(BATCH * DIM + N_ROWS * DIM + N_ROWS * 16 + BATCH * 12 + out_bytes, flop + row_ops,
+                       INT8_OP_PER_S)
+    log(f"K10c scan_select_int8_v2 at N={N_ROWS} d={DIM} B={BATCH}: kernel {k10c_ms:.3f} / {k10c_ms2:.3f} ms, "
+        f"plain {k10c_plain:.3f} ms (median, CUDA events); bound {k10c_bound[0]:.3f} ms ({k10c_bound[1]}); "
+        f"K3 in the same call {k3_ms:.3f} ms")
+
+    # -- tag variants of K10a and K10c ------------------------------------------
+    for pattern in ("blocks", "rows"):
+        tags, allowed = tag_filter(pattern, BATCH, gen)
+        vk, rk = ss.scan_select_v2(*args, t_top=T_TOP, tags=tags)
+        vr, rr = ss.scan_select_v2_reference(*args, t_top=T_TOP, tags=tags)
+        compare_k1(vk, rk, vr, rr, mb, qb, row_terms, f"K10a tags ({pattern})")
+        vt, rt = ss.scan_select_int8_v2(*k10c_args, t_top=T_TOP, tags=tags)
+        vtr, rtr = ss.scan_select_int8_v2_reference(*k10c_args, t_top=T_TOP, tags=tags)
+        check(torch.equal(vt, vtr) and torch.equal(rt, rtr), f"K10c tags ({pattern}) differ from the plain version")
+        check_filtered("K10a", vk, rk, allowed)
+        check_filtered("K10c", vt, rt, allowed)
+        log(f"K10c tags ({pattern}): bit-identical to plain; K10a within tolerance; no forbidden row emitted")
+        del allowed, vr, rr, vtr, rtr
+
+    # -- the certification measurement --------------------------------------------
+    valid_b = valid != 0
+    k_c = K10_CERT_K
+    qn = normalize_queries(q)
+    qbn, un, vn = dt._bf16_query_bounds(qn)
+    q8n, tqn, u8n, v8n = dt._int8_query_bounds(qn)
+    ref_s, ref_r = exact_topk_chunked(q, m, valid_b, k_c)
+    packs = (
+        ("K10a", lambda: ss.scan_select_v2(qbn, mb, e_l2, a_l2, valid, un, vn, t_top=T_TOP)),
+        ("K1", lambda: ss.scan_select_v3(qbn, mb, e_l2, a_l2, valid, un, vn, t_top=T_TOP)),
+        ("K10c", lambda: ss.scan_select_int8_v2(q8n, m_i8, s_row, i8_e, i8_a, valid, tqn, u8n, v8n, t_top=T_TOP)),
+        ("K3", lambda: ss.scan_select_int8_v3(q8n, m_i8, s_row, i8_e, i8_a, valid, tqn, u8n, v8n, t_top=T_TOP)),
+    )
+    shares = {}
+    for name, scan in packs:
+        s_c, r_c, ok = dt._select_rescore_verify_tiles(scan(), qn, m, valid_b, N_ROWS, BATCH, BATCH, k_c, 32, 96,
+                                                       T_TOP)
+        check(torch.equal(r_c[ok], ref_r[ok]) and torch.equal(s_c[ok], ref_s[ok]),
+              f"{name}-fed tail: a certified query is not the exact top-{k_c}")
+        shares[name] = ok.float().mean().item()
+        if name == "K1":
+            _, _, ok_tier = dt.dense_topk_tiered2(q, m, mb, e_l2, a_l2, valid_b, k_c)
+            check(torch.equal(ok, ok_tier), "the K1-fed tail is not the bf16 tier's own")
+    log(f"certification at N={N_ROWS}, B={BATCH}, k={k_c} (the tier's tail, margin 32, rescore 96, t_top "
+        f"{T_TOP}): K10a {shares['K10a']:.4f}, K1 {shares['K1']:.4f}; K10c {shares['K10c']:.4f}, "
+        f"K3 {shares['K3']:.4f}; every certified query exact")
+
+    # -- the inline-cast tier ---------------------------------------------------------
+    rep = dt.dense_topk_tiered2_checked(q, m, mb, e_l2, a_l2, valid_b, k_c)
+    inl = dt.dense_topk_tiered2_checked(q, m, None, e_l2, a_l2, valid_b, k_c)
+    check(torch.equal(rep[0], inl[0]) and torch.equal(rep[1], inl[1]) and rep[2] == inl[2],
+          "dense_topk_tiered2_checked(m_bf16=None) differs from the replica run")
+    check(torch.equal(inl[1], ref_r) and torch.equal(inl[0], ref_s), "the inline-cast tier is not exact")
+    rep_ms = cuda_ms(lambda: dt.dense_topk_tiered2_checked(q, m, mb, e_l2, a_l2, valid_b, k_c), 3)
+    inl_ms = cuda_ms(lambda: dt.dense_topk_tiered2_checked(q, m, None, e_l2, a_l2, valid_b, k_c), 3)
+    log(f"dense_topk_tiered2_checked(m_bf16=None) at N={N_ROWS}, B={BATCH}, k={k_c}: scores, rows and "
+        f"fallbacks ({inl[2]}) equal to the replica run and the exact path; batch {inl_ms:.2f} ms inline, "
+        f"{rep_ms:.2f} ms replica (median, CUDA events)")
+    del rep, ref_s, ref_r
+
+    # -- K10b at kernels-K5's shapes ------------------------------------------------------
+    b, tile_n, t_top = CL_BATCH, CL_TILE, CL_T_TOP
+    n_tiles, spt = N_ROWS // tile_n, tile_n // SEL
+    n_live = min(K5_LIVE, n_tiles - 1)
+    live = torch.randperm(n_tiles - 1, device=DEV, generator=gen)[:n_live - 1] + 1
+    live = torch.sort(torch.cat([torch.zeros(1, dtype=live.dtype, device=DEV), live])).values
+    ids = torch.cat([live, torch.full((K5_PADS,), n_tiles, dtype=live.dtype, device=DEV)]).to(torch.int32)
+    g_live, g_all = n_live * spt, len(ids) * spt
+    ids_l = ids.tolist()
+    q8b = q[:b].contiguous()
+    qb8, ub8, vb8 = dt._bf16_query_bounds(q8b)
+    b_args = (qb8, mb, e_l2, a_l2, valid, ub8, vb8, ids)
+    b_f32 = (qb8, m) + b_args[2:]
+
+    def row0(g):  # the first corpus row of output column g
+        return ids_l[g // spt] * tile_n + (g % spt) * SEL
+
+    def terms8(rows, bi):
+        return e_l2[rows].double() * ub8[bi].double() + a_l2[rows].double() * vb8[bi].double()
+
+    vb, rb = ss.scan_select_v2_indirect(*b_args, tile_n=tile_n, t_top=t_top)
+    torch.cuda.synchronize()
+    vr, rr = ss.scan_select_v2_indirect_reference(*b_args, tile_n, t_top)
+    check(tuple(vb.shape) == (b, t_top + 1, g_all) and tuple(rb.shape) == (b, t_top, g_all),
+          f"K10b pack shapes {tuple(vb.shape)}, {tuple(rb.shape)}")
+    check(bool(torch.isneginf(vb[:, :, g_live:]).all()), "K10b: a pad slot holds a finite value")
+    check(torch.equal(vb[:, :, g_live:], vr[:, :, g_live:]) and torch.equal(rb[:, :, g_live:], rr[:, :, g_live:]),
+          "K10b: pad slots differ from the plain version")
+    k10b_err = compare_k1(vb[:, :, :g_live], rb[:, :, :g_live], vr[:, :, :g_live], rr[:, :, :g_live], mb, qb8,
+                          terms8, "K10b vs plain")
+    cols = torch.randperm(g_live, device=DEV, generator=gen)[:8].tolist() + [0]
+    worst = check_sound(vb, rb, m64, q8b.double(), valid, range(b), cols, "K10b", t_top=t_top, row0=row0)
+    own = check_row_upper(vb, rb, lambda rows, bi: mb[rows].double() @ qb8[bi].double() + terms8(rows, bi), valid,
+                          range(b), cols, "K10b", t_top=t_top, row0=row0)
+    log(f"K10b soundness: {b} queries x {len(cols)} columns bounded, least slack {worst:.3e}; every emitted value "
+        f"its row's own upper bound (max |dv| {own:.3e})")
+    del vr, rr, m64, q64
+    v32, r32 = ss.scan_select_v2_indirect(*b_f32, tile_n=tile_n, t_top=t_top)
+    check(torch.equal(v32, vb) and torch.equal(r32, rb), "K10b on the f32 rows differs from its bf16-replica run")
+    v5, r5 = ss.scan_select_v3_indirect(*b_args, tile_n=tile_n, t_top=t_top)
+    v5f, r5f = ss.scan_select_v3_indirect(*b_f32, tile_n=tile_n, t_top=t_top)
+    check(torch.equal(v5f, v5) and torch.equal(r5f, r5), "K5 on the f32 rows differs from its bf16-replica run")
+    log("K5 and K10b on the f32 rows (inline cast): v_pack and r_pack bit-identical to the bf16 replica's")
+    corr8 = eb[:, None] * ub8[None, :] + ab[:, None] * vb8[None, :]  # [N/128, b], K5's block corrections
+    vr, rr = ss.scan_select_v3_indirect_reference(*b_f32, tile_n, t_top)
+    check(torch.equal(v5f[:, :, g_live:], vr[:, :, g_live:]) and torch.equal(r5f[:, :, g_live:], rr[:, :, g_live:]),
+          "K5 on the f32 rows: pad slots differ from the plain version")
+    compare_k1(v5f[:, :, :g_live], r5f[:, :, :g_live], vr[:, :, :g_live], rr[:, :, :g_live], mb, qb8,
+               lambda rows, bi: corr8[rows // BLOCK, bi].double(), "K5 on the f32 rows vs plain")
+    del vr, rr, corr8
+    k10b_ms = cuda_ms(lambda: ss.scan_select_v2_indirect(*b_args, tile_n=tile_n, t_top=t_top), 20)
+    k10b_plain = cuda_ms(lambda: ss.scan_select_v2_indirect_reference(*b_args, tile_n, t_top), 5)
+    k5_ms = cuda_ms(lambda: ss.scan_select_v3_indirect(*b_args, tile_n=tile_n, t_top=t_top), 20)
+    k5_f32 = cuda_ms(lambda: ss.scan_select_v3_indirect(*b_f32, tile_n=tile_n, t_top=t_top), 20)
+    k10b_f32 = cuda_ms(lambda: ss.scan_select_v2_indirect(*b_f32, tile_n=tile_n, t_top=t_top), 20)
+    k10b_ms2 = cuda_ms(lambda: ss.scan_select_v2_indirect(*b_args, tile_n=tile_n, t_top=t_top), 20)
+    rows_live = n_live * tile_n
+    ind_bytes = b * DIM * 2 + rows_live * 12 + len(ids) * 4 + b * 8 + b * (2 * t_top + 1) * g_all * 4
+    ind_ops = 2.0 * b * rows_live * DIM
+    k10b_bound = bound(ind_bytes + rows_live * DIM * 2, ind_ops + 4.0 * b * rows_live, BF16_FLOP_PER_S)
+    k5_f32_bound = bound(ind_bytes + rows_live * DIM * 4, ind_ops, BF16_FLOP_PER_S)
+    log(f"K10b scan_select_v2_indirect at N={N_ROWS} d={DIM} B={b} tile_n={tile_n} t_top={t_top}, {n_live} tiles "
+        f"+ {K5_PADS} pad slots: kernel {k10b_ms:.3f} / {k10b_ms2:.3f} ms, plain {k10b_plain:.3f} ms (median, "
+        f"CUDA events); bound {k10b_bound[0]:.3f} ms ({k10b_bound[1]}); K5 in the same call {k5_ms:.3f} ms")
+    log(f"  f32 rows (inline cast): K5 {k5_f32:.3f} ms, K10b {k10b_f32:.3f} ms; their bound "
+        f"{k5_f32_bound[0]:.3f} ms ({k5_f32_bound[1]})")
+    del v32, r32, v5, r5, v5f, r5f
+
+    # -- the slice's path: each K10 entry point once and the inline-cast tier,
+    # the counts set to 0 just before and read just after (the comparisons and
+    # timings above are not counted); each result equal to its checked run ------
+    counted = (ss.scan_select_v2, ss.scan_select_v2_indirect, ss.scan_select_int8_v2, ss.scan_select_v3)
+    for kern in counted:
+        kern.launches = 0
+    p_a = ss.scan_select_v2(*f32_args, t_top=T_TOP)
+    p_b = ss.scan_select_v2_indirect(*b_f32, tile_n=tile_n, t_top=t_top)
+    p_c = ss.scan_select_int8_v2(*k10c_args, t_top=T_TOP)
+    p_t = dt.dense_topk_tiered2_checked(q, m, None, e_l2, a_l2, valid_b, k_c)
+    n10a, n10b, n10c, n1 = (kern.launches for kern in counted)
+    check((n10a, n10b, n10c) == (1, 1, 1) and n1 > 0,
+          f"kernels-K10 path launches: K10a {n10a}, K10b {n10b}, K10c {n10c}, K1 {n1}")
+    for name, got, want in (("K10a", p_a, (va, ra)), ("K10b", p_b, (vb, rb)), ("K10c", p_c, (vk3, rk3)),
+                            ("the inline-cast tier", p_t[:2], inl[:2])):
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"kernels-K10 path: {name} differs from its checked run")
+    check(p_t[2] == inl[2], "kernels-K10 path: the inline-cast tier's fallback count changed")
+    log(f"kernels-K10 path (K10a, K10b on the f32 rows, K10c, dense_topk_tiered2_checked(m_bf16=None)): launches "
+        f"K10a {n10a}, K10b {n10b}, K10c {n10c}, K1 {n1}; every result equal to its checked run")
+    del m, mb, m_i8, va, ra, vb, rb, vk3, rk3, inl, p_a, p_b, p_c, p_t
+    torch.cuda.empty_cache()
+    log(f"kernels-K10 phase: {time.perf_counter() - t_phase:.1f} s")
+    src = "trueno_rag_tpu_torch/csrc/"
+    site = "trueno_rag_tpu/ops/pallas/scan_select_v2.py:"
+    return (
+        {"name": "scan_select_v2", "route": "cuda", "source": src + "scan_select_v3.cu", "replaces": site + "274",
+         "launches": n10a, "max_abs_err": k10a_err, "ms": min(k10a_ms, k10a_ms2), "plain_ms": k10a_plain,
+         "bound_ms": k10a_bound[0], "bound_by": k10a_bound[1], "library_ms": None},
+        {"name": "scan_select_v2_indirect", "route": "cuda", "source": src + "scan_select_v3.cu",
+         "replaces": site + "664", "launches": n10b, "max_abs_err": k10b_err, "ms": min(k10b_ms, k10b_ms2),
+         "plain_ms": k10b_plain, "bound_ms": k10b_bound[0], "bound_by": k10b_bound[1], "library_ms": None},
+        {"name": "scan_select_int8_v2", "route": "cuda", "source": src + "scan_select_int8_v3.cu",
+         "replaces": site + "847", "launches": n10c, "max_abs_err": k10c_err, "ms": min(k10c_ms, k10c_ms2),
+         "plain_ms": k10c_plain, "bound_ms": k10c_bound[0], "bound_by": k10c_bound[1], "library_ms": None},
+        n1,
+    )
 
 
 def device_profile(fn, label: str, reps: int = 3, warm: bool = True):
@@ -3250,12 +3610,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs a GPU", file=sys.stderr)
         return 2
+    from trueno_rag_tpu_torch.ops.kernels import scan_select as ss
     t_start = time.perf_counter()
     phase_device()
     k1, k3 = phase_kernels(args.seed)
     k8, k9 = phase_kernels_k8k9(args.seed)
     k2, k2b = phase_kernels_k2(args.seed)
     k5 = phase_kernels_k5(args.seed)
+    k10a, k10b, k10c, k1_inline = phase_kernels_k10(args.seed)
+    k10_kernels = (ss.scan_select_v2, ss.scan_select_v2_indirect, ss.scan_select_int8_v2)
+    for kern in k10_kernels:  # no later phase reaches K10: checked still 0 at the end
+        kern.launches = 0
     k4 = phase_kernels_k4(args.seed)
     k6, k7 = phase_kernels_k6k7(args.seed)
     k1_odd, k6_odd = phase_odd_widths(args.seed)
@@ -3284,8 +3649,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     k6["launches"], k7["launches"] = phase_late_interaction(args.seed)
-    k1["launches"] += k1_odd
+    k1["launches"] += k1_odd + k1_inline
     k6["launches"] += k6_odd
+    n10 = [kern.launches for kern in k10_kernels]
+    log(f"K10a/K10b/K10c launches after kernels-K10 (every later phase, the store and pipeline paths): {n10}")
+    check(n10 == [0, 0, 0], "a phase after kernels-K10 launched a v2 tile scan")
     check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
           and torch.get_float32_matmul_precision() == "highest", "TF32 was turned on during the run")
     log(f"smoke wall time {time.perf_counter() - t_start:.0f} s")
@@ -3296,7 +3664,7 @@ def main() -> int:
     log(f"nvidia-smi: {smi.stdout.strip()}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in (k1, k2, k2b, k3, k4, k5, k6, k7, k8, k9, k12a, k12b)]}))
+    print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in (k1, k2, k2b, k3, k4, k5, k6, k7, k8, k9, k10a, k10b, k10c, k12a, k12b)]}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},

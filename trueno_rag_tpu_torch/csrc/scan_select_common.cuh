@@ -1,8 +1,20 @@
 // Shared by the tile-scan kernels (scan_select_v3.cu, scan_select_int8_v3.cu):
-// the thread layout, the tag predicate, and the selection epilogue that
-// turns a 128-row block of masked scores into the tile's candidate pool and
-// then runs the per-1024-row tournament. Both kernels include this file, so
-// their selection and tie rules cannot drift apart.
+// the thread layout, the tag predicate, the two bound forms, and the
+// selection epilogue that turns a 128-row block of masked scores into the
+// tile's candidate pool and then runs the per-1024-row tournament. Both
+// files include this one, so their selection and tie rules cannot drift
+// apart.
+//
+// Bound forms. Bound::kBlock is the v3 form (K1, K5, K3): selection ranks
+// the raw masked scores, and each selected value and each block's third
+// value then gets the block's correction max_blk(e_l2)*u_q +
+// max_blk(a_l2)*v_q. Bound::kRow is the v2 form (K10a, K10b, K10c): each
+// score first gets its own row's terms, upper = (s + e_l2*u_q) + a_l2*v_q,
+// so selection ranks the per-row upper bounds and nothing is added after
+// it. Both emit rigorous upper bounds; kRow's are tighter by the spread of
+// e_l2 and a_l2 within a block. On the TPU the per-row form cost two lane
+// relayouts per tile, which is why v3 exists; here a thread keeps its rows'
+// norms in registers and the form costs 4 operations per (row, query).
 //
 // Thread layout: one thread block per (group of QB = 64 queries, 1024-row
 // selection tile), walking the tile's eight 128-row blocks in turn. Each of
@@ -38,6 +50,8 @@ struct SelectSmem {
   int pool_r[QB][POOL + 1];
   float v3s[QB][BPT + 1];
 };
+
+enum class Bound { kBlock, kRow };
 
 // Tag predicate of ops/tags.py::tag_pred: all of t_all, at least one of
 // t_any (0 = no constraint), none of t_none.
@@ -89,6 +103,59 @@ struct QueryFilter {
   }
 };
 
+// This thread's 8 x 4 scores s[query][row] as the epilogue takes them:
+// under Bound::kRow each plus its row's bound (s + e_l2*u_q) + a_l2*v_q,
+// each step rounded as the plain version rounds it (no fma contraction);
+// then -inf where the block is not live, the row is invalid, or the row
+// fails the query's filter. e_row/a_row are the per-row norms (kRow only;
+// row is a multiple of 8, so their float4 loads are aligned).
+template <Bound BF>
+__device__ __forceinline__ void mask_scores(const float (&s)[TQ][TM], bool live, int64_t row,
+                                            int q0, int qg, int nq,
+                                            const int* __restrict__ valid,
+                                            const int* __restrict__ tag_bits,
+                                            const int* __restrict__ t_all,
+                                            const int* __restrict__ t_any,
+                                            const int* __restrict__ t_none,
+                                            const float* __restrict__ e_row,
+                                            const float* __restrict__ a_row,
+                                            const float* __restrict__ uq,
+                                            const float* __restrict__ vq, float (&x)[TQ][TM]) {
+  bool ok[TM];
+  int bits[TM];
+  load_rows(valid, tag_bits, row, ok, bits);
+  float er[TM], ar[TM];
+  if constexpr (BF == Bound::kRow) {
+    const float4 e0 = __ldg(reinterpret_cast<const float4*>(e_row + row));
+    const float4 e1 = __ldg(reinterpret_cast<const float4*>(e_row + row + 4));
+    const float4 a0 = __ldg(reinterpret_cast<const float4*>(a_row + row));
+    const float4 a1 = __ldg(reinterpret_cast<const float4*>(a_row + row + 4));
+    const float ev[TM] = {e0.x, e0.y, e0.z, e0.w, e1.x, e1.y, e1.z, e1.w};
+    const float av[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+      er[r] = ev[r];
+      ar[r] = av[r];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < TQ; ++i) {
+    const int qi = q0 + qg * TQ + i;
+    const QueryFilter f(tag_bits, t_all, t_any, t_none, qi, nq);
+    float u = 0.0f, v = 0.0f;
+    if (BF == Bound::kRow && qi < nq) {
+      u = __ldg(uq + qi);
+      v = __ldg(vq + qi);
+    }
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+      float y = s[i][r];
+      if constexpr (BF == Bound::kRow) y = __fadd_rn(__fadd_rn(y, __fmul_rn(er[r], u)), __fmul_rn(ar[r], v));
+      x[i][r] = (live && ok[r] && f.pass(bits[r])) ? y : -INFINITY;
+    }
+  }
+}
+
 // (value, lane) order of the JAX code: larger value, then higher lane.
 __device__ __forceinline__ bool beats(float av, int al, float bv, int bl) {
   return av > bv || (av == bv && al > bl);
@@ -108,11 +175,14 @@ __device__ __forceinline__ void argmax16(float& v, int& l) {
 }
 
 // One 128-row block of masked scores x[query][row] (-inf where masked):
-// per query, the top-2 raw scores with their rows (ties -> highest lane, a
+// per query, the top-2 scores with their rows (ties -> highest lane, a
 // taken lane is replaced by -inf, exactly as the JAX code does) and the
-// third value v3, each plus the block's bound correction
-// corr = eb[gblk]*u_q + ab[gblk]*v_q, into the tile's pool slots blk and
-// BPT + blk. Every thread of the block must call it (shuffles).
+// third value v3 into the tile's pool slots blk and BPT + blk. Under
+// Bound::kBlock each gets the block's bound correction
+// corr = eb[gblk]*u_q + ab[gblk]*v_q (eb/ab: per-128-row maxes); under
+// Bound::kRow x already holds the per-row upper bounds and eb/ab are not
+// read. Every thread of the block must call it (shuffles).
+template <Bound BF>
 __device__ __forceinline__ void block_candidates(const float (&x)[TQ][TM], int tid, int q0, int nq,
                                                  int64_t row0, int blk, int gblk,
                                                  const float* __restrict__ eb,
@@ -158,14 +228,19 @@ __device__ __forceinline__ void block_candidates(const float (&x)[TQ][TM], int t
 
     const int ql = qg * TQ + i;
     if (rg == 0 && q0 + ql < nq) {
-      // no contraction into fma: the plain version rounds each product
-      const float corr =
-          __fadd_rn(__fmul_rn(eb[gblk], uq[q0 + ql]), __fmul_rn(ab[gblk], vq[q0 + ql]));
-      sel.pool_v[ql][blk] = v1 + corr;
+      if constexpr (BF == Bound::kBlock) {
+        // no contraction into fma: the plain version rounds each product
+        const float corr =
+            __fadd_rn(__fmul_rn(eb[gblk], uq[q0 + ql]), __fmul_rn(ab[gblk], vq[q0 + ql]));
+        v1 += corr;
+        v2 += corr;
+        v3 += corr;
+      }
+      sel.pool_v[ql][blk] = v1;
       sel.pool_r[ql][blk] = (int)(row0 + a1);
-      sel.pool_v[ql][BPT + blk] = v2 + corr;
+      sel.pool_v[ql][BPT + blk] = v2;
       sel.pool_r[ql][BPT + blk] = (int)(row0 + a2);
-      sel.v3s[ql][blk] = v3 + corr;
+      sel.v3s[ql][blk] = v3;
     }
   }
 }
@@ -201,7 +276,7 @@ __device__ __forceinline__ void tile_tournament(SelectSmem& sel, int tid, int q0
   v_pack[(b * (t_top + 1) + t_top) * g_tiles + tile] = thr;
 }
 
-// Shape checks shared by the two C entry points.
+// Shape checks shared by the C entry points.
 inline bool bad_shape(int nq, int d, int n, int t_top) {
   return nq < 1 || d < 1 || n < SEL || n % SEL != 0 || t_top < 1 || t_top > POOL ||
          n / SEL > 65535;

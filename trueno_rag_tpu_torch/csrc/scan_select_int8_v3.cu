@@ -1,4 +1,6 @@
-// scan_select_int8_v3 for Hopper (sm_90a): the certified int8 tile scan.
+// scan_select_int8_v3 for Hopper (sm_90a): the certified int8 tile scan,
+// and its v2 sibling scan_select_int8_v2 (one template, two entry points
+// at the end of this file).
 //
 // Replaces the Pallas TPU kernel
 //   trueno_rag_tpu/ops/pallas/scan_select_v2.py::scan_select_int8_v3
@@ -13,13 +15,20 @@
 //      tournament (scan_select_common.cuh, shared with scan_select_v3.cu).
 // Outputs: v_pack [B, t_top+1, N/1024] f32, r_pack [B, t_top, N/1024] i32.
 //
+// The v2 sibling replaces the Pallas TPU kernel scan_select_int8_v2
+// (pallas_call at scan_select_v2.py:847): step 1 adds each row's own bound,
+// upper = (((dot*s_row)*t_q) + e_l2*u) + a_l2*v (scan_select_v2.py:209-212),
+// before the mask, and the selection ranks those upper bounds with no
+// correction after it (Bound::kRow in scan_select_common.cuh).
+//
 // Exactness. |q_i8|, |m_i8| <= 127, so every partial sum of the dot is an
 // integer of magnitude <= d*127^2 < 2^24 (the wrapper checks d): int32
 // accumulation is exact in any order, and the conversion to f32 is exact.
-// The two scale multiplies are written as __fmul_rn so nothing contracts.
-// The plain version (an f32 matmul of the same integers, then the same two
-// multiplies) therefore gives bit-identical values, and the same selection
-// gives identical rows.
+// The two scale multiplies, and the v2 sibling's two bound terms and two
+// adds, are written as __fmul_rn/__fadd_rn so nothing contracts into an
+// fma. The plain version (an f32 matmul of the same integers, then the same
+// multiplies and adds, each its own rounded tensor op) therefore gives
+// bit-identical values, and the same selection gives identical rows.
 //
 // What bounds it on the H100. At the main path's shape (N = 1,048,576,
 // d = 384, B = 256) the int8 replica is 0.40 GB, 0.12 ms at 3.35 TB/s;
@@ -36,8 +45,8 @@
 // tensor cores needs no re-derived bound (unlike K1).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-//             -Xcompiler -fPIC; called through the plain C entry point
-//             scan_select_int8_v3_launch on the caller's stream.
+//             -Xcompiler -fPIC; called through the plain C entry points
+//             at the end of this file on the caller's stream.
 
 #include "scan_select_common.cuh"
 
@@ -48,13 +57,13 @@ namespace {
 constexpr int KB = 64;      // int8 depth staged per step
 constexpr int KW = KB / 4;  // as 32-bit words of 4 int8 each
 
-template <bool ALIGNED>
+template <bool ALIGNED, Bound BF>
 __global__ void __launch_bounds__(THREADS, 2)
 scan_select_int8_v3_kernel(const int8_t* __restrict__ q,      // [B, d]
                            const int8_t* __restrict__ m,      // [N, d]
                            const float* __restrict__ s_row,   // [N] row scales
-                           const float* __restrict__ eb,      // [N/128] block max e_l2
-                           const float* __restrict__ ab,      // [N/128] block max a_l2
+                           const float* __restrict__ eb,      // kBlock: [N/128] block max e_l2; kRow: [N] e_l2
+                           const float* __restrict__ ab,      // kBlock: [N/128] block max a_l2; kRow: [N] a_l2
                            const int* __restrict__ valid,     // [N]
                            const float* __restrict__ tq,      // [B] query scales
                            const float* __restrict__ uq,      // [B]
@@ -133,28 +142,47 @@ scan_select_int8_v3_kernel(const int8_t* __restrict__ q,      // [B, d]
       __syncthreads();
     }
 
-    // dequantize in the JAX code's order, then mask invalid rows and rows
-    // failing the query's filter to -inf
+    // dequantize in the JAX code's order, then the per-row bounds (kRow)
+    // and -inf on invalid rows and on rows failing the query's filter
     const float4 sa = __ldg(reinterpret_cast<const float4*>(s_row + row0 + lane0));
     const float4 sb = __ldg(reinterpret_cast<const float4*>(s_row + row0 + lane0 + 4));
     const float sr[TM] = {sa.x, sa.y, sa.z, sa.w, sb.x, sb.y, sb.z, sb.w};
-    bool ok[TM];
-    int bits[TM];
-    load_rows(valid, tag_bits, row0 + lane0, ok, bits);
+    float s[TQ][TM];
+#pragma unroll
+    for (int i = 0; i < TQ; ++i)
+#pragma unroll
+      for (int r = 0; r < TM; ++r)
+        s[i][r] = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][r]), sr[r]), tqv[i]);
     float x[TQ][TM];
-#pragma unroll
-    for (int i = 0; i < TQ; ++i) {
-      const QueryFilter f(tag_bits, t_all, t_any, t_none, q0 + qg * TQ + i, nq);
-#pragma unroll
-      for (int r = 0; r < TM; ++r) {
-        const float s = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][r]), sr[r]), tqv[i]);
-        x[i][r] = (ok[r] && f.pass(bits[r])) ? s : -INFINITY;
-      }
-    }
-    block_candidates(x, tid, q0, nq, row0, blk, tile * BPT + blk, eb, ab, uq, vq, sel);
+    mask_scores<BF>(s, true, row0 + lane0, q0, qg, nq, valid, tag_bits, t_all, t_any, t_none, eb,
+                    ab, uq, vq, x);
+    block_candidates<BF>(x, tid, q0, nq, row0, blk, tile * BPT + blk, eb, ab, uq, vq, sel);
   }
   __syncthreads();
   tile_tournament(sel, tid, q0, nq, tile, g_tiles, t_top, v_pack, r_pack);
+}
+
+template <Bound BF>
+int launch(const void* q, const void* m, const void* s_row, const void* eb, const void* ab,
+           const void* valid, const void* tq, const void* uq, const void* vq,
+           const void* tag_bits, const void* t_all, const void* t_any, const void* t_none,
+           void* v_pack, void* r_pack, int nq, int d, int n, int t_top, void* stream) {
+  if (bad_shape(nq, d, n, t_top) || (long long)d * 127 * 127 >= (1 << 24)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((nq + QB - 1) / QB, n / SEL);
+  auto kernel = rows_aligned<1>(d) ? scan_select_int8_v3_kernel<true, BF>
+                                   : scan_select_int8_v3_kernel<false, BF>;
+  kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(q), static_cast<const int8_t*>(m),
+      static_cast<const float*>(s_row), static_cast<const float*>(eb),
+      static_cast<const float*>(ab), static_cast<const int*>(valid),
+      static_cast<const float*>(tq), static_cast<const float*>(uq),
+      static_cast<const float*>(vq), static_cast<const int*>(tag_bits),
+      static_cast<const int*>(t_all), static_cast<const int*>(t_any),
+      static_cast<const int*>(t_none), static_cast<float*>(v_pack),
+      static_cast<int*>(r_pack), nq, d, n / SEL, t_top);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -176,19 +204,25 @@ extern "C" int scan_select_int8_v3_launch(const void* q, const void* m, const vo
                                           const void* t_any, const void* t_none, void* v_pack,
                                           void* r_pack, int nq, int d, int n, int t_top,
                                           void* stream) {
-  if (bad_shape(nq, d, n, t_top) || (long long)d * 127 * 127 >= (1 << 24)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const dim3 grid((nq + QB - 1) / QB, n / SEL);
-  auto kernel = rows_aligned<1>(d) ? scan_select_int8_v3_kernel<true> : scan_select_int8_v3_kernel<false>;
-  kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q), static_cast<const int8_t*>(m),
-      static_cast<const float*>(s_row), static_cast<const float*>(eb),
-      static_cast<const float*>(ab), static_cast<const int*>(valid),
-      static_cast<const float*>(tq), static_cast<const float*>(uq),
-      static_cast<const float*>(vq), static_cast<const int*>(tag_bits),
-      static_cast<const int*>(t_all), static_cast<const int*>(t_any),
-      static_cast<const int*>(t_none), static_cast<float*>(v_pack),
-      static_cast<int*>(r_pack), nq, d, n / SEL, t_top);
-  return (int)cudaGetLastError();
+  return launch<Bound::kBlock>(q, m, s_row, eb, ab, valid, tq, uq, vq, tag_bits, t_all, t_any,
+                               t_none, v_pack, r_pack, nq, d, n, t_top, stream);
+}
+
+// scan_select_int8_v2 (K10c): replaces the Pallas TPU kernel
+//   trueno_rag_tpu/ops/pallas/scan_select_v2.py::scan_select_int8_v2
+// (pallas_call at scan_select_v2.py:847): scan_select_int8_v3_launch with
+// the per-row bound, so e_l2/a_l2 are the per-row [n] f32 norms (16-byte
+// aligned), not block maxes. Same shapes and requirements otherwise, and
+// bit-identical to its plain version. What bounds it is K3's: the __dp4a
+// instruction rate on CUDA cores; the per-row bound adds 4*B*N operations and
+// N*8 bytes.
+extern "C" int scan_select_int8_v2_launch(const void* q, const void* m, const void* s_row,
+                                          const void* e_l2, const void* a_l2, const void* valid,
+                                          const void* tq, const void* uq, const void* vq,
+                                          const void* tag_bits, const void* t_all,
+                                          const void* t_any, const void* t_none, void* v_pack,
+                                          void* r_pack, int nq, int d, int n, int t_top,
+                                          void* stream) {
+  return launch<Bound::kRow>(q, m, s_row, e_l2, a_l2, valid, tq, uq, vq, tag_bits, t_all, t_any,
+                             t_none, v_pack, r_pack, nq, d, n, t_top, stream);
 }

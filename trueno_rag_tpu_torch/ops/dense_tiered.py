@@ -38,7 +38,8 @@ disallowed (row, query) pairs inside the scan kernel, so a certified
 result is exact among the rows passing each query's filter.
 
 Selection is an exact top-k with the count-trick threshold of the JAX
-code's ``approx_select=True`` path, which stays fail-closed.
+code's ``approx_select=True`` path, or with ``approx_select=False`` the
+(k+1)-th value; both stay fail-closed.
 """
 
 from __future__ import annotations
@@ -223,7 +224,9 @@ def _tags_live(tags, safe_rows, b_pad: int) -> torch.Tensor:
 
 
 def _scan_bf16(q, m_bf16, e_l2, a_l2, valid_mask, tile_n, t_top, tags):
-    """Bound coefficients, padding and the bf16 scan (K1) → (packs, b_pad)."""
+    """Bound coefficients, padding and the bf16 scan (K1) → (packs, b_pad).
+    ``m_bf16`` may be the f32 matrix itself (the inline-cast layout: K1
+    rounds it to bf16 as it reads it)."""
     b_pad, n_pad = _padded_sizes(q.shape[0], m_bf16.shape[0], max(tile_n, SEL))
     qb, u_q, v_q = _bf16_query_bounds(q)
     outs = scan_select_v3(
@@ -341,20 +344,22 @@ def _tile_candidates(outs, b_pad, k, margin_tiles, t_top, approx_select=True):
 
 def _select_rescore_verify_tiles(
     outs, q, matrix, valid_mask, n, bsz, b_pad, k, margin_tiles,
-    rescore_rows, t_top, tags=None,
+    rescore_rows, t_top, tags=None, approx_select=True,
 ):
     """Tile selection + exact fp32 rescore + strict-beat certificate."""
-    cand_rows, cand_vals, threshold = _tile_candidates(outs, b_pad, k, margin_tiles, t_top)
+    cand_rows, cand_vals, threshold = _tile_candidates(
+        outs, b_pad, k, margin_tiles, t_top, approx_select
+    )
     return _trim_rescore_verify(
         cand_rows, cand_vals, threshold, q, matrix, valid_mask, n, bsz,
-        b_pad, k, rescore_rows, tags=tags,
+        b_pad, k, rescore_rows, tags=tags, approx_select=approx_select,
     )
 
 
 def dense_topk_tiered2(
     queries: torch.Tensor,  # [B, d] f32
     matrix: torch.Tensor,  # [N, d] f32 (cosine rows pre-normalized)
-    m_bf16: torch.Tensor,  # [N, d] bf16 scan copy
+    m_bf16: Optional[torch.Tensor],  # [N, d] bf16 scan copy; None = inline-cast layout
     e_l2: torch.Tensor,  # [N] f32 — ‖row − bf16(row)‖₂
     a_l2: torch.Tensor,  # [N] f32 — ‖bf16(row)‖₂
     valid_mask: torch.Tensor,  # [N] bool
@@ -363,6 +368,7 @@ def dense_topk_tiered2(
     metric: str = "cosine",
     tile_n: int = 2048,
     rescore_rows: int | None = 96,
+    approx_select: bool = True,
     t_top: int = 4,
     tags: Optional[Tuple[torch.Tensor, ...]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -371,27 +377,37 @@ def dense_topk_tiered2(
     the exact fp32 top-k in (score desc, row asc) order — among the rows
     passing its filter when ``tags`` is given. The corpus pads to a
     multiple of ``tile_n`` rows and the batch to a multiple of 8, as in
-    the JAX package."""
+    the JAX package.
+
+    ``m_bf16=None`` is the inline-cast layout: the scan reads ``matrix``
+    itself and rounds it to bf16 as it stages it, the same
+    round-to-nearest-even as :func:`prepare_tiered`, so results and
+    certificates are identical to the replica layout's; no bf16 copy is
+    kept, and the scan streams twice the bytes. ``e_l2``/``a_l2`` are
+    still :func:`prepare_tiered`'s. ``approx_select`` picks the
+    selection threshold of :func:`_topk_select`."""
     q = _metric_queries(queries, metric)
-    outs, b_pad = _scan_bf16(q, m_bf16, e_l2, a_l2, valid_mask, tile_n, t_top, tags)
+    scan_m = matrix if m_bf16 is None else m_bf16
+    outs, b_pad = _scan_bf16(q, scan_m, e_l2, a_l2, valid_mask, tile_n, t_top, tags)
     return _select_rescore_verify_tiles(
         outs, q, matrix, valid_mask, matrix.shape[0], q.shape[0], b_pad, k, margin_tiles,
-        rescore_rows, t_top, tags=tags,
+        rescore_rows, t_top, tags=tags, approx_select=approx_select,
     )
 
 
 def dense_topk_tiered2_checked(
     queries, matrix, m_bf16, e_l2, a_l2, valid_mask, k,
-    margin_tiles=32, metric="cosine", tile_n=2048, rescore_rows=96, t_top=4, tags=None,
+    margin_tiles=32, metric="cosine", tile_n=2048, rescore_rows=96, approx_select=True,
+    t_top=4, tags=None,
 ):
     """Exactness-contract wrapper: uncertified queries re-run on the fp32
     path (the tag-filtered fp32 scan when ``tags`` is given). Returns
     (scores, rows, n_fallback) — the number of queries that fell back (0
-    when every query certified)."""
+    when every query certified). ``m_bf16=None``: the inline-cast layout."""
     s, r, ok = dense_topk_tiered2(
         queries, matrix, m_bf16, e_l2, a_l2, valid_mask, k,
         margin_tiles=margin_tiles, metric=metric, tile_n=tile_n,
-        rescore_rows=rescore_rows, t_top=t_top, tags=tags,
+        rescore_rows=rescore_rows, approx_select=approx_select, t_top=t_top, tags=tags,
     )
     return _checked_fallback(s, r, ok, queries, matrix, valid_mask, k, metric, tags=tags)
 
@@ -592,6 +608,7 @@ def dense_topk_int8_tiered2(
     tile_n: int = 2048,
     use_int8_mxu: bool = True,
     rescore_rows: int | None = 96,
+    approx_select: bool = True,
     t_top: int = 4,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """int8 scan (K3) + exact fp32 rescore — the int8 sibling of
@@ -603,21 +620,21 @@ def dense_topk_int8_tiered2(
     outs, b_pad = _scan_int8(q, m_i8, s_row, e_l2, a_l2, valid_mask, tile_n, t_top, None)
     return _select_rescore_verify_tiles(
         outs, q, matrix, valid_mask, matrix.shape[0], q.shape[0], b_pad, k, margin_tiles,
-        rescore_rows, t_top,
+        rescore_rows, t_top, approx_select=approx_select,
     )
 
 
 def dense_topk_int8_tiered2_checked(
     queries, matrix, m_i8, s_row, e_l2, a_l2, valid_mask, k,
     margin_tiles=32, metric="cosine", tile_n=2048, use_int8_mxu=True,
-    rescore_rows=96, t_top=4,
+    rescore_rows=96, approx_select=True, t_top=4,
 ):
     """Exactness-contract wrapper for the int8 tier: uncertified queries
     re-run on the fp32 path. Returns (scores, rows, n_fallback)."""
     s, r, ok = dense_topk_int8_tiered2(
         queries, matrix, m_i8, s_row, e_l2, a_l2, valid_mask, k,
-        margin_tiles=margin_tiles, metric=metric, tile_n=tile_n,
-        rescore_rows=rescore_rows, t_top=t_top,
+        margin_tiles=margin_tiles, metric=metric, tile_n=tile_n, use_int8_mxu=use_int8_mxu,
+        rescore_rows=rescore_rows, approx_select=approx_select, t_top=t_top,
     )
     return _checked_fallback(s, r, ok, queries, matrix, valid_mask, k, metric)
 

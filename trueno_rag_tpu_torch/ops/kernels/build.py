@@ -26,9 +26,18 @@ NVCC_FLAGS = [
 # each kernel's C entry point: name → (source, ctypes argument types)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ENTRY = {
-    "scan_select_v3_launch": ("scan_select_v3.cu", [_P] * 13 + [_I] * 4 + [_P]),
-    "scan_select_v3_indirect_launch": ("scan_select_v3.cu", [_P] * 14 + [_I] * 6 + [_P]),
+    # q, m, e, a, valid, u_q, v_q, tag_bits, t_all, t_any, t_none, v_pack,
+    # r_pack, nq, d, n, t_top, m_f32, stream (e/a: block maxes for v3,
+    # per-row norms for v2)
+    "scan_select_v3_launch": ("scan_select_v3.cu", [_P] * 13 + [_I] * 5 + [_P]),
+    "scan_select_v2_launch": ("scan_select_v3.cu", [_P] * 13 + [_I] * 5 + [_P]),
+    # as above with tile_ids after v_q, then nq, d, n, t_top, tile_n, g, m_f32
+    "scan_select_v3_indirect_launch": ("scan_select_v3.cu", [_P] * 14 + [_I] * 7 + [_P]),
+    "scan_select_v2_indirect_launch": ("scan_select_v3.cu", [_P] * 14 + [_I] * 7 + [_P]),
+    # q, m, s_row, e, a, valid, t_q, u_q, v_q, tags (4), v_pack, r_pack,
+    # nq, d, n, t_top, stream
     "scan_select_int8_v3_launch": ("scan_select_int8_v3.cu", [_P] * 15 + [_I] * 4 + [_P]),
+    "scan_select_int8_v2_launch": ("scan_select_int8_v3.cu", [_P] * 15 + [_I] * 4 + [_P]),
     # q, m, e_l2, a_l2, valid, u_q, v_q, v_out, i_out, nq, d, n, top, stream
     "scan_select_v1_launch": ("scan_select_v1.cu", [_P] * 9 + [_I] * 4 + [_P]),
     # q, m, s_row, e_l2, a_l2, valid, t_q, u_q, v_q, v_out, i_out, nq, d, n, top, stream
