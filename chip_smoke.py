@@ -178,6 +178,27 @@ Run from the repository root. Phases, each fatal on failure:
    launches from there, and K1's count adds the tier's. No other phase
    reaches K10: its counts are set to 0 after this phase and checked
    still 0 at the end of the run.
+24. kernels-K11 (after phase 14): (a) over 1,048,576 x 32 x 128 bf16 unit
+   tokens made on the card (kernels-K6's corpus), K11b
+   ``maxsim_scan16_scores_self_v2`` reads them in place with
+   ``prepare_maxsim_bias_l`` and K11a ``maxsim_scan16_scores_v2`` reads the
+   l-major pack ``prepare_maxsim_scan16_opt`` (a second 8.6 GB) at (B, Lq)
+   = (8, 8), (32, 8), (8, 32): each within 2·κ·C1·n_max of its plain
+   version, bit-identical to K6 on the same queries, U = s + W at least the
+   float64 MaxSim on 4,096 sampled chunks, and fed into the tier's tail at
+   k = 10 the same rows and certificate as K6's; times beside K6 and the
+   bound; (b) a ragged corpus (1,048,539 chunks, Lt 30 padded to 32 in the
+   pack, an empty and an invalid chunk) at groups 256, 128 and 512, both
+   bit-identical to K6; (c) ``prepare_maxsim_bounds`` (timed) and
+   ``maxsim_topk_pruned`` (B = 8, Lq = 8, k = 10, rescore 128, select
+   exact and approx, timed) on two 1,048,576 x 32 x 128 f32 corpora made on
+   the card, ``benches/maxsim_bench.py``'s topic law and a tight law
+   (clusters of 16 chunks around at most 8 topics of their own): every
+   sampled token inside its radius, every certified answer the float64
+   exact top-10, certified fractions logged (the tight law must certify).
+   Then the slice's path: K11a and K11b once each, counts set to 0 just
+   before and read just after; no later phase reaches K11 (checked 0 at
+   the end).
 
 The last two lines of standard output are JSON: the per-kernel record, then
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
@@ -259,6 +280,14 @@ LI_K = 10
 RR_QUERIES = 32
 RR_CANDIDATES = 50
 MIN_CERTIFIED = 0.75  # share of queries a certified MaxSim tier must prove (a K6/K7 scoring high proves none)
+K11_GROUP = 256  # the v2 scans' default group
+K11_RAGGED = ((1 << 20) - 37, 30)  # kernels-K11's ragged corpus (N, Lt): the pack pads Lt to 32
+K11_GROUPS = (128, 512)  # the other groups it runs, beside the default
+PR_N = 1 << 20  # kernels-K11's centroid-pruned corpora: 1,048,576 x 32 x 128 f32
+PR_TOPICS, PR_NOISE = 4096, 0.15  # benches/maxsim_bench.py's topic law (its defaults)
+PR_DUP, PR_SIGMA = 16, 0.05  # the tight law: 16 chunks share a cluster's topics; token noise of norm ~0.05
+PR_RESCORE = 128
+PR_SAMPLE = 2048  # chunks whose every token is checked inside its radius, in float64
 K8_TOPS = (2, 4)  # kernels-K8K9: the store's scan_block_top, then the kernel's default
 K2_K = 10  # kernels-K2: k of the two top-k functions
 ODD_D = 100  # odd-widths: a width no kernel vector divides
@@ -2345,6 +2374,14 @@ def planted_queries(tokens, lq, b, gen, stored=None):
     return base[:, :lq] + 0.1 * torch.randn(base[:, :lq].shape, device=DEV, generator=gen)
 
 
+def unit_token_slab(rows: int, lt: int, h: int, gen):
+    """``[rows, lt, h]`` f32 seeded unit tokens on the device."""
+    import torch
+
+    t = torch.randn((rows, lt, h), device=DEV, generator=gen)
+    return t / torch.linalg.vector_norm(t, dim=2, keepdim=True)
+
+
 def phase_kernels_k6k7(seed: int):
     """K6 and K7 at the JAX package's serving shapes (bench_maxsim_1m,
     bench_maxsim_2m_int8_store): against their plain versions, U sound
@@ -2364,8 +2401,7 @@ def phase_kernels_k6k7(seed: int):
     src = "trueno_rag_tpu_torch/csrc/maxsim_scan.cu"
 
     def unit_slab(rows):
-        t = torch.randn((rows, lt, h), device=DEV, generator=gen)
-        return t / torch.linalg.vector_norm(t, dim=2, keepdim=True)
+        return unit_token_slab(rows, lt, h, gen)
 
     # -- K6 over the zero-copy bf16 pack: 1M x 32 x 128 unit tokens ---------
     n = MS_N6
@@ -2491,6 +2527,258 @@ def phase_kernels_k6k7(seed: int):
     del tok8, s_tok, n_max, t_mask, valid
     torch.cuda.empty_cache()
     return rec6, rec7
+
+
+def k11_bound(bq: int, lq: int, n: int, lt: int, h: int, tok_rows: int, bias_entries: int):
+    """K11's bound: (ms, what bounds it), its work ``2·B·Lq·N·Lt·H`` at the
+    bf16 peak, its bytes the tokens, the bias, valid, q and the scores."""
+    return bound(tok_rows * h * 2 + bias_entries * 4 + n + bq * n * 4 + bq * lq * h * 2, 2.0 * bq * lq * n * lt * h,
+                 BF16_FLOP_PER_S)
+
+
+def tight_corpus(n: int, lt: int, h: int, gen):
+    """The tight law: chunks in clusters of PR_DUP (a templated document's
+    near-duplicates) whose tokens lie around the cluster's own m ∈ {1, 2,
+    4, 8} unit topics, each topic a contiguous run of Lt/m positions, noise
+    of norm ~PR_SIGMA → (tokens [N, Lt, H] f32 unit, topics [N/PR_DUP, 8,
+    H], m [N/PR_DUP])."""
+    import torch
+
+    n_cl = n // PR_DUP
+    topics = unit_token_slab(n_cl, 8, h, gen)
+    m = 2 ** torch.randint(0, 4, (n_cl,), device=DEV, generator=gen)
+    tokens = torch.empty((n, lt, h), device=DEV)
+    pos = torch.arange(lt, device=DEV)
+    for lo in range(0, n, MS_SLAB):
+        hi = min(n, lo + MS_SLAB)
+        cl = torch.arange(lo, hi, device=DEV) // PR_DUP
+        which = pos[None, :] * m[cl][:, None] // lt  # [S, Lt]: the run a position lies in
+        t = torch.gather(topics[cl], 1, which[:, :, None].expand(hi - lo, lt, h))
+        t = t + PR_SIGMA / math.sqrt(h) * torch.randn(t.shape, device=DEV, generator=gen)
+        tokens[lo:hi] = t / torch.linalg.vector_norm(t, dim=2, keepdim=True)
+    return tokens, topics, m
+
+
+def phase_kernels_k11(seed: int):
+    """K11a ``maxsim_scan16_scores_v2`` over the l-major pack and K11b
+    ``maxsim_scan16_scores_self_v2`` over the primary tokens in place, at
+    kernels-K6's shapes (1M x 32 x 128 bf16, (B, Lq) = (8, 8), (32, 8),
+    (8, 32)): against their plain versions, bit for bit against K6, U sound
+    against float64, the tier's certificate equal to K6's; then a ragged
+    corpus at three groups; then ``maxsim_topk_pruned`` with
+    ``prepare_maxsim_bounds`` on two 1M-chunk corpora; and the slice's
+    path with its launches counted → (K11a, K11b records)."""
+    import torch
+
+    from trueno_rag_tpu_torch.ops import maxsim as ms
+    from trueno_rag_tpu_torch.ops.kernels import maxsim_scan as km
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(seed + 19)
+    lt, h, g = MS_LT, MS_H, K11_GROUP
+    src = "trueno_rag_tpu_torch/csrc/maxsim_scan.cu"
+    site = "trueno_rag_tpu/ops/pallas/maxsim_scan.py:"
+
+    # -- (a) kernels-K6's corpus: 1M x 32 x 128 bf16 unit tokens --------------
+    n = MS_N6
+    tok16 = torch.empty((n, lt, h), dtype=torch.bfloat16, device=DEV)
+    for lo in range(0, n, MS_SLAB):
+        tok16[lo:lo + MS_SLAB] = unit_token_slab(min(MS_SLAB, n - lo), lt, h, gen)
+    t_mask = torch.ones((n, lt), dtype=torch.bool, device=DEV)
+    valid = torch.ones(n, dtype=torch.bool, device=DEV)
+    e_max, n_max = ms.prepare_maxsim_self16(tok16, t_mask)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bias = ms.prepare_maxsim_bias_l(t_mask, g)
+    torch.cuda.synchronize()
+    t_bias = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    tok_l, bias_l, e2, n2 = ms.prepare_maxsim_scan16_opt(tok16, t_mask, g)
+    torch.cuda.synchronize()
+    t_pack = time.perf_counter() - t0
+    lt_p = tok_l.shape[0] // (-(-n // g) * g)
+    check(lt_p == lt and not e2.any() and torch.equal(n2, n_max) and torch.equal(bias_l, bias),
+          "kernels-K11: the opt pack of a bf16 corpus is not its residual-free replica")
+    log(f"kernels-K11: {n} x {lt} x {h} bf16 unit tokens; bias_l {bias.numel() * 4 / 1e9:.3f} GB in {t_bias:.2f} s; "
+        f"the l-major pack ({tok_l.numel() * 2 / 1e9:.2f} GB) in {t_pack:.2f} s, "
+        f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB above the corpus at its peak (host clock)")
+    recs = {}
+    for bq, lq in MS_SHAPES:
+        q = torch.randn((bq, lq, h), device=DEV, generator=gen)
+        qm = torch.ones((bq, lq), dtype=torch.bool, device=DEV)
+        q16, a_c, c1, q_w = ms._scan16_query_pack(q, qm)
+        k6 = km.maxsim_scan16_scores(q16, tok16, t_mask, valid)
+        got = {"K11a": km.maxsim_scan16_scores_v2(q16, tok_l, bias_l, valid, lt_p, g),
+               "K11b": km.maxsim_scan16_scores_self_v2(q16, tok16, bias, valid, g)}
+        torch.cuda.synchronize()
+        tol = 2 * (h + lq) * 2.0**-23 * c1[:, None] * n_max[None, :]
+        plain = {"K11a": lambda: km.maxsim_scan16_scores_v2_reference(q16, tok_l, bias_l, valid, lt_p, g),
+                 "K11b": lambda: km.maxsim_scan16_scores_self_v2_reference(q16, tok16, bias, valid, g)}
+        kern = {"K11a": lambda: km.maxsim_scan16_scores_v2(q16, tok_l, bias_l, valid, lt_p, g),
+                "K11b": lambda: km.maxsim_scan16_scores_self_v2(q16, tok16, bias, valid, g)}
+        idx = torch.randperm(n, device=DEV, generator=gen)[:MS_SAMPLE]
+        f64 = maxsim64(q, qm, tok16[idx], t_mask[idx], valid[idx])
+        widths = ms._scan16_fused_widths(a_c, c1, q_w, e_max, n_max, h, lq)
+        qv = torch.where(qm[:, :, None], q, 0.0)
+        tier6 = ms._select_rescore_certify(qv, qm, tok16, t_mask, k6 + widths, MS_K, min(1024, n))
+        k6_ms = cuda_ms(lambda: km.maxsim_scan16_scores(q16, tok16, t_mask, valid), 10)
+        for name, s in got.items():
+            check(torch.equal(s, k6), f"{name} ({bq}, {lq}): not bit-identical to K6 (max |diff| "
+                                      f"{(s - k6).abs().max().item():.3e})")
+            err = (s - plain[name]()).abs()
+            check(bool((err <= tol).all()), f"{name} ({bq}, {lq}): differs from its plain version by "
+                                            f"{err.max().item():.3e} (2·κ·C1·n_max >= {tol.min().item():.3e})")
+            max_err = err.max().item()
+            del err
+            slack = (s[:, idx].double() + widths[:, idx].double() - f64).min().item()
+            check(slack >= 0.0, f"{name} ({bq}, {lq}): U below the float64 MaxSim on a sampled chunk ({slack})")
+            tier = ms._select_rescore_certify(qv, qm, tok16, t_mask, s + widths, MS_K, min(1024, n))
+            check(all(torch.equal(a, b) for a, b in zip(tier, tier6)),
+                  f"{name} ({bq}, {lq}): its tier's rows or certificate differ from K6's")
+            t_k = cuda_ms(kern[name], 10)
+            t_p = cuda_ms(plain[name], 3)
+            t_k2 = cuda_ms(kern[name], 10)
+            rows = tok_l.shape[0] if name == "K11a" else n * lt
+            bnd = k11_bound(bq, lq, n, lt, h, rows, rows)
+            flop = 2.0 * bq * lq * n * lt * h
+            log(f"{name} B={bq} Lq={lq} group={g}: kernel {t_k:.3f} / {t_k2:.3f} ms, plain {t_p:.3f} ms, K6 in the same "
+                f"call {k6_ms:.3f} ms (median, CUDA events); bound {bnd[0]:.3f} ms ({bnd[1]}); its fp32 CUDA-core "
+                f"ceiling {flop / FP32_FLOP_PER_S * 1e3:.3f} ms; bit-identical to K6; max |kernel - plain| "
+                f"{max_err:.3e}; U - float64 >= {slack:.3e} on {MS_SAMPLE} sampled chunks; tier certified "
+                f"{int(tier[2].sum())}/{bq}, rows and certificate equal to K6's tier")
+            if name not in recs:  # the bench's point: B = 8, Lq = 8
+                recs[name] = {"name": "maxsim_scan16_scores_v2" if name == "K11a" else
+                              "maxsim_scan16_scores_self_v2", "route": "cuda", "source": src,
+                              "replaces": site + ("512" if name == "K11a" else "564"), "max_abs_err": max_err,
+                              "ms": min(t_k, t_k2), "plain_ms": t_p, "bound_ms": bnd[0], "bound_by": bnd[1],
+                              "library_ms": None}
+        del got, f64, tier6
+
+    # -- the slice's path: each K11 entry point once, the counts set to 0 just
+    # before and read just after (the comparisons above are not counted) -------
+    bq, lq = MS_SHAPES[0]
+    q = torch.randn((bq, lq, h), device=DEV, generator=gen)
+    q16 = ms._scan16_query_pack(q, torch.ones((bq, lq), dtype=torch.bool, device=DEV))[0]
+    want = km.maxsim_scan16_scores(q16, tok16, t_mask, valid)
+    km.maxsim_scan16_scores_v2.launches = km.maxsim_scan16_scores_self_v2.launches = 0
+    p_a = km.maxsim_scan16_scores_v2(q16, tok_l, bias_l, valid, lt_p, g)
+    p_b = km.maxsim_scan16_scores_self_v2(q16, tok16, bias, valid, g)
+    n_a, n_b = km.maxsim_scan16_scores_v2.launches, km.maxsim_scan16_scores_self_v2.launches
+    check((n_a, n_b) == (1, 1), f"kernels-K11 path launches: K11a {n_a}, K11b {n_b}")
+    check(torch.equal(p_a, want) and torch.equal(p_b, want), "kernels-K11 path: K11a or K11b differs from K6")
+    recs["K11a"]["launches"], recs["K11b"]["launches"] = n_a, n_b
+    log(f"kernels-K11 path (K11a over the pack, K11b over the primary, B={bq} Lq={lq}): launches K11a {n_a}, "
+        f"K11b {n_b}; both equal to K6")
+    del tok16, tok_l, bias_l, bias, t_mask, valid, e_max, n_max, e2, n2, p_a, p_b, want
+    torch.cuda.empty_cache()
+
+    # -- (b) ragged N, Lt = 30 (the pack pads to 32), an empty and an invalid
+    # chunk, at groups 256, 128 and 512 ----------------------------------------
+    n, lt_r = K11_RAGGED
+    tok16 = torch.empty((n, lt_r, h), dtype=torch.bfloat16, device=DEV)
+    for lo in range(0, n, MS_SLAB):
+        tok16[lo:lo + MS_SLAB] = unit_token_slab(min(MS_SLAB, n - lo), lt_r, h, gen)
+    lens = torch.randint(1, lt_r + 1, (n,), device=DEV, generator=gen)
+    lens[5] = 0
+    t_mask = torch.arange(lt_r, device=DEV)[None, :] < lens[:, None]
+    valid = torch.ones(n, dtype=torch.bool, device=DEV)
+    valid[11] = False
+    bq, lq = MS_SHAPES[0]
+    q = torch.randn((bq, lq, h), device=DEV, generator=gen)
+    q16, _, c1, _ = ms._scan16_query_pack(q, torch.ones((bq, lq), dtype=torch.bool, device=DEV))
+    k6 = km.maxsim_scan16_scores(q16, tok16, t_mask, valid)
+    check(bool((k6[:, 5] == 0).all()) and bool(torch.isneginf(k6[:, 11]).all()),
+          "kernels-K11 ragged: K6 scores the empty chunk other than 0 or the invalid one other than -inf")
+    n_max = torch.where(t_mask, torch.linalg.vector_norm(tok16.float(), dim=2), 0.0).amax(dim=1)
+    tol = 2 * (h + lq) * 2.0**-23 * c1[:, None] * n_max[None, :]
+    fin = torch.isfinite(k6)
+    for grp in (g,) + K11_GROUPS:
+        bias = ms.prepare_maxsim_bias_l(t_mask, grp)
+        tok_l, bias_l, _, _ = ms.prepare_maxsim_scan16_opt(tok16, t_mask, grp)
+        lt_p = tok_l.shape[0] // (-(-n // grp) * grp)
+        for name, s, want in (
+                ("K11a", km.maxsim_scan16_scores_v2(q16, tok_l, bias_l, valid, lt_p, grp),
+                 lambda: km.maxsim_scan16_scores_v2_reference(q16, tok_l, bias_l, valid, lt_p, grp)),
+                ("K11b", km.maxsim_scan16_scores_self_v2(q16, tok16, bias, valid, grp),
+                 lambda: km.maxsim_scan16_scores_self_v2_reference(q16, tok16, bias, valid, grp))):
+            check(torch.equal(s, k6), f"{name} ragged N={n} Lt={lt_r} group={grp}: not bit-identical to K6")
+            w = want()
+            check(torch.equal(torch.isneginf(w), torch.isneginf(s)) and bool(((s - w).abs()[fin] <= tol[fin]).all()),
+                  f"{name} ragged N={n} Lt={lt_r} group={grp}: differs from its plain version")
+            del w
+        log(f"K11a/K11b ragged N={n} Lt={lt_r} (pack Lt_p={lt_p}) group={grp}: bit-identical to K6, within "
+            f"2·κ·C1·n_max of their plain versions; the empty chunk 0, the invalid chunk -inf")
+        del tok_l, bias_l, bias
+        torch.cuda.empty_cache()
+    del tok16, t_mask, valid, k6, n_max, tol, fin
+    torch.cuda.empty_cache()
+
+    # -- (c) the centroid-pruned tier on two 1M x 32 x 128 f32 corpora ---------
+    n, lt = PR_N, MS_LT
+    bq, lq = MS_SHAPES[0]
+    valid = torch.ones(n, dtype=torch.bool, device=DEV)
+    for law in ("topic", "tight"):
+        t0 = time.perf_counter()
+        if law == "topic":  # benches/maxsim_bench.py's gen_tokens: topic + noise, lengths in [Lt/2, Lt]
+            topics = unit_token_slab(PR_TOPICS, 1, h, gen)[:, 0]
+            tokens = torch.empty((n, lt, h), device=DEV)
+            for lo in range(0, n, MS_SLAB):
+                rows = min(MS_SLAB, n - lo)
+                t = topics[torch.randint(0, PR_TOPICS, (rows, lt), device=DEV, generator=gen)]
+                t = t + PR_NOISE * torch.randn(t.shape, device=DEV, generator=gen)
+                tokens[lo:lo + rows] = t / torch.linalg.vector_norm(t, dim=2, keepdim=True)
+            lens = torch.randint(max(1, lt // 2), lt + 1, (n,), device=DEV, generator=gen)
+            t_mask = torch.arange(lt, device=DEV)[None, :] < lens[:, None]
+            q = topics[torch.randint(0, PR_TOPICS, (bq, lq), device=DEV, generator=gen)]
+            q = q + PR_NOISE * torch.randn(q.shape, device=DEV, generator=gen)
+        else:  # queries at B random clusters: their topics in turn, with the same noise
+            tokens, topics, m = tight_corpus(n, lt, h, gen)
+            t_mask = torch.ones((n, lt), dtype=torch.bool, device=DEV)
+            cl = torch.randint(0, n // PR_DUP, (bq,), device=DEV, generator=gen)
+            which = torch.arange(lq, device=DEV)[None, :] % m[cl][:, None]
+            q = torch.gather(topics[cl], 1, which[:, :, None].expand(bq, lq, h))
+            q = q + PR_SIGMA / math.sqrt(h) * torch.randn(q.shape, device=DEV, generator=gen)
+            del topics, m
+        q = q / torch.linalg.vector_norm(q, dim=2, keepdim=True)
+        qm = torch.ones((bq, lq), dtype=torch.bool, device=DEV)
+        torch.cuda.synchronize()
+        t_make = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        btok, brad, bmask = ms.prepare_maxsim_bounds(tokens, t_mask)
+        torch.cuda.synchronize()
+        t_prep = time.perf_counter() - t0
+        idx = torch.randperm(n, device=DEV, generator=gen)[:PR_SAMPLE]
+        d = torch.linalg.vector_norm(tokens[idx].double()[:, :, None] - btok[idx].double()[:, None], dim=3)
+        covered = ((d <= brad[idx].double()[:, None]) & bmask[idx][:, None]).any(dim=2)
+        check(bool(covered[t_mask[idx]].all()), f"pruned {law}: a stored token lies outside every radius")
+        med_r = brad[bmask].median().item()
+        log(f"kernels-K11 pruned ({law} law): {n} x {lt} x {h} f32 tokens made on the card in {t_make:.1f} s; "
+            f"prepare_maxsim_bounds (K=8, 8 iterations, k-means f32 + float64 radius pass on the card) "
+            f"{t_prep:.1f} s (host clock); every token of {PR_SAMPLE} sampled chunks inside its radius; median "
+            f"radius {med_r:.4f}")
+        del d, covered
+        want = None
+        for select in ("exact", "approx"):
+            s, r, cert = ms.maxsim_topk_pruned(q, qm, tokens, t_mask, btok, brad, bmask, valid, MS_K, PR_RESCORE,
+                                               select=select)
+            n_cert, n_order = 0, 0
+            if bool(cert.any()):
+                if want is None:
+                    want = exact_rows64(q, qm, tokens, t_mask, valid, MS_K)
+                n_cert, n_order = check_certified(r.cpu().numpy(), cert.cpu().numpy(), want,
+                                                  f"maxsim_topk_pruned {law} select={select}")
+            t_ms = cuda_ms(lambda: ms.maxsim_topk_pruned(q, qm, tokens, t_mask, btok, brad, bmask, valid, MS_K,
+                                                         PR_RESCORE, select=select), 3)
+            log(f"  maxsim_topk_pruned ({law} law, N={n}) B={bq} Lq={lq} k={MS_K} rescore={PR_RESCORE} "
+                f"select={select}: {t_ms:.3f} ms per batch (CUDA events); certified {n_cert}/{bq}, every certified "
+                f"set equal to the float64 exact top-{MS_K} set ({n_order} in the same order)")
+            check(law == "topic" or n_cert > 0, f"maxsim_topk_pruned tight law select={select}: no query certified")
+        del tokens, t_mask, btok, brad, bmask, q, s, r, cert, want
+        torch.cuda.empty_cache()
+    log(f"kernels-K11 phase: {time.perf_counter() - t_phase:.1f} s")
+    return recs["K11a"], recs["K11b"]
 
 
 def li_queries(rng, texts, n):
@@ -3623,6 +3911,11 @@ def main() -> int:
         kern.launches = 0
     k4 = phase_kernels_k4(args.seed)
     k6, k7 = phase_kernels_k6k7(args.seed)
+    k11a, k11b = phase_kernels_k11(args.seed)
+    from trueno_rag_tpu_torch.ops.kernels import maxsim_scan as km
+    k11_kernels = (km.maxsim_scan16_scores_v2, km.maxsim_scan16_scores_self_v2)
+    for kern in k11_kernels:  # no later phase reaches K11: checked still 0 at the end
+        kern.launches = 0
     k1_odd, k6_odd = phase_odd_widths(args.seed)
     phase_tier(args.seed)
     k12a, k12b, seg_idx, seg_qs = phase_kernels_k12(args.seed)
@@ -3654,6 +3947,9 @@ def main() -> int:
     n10 = [kern.launches for kern in k10_kernels]
     log(f"K10a/K10b/K10c launches after kernels-K10 (every later phase, the store and pipeline paths): {n10}")
     check(n10 == [0, 0, 0], "a phase after kernels-K10 launched a v2 tile scan")
+    n11 = [kern.launches for kern in k11_kernels]
+    log(f"K11a/K11b launches after kernels-K11 (every later phase): {n11}")
+    check(n11 == [0, 0], "a phase after kernels-K11 launched an l-major MaxSim scan")
     check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
           and torch.get_float32_matmul_precision() == "highest", "TF32 was turned on during the run")
     log(f"smoke wall time {time.perf_counter() - t_start:.0f} s")
@@ -3664,7 +3960,7 @@ def main() -> int:
     log(f"nvidia-smi: {smi.stdout.strip()}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in (k1, k2, k2b, k3, k4, k5, k6, k7, k8, k9, k10a, k10b, k10c, k12a, k12b)]}))
+    print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in (k1, k2, k2b, k3, k4, k5, k6, k7, k8, k9, k10a, k10b, k10c, k11a, k11b, k12a, k12b)]}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},

@@ -243,7 +243,7 @@ def test_query_packs_match_jax():
 # ---------------------------------------------------------------------------
 
 
-def _port_tier(name, tok, tm, q, qm, valid, k, rescore):
+def _port_tier(name, tok, tm, q, qm, valid, k, rescore, select="auto"):
     qt, qmt, tokt, tmt, vt = T(q, qm, tok, tm, valid)
     if name == "exact":
         s, r = pm.maxsim_scan_topk(qt, qmt, tokt, tmt, vt, k, block=64)
@@ -253,18 +253,18 @@ def _port_tier(name, tok, tm, q, qm, valid, k, rescore):
     # the JAX package's blockwise tiers "scan16" and "int8" run on K6/K7 in the port
     if name in ("scan16", "fused"):
         pack = pm.prepare_maxsim_scan16(tokt, tmt)
-        return pm.maxsim_topk_scan16_fused(qt, qmt, tokt, tmt, *pack, vt, k, rescore)
+        return pm.maxsim_topk_scan16_fused(qt, qmt, tokt, tmt, *pack, vt, k, rescore, select)
     if name == "self16":
         b16 = tokt.to(torch.bfloat16)
         return pm.maxsim_topk_scan16_fused(qt, qmt, b16, tmt, b16, *pm.prepare_maxsim_self16(b16, tmt), vt, k,
-                                           rescore)
+                                           rescore, select)
     pack = pm.prepare_maxsim_int8(tokt, tmt)
     if name == "int8_store":
-        return pm.maxsim_topk_int8_store(qt, qmt, pack[0], pack[1], tmt, pack[3], vt, k, rescore)
-    return pm.maxsim_topk_int8_fused(qt, qmt, tokt, tmt, *pack, vt, k, rescore)
+        return pm.maxsim_topk_int8_store(qt, qmt, pack[0], pack[1], tmt, pack[3], vt, k, rescore, select)
+    return pm.maxsim_topk_int8_fused(qt, qmt, tokt, tmt, *pack, vt, k, rescore, select)
 
 
-def _jax_tier(name, tok, tm, q, qm, valid, k, rescore):
+def _jax_tier(name, tok, tm, q, qm, valid, k, rescore, select="auto"):
     jnp = _jax()
     from trueno_rag_tpu.ops import maxsim as jm
 
@@ -277,18 +277,19 @@ def _jax_tier(name, tok, tm, q, qm, valid, k, rescore):
     if name in ("scan16", "fused"):
         pack = jm.prepare_maxsim_scan16(td, tmd)
         if name == "scan16":
-            return jm.maxsim_topk_scan16(qd, qmd, td, tmd, *pack, vd, k, rescore, 64)
-        return jm.maxsim_topk_scan16_fused(qd, qmd, td, tmd, *pack, vd, k, rescore, interpret=True)
+            return jm.maxsim_topk_scan16(qd, qmd, td, tmd, *pack, vd, k, rescore, 64, select=select)
+        return jm.maxsim_topk_scan16_fused(qd, qmd, td, tmd, *pack, vd, k, rescore, interpret=True, select=select)
     if name == "self16":
         b16 = td.astype(jnp.bfloat16)
         return jm.maxsim_topk_scan16_fused(qd, qmd, b16, tmd, b16, *jm.prepare_maxsim_self16(b16, tmd), vd, k,
-                                           rescore, interpret=True)
+                                           rescore, interpret=True, select=select)
     pack = jm.prepare_maxsim_int8(td, tmd)
     if name == "int8_store":
-        return jm.maxsim_topk_int8_store(qd, qmd, pack[0], pack[1], tmd, pack[3], vd, k, rescore, interpret=True)
+        return jm.maxsim_topk_int8_store(qd, qmd, pack[0], pack[1], tmd, pack[3], vd, k, rescore, interpret=True,
+                                         select=select)
     if name == "int8":
-        return jm.maxsim_topk_int8(qd, qmd, td, tmd, *pack, vd, k, rescore, 64)
-    return jm.maxsim_topk_int8_fused(qd, qmd, td, tmd, *pack, vd, k, rescore, interpret=True)
+        return jm.maxsim_topk_int8(qd, qmd, td, tmd, *pack, vd, k, rescore, 64, select=select)
+    return jm.maxsim_topk_int8_fused(qd, qmd, td, tmd, *pack, vd, k, rescore, interpret=True, select=select)
 
 
 def _stored(name, tok, tm):
@@ -413,13 +414,54 @@ def test_exact_scan_preselection_stays_at_2k_on_clear_gaps(monkeypatch):
 
 
 def test_rescore_below_k_and_approx_select_are_rejected():
+    """``rescore < k`` and an unknown select mode raise; ``approx`` answers
+    (the JAX package's branch over an exact selector) with ``exact``'s rows
+    and scores, and fails closed where the selection boundary is a tie:
+    here the 8th to 15th bounds are the empty chunks' equal ``_BOUND_EPS``,
+    which ``exact``'s (C+1)-th bound certifies past and the count trick
+    cannot; ``auto`` is ``exact``."""
     tok, tm, q, qm, valid = build(20, 2, 8, 1, 1, seed=1)
     with pytest.raises(InvalidConfigError):
         _port_tier("fused", tok, tm, q, qm, valid, 8, 4)
     pack = pm.prepare_maxsim_scan16(*T(tok, tm))
     with pytest.raises(InvalidConfigError):
-        pm.maxsim_topk_scan16_fused(*T(q, qm, tok, tm), *pack, torch.from_numpy(valid), 2, 8, select="approx")
-    assert pm._resolve_select("auto") == "exact"
+        pm.maxsim_topk_scan16_fused(*T(q, qm, tok, tm), *pack, torch.from_numpy(valid), 2, 8, select="nonsense")
+    got = pm.maxsim_topk_scan16_fused(*T(q, qm, tok, tm), *pack, torch.from_numpy(valid), 2, 8, select="approx")
+    want = pm.maxsim_topk_scan16_fused(*T(q, qm, tok, tm), *pack, torch.from_numpy(valid), 2, 8, select="exact")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not bool(got[2][0]) and bool(want[2][0])
+    assert pm._resolve_select("auto") == "exact" and pm._resolve_select("approx") == "approx"
+
+
+@pytest.mark.parametrize("allowed", ["tags", "short"])
+@pytest.mark.parametrize("name", ["fused", "self16", "fused8", "int8_store"])
+def test_approx_select_matches_jax(name, allowed):
+    """``select="approx"`` against the JAX package's approx branch on the
+    CPU (where ``approx_max_k`` selects exactly): the same rows and
+    certified flags, scores to f32 rounding, every certified answer the
+    float64 exact top-k. ``tags``: a tag filter's ``valid`` passing about
+    half the chunks; ``short``: 5 allowed chunks, fewer than k, which only
+    the short-allowed-set rule (every finite bound selected) certifies."""
+    k, rescore = 8, 64
+    tok, tm, q, qm, valid = build(seed=31, structured=True)
+    rng = np.random.default_rng(5)
+    if allowed == "tags":
+        valid &= rng.random(valid.shape[0]) < 0.5
+    else:
+        valid[:] = False
+        valid[rng.choice(valid.shape[0], 5, replace=False)] = True
+    s, r, cert = (x.numpy() for x in _port_tier(name, tok, tm, q, qm, valid, k, rescore, "approx"))
+    js, jr, jcert = (np.asarray(x) for x in _jax_tier(name, tok, tm, q, qm, valid, k, rescore, "approx"))
+    np.testing.assert_array_equal(cert, jcert)
+    np.testing.assert_array_equal(r, jr)
+    fin = np.isfinite(js)
+    np.testing.assert_array_equal(np.isfinite(s), fin)
+    np.testing.assert_allclose(s[fin], js[fin], atol=SCORE_TOL, rtol=SCORE_TOL)
+    o64_s, o64_r = _oracle64(q, qm, _stored(name, tok, tm), tm, valid, k)
+    assert cert.any() and (allowed == "tags" or cert.all())
+    for i in np.flatnonzero(cert):
+        np.testing.assert_array_equal(r[i], o64_r[i])
+        np.testing.assert_array_equal(s[i], o64_s[i])
 
 
 def test_pair_scores_are_float64_rounded_once():

@@ -1,12 +1,17 @@
-// maxsim_scan16_scores and maxsim_scan_int8_scores for Hopper (sm_90a): the
-// late-interaction tiers' bound pass, one template, two entry points at the
-// end of this file.
+// maxsim_scan16_scores, maxsim_scan_int8_scores and the l-major v2 pair
+// maxsim_scan16_scores_v2 / maxsim_scan16_scores_self_v2 for Hopper
+// (sm_90a): the late-interaction tiers' bound pass, one template, four entry
+// points at the end of this file.
 //
 // Replaces the Pallas TPU kernels
 //   trueno_rag_tpu/ops/pallas/maxsim_scan.py::maxsim_scan16_scores
 //     (pallas_call at maxsim_scan.py:268)
 //   trueno_rag_tpu/ops/pallas/maxsim_scan.py::maxsim_scan_int8_scores
 //     (pallas_call at maxsim_scan.py:344)
+//   trueno_rag_tpu/ops/pallas/maxsim_scan.py::maxsim_scan16_scores_v2
+//     (pallas_call at maxsim_scan.py:512)
+//   trueno_rag_tpu/ops/pallas/maxsim_scan.py::maxsim_scan16_scores_self_v2
+//     (pallas_call at maxsim_scan.py:564)
 // Semantics, for every query b and chunk n:
 //   out[b, n] = sum_i best_i,  best_i = max_j <q_i, tok_j>   (bf16)
 //   out[b, n] = sum_i t_q[b, i] * best_i,
@@ -49,6 +54,24 @@
 // scale multiplies and adds written as __fmul_rn/__fadd_rn (no contraction)
 // the result is bit-identical to the plain version.
 //
+// The v2 pair (LAYOUT kLMajor and kSelf). The same bf16 dot program, with
+// the padding excluded by an additive f32 bias instead of a skip: bias_l
+// holds 0 at valid tokens and -2^30 at padding, l-major within each group
+// of `group` chunks, so chunk c's position l sits at
+//   ((c / group) * Lt + l) * group + c % group.
+// kLMajor (K11a) reads the tokens from the l-major pack at that index (Lt
+// there is the pack's padded Lt_p, whose pad positions carry the bias);
+// kSelf (K11b) reads the primary [N, Lt, H] tokens in place at c*Lt + l,
+// as K6 does, and only the bias l-major. Each dot gets its bias added with
+// __fadd_rn (never contracted into the dot's last FMA), every position is
+// maxed, and a best at or below -2^29 (an empty chunk) resets to 0. Adding
+// 0.0 to a dot is exact, and a dot never starts at -0, so on the same bf16
+// values and valid tokens the v2 scores equal K6's bit for bit: the same
+// dot order, the same max over the valid dots, the same ordered Lq-sum.
+// Each chunk computes its own index, so a 128-chunk tile may straddle
+// groups and any group >= 1 works; offsets are 64-bit (a 1M x 32 x 128
+// pack holds 4.3e9 elements).
+//
 // What bounds it on the H100. At the JAX package's serving shape (N =
 // 1,048,576 chunks x Lt 32 x H 128, B = 8, Lq = 8) the bf16 form is
 // 2*B*Lq*N*Lt*H = 5.5e11 FLOP of f32 FMA, 8.2 ms at the 67 TFLOP/s CUDA-core
@@ -59,10 +82,14 @@
 // cores runs far below that peak, so here too the dot's instruction rate,
 // not HBM, is what this first port will meet.
 //
+// The v2 pair does K6's work (the bias read adds 4 bytes per token
+// position, a sixteenth of the row), so the same FMA rate bounds it.
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC; called through the plain C entry points
-//             maxsim_scan16_launch and maxsim_scan_int8_launch on the
-//             caller's stream.
+//             maxsim_scan16_launch, maxsim_scan_int8_launch,
+//             maxsim_scan16_v2_launch and maxsim_scan16_self_v2_launch on
+//             the caller's stream.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,6 +113,20 @@ constexpr int KW = 16;      // int8 depth staged per step, in words of 4 (64 int
 
 static_assert((CT / TC) * (RT / TR) == THREADS, "the thread tiles cover the block tile");
 
+// How a chunk's token rows are found and its padding excluded.
+enum Layout {
+  kMask = 0,    // K6/K7: tokens [N, Lt, H]; t_mask skips padding
+  kLMajor = 1,  // K11a: the l-major pack; bias_l added
+  kSelf = 2,    // K11b: tokens [N, Lt, H] in place; bias_l added
+};
+constexpr float MASK_BIAS = -1073741824.0f;  // -2^30, the pack's padding bias
+constexpr float EMPTY_BELOW = -536870912.0f;  // -2^29: a best at or below is an empty chunk's
+
+// Element index of chunk c's position l in an l-major grouped layout.
+__device__ __forceinline__ int64_t lmajor_index(int64_t c, int l, int lt, int group) {
+  return ((c / group) * lt + l) * (int64_t)group + c % group;
+}
+
 // Shared memory: the staging buffers and the bests of a sub-tile are never
 // live together, so they share storage.
 template <bool INT8>
@@ -98,8 +139,9 @@ struct Smem {
     } stage;
     float best[RT][CT];  // a sub-tile's bests (0 for an empty chunk)
   } u;
-  unsigned char mask[CT];  // t_mask[chunk, j] of the current position
+  unsigned char mask[CT];  // t_mask[chunk, j] of the current position (kMask)
   float scale[CT];         // s_tok[chunk, j] (int8 only)
+  float bias[CT];          // bias_l at chunk, j (kLMajor, kSelf)
   float sum[QG_MAX][CT];   // running Lq-sums of the block's queries
 };
 
@@ -112,16 +154,18 @@ __device__ __forceinline__ void unpack_bf16x8(uint4 raw, float* f) {
   }
 }
 
-template <bool INT8, bool ALIGNED>
+template <bool INT8, bool ALIGNED, int LAYOUT>
 __global__ void __launch_bounds__(THREADS, 2)
 maxsim_scan_kernel(const void* __restrict__ q_,          // [B*Lq, H] bf16 or int8
                    const float* __restrict__ tq,         // [B*Lq] query scales (int8) or null
-                   const void* __restrict__ tok_,        // [N*Lt, H] bf16 or int8
+                   const void* __restrict__ tok_,        // [N*Lt, H] bf16 or int8, or the l-major pack
                    const float* __restrict__ s_tok,      // [N*Lt] token scales (int8) or null
-                   const unsigned char* __restrict__ t_mask,  // [N*Lt] bool
+                   const unsigned char* __restrict__ t_mask,  // [N*Lt] bool (kMask) or null
+                   const float* __restrict__ bias_l,     // l-major mask bias (kLMajor, kSelf) or null
                    const unsigned char* __restrict__ valid,   // [N] bool
                    float* __restrict__ out,              // [B, N]
-                   int nq, int lq, int n, int lt, int h, int qg) {
+                   int nq, int lq, int n, int lt, int h, int qg, int group) {
+  static_assert(LAYOUT == kMask || !INT8, "the v2 layouts are bf16 only");
   __shared__ __align__(16) Smem<INT8> sm;
   const int tid = threadIdx.x;
   const int cg = tid & 15;  // chunk group: a quarter warp spans 8 of them
@@ -151,6 +195,10 @@ maxsim_scan_kernel(const void* __restrict__ q_,          // [B*Lq, H] bf16 or in
 #pragma unroll
         for (int r = 0; r < TR; ++r) acc[e][r] = 0;
 
+      // this thread stages chunk c0 + (tid & 127) at every depth step; its
+      // token row at position j
+      const int64_t tok_row = LAYOUT == kLMajor ? lmajor_index(c0 + (tid & (CT - 1)), j, lt, group)
+                                                : (c0 + (tid & (CT - 1))) * lt + j;
       for (int k0 = 0; k0 < h; k0 += step) {
         // chunk tokens: 128 chunks x 4 vectors of 16 bytes; a warp covers 32
         // chunks of one vector column, so the shared stores are conflict-free
@@ -163,11 +211,11 @@ maxsim_scan_kernel(const void* __restrict__ q_,          // [B*Lq, H] bf16 or in
           uint4 raw = make_uint4(0, 0, 0, 0);
           if (ALIGNED) {  // written out: the shared helper measured 7% slower here
             if (c0 + c < n && kk < h) {
-              const int64_t off = ((c0 + c) * lt + j) * (int64_t)h + kk;
+              const int64_t off = tok_row * h + kk;
               raw = __ldg(reinterpret_cast<const uint4*>(static_cast<const char*>(tok_) + off * ES));
             }
           } else if (c0 + c < n) {
-            raw = load_row16<ES, false>(tok_, ((c0 + c) * lt + j) * (int64_t)h, kk, h);
+            raw = load_row16<ES, false>(tok_, tok_row * h, kk, h);
           }
           if constexpr (INT8) {
             sm.u.stage.tok[part * 4 + 0][c] = (int)raw.x;
@@ -209,7 +257,11 @@ maxsim_scan_kernel(const void* __restrict__ q_,          // [B*Lq, H] bf16 or in
         }
         if (k0 == 0 && tid < CT) {
           const int64_t c = c0 + tid;
-          sm.mask[tid] = c < n ? t_mask[c * lt + j] : 0;
+          if constexpr (LAYOUT == kMask) {
+            sm.mask[tid] = c < n ? t_mask[c * lt + j] : 0;
+          } else {
+            sm.bias[tid] = c < n ? __ldg(bias_l + lmajor_index(c, j, lt, group)) : MASK_BIAS;
+          }
           if constexpr (INT8) sm.scale[tid] = c < n ? s_tok[c * lt + j] : 1.0f;
         }
         __syncthreads();
@@ -242,14 +294,18 @@ maxsim_scan_kernel(const void* __restrict__ q_,          // [B*Lq, H] bf16 or in
 #pragma unroll
           for (int e = 0; e < TC; ++e) {
             const int c = (e < 4 ? 0 : 64) + cg * 4 + (e & 3);
-            if (!sm.mask[c]) continue;
+            if constexpr (LAYOUT == kMask) {
+              if (!sm.mask[c]) continue;
+            }
 #pragma unroll
             for (int r = 0; r < TR; ++r) {
               float x;
               if constexpr (INT8) {
                 x = __fmul_rn(__int2float_rn(acc[e][r]), sm.scale[c]);
-              } else {
+              } else if constexpr (LAYOUT == kMask) {
                 x = acc[e][r];
+              } else {
+                x = __fadd_rn(acc[e][r], sm.bias[c]);
               }
               best[e][r] = fmaxf(best[e][r], x);
             }
@@ -259,7 +315,8 @@ maxsim_scan_kernel(const void* __restrict__ q_,          // [B*Lq, H] bf16 or in
       }
     }
 
-    // the sub-tile's bests (an empty chunk's -inf counts 0) → shared memory
+    // the sub-tile's bests (an empty chunk's -inf, or with the bias its
+    // ~-2^30, counts 0) → shared memory
 #pragma unroll
     for (int r = 0; r < TR; ++r) {
 #pragma unroll
@@ -269,7 +326,11 @@ maxsim_scan_kernel(const void* __restrict__ q_,          // [B*Lq, H] bf16 or in
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float x = best[half * 4 + e][r];
-          pv[e] = isfinite(x) ? x : 0.0f;
+          if constexpr (LAYOUT == kMask) {
+            pv[e] = isfinite(x) ? x : 0.0f;
+          } else {
+            pv[e] = x > EMPTY_BELOW ? x : 0.0f;
+          }
         }
         *reinterpret_cast<float4*>(&sm.u.best[rg * TR + r][half * 64 + cg * 4]) = v;
       }
@@ -317,6 +378,21 @@ bool bad_shape(int nq, int lq, int n, int lt, int h) {
          (nq + group_size(lq) - 1) / group_size(lq) > 65535;
 }
 
+// K11a (kLMajor) and K11b (kSelf): the bf16 scan with the l-major bias.
+template <int LAYOUT>
+int launch_v2(const void* q16, const void* tok, const void* bias_l, const void* valid, void* out,
+              int nq, int lq, int n, int lt, int h, int group, void* stream) {
+  if (bad_shape(nq, lq, n, lt, h) || group < 1) return (int)cudaErrorInvalidValue;
+  const int qg = group_size(lq);
+  const dim3 grid((n + CT - 1) / CT, (nq + qg - 1) / qg);
+  auto kernel = rows_aligned<2>(h) ? maxsim_scan_kernel<false, true, LAYOUT>
+                                   : maxsim_scan_kernel<false, false, LAYOUT>;
+  kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      q16, nullptr, tok, nullptr, nullptr, static_cast<const float*>(bias_l),
+      static_cast<const unsigned char*>(valid), static_cast<float*>(out), nq, lq, n, lt, h, qg, group);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Shapes: q [nq, lq, h] (bf16 or
@@ -330,10 +406,11 @@ extern "C" int maxsim_scan16_launch(const void* q16, const void* tok16, const vo
   if (bad_shape(nq, lq, n, lt, h)) return (int)cudaErrorInvalidValue;
   const int qg = group_size(lq);
   const dim3 grid((n + CT - 1) / CT, (nq + qg - 1) / qg);
-  auto kernel = rows_aligned<2>(h) ? maxsim_scan_kernel<false, true> : maxsim_scan_kernel<false, false>;
+  auto kernel = rows_aligned<2>(h) ? maxsim_scan_kernel<false, true, kMask>
+                                   : maxsim_scan_kernel<false, false, kMask>;
   kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      q16, nullptr, tok16, nullptr, static_cast<const unsigned char*>(t_mask),
-      static_cast<const unsigned char*>(valid), static_cast<float*>(out), nq, lq, n, lt, h, qg);
+      q16, nullptr, tok16, nullptr, static_cast<const unsigned char*>(t_mask), nullptr,
+      static_cast<const unsigned char*>(valid), static_cast<float*>(out), nq, lq, n, lt, h, qg, 1);
   return (int)cudaGetLastError();
 }
 
@@ -346,10 +423,27 @@ extern "C" int maxsim_scan_int8_launch(const void* q8, const void* tq, const voi
   }
   const int qg = group_size(lq);
   const dim3 grid((n + CT - 1) / CT, (nq + qg - 1) / qg);
-  auto kernel = rows_aligned<1>(h) ? maxsim_scan_kernel<true, true> : maxsim_scan_kernel<true, false>;
+  auto kernel = rows_aligned<1>(h) ? maxsim_scan_kernel<true, true, kMask>
+                                   : maxsim_scan_kernel<true, false, kMask>;
   kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       q8, static_cast<const float*>(tq), tok8, static_cast<const float*>(s_tok),
-      static_cast<const unsigned char*>(t_mask), static_cast<const unsigned char*>(valid),
-      static_cast<float*>(out), nq, lq, n, lt, h, qg);
+      static_cast<const unsigned char*>(t_mask), nullptr, static_cast<const unsigned char*>(valid),
+      static_cast<float*>(out), nq, lq, n, lt, h, qg, 1);
   return (int)cudaGetLastError();
+}
+
+// K11a: tok_l is the l-major pack [Gp*lt*group, h] (lt = its padded Lt_p),
+// bias_l [Gp*lt*group] f32 in the same layout, n <= Gp*group chunks scored.
+extern "C" int maxsim_scan16_v2_launch(const void* q16, const void* tok_l, const void* bias_l,
+                                       const void* valid, void* out, int nq, int lq, int n, int lt,
+                                       int h, int group, void* stream) {
+  return launch_v2<kLMajor>(q16, tok_l, bias_l, valid, out, nq, lq, n, lt, h, group, stream);
+}
+
+// K11b: tokens [n, lt, h] read in place, bias_l [ceil(n/group)*lt*group] f32
+// l-major (read only at chunks c < n).
+extern "C" int maxsim_scan16_self_v2_launch(const void* q16, const void* tokens, const void* bias_l,
+                                            const void* valid, void* out, int nq, int lq, int n,
+                                            int lt, int h, int group, void* stream) {
+  return launch_v2<kSelf>(q16, tokens, bias_l, valid, out, nq, lq, n, lt, h, group, stream);
 }

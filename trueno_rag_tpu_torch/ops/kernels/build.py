@@ -52,6 +52,9 @@ ENTRY = {
     "maxsim_scan16_launch": ("maxsim_scan.cu", [_P] * 5 + [_I] * 5 + [_P]),
     # q8, t_q, tok8, s_tok, t_mask, valid, out, nq, lq, n, lt, h, stream
     "maxsim_scan_int8_launch": ("maxsim_scan.cu", [_P] * 7 + [_I] * 5 + [_P]),
+    # q16, tok_l (or tokens), bias_l, valid, out, nq, lq, n, lt, h, group, stream
+    "maxsim_scan16_v2_launch": ("maxsim_scan.cu", [_P] * 5 + [_I] * 6 + [_P]),
+    "maxsim_scan16_self_v2_launch": ("maxsim_scan.cu", [_P] * 5 + [_I] * 6 + [_P]),
     # first, lo, hi, packed, rows_out, contrib_out, n_slots, scale,
     # one_minus_b, b, k1, k1p1, av, stream
     "fetch_contribs_launch": ("bm25_fetch.cu", [_P] * 6 + [_I] * 2 + [_F] * 5 + [_P]),

@@ -6,7 +6,14 @@ PyTorch versions (``csrc/maxsim_scan.cu``):
   ``trueno_rag_tpu/ops/pallas/maxsim_scan.py::maxsim_scan16_scores``;
 - ``maxsim_scan_int8_scores``: the int8 form (an exact integer dot, the
   token scale after the dot, the query scale after the max), counterpart
-  of ``maxsim_scan.py::maxsim_scan_int8_scores``.
+  of ``maxsim_scan.py::maxsim_scan_int8_scores``;
+- ``maxsim_scan16_scores_v2`` and ``maxsim_scan16_scores_self_v2``: the
+  bf16 form with the padding excluded by an l-major additive bias
+  (``ops/maxsim.prepare_maxsim_bias_l``), over the l-major pack
+  (``prepare_maxsim_scan16_opt``) or the primary ``[N, Lt, H]`` tokens read
+  in place, counterparts of ``maxsim_scan.py::maxsim_scan16_scores_v2`` and
+  ``maxsim_scan16_scores_self_v2``. On the same bf16 values and valid
+  tokens their kernels give the bf16 kernel's scores bit for bit.
 
 Both → ``[B, N]`` f32: ``Σᵢ maxⱼ`` over the chunk's valid tokens, an empty
 chunk's best counting 0, -inf at invalid chunks. The Lq-sum runs over i in
@@ -34,6 +41,8 @@ from trueno_rag_tpu_torch.ops.kernels.build import entry
 
 NEG_INF = float("-inf")
 _PLAIN_ELEMS = 1 << 26  # f32 interaction entries per slab of the plain versions (256 MiB)
+_MASK_BIAS = -(2.0**30)  # the v2 scans' padding bias (the JAX package's ops/pallas/maxsim_scan.py)
+_EMPTY_BELOW = -(2.0**29)  # with the _MASK_BIAS padding, a best at or below this is an empty chunk's
 
 
 def _check(q, tok, t_mask, valid, q_dtype, tok_dtype, name: str) -> None:
@@ -73,18 +82,32 @@ def _launch(name: str, tensors, aligned, ints, b: int, n: int, dev) -> torch.Ten
     return out
 
 
-def _max_sum(sims: torch.Tensor, t_mask: torch.Tensor, b: int, lq: int, t_q=None) -> torch.Tensor:
-    """``sims [S, Lt, B·Lq]`` (overwritten) → ``[B, S]``: the masked max
-    over Lt (an empty chunk's -inf best counts 0), then the Lq-sum over i
-    in ascending order, each query token's best multiplied by its scale
-    ``t_q [B, Lq]`` first when one is given."""
-    sims.masked_fill_(~t_mask[:, :, None], NEG_INF)
-    best = sims.amax(dim=1)
-    best = torch.where(torch.isfinite(best), best, 0.0).view(-1, b, lq)
+def _lq_sum(best: torch.Tensor, b: int, lq: int, t_q=None) -> torch.Tensor:
+    """``best [S, B·Lq]`` → ``[B, S]``: the Lq-sum over i in ascending
+    order, each query token's best multiplied by its scale ``t_q [B, Lq]``
+    first when one is given."""
+    best = best.view(-1, b, lq)
     s = torch.zeros(best.shape[:2], dtype=torch.float32, device=best.device)
     for i in range(lq):
         s = s + (best[:, :, i] if t_q is None else t_q[None, :, i] * best[:, :, i])
     return s.T
+
+
+def _max_sum(sims: torch.Tensor, t_mask: torch.Tensor, b: int, lq: int, t_q=None) -> torch.Tensor:
+    """``sims [S, Lt, B·Lq]`` (overwritten) → ``[B, S]``: the masked max
+    over Lt (an empty chunk's -inf best counts 0), then :func:`_lq_sum`."""
+    sims.masked_fill_(~t_mask[:, :, None], NEG_INF)
+    best = sims.amax(dim=1)
+    return _lq_sum(torch.where(torch.isfinite(best), best, 0.0), b, lq, t_q)
+
+
+def _bias_max_sum(sims: torch.Tensor, bias: torch.Tensor, b: int, lq: int) -> torch.Tensor:
+    """``sims [S, Lt, B·Lq]`` (overwritten) plus ``bias [S, Lt]`` → ``[B,
+    S]``: the max over every position, a best at or below -2^29 (an empty
+    chunk's) reset to 0, then :func:`_lq_sum`: the v2 kernels' program."""
+    sims += bias[:, :, None]
+    best = sims.amax(dim=1)
+    return _lq_sum(torch.where(best > _EMPTY_BELOW, best, 0.0), b, lq)
 
 
 def _slabs(n: int, lt: int, h: int, bl: int):
@@ -192,4 +215,148 @@ def maxsim_scan_int8_scores_reference(q8, t_q, tok8, s_tok, t_mask, valid) -> to
         dots = tok8[lo:hi].reshape(-1, h).float() @ qf.T  # [S·Lt, B·Lq]
         sims = (dots * s_tok[lo:hi].reshape(-1, 1)).view(hi - lo, lt, b * lq)
         out[:, lo:hi] = _max_sum(sims, t_mask[lo:hi], b, lq, t_q)
+    return out.masked_fill_(~valid[None, :], NEG_INF)
+
+
+def _check_v2(q16, tok, bias_l, valid, group: int, name: str, lt=None) -> int:
+    """Check the v2 scans' inputs → the token count Lt of a row of groups:
+    ``tok`` is the l-major pack ``[Gp·lt·group, H]`` when ``lt`` is given,
+    else the primary ``[N, Lt, H]`` (``lt`` read from it); ``bias_l`` is the
+    l-major f32 bias of ``Gp = ceil(N/group)`` groups (so a pack with a wrong
+    ``lt`` raises instead of being mis-indexed)."""
+    lmajor = lt is not None
+    if q16.dim() != 3 or tok.dim() != (2 if lmajor else 3) or q16.shape[2] != tok.shape[-1]:
+        raise InvalidConfigError(f"{name}: need q [B, Lq, H] and tokens {'[rows, H]' if lmajor else '[N, Lt, H]'}, "
+                                 f"got {tuple(q16.shape)}, {tuple(tok.shape)}")
+    if not lmajor:
+        lt = tok.shape[1]
+    if q16.dtype != torch.bfloat16 or tok.dtype != torch.bfloat16:
+        raise InvalidConfigError(f"{name}: q and tokens must be bfloat16, got {q16.dtype}, {tok.dtype}")
+    if valid.dtype != torch.bool or valid.dim() != 1:
+        raise InvalidConfigError(f"{name}: valid must be a bool vector, got {valid.dtype} {tuple(valid.shape)}")
+    if bias_l.dtype != torch.float32 or bias_l.dim() != 1:
+        raise InvalidConfigError(f"{name}: bias_l must be an f32 vector, got {bias_l.dtype} {tuple(bias_l.shape)}")
+    n = valid.shape[0]
+    if q16.shape[0] < 1 or q16.shape[1] < 1 or n < 1 or lt < 1 or group < 1:
+        raise InvalidConfigError(f"{name}: empty input or lt/group < 1: q {tuple(q16.shape)}, N {n}, lt {lt}, "
+                                 f"group {group}")
+    if not lmajor and tok.shape[0] != n:
+        raise InvalidConfigError(f"{name}: tokens {tuple(tok.shape)} do not match valid [{n}]")
+    need = -(-n // group) * lt * group
+    if lmajor and tok.shape[0] != need:
+        raise InvalidConfigError(f"{name}: the pack of {n} chunks in groups of {lt} x {group} has {need} rows, "
+                                 f"got {tok.shape[0]}")
+    if bias_l.shape[0] != need:
+        raise InvalidConfigError(f"{name}: bias_l of {n} chunks in groups of {lt} x {group} has {need} entries, "
+                                 f"got {bias_l.shape[0]}")
+    return lt
+
+
+def maxsim_scan16_scores_v2(
+    q16: torch.Tensor,  # [B, Lq, H] bf16 (padding tokens zeroed)
+    tok_l: torch.Tensor,  # [Gp·Lt_p·group, H] bf16 l-major pack
+    bias_l: torch.Tensor,  # [Gp·Lt_p·group] f32 l-major mask bias
+    valid: torch.Tensor,  # [N] bool
+    lt: int,  # the pack's PADDED token count Lt_p
+    group: int = 256,
+) -> torch.Tensor:
+    """→ ``[B, N]`` f32 bf16 MaxSim scores over an l-major pack (-inf at
+    invalid chunks): chunk c's position l is row ``((c // group)·lt + l)·
+    group + c % group`` of ``tok_l`` and entry of ``bias_l`` (0 valid,
+    -2^30 padding). Any ``group`` >= 1.
+
+    CPU tensors run :func:`maxsim_scan16_scores_v2_reference`; CUDA tensors
+    launch the kernel (counted in ``maxsim_scan16_scores_v2.launches``) or
+    raise."""
+    _check_v2(q16, tok_l, bias_l, valid, group, "maxsim_scan16_scores_v2", lt)
+    if q16.device.type == "cpu":
+        return _v2_plain(q16, tok_l, bias_l, valid, lt, group)
+    b, lq, h = q16.shape
+    n = valid.shape[0]
+    q16 = q16.contiguous()
+    out = _launch("maxsim_scan16_v2_launch", (q16, tok_l, bias_l, valid), (q16, tok_l),
+                  (b, lq, n, lt, h, group), b, n, q16.device)
+    maxsim_scan16_scores_v2.launches += 1
+    return out
+
+
+maxsim_scan16_scores_v2.launches = 0
+
+
+def maxsim_scan16_scores_v2_reference(q16, tok_l, bias_l, valid, lt: int, group: int = 256) -> torch.Tensor:
+    """Plain PyTorch version of K11a, on any device: per slab of whole
+    groups an f32 matmul of the bf16 values (TF32 off), re-laid chunk-major,
+    then :func:`_bias_max_sum`."""
+    _check_v2(q16, tok_l, bias_l, valid, group, "maxsim_scan16_scores_v2", lt)
+    return _v2_plain(q16, tok_l, bias_l, valid, lt, group)
+
+
+def _v2_plain(q16, tok_l, bias_l, valid, lt: int, group: int) -> torch.Tensor:
+    require_fp32()
+    b, lq, h = q16.shape
+    n = valid.shape[0]
+    qf = q16.reshape(b * lq, h).float()
+    out = torch.empty((b, n), dtype=torch.float32, device=q16.device)
+    span = lt * group
+    for g0, g1 in _slabs(-(-n // group), span, h, b * lq):
+        rows = slice(g0 * span, g1 * span)
+        sims = (tok_l[rows].float() @ qf.T).view(g1 - g0, lt, group, b * lq).transpose(1, 2)
+        bias = bias_l[rows].view(g1 - g0, lt, group).transpose(1, 2)
+        s = _bias_max_sum(sims.reshape(-1, lt, b * lq), bias.reshape(-1, lt), b, lq)
+        lo, hi = g0 * group, min(n, g1 * group)
+        out[:, lo:hi] = s[:, :hi - lo]
+    return out.masked_fill_(~valid[None, :], NEG_INF)
+
+
+def maxsim_scan16_scores_self_v2(
+    q16: torch.Tensor,  # [B, Lq, H] bf16 (padding tokens zeroed)
+    tokens: torch.Tensor,  # [N, Lt, H] bf16 primary storage
+    bias_l: torch.Tensor,  # [ceil(N/group)·Lt·group] f32 l-major mask bias
+    valid: torch.Tensor,  # [N] bool
+    group: int = 256,
+) -> torch.Tensor:
+    """→ ``[B, N]`` f32 bf16 MaxSim scores over the primary tokens read in
+    place (-inf at invalid chunks), the padding excluded by the l-major
+    ``bias_l`` of :func:`~trueno_rag_tpu_torch.ops.maxsim.prepare_maxsim_bias_l`.
+    Any N (no tail copy) and any ``group`` >= 1.
+
+    CPU tensors run :func:`maxsim_scan16_scores_self_v2_reference`; CUDA
+    tensors launch the kernel (counted in
+    ``maxsim_scan16_scores_self_v2.launches``) or raise."""
+    lt = _check_v2(q16, tokens, bias_l, valid, group, "maxsim_scan16_scores_self_v2")
+    if q16.device.type == "cpu":
+        return _self_v2_plain(q16, tokens, bias_l, valid, group)
+    b, lq, h = q16.shape
+    n = valid.shape[0]
+    q16 = q16.contiguous()
+    out = _launch("maxsim_scan16_self_v2_launch", (q16, tokens, bias_l, valid), (q16, tokens),
+                  (b, lq, n, lt, h, group), b, n, q16.device)
+    maxsim_scan16_scores_self_v2.launches += 1
+    return out
+
+
+maxsim_scan16_scores_self_v2.launches = 0
+
+
+def maxsim_scan16_scores_self_v2_reference(q16, tokens, bias_l, valid, group: int = 256) -> torch.Tensor:
+    """Plain PyTorch version of K11b, on any device: per slab of whole
+    groups an f32 matmul of the bf16 values (TF32 off), the bias re-laid
+    chunk-major, then :func:`_bias_max_sum`."""
+    _check_v2(q16, tokens, bias_l, valid, group, "maxsim_scan16_scores_self_v2")
+    return _self_v2_plain(q16, tokens, bias_l, valid, group)
+
+
+def _self_v2_plain(q16, tokens, bias_l, valid, group: int) -> torch.Tensor:
+    require_fp32()
+    lt = tokens.shape[1]
+    b, lq, h = q16.shape
+    n = valid.shape[0]
+    qf = q16.reshape(b * lq, h).float()
+    out = torch.empty((b, n), dtype=torch.float32, device=q16.device)
+    span = lt * group
+    for g0, g1 in _slabs(-(-n // group), span, h, b * lq):
+        lo, hi = g0 * group, min(n, g1 * group)
+        sims = (tokens[lo:hi].reshape(-1, h).float() @ qf.T).view(hi - lo, lt, b * lq)
+        bias = bias_l[g0 * span:g1 * span].view(g1 - g0, lt, group).transpose(1, 2).reshape(-1, lt)
+        out[:, lo:hi] = _bias_max_sum(sims, bias[:hi - lo], b, lq)
     return out.masked_fill_(~valid[None, :], NEG_INF)

@@ -26,6 +26,14 @@ a stable sort; never ``torch.topk``).
 - :func:`maxsim_topk_token_pruned` — the token-level certificate: exact
   top-``t_hits`` token matches per query token give candidates and a
   sound threshold.
+- :func:`maxsim_topk_pruned` — the centroid-pruned certificate: each
+  chunk's tokens compressed to ``K`` centroids with covering radii
+  (:func:`prepare_maxsim_bounds`), ``max_g (⟨qᵢ,c_g⟩ + ‖qᵢ‖·r_g)`` summed
+  over the query tokens bounds every chunk, and the shared tail rescores
+  and certifies.
+- The l-major packs of the v2 scans K11a/K11b
+  (``ops/kernels/maxsim_scan.py``): :func:`prepare_maxsim_bias_l` and
+  :func:`prepare_maxsim_scan16_opt`.
 
 Every final score comes from ONE exact function,
 :func:`maxsim_pair_scores`: per-token dots in float64, the masked max and
@@ -37,11 +45,12 @@ certified query and a fallback one. The f32 scans only preselect; the
 JAX bounds already budget two f32 programs, so an f64 rescore only
 tightens them.
 
-Left out (ROADMAP Queue 1): the centroid-pruned ``maxsim_topk_pruned``
-with ``prepare_maxsim_bounds``, the l-major packs of K11, the JAX
-package's blockwise "xla" tiers (the token store runs K6/K7 for them), and
-``select="approx"`` (``approx_max_k`` has no PyTorch counterpart; the
-exact selection is the JAX package's ``auto`` choice anyway).
+``select="approx"`` takes the JAX package's ``approx_max_k`` branch with
+an exact selector in its place (``dense_tiered._topk_select``): its recall
+is 1.0, an outcome ``approx_max_k`` may give, and the count-trick threshold
+and the short-allowed-set rule follow the JAX code. ``auto`` stays
+``exact``. Left out (ROADMAP Queue 1): the JAX package's blockwise "xla"
+tiers (the token store runs K6/K7 for them).
 """
 
 from __future__ import annotations
@@ -51,10 +60,11 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from trueno_rag_tpu_torch.device import resolve_device
 from trueno_rag_tpu_torch.errors import InvalidConfigError
 from trueno_rag_tpu_torch.ops.dense import _pad_k, blockwise_topk, require_fp32, topk_desc
-from trueno_rag_tpu_torch.ops.dense_tiered import _int8_query_bounds, _quantize_rows
-from trueno_rag_tpu_torch.ops.kernels.maxsim_scan import maxsim_scan16_scores, maxsim_scan_int8_scores
+from trueno_rag_tpu_torch.ops.dense_tiered import _int8_query_bounds, _quantize_rows, _topk_select
+from trueno_rag_tpu_torch.ops.kernels.maxsim_scan import _MASK_BIAS, maxsim_scan16_scores, maxsim_scan_int8_scores
 
 NEG_INF = float("-inf")
 
@@ -65,6 +75,10 @@ _BOUND_EPS = 1e-7
 _EPS23 = 2.0**-23
 _SLAB_ELEMS = 1 << 26  # f32 entries of one slab's largest temporary (256 MiB)
 _PACK_SLAB = 8192  # chunks per slab of the packs (the JAX default)
+# Build-side widening of the float64 covering radii for their final f32
+# cast, as in the JAX package.
+_RADIUS_SLACK = 1.0 + 1e-6
+_RADIUS_EPS = 1e-7
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
@@ -226,28 +240,48 @@ def maxsim_scan_topk(
 
 
 def _resolve_select(select: str) -> str:
-    """``auto`` → ``exact`` (the JAX package's measured choice). ``approx``
-    (``approx_max_k``) has no PyTorch counterpart and raises."""
-    if select in ("auto", "exact"):
+    """``auto`` → ``exact`` (the JAX package's measured choice); ``exact``
+    and ``approx`` as given."""
+    if select == "auto":
         return "exact"
-    if select == "approx":
-        raise InvalidConfigError("select='approx' is not ported (no approx_max_k in PyTorch); use 'exact'")
-    raise InvalidConfigError(f"unknown select mode: {select!r}")
+    if select not in ("exact", "approx"):
+        raise InvalidConfigError(f"unknown select mode: {select!r}")
+    return select
+
+
+def _approx_candidates(u: torch.Tensor, c_n: int):
+    """The JAX package's ``select="approx"`` branch → ``(cand [B, C] (-1 =
+    none), threshold [B])``: the selection and the count-trick threshold of
+    ``_topk_select(approx=True)`` (+inf at a boundary tie: fail closed),
+    candidates with a -inf bound re-sentinelled to -1, duplicates set to -1,
+    and a -inf threshold when every finite bound was selected once."""
+    cand, threshold = _topk_select(u, c_n, approx=True)
+    cand = torch.where(torch.isneginf(torch.gather(u, 1, cand)), -1, cand)
+    n_fin = torch.isfinite(u).sum(dim=1)
+    s_fin = (cand >= 0).sum(dim=1)
+    cand, _ = torch.sort(cand, dim=1)
+    dup = (cand[:, 1:] == cand[:, :-1]) & (cand[:, 1:] >= 0)
+    cand = torch.cat([cand[:, :1], torch.where(dup, -1, cand[:, 1:])], dim=1)
+    complete = (s_fin == n_fin) & ~dup.any(dim=1)
+    return cand, torch.where(complete, NEG_INF, threshold)
 
 
 def _select_rescore_threshold(q_tok, q_mask, tokens, t_mask, u: torch.Tensor, k: int, c_n: int,
                               select: str = "exact"):
-    """Top-(C+1) selection by the sound bounds ``u [B, N]`` (-inf =
-    excluded), exact rescore of the C candidates (``tokens`` is the float
-    primary or an ``(tok8, s_tok)`` int8 primary), → ``(top_s [B,k],
-    rows [B,k], kth [B], threshold [B])``; the threshold bounds every chunk
-    not rescored."""
-    _resolve_select(select)
+    """Selection by the sound bounds ``u [B, N]`` (-inf = excluded): the
+    exact top-(C+1), or the ``approx`` branch (:func:`_approx_candidates`);
+    exact rescore of the C candidates (``tokens`` is the float primary or an
+    ``(tok8, s_tok)`` int8 primary) → ``(top_s [B,k], rows [B,k], kth [B],
+    threshold [B])``; the threshold bounds every chunk not rescored."""
     b, n = u.shape
-    sel = min(c_n + 1, n)
-    u_top, cand = blockwise_topk(u, sel)
-    threshold = u_top[:, c_n] if sel > c_n else torch.full((b,), NEG_INF, device=u.device)
-    top_s, rows = _exact_rescore(q_tok, q_mask, tokens, t_mask, cand[:, :c_n], k)
+    if _resolve_select(select) == "approx":
+        cand, threshold = _approx_candidates(u, c_n)
+    else:
+        sel = min(c_n + 1, n)
+        u_top, cand = blockwise_topk(u, sel)
+        threshold = u_top[:, c_n] if sel > c_n else torch.full((b,), NEG_INF, device=u.device)
+        cand = cand[:, :c_n]
+    top_s, rows = _exact_rescore(q_tok, q_mask, tokens, t_mask, cand, k)
     kth = top_s[:, min(k, c_n) - 1]
     return top_s, rows, kth, threshold
 
@@ -347,6 +381,62 @@ def prepare_maxsim_int8(tokens: torch.Tensor, t_mask: torch.Tensor, slab: int = 
     largest ``‖d − s·d8‖`` and ``n_max`` the largest ``‖s·d8‖ + e``, all
     widened for the f32 evaluation."""
     return _slab_loop(_int8_slab, tokens, t_mask, slab)
+
+
+def _bias_l(t_mask: torch.Tensor, group: int, lt_out: int) -> torch.Tensor:
+    """``[Gp·lt_out·group]`` f32, l-major within each group: 0 at valid
+    tokens, -2^30 at padding, at positions past ``Lt`` and at chunks past N."""
+    if group < 1:
+        raise InvalidConfigError(f"group must be >= 1, got {group}")
+    n, lt = t_mask.shape
+    gp = max(-(-n // group), 1)
+    m = torch.zeros((gp * group, lt_out), dtype=torch.bool, device=t_mask.device)
+    m[:n, :lt] = t_mask
+    bias = torch.where(m, 0.0, _MASK_BIAS).to(torch.float32)
+    return bias.view(gp, group, lt_out).transpose(1, 2).reshape(-1)
+
+
+def prepare_maxsim_bias_l(t_mask: torch.Tensor, group: int = 256) -> torch.Tensor:
+    """l-major grouped mask bias of the v2 scans → ``[Gp·Lt·group]`` f32 on
+    ``t_mask``'s device (``Gp = ceil(N/group)``, at least 1): chunk c's
+    position l sits at ``((c // group)·Lt + l)·group + c % group``, 0 at a
+    valid token, -2^30 at padding, and every entry of the chunks past N
+    is bias; the JAX package's layout bit for bit. Any ``group`` >= 1 and
+    any Lt (the TPU's ``(group·Lt) % 1024`` rule has no counterpart)."""
+    return _bias_l(t_mask, group, t_mask.shape[1])
+
+
+def prepare_maxsim_scan16_opt(tokens: torch.Tensor, t_mask: torch.Tensor, group: int = 256,
+                              slab: int = _PACK_SLAB):
+    """Pack the bf16 tier in the l-major layout of K11a → ``(tok_l
+    [Gp·Lt_p·group, H] bf16, bias_l [Gp·Lt_p·group] f32, e_max [N] f32,
+    n_max [N] f32)`` on the tokens' device, ``Lt_p = Lt`` rounded up to a
+    multiple of 4 and ``Gp = ceil(N/group)``: chunk c's position l is row
+    ``((c // group)·Lt_p + l)·group + c % group``, zero at the pad
+    positions and chunks, whose bias is -2^30; ``e_max``/``n_max`` as
+    :func:`prepare_maxsim_scan16`. The JAX package's layout bit for bit.
+
+    Built slab by slab into the preallocated pack: no padded or transposed
+    copy of the whole replica (at 1M x 32 x 128 the pack alone is 8.6 GB)."""
+    n, lt = t_mask.shape
+    h = tokens.shape[2]
+    lt_p = -(-lt // 4) * 4
+    bias_l = _bias_l(t_mask, group, lt_p)
+    gp = max(-(-n // group), 1)
+    dev = t_mask.device
+    tok_l = torch.zeros((gp * lt_p * group, h), dtype=torch.bfloat16, device=dev)
+    tok_g = tok_l.view(gp, lt_p, group, h)
+    e_max = torch.empty(n, dtype=torch.float32, device=dev)
+    n_max = torch.empty(n, dtype=torch.float32, device=dev)
+    step = max(1, slab // group)  # whole groups per slab
+    for g0 in range(0, -(-n // group), step):
+        g1 = min(g0 + step, -(-n // group))
+        lo, hi = g0 * group, min(n, g1 * group)
+        tok16, e_max[lo:hi], n_max[lo:hi] = _scan16_slab(tokens[lo:hi], t_mask[lo:hi])
+        if hi - lo < (g1 - g0) * group:
+            tok16 = torch.cat([tok16, tok16.new_zeros(((g1 - g0) * group - (hi - lo), lt, h))])
+        tok_g[g0:g1, :lt] = tok16.view(g1 - g0, group, lt, h).transpose(1, 2)
+    return tok_l, bias_l, e_max, n_max
 
 
 # ---------------------------------------------------------------------------
@@ -571,6 +661,138 @@ def maxsim_topk_token_pruned(q_tok, q_mask, tokens, t_mask, valid, k: int, t_hit
         threshold = torch.clamp(threshold, min=0.0)
     kth = top_s[:, min(k, c_n) - 1]
     return top_s, rows, (kth > threshold) | torch.isneginf(threshold)
+
+
+# ---------------------------------------------------------------------------
+# Centroid pruning
+# ---------------------------------------------------------------------------
+
+
+def _kmeans_tokens_device(tok: torch.Tensor, mask: torch.Tensor, k_bound: int, iters: int) -> torch.Tensor:
+    """Batched per-chunk k-means over each chunk's own tokens ``tok [S, Lt,
+    H]`` (f32, on any device; TF32 off) → proposed centroids ``[S, K, H]``
+    f32. Quality only: any centroids are sound once the radius pass covers
+    every token. Init: the valid tokens of evenly strided ranks (the first
+    slot of each rank); assignment by ``⟨t,c⟩ − ½‖c‖²`` (first maximum);
+    empty clusters keep their centroid. The JAX package's algorithm."""
+    require_fp32()
+    s, lt, h = tok.shape
+    tok = _f32(tok)
+    tokm = torch.where(mask[:, :, None], tok, 0.0)
+    cnt = mask.sum(dim=1)
+    pos = torch.cumsum(mask.int(), dim=1) - 1  # valid rank per slot
+    want = (torch.arange(k_bound, device=tok.device)[None, :] * torch.clamp(cnt - 1, min=0)[:, None]
+            // max(k_bound - 1, 1))  # [S, K] target ranks
+    hit = (pos[:, :, None] == want[:, None, :]) & mask[:, :, None]  # [S, Lt, K]
+    first = torch.argmax(hit.to(torch.uint8), dim=1)  # the first slot of each rank (0 if none)
+    cent = torch.gather(tokm, 1, first[:, :, None].expand(s, k_bound, h))
+    for _ in range(iters):
+        sc = torch.bmm(tok, cent.transpose(1, 2)) - 0.5 * (cent * cent).sum(dim=2)[:, None, :]
+        asg = torch.argmax(sc, dim=2)  # [S, Lt]
+        one = torch.nn.functional.one_hot(asg, k_bound).float() * mask[:, :, None]
+        sums = torch.bmm(one.transpose(1, 2), tokm)  # [S, K, H]
+        n_k = one.sum(dim=1)
+        new = sums / torch.clamp(n_k, min=1.0)[:, :, None]
+        cent = torch.where(n_k[:, :, None] > 0, new, cent)
+    return cent
+
+
+def prepare_maxsim_bounds(tokens, t_mask, k_bound: int = 8, iters: int = 8, slab: int = 4096):
+    """Per-chunk compressed token set with covering radii → ``(btok [N, K,
+    H] f32, brad [N, K] f32, bmask [N, K] bool)``, the bound inputs of
+    :func:`maxsim_topk_pruned`, with ``K = min(k_bound, Lt)`` (at least 1).
+
+    ``tokens [N, Lt, H]`` (any float dtype; the f32 upcast defines the
+    stored values) and ``t_mask [N, Lt]`` may be CPU or CUDA tensors or
+    numpy arrays; the work runs and the outputs live on the tokens'
+    device, slab by slab of ``slab`` chunks. Numpy tokens go to the CUDA
+    device (the port's default; without one the call raises
+    :class:`InvalidConfigError`), so a CPU run must be asked for with CPU
+    tensors.
+
+    Each chunk's tokens go through :func:`_kmeans_tokens_device` on that
+    device; then, in float64 there too (the H100 has fp64 units; the JAX
+    package does this pass in numpy on the host), every valid token is
+    assigned to its nearest f32 centroid and each group's radius covers its
+    tokens, widened by ``_RADIUS_SLACK``/``_RADIUS_EPS`` for the f32 cast.
+    So ``‖d_j − c_{a(j)}‖ ≤ r_{a(j)}`` holds for every stored token whatever
+    the k-means found. Groups with no token are masked out with a zero
+    centroid and radius."""
+    if not isinstance(tokens, torch.Tensor):
+        tokens = torch.as_tensor(np.asarray(tokens, np.float32), device=resolve_device(None))
+    if not isinstance(t_mask, torch.Tensor):
+        t_mask = torch.as_tensor(np.asarray(t_mask, bool))
+    t_mask = t_mask.to(tokens.device)
+    n, lt, h = tokens.shape
+    k_bound = max(1, min(k_bound, lt))
+    dev = tokens.device
+    btok = torch.zeros((n, k_bound, h), dtype=torch.float32, device=dev)
+    brad = torch.zeros((n, k_bound), dtype=torch.float32, device=dev)
+    bmask = torch.zeros((n, k_bound), dtype=torch.bool, device=dev)
+    for lo in range(0, n, slab):
+        hi = min(lo + slab, n)
+        t32, m = _f32(tokens[lo:hi]), t_mask[lo:hi]
+        cent = _kmeans_tokens_device(t32, m, k_bound, iters)
+        t64, c64 = t32.double(), cent.double()
+        d2 = ((t64 * t64).sum(dim=2)[:, :, None] - 2.0 * torch.bmm(t64, c64.transpose(1, 2))
+              + (c64 * c64).sum(dim=2)[:, None, :])  # [S, Lt, K]
+        asg = d2.argmin(dim=2)  # [S, Lt]
+        dist = torch.sqrt(torch.clamp(torch.gather(d2, 2, asg[:, :, None])[:, :, 0], min=0.0))
+        dist = torch.where(m, dist, 0.0)  # padding never sets a radius
+        r = torch.zeros((hi - lo, k_bound), dtype=torch.float64, device=dev).scatter_reduce(
+            1, asg, dist, reduce="amax")
+        used = torch.zeros((hi - lo, k_bound), dtype=torch.int32, device=dev).scatter_add(1, asg, m.int()) > 0
+        btok[lo:hi] = torch.where(used[:, :, None], cent, 0.0)
+        brad[lo:hi] = torch.where(used, r * _RADIUS_SLACK + _RADIUS_EPS, 0.0).float()
+        bmask[lo:hi] = used
+    return btok, brad, bmask
+
+
+def _maxsim_bound_block(q_tok, q_mask, qn_w, btok, brad, bmask) -> torch.Tensor:
+    """Sound per-chunk MaxSim upper bounds of one block → ``[B, C]`` f32:
+    per query token ``max_g (⟨qᵢ,c_g⟩ + ‖qᵢ‖·(r_g + acc_eps·‖c_g‖))`` over
+    the chunk's valid groups (``acc_eps = H·2⁻²³`` carries the dot's f32
+    rounding, the centroid norm widened against its own), 0 for a padding
+    query token or a chunk with no group; summed over the query tokens and
+    widened for the Lq-term sum, ``_BOUND_SLACK`` and ``_BOUND_EPS``. The
+    ``[B, Lq, C, K]`` product is one f32 matmul (TF32 off)."""
+    require_fp32()
+    b, lq, h = q_tok.shape
+    c, kb = brad.shape
+    acc_eps = h * _EPS23
+    sim = (_f32(q_tok).reshape(b * lq, h) @ btok.reshape(c * kb, h).T).view(b, lq, c, kb)
+    cn_w = torch.linalg.vector_norm(btok, dim=2) * (1.0 + acc_eps)  # [C, K]
+    term = sim + qn_w[:, :, None, None] * (brad + acc_eps * cn_w)[None, None]
+    term.masked_fill_(~bmask[None, None], NEG_INF)
+    bi = term.amax(dim=3)  # [B, Lq, C]
+    bi = torch.where(q_mask[:, :, None] & torch.isfinite(bi), bi, 0.0)
+    u = bi.sum(dim=1)
+    mag = bi.abs().sum(dim=1)
+    u = u + mag * (lq * _EPS23)
+    return u + mag * (_BOUND_SLACK - 1.0) + _BOUND_EPS
+
+
+def maxsim_topk_pruned(q_tok, q_mask, tokens, t_mask, btok, brad, bmask, valid, k: int, rescore: int = 128,
+                       bound_block: int = 4096, select: str = "auto"):
+    """Certified centroid-pruned MaxSim top-k → ``(scores [B,k], rows [B,k],
+    certified [B] bool)``.
+
+    Every chunk is bounded by ``U = Σᵢ max_g (⟨qᵢ,c_g⟩ + ‖qᵢ‖·r_g)`` over
+    :func:`prepare_maxsim_bounds`' groups (:func:`_maxsim_bound_block`, in
+    slabs of ``bound_block`` chunks; ``‖qᵢ‖`` widened by
+    ``1 + (H+2)·2⁻²³``), -inf at invalid chunks; the shared tail rescores
+    the ``rescore`` best-bounded chunks exactly and certifies a query iff
+    its k-th exact score strictly beats every chunk left out (a -inf
+    threshold: nothing finite was left out)."""
+    _check_rescore(rescore, k)
+    n = t_mask.shape[0]
+    _, qn_w = _widened_query_norms(q_tok, q_mask)
+    u = torch.empty((q_tok.shape[0], n), dtype=torch.float32, device=t_mask.device)
+    for lo in range(0, n, bound_block):
+        hi = min(n, lo + bound_block)
+        u[:, lo:hi] = _maxsim_bound_block(q_tok, q_mask, qn_w, btok[lo:hi], brad[lo:hi], bmask[lo:hi])
+    u.masked_fill_(~valid[None, :], NEG_INF)
+    return _select_rescore_certify(q_tok, q_mask, tokens, t_mask, u, k, min(rescore, n), select)
 
 
 def maxsim_scan_oracle(q_tok, q_mask, tokens, t_mask, valid, k: int) -> Tuple[np.ndarray, np.ndarray]:
