@@ -63,10 +63,13 @@ Run from the repository root. Phases, each fatal on failure:
    plain version at (a) BH = 32, T = 8192, hd = 128, causal, half the rows
    without their last 1,000 keys, (b) the Nemotron ingest shape, 8 rows x
    32 heads at T = 1024 with ragged masks and an all-PAD row (which must
-   equal the mean of V), (c) T = 528, hd = 64, causal and not: every
+   equal the mean of V), (c) T = 528, hd = 64, causal and not, (d) shape
+   (b) with left-padded and future-only masks (rows with no kept key at or
+   before their position must equal the mean of V over all T keys): every
    element within 2^-7 x max|V| of its head, the mean within 2^-12; times
    beside the plain version, SDPA with the same boolean mask and SDPA
-   ``is_causal``;
+   ``is_causal``, and the causal kernel beside the same call without
+   ``causal`` (the skipped causal future);
 11. nemotron-8k: ``NemotronEmbedder(NemotronConfig.full())`` (4096-d, 32
    layers, 32 heads, MLP 14,336, seeded bf16 weights on the card) embeds 8
    texts of 8,190 words (T = 8192, 32 K4 launches): tokens/s, peak
@@ -254,7 +257,10 @@ K4_TOL_MAX = 2.0**-7  # one flipped bf16 rounding of a probability plus the outp
 K4_TOL_MEAN = 2.0**-12
 K4_A = (32, 8192, 128)  # BH, T, hd: the 8k context, 32 heads of one text
 K4_B = (8, 32, 1024)  # rows, heads, T: a Nemotron ingest batch (hd 128)
-K4_C = (64, 528, 64)  # BH, T, hd: T no multiple of the 64-row tile
+K4_C = (64, 528, 64)  # BH, T, hd: T no multiple of the 64-key or 128-row tile
+K4_D = ((14, 1024), (500, 1024), (600, 1000), (1023, 1024), (1, 1024), (0, 0), (300, 700), (64, 1010))
+# (d): each batch row of shape (b) keeps keys [lo, hi): left padding, kept keys only in a row's future, all-PAD
+K4_WARP_ROWS, K4_TILE_KEYS, K4_BLOCK_ROWS = 32, 64, 128  # csrc/block_attention.cu's tiles
 NEMO_B = 8  # texts per 8k batch (the embedder's batch size)
 NEMO_WORDS = 8190  # + [CLS] and [SEP] = T 8192, the full context
 NR_DOCS = 512  # nemotron-rag: ~1,000-word one-chunk documents
@@ -1973,10 +1979,54 @@ def compare_k4(got, want, v, heads: int, label: str):
     return worst
 
 
+def k4_tile_work(mask, heads: int, causal: bool):
+    """The (32-row warp, 64-key tile) products csrc/block_attention.cu does
+    for a key mask [BH / heads, T] → (Q K^T, P V) counts, summed over BH.
+    A block of 128 rows walks the key tiles up to its last row, or all of
+    them if a row below T has no kept key at or before its position; a warp
+    skips a tile with no kept key at or before its last row once each of
+    its rows has a kept key at or before its position (in pass 1: one in an
+    earlier tile). Pass 1 takes Q K^T and pass 2 Q K^T and P V of each tile
+    it walks, but no Q K^T where the tile holds no kept key."""
+    import numpy as np
+
+    mask = mask.cpu().numpy()
+    n, t = mask.shape
+    n_kt = -(-t // K4_TILE_KEYS)
+    n_w = -(-t // K4_BLOCK_ROWS) * (K4_BLOCK_ROWS // K4_WARP_ROWS)
+    k0 = np.arange(n_kt) * K4_TILE_KEYS  # [KT]
+    lo = np.arange(n_w) * K4_WARP_ROWS  # [W]: each warp's first row
+    q0 = lo // K4_BLOCK_ROWS * K4_BLOCK_ROWS
+    pad = np.zeros((n, n_kt * K4_TILE_KEYS), bool)
+    pad[:, :t] = mask
+    kept = pad.reshape(n, n_kt, K4_TILE_KEYS)
+    pos = np.where(kept, np.arange(K4_TILE_KEYS), K4_TILE_KEYS).min(axis=2) + k0  # first kept key per tile
+    first = np.where(mask.any(axis=1), mask.argmax(axis=1), t)  # [n]: each row's first kept key (t: none)
+    qk = pv = 0
+    for r in range(n):
+        empty = pos[r][None, :] >= k0[None, :] + K4_TILE_KEYS  # [1, KT]: no kept key in the tile
+        none = empty
+        if causal:
+            none = none | (pos[r][None, :] > lo[:, None] + K4_WARP_ROWS - 1)
+            past = first[r] <= lo[:, None]  # every row of the warp has a kept key at or before it
+            last = (np.minimum(q0 + K4_BLOCK_ROWS, t) - 1) // K4_TILE_KEYS + 1
+            walk = np.where(first[r] > q0, n_kt, last)[:, None] > np.arange(n_kt)[None, :]
+        else:
+            past = np.full((n_w, 1), first[r] < t)
+            walk = np.ones((n_w, n_kt), bool)
+        live = walk & (lo < t)[:, None]
+        pass1 = live & ~(none & past & (first[r] < k0)[None, :])
+        pass2 = live & ~(none & past)
+        qk += int((pass1 & ~empty).sum()) + int((pass2 & ~empty).sum())
+        pv += int(pass2.sum())
+    return qk * heads, pv * heads
+
+
 def phase_kernels_k4(seed: int):
     """K4 against its plain version at (a) the 8k shape, (b) the Nemotron
-    ingest shape with ragged masks and an all-PAD row, (c) a ragged T; its
-    times beside the plain version, SDPA and the bound → the K4 record."""
+    ingest shape with ragged masks and an all-PAD row, (c) a ragged T, (d)
+    shape (b) with left-padded and future-only masks; its times beside the
+    plain version, SDPA and the bound → the K4 record."""
     import torch
     import torch.nn.functional as F
 
@@ -2006,8 +2056,14 @@ def phase_kernels_k4(seed: int):
     log(f"K4 (a): kernel {ms_a:.3f} / {ms_a2:.3f} ms, plain {plain_a:.3f} ms, SDPA with the boolean "
         f"causal-and-key mask {lib_a:.3f} ms, SDPA is_causal (no key mask) {flash_a:.3f} ms (median, CUDA "
         f"events); bound {bound_a[0]:.3f} ms ({bound_a[1]})")
-    log(f"  K4 (a) rate {3 * 2.0 * bh * t * t * hd / (min(ms_a, ms_a2) * 1e-3) / 1e12:.1f} TFLOP/s bf16 "
-        f"(the kernel's three full products / time)")
+    full_a = cuda_ms(lambda: block_attention(q, k, v, mask, causal=False), 3)
+    qk, pv = k4_tile_work(mask, 1, True)
+    done = (qk + pv) * 2.0 * K4_WARP_ROWS * K4_TILE_KEYS * hd
+    log(f"  K4 (a) rate {done / (min(ms_a, ms_a2) * 1e-3) / 1e12:.1f} TFLOP/s bf16 (the products the kernel does: "
+        f"Q K^T on {qk} and P V on {pv} (32-row warp, 64-key tile) pairs, {done:.3e} FLOP, "
+        f"{done / (3 * 2.0 * bh * t * t * hd):.1%} of three full products); the causal half of two products "
+        f"{flop_a / (min(ms_a, ms_a2) * 1e-3) / 1e12:.1f} TFLOP/s; without causal {full_a:.3f} ms "
+        f"(causal / not {min(ms_a, ms_a2) / full_a:.3f})")
     del q, k, v, mask, qs, ks_, vs
 
     # (b) the Nemotron ingest shape: B = 8 rows x 32 heads, T = 1024, one all-PAD row
@@ -2027,6 +2083,25 @@ def phase_kernels_k4(seed: int):
     log(f"K4 (b): kernel {ms_b:.3f} ms, plain {plain_b:.3f} ms (median, CUDA events); bound "
         f"{bound_b[0]:.3f} ms ({bound_b[1]})")
     del q, k, v, mask, got, want
+
+    # (d) shape (b) with left-padded and future-only masks: the rows with no
+    # kept key at or before their position average V over all T keys
+    q, k, v, _ = k4_inputs(b * heads, t, hd, [t] * b, gen)
+    j = torch.arange(t, device=DEV)[None, :]
+    lo, hi = (torch.tensor(x, device=DEV)[:, None] for x in zip(*K4_D))
+    mask = (j >= lo) & (j < hi)  # [b, t]
+    got = block_attention(q, k, v, mask, causal=True, heads=heads)
+    torch.cuda.synchronize()
+    want = block_attention_reference(q, k, v, mask, causal=True, heads=heads)
+    compare_k4(got, want, v, heads, f"K4 (d) BH={b * heads} T={t} left-padded and future-only masks")
+    bare = ~(torch.cummax(mask.int(), dim=1).values.bool())  # [b, t]: no kept key at or before
+    bare = bare.repeat_interleave(heads, dim=0)[..., None]
+    mean_v = v.float().mean(dim=1, keepdim=True).expand(-1, t, -1)
+    compare_k4(got, torch.where(bare, mean_v, want.float()), v, heads,
+               f"K4 (d) its {int(bare.sum()) // heads} rows per head without a past kept key against the mean of V")
+    log(f"K4 (d): kernel {cuda_ms(lambda: block_attention(q, k, v, mask, causal=True, heads=heads), 5):.3f} ms "
+        f"(median, CUDA events; (b)'s right-padded masks {ms_b:.3f} ms)")
+    del q, k, v, mask, got, want, bare, mean_v
 
     # (c) T = 528 (no multiple of 64 or 128), hd = 64, both causal values
     bh, t, hd = K4_C

@@ -221,15 +221,22 @@ def _cuda_or_skip():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d", [(65536, 384), (65500, 100)])
-def test_cuda_k2_matches_plain_version(n, d):
+@pytest.mark.parametrize("n,d,b", [
+    (65536, 384, 200), (65500, 100, 200),  # the top-k functions' shapes
+    (65536, 384, 256), (65536, 384, 1), (65500, 384, 65), (65531, 100, 129),  # query tiles of 128, ragged
+    (1000, 1, 256), (130, 384, 129), (4100, 100, 1), (384, 384, 65),  # N ragged to the 128-row block, N % 4
+])
+def test_cuda_k2_matches_plain_version(n, d, b):
     """On the card: K2 and K2b against their plain versions (scores within
-    2(d+1)·2⁻²⁴ for unit vectors: f32 sums in other orders; K2's maxima
-    exactly the max of its own scores; K2b's equal to K2's), and both
-    top-k functions equal to dense_topk. n = 65,500 leaves a ragged last
-    block; d = 100 reads unaligned rows byte by byte."""
+    2(d+1)·2⁻²⁴ for unit vectors: f32 sums in other orders; -inf where the
+    plain version has it; K2's maxima exactly the max of its own scores;
+    K2b's equal to K2's), and both top-k functions equal to dense_topk.
+    B crosses the 128-query tile's edge; N leaves a ragged last block, with
+    N % 4 != 0 taking the scalar score stores; d = 100 reads unaligned rows
+    byte by byte and d = 1 is one column; whole 128-row blocks are masked."""
     _cuda_or_skip()
-    m, q, valid = _data(n, d, 200, seed=d)
+    m, q, valid = _data(n, d, b, seed=d + b)
+    valid[128:256] = False  # a masked block (or, at n = 130, a masked ragged tail)
     q /= np.linalg.norm(q, axis=1, keepdims=True)
     qt, mt, vt = _t(q).cuda(), _t(m).cuda(), _t(valid).cuda()
     before = (score_blockmax.launches, blockmax_only.launches)
@@ -243,8 +250,12 @@ def test_cuda_k2_matches_plain_version(n, d):
     assert (s[fin] - s_r[fin]).abs().max().item() <= 2 * (d + 1) * 2.0**-24
     pad = -n % 128
     sp = torch.nn.functional.pad(s, (0, pad), value=float("-inf"))
-    assert torch.equal(bm, sp.view(200, -1, 128).amax(dim=2))
+    assert torch.equal(bm, sp.view(b, -1, 128).amax(dim=2))
     assert torch.equal(bm2, bm)
+    if n > 256:
+        assert bool(torch.isneginf(bm[:, 1]).all())  # the masked block
+    if d == 1:
+        return  # one column: every score is ±|q|, and top-k order is a tie order, not the kernel's
     s_x, r_x = tdense.dense_topk(qt, mt, vt, 10, "cosine")
     for fn in (dense_topk_blockmax, dense_topk_twopass):
         s_t, r_t = fn(qt, mt, vt, 10, "cosine")
