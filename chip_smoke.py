@@ -67,8 +67,8 @@ Run from the repository root. Phases, each fatal on failure:
    (b) with left-padded and future-only masks (rows with no kept key at or
    before their position must equal the mean of V over all T keys): every
    element within 2^-7 x max|V| of its head, the mean within 2^-12; times
-   beside the plain version, SDPA with the same boolean mask and SDPA
-   ``is_causal``, and the causal kernel beside the same call without
+   beside the plain version, SDPA with the same boolean mask (at (a) and
+   (b)) and SDPA ``is_causal``, and the causal kernel beside the same call without
    ``causal`` (the skipped causal future);
 11. nemotron-8k: ``NemotronEmbedder(NemotronConfig.full())`` (4096-d, 32
    layers, 32 heads, MLP 14,336, seeded bf16 weights on the card) embeds 8
@@ -203,6 +203,21 @@ Run from the repository root. Phases, each fatal on failure:
    before and read just after; no later phase reaches K11 (checked 0 at
    the end).
 
+25. mma-probe (after phase 10, before phase 14): the worst-case model of
+   the tensor-core dot that K1, K5, K10a/b, K6 and K11a/b share
+   (``csrc/mma_bf16.cuh``) held to the card: K6 at Lt = Lq = 1 over 64
+   crafted queries x 2,048 crafted rows (``ops.kernels.mma_model``: one
+   large product beside fifteen just under its half-ulp or its ulp, a sweep
+   of 2^-k terms, cancellation, exponent spreads, random) at H = 1, 15, 16,
+   17, 100, 128 and 384, every dot against its float64 exact value: the
+   worst |error| over the model's allowance (fatal above 1), the worst
+   error in ulps of the largest product and the window the alignment
+   appears to keep; then K1 over the same rows at d = 384, sound against
+   float64 (``check_sound``) and bit-identical on the f32 rows.
+   Phase 21 also times K1 alone at the dense stage's call shape (B = 64
+   over 17,825,792 rows); phases 21 and 22 add their K1 launches to the
+   ``kernels`` line.
+
 The last two lines of standard output are JSON: the per-kernel record, then
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
 """
@@ -285,6 +300,9 @@ LI_BATCHES = 4
 LI_K = 10
 RR_QUERIES = 32
 RR_CANDIDATES = 50
+MMA_PROBE_WIDTHS = (1, 15, 16, 17, 100, 128, 384)  # mma-probe: below, at and past one 16-column slice
+MMA_PROBE_Q = 64  # crafted queries: one K1 query group, K6 at Lq = 1
+MMA_PROBE_ROWS = 2048  # crafted rows per width (K1: 2 selection tiles at d = 384)
 MIN_CERTIFIED = 0.75  # share of queries a certified MaxSim tier must prove (a K6/K7 scoring high proves none)
 K11_GROUP = 256  # the v2 scans' default group
 K11_RAGGED = ((1 << 20) - 37, 30)  # kernels-K11's ragged corpus (N, Lt): the pack pads Lt to 32
@@ -312,7 +330,7 @@ BM25_ULPS = 16  # BM25 scores of two panel shapes: within 16 ulps of the panel's
 # H100 SXM peaks (NVIDIA data sheet) for the kernels' bounds
 BF16_FLOP_PER_S = 989e12  # tensor cores, dense: the peak for bf16 operands (K1, K4, K5, K6)
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12  # CUDA-core fp32 FMA: the ceiling K1, K5 and K6 chose for their certified accumulation
+FP32_FLOP_PER_S = 67e12  # CUDA-core fp32 FMA: K2/K2b's and K8's dot, and K12's arithmetic
 INT8_OP_PER_S = 1979e12  # tensor cores: K3's and K7's exact integer dot
 
 
@@ -544,9 +562,8 @@ def phase_kernels(seed: int):
     k1_bound = bound(BATCH * DIM * 2 + N_ROWS * DIM * 2 + N_ROWS * 12 + BATCH * 8 + out_bytes, flop,
                      BF16_FLOP_PER_S)
     log(f"K1 scan_select_v3 at N={N_ROWS} d={DIM} B={BATCH}: kernel {k1_ms:.3f} / {k1_ms2:.3f} ms, "
-        f"plain {k1_plain:.3f} ms (median, CUDA events); bound {k1_bound[0]:.3f} ms ({k1_bound[1]}); "
-        f"its fp32 CUDA-core ceiling {flop / FP32_FLOP_PER_S * 1e3:.3f} ms")
-    log(f"  K1 rate {flop / (min(k1_ms, k1_ms2) * 1e-3) / 1e12:.1f} TFLOP/s fp32 FMA (2*B*N*d / time)")
+        f"plain {k1_plain:.3f} ms (median, CUDA events); bound {k1_bound[0]:.3f} ms ({k1_bound[1]})")
+    log(f"  K1 rate {flop / (min(k1_ms, k1_ms2) * 1e-3) / 1e12:.1f} TFLOP/s on the tensor cores (2*B*N*d / time)")
 
     # -- K3 -----------------------------------------------------------------
     m_i8, s_row, i8_e, i8_a = dt.prepare_int8(m)
@@ -1227,8 +1244,7 @@ def phase_kernels_k5(seed: int):
                      + out_bytes, 2.0 * b * rows_live * DIM, BF16_FLOP_PER_S)
     log(f"K5 scan_select_v3_indirect at N={n} d={DIM} B={b} tile_n={tile_n} t_top={t_top}, {n_live} tiles + "
         f"{K5_PADS} pad slots: kernel {k5_ms:.3f} / {k5_ms2:.3f} ms, plain {k5_plain:.3f} ms (median, CUDA "
-        f"events); bound {k5_bound[0]:.3f} ms ({k5_bound[1]}); its fp32 CUDA-core ceiling "
-        f"{2.0 * b * rows_live * DIM / FP32_FLOP_PER_S * 1e3:.3f} ms; tagged {t_tag:.3f} ms")
+        f"events); bound {k5_bound[0]:.3f} ms ({k5_bound[1]}); tagged {t_tag:.3f} ms")
     log(f"  K1 over a copy of the same tiles {k1_copy_ms:.3f} ms, plus the tile copy {gather_ms:.3f} ms")
     del m, mb, k1_copy_args
     torch.cuda.empty_cache()
@@ -2080,9 +2096,12 @@ def phase_kernels_k4(seed: int):
     ms_b = cuda_ms(lambda: block_attention(q, k, v, mask, causal=True, heads=heads), 10)
     plain_b = cuda_ms(lambda: block_attention_reference(q, k, v, mask, causal=True, heads=heads), 3)
     bound_b = bound(4 * b * heads * t * hd * 2 + b * t, 2.0 * b * heads * t * t * hd, BF16_FLOP_PER_S)
-    log(f"K4 (b): kernel {ms_b:.3f} ms, plain {plain_b:.3f} ms (median, CUDA events); bound "
-        f"{bound_b[0]:.3f} ms ({bound_b[1]})")
-    del q, k, v, mask, got, want
+    qs, ks_, vs = (x.view(b, heads, t, hd) for x in (q, k, v))
+    keep = mask[:, None, None, :] & torch.ones(t, t, dtype=torch.bool, device=DEV).tril()[None, None]
+    lib_b = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks_, vs, attn_mask=keep), 5)
+    log(f"K4 (b): kernel {ms_b:.3f} ms, plain {plain_b:.3f} ms, SDPA with the boolean causal-and-key mask "
+        f"{lib_b:.3f} ms (median, CUDA events); bound {bound_b[0]:.3f} ms ({bound_b[1]})")
+    del q, k, v, mask, got, want, qs, ks_, vs, keep
 
     # (d) shape (b) with left-padded and future-only masks: the rows with no
     # kept key at or before their position average V over all T keys
@@ -2515,8 +2534,8 @@ def phase_kernels_k6k7(seed: int):
         flop = 2.0 * bq * lq * n * lt * h
         bnd = bound(n * lt * h * 2 + n * lt + n + bq * n * 4 + bq * lq * h * 2, flop, BF16_FLOP_PER_S)
         log(f"K6 B={bq} Lq={lq}: kernel {ms_k:.3f} / {ms_k2:.3f} ms, plain {ms_p:.3f} ms (median, CUDA events); bound "
-            f"{bnd[0]:.3f} ms ({bnd[1]}); its fp32 CUDA-core ceiling {flop / FP32_FLOP_PER_S * 1e3:.3f} ms; "
-            f"{flop / (min(ms_k, ms_k2) * 1e-3) / 1e12:.1f} TFLOP/s fp32; max |kernel - plain| {max_err:.3e}; "
+            f"{bnd[0]:.3f} ms ({bnd[1]}); {flop / (min(ms_k, ms_k2) * 1e-3) / 1e12:.1f} TFLOP/s on the tensor cores; "
+            f"max |kernel - plain| {max_err:.3e}; "
             f"U - float64 >= {slack:.3e} on {MS_SAMPLE} sampled chunks")
         if rec6 is None:  # the bench's point: B = 8, Lq = 8
             rec6 = {"name": "maxsim_scan16_scores", "route": "cuda", "source": src,
@@ -2602,6 +2621,83 @@ def phase_kernels_k6k7(seed: int):
     del tok8, s_tok, n_max, t_mask, valid
     torch.cuda.empty_cache()
     return rec6, rec7
+
+
+def phase_mma_probe(seed: int):
+    """The tensor-core dot's worst-case model (csrc/mma_bf16.cuh) held to
+    the card: K6 at Lt = 1, Lq = 1 (each output the raw dot) over crafted
+    queries and rows of ``ops.kernels.mma_model`` at every width of
+    MMA_PROBE_WIDTHS, each of the 64 x 2048 dots against its float64 exact
+    value: the worst ratio of |error| to the model's allowance (fails above
+    1), the worst error in ulps of the largest product, and the window the
+    alignment keeps (the largest 2^-k of the largest term that still counts
+    at H = 16: the smallest k lost, where no k above the largest k kept
+    counts); then K1 over the same crafted rows at d = 384 under
+    check_sound, on the bf16 replica and the f32 rows (bit-identical)."""
+    import numpy as np
+    import torch
+
+    from trueno_rag_tpu_torch.ops import dense_tiered as dt
+    from trueno_rag_tpu_torch.ops.kernels import mma_model as mm
+    from trueno_rag_tpu_torch.ops.kernels.maxsim_scan import maxsim_scan16_scores
+    from trueno_rag_tpu_torch.ops.kernels.scan_select import SEL, scan_select_v3
+
+    worst, worst_ulps, counted, lost = 0.0, 0.0, 0, 99
+    for h in MMA_PROBE_WIDTHS:
+        qn, tn, kinds = mm.crafted_pairs(h, MMA_PROBE_ROWS, seed + h, n_q=MMA_PROBE_Q)
+        q32, t32 = torch.from_numpy(qn).to(DEV), torch.from_numpy(tn).to(DEV)
+        n = t32.shape[0]
+        got = maxsim_scan16_scores(q32.to(torch.bfloat16)[:, None, :], t32.to(torch.bfloat16)[:, None, :],
+                                   torch.ones((n, 1), dtype=torch.bool, device=DEV),
+                                   torch.ones(n, dtype=torch.bool, device=DEV))
+        q64, t64 = q32.double(), t32.double()
+        exact = q64 @ t64.T
+        mass = q64.abs() @ t64.abs().T
+        big = torch.cat([(q64.abs()[:, None, :] * t64.abs()[None, lo:lo + 1024, :]).amax(dim=2)
+                         for lo in range(0, n, 1024)], dim=1)
+        err = (got.double() - exact).abs()
+        ratio = torch.where(err > 0, err / (mm.allowance(h) * mass), 0.0)
+        ulps = torch.where(big > 0, err / torch.ldexp(torch.ones_like(big), torch.frexp(big)[1] - 24), 0.0)
+        w_h, u_h = ratio.max().item(), ulps.max().item()
+        check(bool(torch.isfinite(got).all()), f"mma-probe H={h}: non-finite dots")
+        check(w_h <= 1.0, f"mma-probe H={h}: a dot's error is {w_h:.3f} x the model's allowance: the tensor-core "
+                          f"accumulation model does not hold on this card")
+        per_kind = {k: ratio[np.arange(n) % MMA_PROBE_Q, np.arange(n)][torch.from_numpy(kinds == k).to(DEV)].max().item()
+                    for k in mm.KINDS}
+        if h == 16:  # matched sweep pairs: 1 and fifteen 2^-k of it (times a common power of two and sign)
+            idx = np.flatnonzero(kinds == "sweep")
+            p = q64[idx % MMA_PROBE_Q] * t64[idx]
+            top = p.abs().amax(dim=1)
+            k = torch.round(-torch.log2(p.abs().amin(dim=1) / top)).long()
+            count = got[idx % MMA_PROBE_Q, idx].double().abs() > top
+            if bool(count.any()):
+                counted = max(counted, int(k[count].max()))
+            if bool((~count).any()):
+                lost = min(lost, int(k[~count].min()))
+        log(f"mma-probe H={h}: {MMA_PROBE_Q} x {n} crafted dots through K6 (Lt = Lq = 1); worst |error| / "
+            f"allowance {w_h:.4f} (allowance {mm.allowance(h) / 2.0**-23:g} x 2^-23 x sum|p|); worst error "
+            f"{u_h:.3f} ulps of the largest product; matched pairs by kind: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in per_kind.items()))
+        worst, worst_ulps = max(worst, w_h), max(worst_ulps, u_h)
+        if h == DIM:  # K1 over the same rows, under its certificate
+            m = t32
+            mb, e, a = dt.prepare_tiered(m)
+            qb, u, v = dt._bf16_query_bounds(q32)
+            valid = torch.ones(n, dtype=torch.int32, device=DEV)
+            vk, rk = scan_select_v3(qb, mb, e, a, valid, u, v, t_top=T_TOP)
+            vf, rf = scan_select_v3(qb, m, e, a, valid, u, v, t_top=T_TOP)
+            torch.cuda.synchronize()
+            check(torch.equal(vk, vf) and torch.equal(rk, rf), "mma-probe K1: the f32 rows differ from the replica")
+            slack = check_sound(vk, rk, t64, q64, valid, range(MMA_PROBE_Q), range(n // SEL), "mma-probe K1")
+            log(f"mma-probe K1 at d={h}: {MMA_PROBE_Q} crafted queries x {n} crafted rows, every emitted bound at "
+                f"least its float64 true score (least slack {slack:.3e}); f32 rows bit-identical to the replica")
+        del got, exact, mass, big, err, ratio, ulps
+    window = (f"an apparent window of {lost} bits" if counted < lost
+              else "no plain window: fifteen small terms survive together where one alone would not")
+    log(f"mma-probe: worst |error| / allowance {worst:.4f} (<= 1: the model holds); worst error {worst_ulps:.3f} "
+        f"ulps of the largest product; at H = 16 fifteen terms of 2^-k of the largest still count at k <= {counted} "
+        f"and are lost at k >= {lost} ({window})")
+    torch.cuda.empty_cache()
 
 
 def k11_bound(bq: int, lq: int, n: int, lt: int, h: int, tok_rows: int, bias_entries: int):
@@ -2719,8 +2815,8 @@ def phase_kernels_k11(seed: int):
             bnd = k11_bound(bq, lq, n, lt, h, rows, rows)
             flop = 2.0 * bq * lq * n * lt * h
             log(f"{name} B={bq} Lq={lq} group={g}: kernel {t_k:.3f} / {t_k2:.3f} ms, plain {t_p:.3f} ms, K6 in the same "
-                f"call {k6_ms:.3f} ms (median, CUDA events); bound {bnd[0]:.3f} ms ({bnd[1]}); its fp32 CUDA-core "
-                f"ceiling {flop / FP32_FLOP_PER_S * 1e3:.3f} ms; bit-identical to K6; max |kernel - plain| "
+                f"call {k6_ms:.3f} ms (median, CUDA events); bound {bnd[0]:.3f} ms ({bnd[1]}); "
+                f"{flop / (t_k * 1e-3) / 1e12:.1f} TFLOP/s; bit-identical to K6; max |kernel - plain| "
                 f"{max_err:.3e}; U - float64 >= {slack:.3e} on {MS_SAMPLE} sampled chunks; tier certified "
                 f"{int(tier[2].sum())}/{bq}, rows and certificate equal to K6's tier")
             if name not in recs:  # the bench's point: B = 8, Lq = 8
@@ -3791,7 +3887,8 @@ def phase_segments_17m(idx, qs, seed: int):
     query (K1 dense top-50, the index's segment BM25 with K12, RRF 60) at
     B = 256, single queries through the index, and
     hybrid_query_arrays_segments at B = SEG_FUSED_B against the staged path
-    on the same queries → (K12a launches, K12b launches) on this path."""
+    on the same queries, and K1 alone timed at the dense stage's call shape
+    → (K1, K12a, K12b launches) on this path."""
     import torch
 
     from trueno_rag_tpu_torch.ops import dense_tiered as dt
@@ -3871,6 +3968,18 @@ def phase_segments_17m(idx, qs, seed: int):
     n1, na, nb = scan_select_v3.launches, fetch_contribs.launches, fetch_contribs8.launches
     peak = torch.cuda.max_memory_allocated()
     check(n1 > 0 and na + nb > 0, f"segments-17.8M launches: K1 {n1}, K12a {na}, K12b {nb}")
+    # K1 alone at the call shape of the dense stage: SEG_DENSE_CHUNK queries over every row
+    qb, u, v = dt._bf16_query_bounds(q[:SEG_DENSE_CHUNK] / torch.linalg.vector_norm(q[:SEG_DENSE_CHUNK], dim=1,
+                                                                                    keepdim=True))
+    vi = valid.int()
+    k1_ms = cuda_ms(lambda: scan_select_v3(qb, mb, e, a, vi, u, v, t_top=T_TOP), 5)
+    b1 = SEG_DENSE_CHUNK
+    k1_bound = bound(b1 * DIM * 2 + n * DIM * 2 + n * 12 + b1 * 8 + b1 * (2 * T_TOP + 1) * (n // 1024) * 4,
+                     2.0 * b1 * n * DIM, BF16_FLOP_PER_S)
+    log(f"segments-17.8M K1 alone at the dense stage's call shape (B = {b1}, N = {n}, d = {DIM}, t_top {T_TOP}): "
+        f"{k1_ms:.3f} ms (median of 5, CUDA events); bound {k1_bound[0]:.3f} ms ({k1_bound[1]}); "
+        f"{2.0 * b1 * n * DIM / (k1_ms * 1e-3) / 1e12:.1f} TFLOP/s")
+    del vi
     log(f"segments-17.8M single queries through search_arrays: {', '.join(f'{t:.1f}' for t in singles)} ms, "
         f"each equal to its batch row ({near} with a near-tie swap); hybrid_query_arrays_segments at B = {b}: {t_h:.1f} ms (host clock; "
         f"dense by the exact fp32 scan, [{b}, {n}] scores), every output identical to the staged path on the same "
@@ -3878,7 +3987,7 @@ def phase_segments_17m(idx, qs, seed: int):
     del m, mb, e, a, valid, out, ref, hyb
     gc.collect()
     torch.cuda.empty_cache()
-    return na, nb
+    return n1, na, nb
 
 
 def phase_segments_store(pipe, seed: int):
@@ -3888,13 +3997,14 @@ def phase_segments_store(pipe, seed: int):
     K1 + K12), single queries, a tag-filtered batch and a tier-none sibling
     (hybrid_query_arrays_segments) against the block path on the same
     queries; the threshold and the block table restored afterwards →
-    (K12a launches, K12b launches) on this path."""
+    (K1, K12a, K12b launches) on this path."""
     import numpy as np
     import torch
 
     import trueno_rag_tpu_torch as rag
     from trueno_rag_tpu_torch.ops import bm25 as ops_bm25
     from trueno_rag_tpu_torch.ops.kernels.bm25_fetch import fetch_contribs, fetch_contribs8
+    from trueno_rag_tpu_torch.ops.kernels.scan_select import scan_select_v3
 
     retr = pipe.retriever
     idx = retr.sparse_index
@@ -3914,7 +4024,7 @@ def phase_segments_store(pipe, seed: int):
         check(idx._snap["blocks"] is None, "segments-store-1M: the moved threshold kept the block table")
         log(f"segments-store-1M: MAX_BLOCK_ROWS moved to {SEG_STORE_THRESHOLD} (a code-path check at "
             f"{retr.registry.capacity_rows} rows); segment snapshot {time.perf_counter() - t0:.1f} s")
-        fetch_contribs.launches = fetch_contribs8.launches = 0
+        scan_select_v3.launches = fetch_contribs.launches = fetch_contribs8.launches = 0
         t0 = time.perf_counter()
         ctxs = pipe.query_with_context_batch(qs, k=K)
         torch.cuda.synchronize()
@@ -3928,9 +4038,9 @@ def phase_segments_store(pipe, seed: int):
         none_res = sib.retriever.retrieve_batch(qs, 2 * K)
         torch.cuda.synchronize()
         t_none = (time.perf_counter() - t1) * 1e3
-        na, nb = fetch_contribs.launches, fetch_contribs8.launches
+        n1, na, nb = scan_select_v3.launches, fetch_contribs.launches, fetch_contribs8.launches
         check(na + nb == n_before + 1, "the tier-none sibling did not answer through one K12 launch")
-        check(na + nb > 0, f"segments-store-1M launches: K12a {na}, K12b {nb}")
+        check(n1 > 0 and na + nb > 0, f"segments-store-1M launches: K1 {n1}, K12a {na}, K12b {nb}")
         del sib
         gc.collect()
         torch.cuda.empty_cache()
@@ -3951,7 +4061,7 @@ def phase_segments_store(pipe, seed: int):
         check(all(key[i] == blk_key[i] for i in range(BATCH) if np.array_equal(seg_r[i], blk_r[i])),
               "segments-store-1M: fused lists differ from the block path's where BM25 agrees")
         log(f"segments-store-1M: query_with_context_batch {ms:.1f} ms = {BATCH / ms * 1e3:.0f} queries/s (host clock), "
-            f"{SEG_SINGLES} single queries, a tag batch all=[t1]; launches K12a {na}, K12b {nb}; BM25 top-{cand} equal "
+            f"{SEG_SINGLES} single queries, a tag batch all=[t1]; launches K1 {n1}, K12a {na}, K12b {nb}; BM25 top-{cand} equal "
             f"to the block path's but for {near} of {BATCH} queries whose rows differ at near-ties ({BM25_ULPS} ulps "
             f"of panel masses {mass.min():.0f}-{mass.max():.0f}); fused lists equal where BM25 agrees; tier-none "
             f"hybrid_query_arrays_segments {t_none:.1f} ms, fused lists identical to the staged path's")
@@ -3960,7 +4070,7 @@ def phase_segments_store(pipe, seed: int):
         idx._dirty = True
         idx.ensure_ready()
     check(idx._snap["blocks"] is not None, "segments-store-1M: the block table was not restored")
-    return na, nb
+    return n1, na, nb
 
 
 def main() -> int:
@@ -3985,6 +4095,7 @@ def main() -> int:
     for kern in k10_kernels:  # no later phase reaches K10: checked still 0 at the end
         kern.launches = 0
     k4 = phase_kernels_k4(args.seed)
+    phase_mma_probe(args.seed)
     k6, k7 = phase_kernels_k6k7(args.seed)
     k11a, k11b = phase_kernels_k11(args.seed)
     from trueno_rag_tpu_torch.ops.kernels import maxsim_scan as km
@@ -3994,14 +4105,15 @@ def main() -> int:
     k1_odd, k6_odd = phase_odd_widths(args.seed)
     phase_tier(args.seed)
     k12a, k12b, seg_idx, seg_qs = phase_kernels_k12(args.seed)
-    k12a["launches"], k12b["launches"] = phase_segments_17m(seg_idx, seg_qs, args.seed)
+    k1_seg, k12a["launches"], k12b["launches"] = phase_segments_17m(seg_idx, seg_qs, args.seed)
     del seg_idx
     gc.collect()
     torch.cuda.empty_cache()
     pipe, k1["launches"] = phase_slice(args.seed)
     _, k3["launches"] = phase_stores(pipe, args.seed)
     k8["launches"], k9["launches"] = phase_block_stores(pipe, args.seed)
-    n_a, n_b = phase_segments_store(pipe, args.seed)
+    n_1, n_a, n_b = phase_segments_store(pipe, args.seed)
+    k1["launches"] += k1_seg + n_1
     k12a["launches"] += n_a
     k12b["launches"] += n_b
     check(k12b["launches"] > 0, "the segment path never launched fetch_contribs8")

@@ -523,3 +523,29 @@ def test_cuda_k7_is_bit_identical_to_plain_version(shape):
     torch.cuda.synchronize()
     assert maxsim_scan_int8_scores.launches == before + 1
     assert torch.equal(got, maxsim_scan_int8_scores_reference(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [15, 16, 17, 100, 520])
+def test_cuda_k6_at_widths_around_the_mma_depth(h):
+    """K6's tensor-core dot at widths below, at and past one 16-column mma
+    slice, one no vector divides, and one whose query rows stream beside the
+    tokens (past 512), over a ragged Lt: within 2·κ·C1·n_max of its plain
+    version."""
+    _cuda_or_skip()
+    n, lt, b, lq = 2049, 13, 5, 9
+    tok, tm, q, qm, valid = build(n, lt, h, b, lq, seed=h)
+    q16 = torch.from_numpy(np.where(qm[:, :, None], q, 0.0)).to(torch.bfloat16).cuda()
+    tok16 = torch.from_numpy(tok).to(torch.bfloat16).cuda()
+    tm_d, v_d = (x.cuda() for x in T(tm, valid))
+    before = maxsim_scan16_scores.launches
+    got = maxsim_scan16_scores(q16, tok16, tm_d, v_d)
+    torch.cuda.synchronize()
+    assert maxsim_scan16_scores.launches == before + 1
+    want = maxsim_scan16_scores_reference(q16, tok16, tm_d, v_d)
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    c1 = torch.linalg.vector_norm(q16.float(), dim=2).sum(dim=1)
+    n_max = torch.where(tm_d, torch.linalg.vector_norm(tok16.float(), dim=2), 0.0).amax(dim=1)
+    tol = 2 * (h + lq) * EPS23 * c1[:, None] * n_max[None, :] + 1e-7
+    fin = torch.isfinite(want)
+    assert bool(((got - want).abs()[fin] <= tol[fin]).all())

@@ -279,3 +279,25 @@ def test_cuda_k11_matches_plain_and_k6(shape, group):
         fin = torch.isfinite(want)
         assert bool(((got - want).abs()[fin] <= tol[fin]).all())
     assert bool((got_a[:, 7] == 0).all()) and bool(torch.isneginf(got_a[:, 3]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [15, 16, 17, 100, 520])
+def test_cuda_k11_equals_k6_at_widths_around_the_mma_depth(h):
+    """K11a and K11b bit for bit equal to K6 at widths below, at and past
+    one 16-column mma slice, one no vector divides, and one whose query rows
+    stream (past 512), over a ragged Lt that the l-major pack pads."""
+    _cuda_or_skip()
+    n, lt, b, lq, group = 1500, 11, 4, 7, 128
+    tok, tm, q16, valid = build(n, lt, h, b, lq, seed=h)
+    q, tok16 = _bf16(q16).cuda(), _bf16(tok).cuda()
+    tm_d, v_d = _t(tm).cuda(), _t(valid).cuda()
+    tok_l, bias_l, _, _ = pm.prepare_maxsim_scan16_opt(tok16, tm_d, group=group)
+    bias = pm.prepare_maxsim_bias_l(tm_d, group)
+    lt_p = -(-lt // 4) * 4
+    k6 = maxsim_scan16_scores(q, tok16, tm_d, v_d)
+    got_a = maxsim_scan16_scores_v2(q, tok_l, bias_l, v_d, lt_p, group)
+    got_b = maxsim_scan16_scores_self_v2(q, tok16, bias, v_d, group)
+    torch.cuda.synchronize()
+    assert torch.equal(got_a, k6) and torch.equal(got_b, k6)
+    assert bool((k6[:, 7] == 0).all()) and bool(torch.isneginf(k6[:, 3]).all())

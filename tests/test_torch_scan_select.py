@@ -304,3 +304,54 @@ def test_cuda_indirect_kernel_matches_plain_version(tagged):
     assert (vk[fin] - vr[fin]).abs().max().item() <= 1e-4
     assert (rk != rr).float().mean().item() <= 1e-3
     assert torch.equal(rk[:, :, 20:], rr[:, :, 20:])  # the pad slots
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [15, 16, 17, 100, 520])
+def test_cuda_tile_scans_at_widths_around_the_mma_depth(d):
+    """K1, K5, K10a and K10b (the four entry points of one template, each on
+    bf16 and on f32 rows) against their plain versions at widths below, at
+    and past one 16-column mma slice, one no vector divides, and one whose
+    queries stream beside the rows (past 512): values within 1e-4, rows
+    equal except at near-ties, K5's and K10b's pad slots equal, and the f32
+    rows bit-identical to the bf16 replica."""
+    _cuda_or_skip()
+    from trueno_rag_tpu_torch.ops.kernels import scan_select as ss
+
+    rng = np.random.default_rng(d)
+    n, b, tile_n = 16384, 70, 2048
+    m = torch.from_numpy(_unit(rng, n, d)).cuda()
+    mb, e, a = dt.prepare_tiered(m)
+    qb, u, v = dt._bf16_query_bounds(torch.from_numpy(_unit(rng, b, d)).cuda())
+    valid = torch.ones(n, dtype=torch.int32, device="cuda")
+    valid[1000:1300] = 0
+    ids = torch.tensor([0, 3, 3, 7, 8], dtype=torch.int32, device="cuda")
+    direct = (("v3", ss.scan_select_v3, ss.scan_select_v3_reference, {}),
+              ("v2", ss.scan_select_v2, ss.scan_select_v2_reference, {"tile_n": tile_n}))
+    indirect = ((ss.scan_select_v3_indirect, ss.scan_select_v3_indirect_reference),
+                (ss.scan_select_v2_indirect, ss.scan_select_v2_indirect_reference))
+    for _, kern, ref, kw in direct:
+        before = kern.launches
+        vk, rk = kern(qb, mb, e, a, valid, u, v, t_top=T_TOP, **kw)
+        vf, rf = kern(qb, m, e, a, valid, u, v, t_top=T_TOP, **kw)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 2
+        assert torch.equal(vk, vf) and torch.equal(rk, rf)
+        vr, rr = ref(qb, mb, e, a, valid, u, v, T_TOP)
+        assert torch.equal(torch.isneginf(vk), torch.isneginf(vr))
+        fin = torch.isfinite(vr)
+        assert (vk[fin] - vr[fin]).abs().max().item() <= 1e-4
+        assert (rk != rr).float().mean().item() <= 1e-3
+    for kern, ref in indirect:
+        before = kern.launches
+        vk, rk = kern(qb, mb, e, a, valid, u, v, ids, tile_n=tile_n, t_top=8)
+        vf, rf = kern(qb, m, e, a, valid, u, v, ids, tile_n=tile_n, t_top=8)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 2
+        assert torch.equal(vk, vf) and torch.equal(rk, rf)
+        vr, rr = ref(qb, mb, e, a, valid, u, v, ids, tile_n, 8)
+        assert torch.equal(torch.isneginf(vk), torch.isneginf(vr))
+        fin = torch.isfinite(vr)
+        assert (vk[fin] - vr[fin]).abs().max().item() <= 1e-4
+        assert (rk != rr).float().mean().item() <= 1e-3
+        assert torch.equal(rk[:, :, 8:], rr[:, :, 8:])  # the pad slot

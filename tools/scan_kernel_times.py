@@ -3,20 +3,29 @@
 shapes on one NVIDIA GPU, to compare two trees of the repository on the
 same card.
 
-    cd <tree root> && PYTHONPATH=$PWD python3 <this file> [--label NAME]
+    cd <tree root> && PYTHONPATH=$PWD python3 <this file> [--label NAME] [--groups scan,maxsim,dense,attention]
 
 Run it from each tree's root (the ``trueno_rag_tpu_torch`` it imports is
 the one on ``PYTHONPATH``), alternating the trees (A, B, B, A) within one
 machine session. Prints one JSON line: the card, its power limit and the
-median CUDA-event milliseconds of K1 ``scan_select_v3`` and K3
-``scan_select_int8_v3`` at 1,048,576 x 384, B = 256, t_top 4, and of K6
-``maxsim_scan16_scores`` and K7 ``maxsim_scan_int8_scores`` at 1,048,576
-chunks x 32 tokens x 128, B = 8, Lq = 8; of K2 ``score_blockmax`` and K2b
-``blockmax_only`` at 1,048,576 x 384, B = 256, f32, beside ``torch.matmul``
-+ ``amax``; and of K4 ``block_attention`` at (a) BH 32 x T 8192 x hd 128,
-causal and not, half the rows without their last 1,000 keys, beside SDPA
-with the same boolean causal-and-key mask and SDPA ``is_causal``, and at (b)
-8 rows x 32 heads x T 1024 with ragged masks and an all-PAD row.
+median CUDA-event milliseconds of, by group,
+- scan: K1 ``scan_select_v3`` and K3 ``scan_select_int8_v3`` at 1,048,576
+  x 384, B = 256, t_top 4, K1 also on the f32 rows (the inline-cast
+  layout) and at the segment path's call shape (B = 64 over 17,825,792
+  rows); K10a ``scan_select_v2`` at the K1 shape; K5
+  ``scan_select_v3_indirect`` and K10b ``scan_select_v2_indirect`` at
+  1,048,576 x 384, B = 8, tile_n 4096, t_top 16, 120 tiles + 8 pads;
+- maxsim: K6 ``maxsim_scan16_scores``, K11a ``maxsim_scan16_scores_v2``
+  and K11b ``maxsim_scan16_scores_self_v2`` (group 256) at 1,048,576
+  chunks x 32 tokens x 128, and K7 ``maxsim_scan_int8_scores`` on the same
+  tokens in int8, B = 8, Lq = 8;
+- dense: K2 ``score_blockmax`` and K2b ``blockmax_only`` at 1,048,576 x
+  384, B = 256, f32, beside ``torch.matmul`` + ``amax``;
+- attention: K4 ``block_attention`` at (a) BH 32 x T 8192 x hd 128,
+  causal and not, half the rows without their last 1,000 keys, beside SDPA
+  with the same boolean causal-and-key mask and SDPA ``is_causal``, and at
+  (b) 8 rows x 32 heads x T 1024 with ragged masks and an all-PAD row,
+  beside SDPA with the same boolean causal-and-key mask.
 """
 
 from __future__ import annotations
@@ -29,7 +38,9 @@ import torch
 import torch.nn.functional as F
 
 N, DIM, BATCH = 1 << 20, 384, 256
-LT, H, BQ, LQ = 32, 128, 8, 8
+N_SEG = (1 << 24) + (1 << 20)  # the segment path's rows
+TILE_N, K5_LIVE, K5_PADS = 4096, 120, 8  # the clustered path's tile list
+LT, H, BQ, LQ, GROUP = 32, 128, 8, 8, 256
 REPS = 20
 
 
@@ -52,36 +63,55 @@ def unit(shape, gen):
     return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--label", default="")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("scan_kernel_times: needs a CUDA device")
+def scan_group(out, gen) -> None:
     from trueno_rag_tpu_torch.ops import dense_tiered as dt
-    from trueno_rag_tpu_torch.ops.dense import require_fp32
-    from trueno_rag_tpu_torch.ops.kernels.attention import block_attention
-    from trueno_rag_tpu_torch.ops.kernels.dense_score import blockmax_only, score_blockmax
-    from trueno_rag_tpu_torch.ops.kernels.maxsim_scan import maxsim_scan16_scores, maxsim_scan_int8_scores
-    from trueno_rag_tpu_torch.ops.kernels.scan_select import scan_select_int8_v3, scan_select_v3
+    from trueno_rag_tpu_torch.ops.kernels import scan_select as ss
 
-    require_fp32()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    out = {"label": args.label}
     m, q = unit((N, DIM), gen), unit((BATCH, DIM), gen)
     valid = torch.ones(N, dtype=torch.int32, device="cuda")
     mb, e, a = dt.prepare_tiered(m)
     qb, u, v = dt._bf16_query_bounds(q)
-    out["K1_ms"] = cuda_ms(lambda: scan_select_v3(qb, mb, e, a, valid, u, v, t_top=4))
+    out["K1_ms"] = cuda_ms(lambda: ss.scan_select_v3(qb, mb, e, a, valid, u, v, t_top=4))
+    out["K1_f32_rows_ms"] = cuda_ms(lambda: ss.scan_select_v3(qb, m, e, a, valid, u, v, t_top=4))
+    out["K10a_ms"] = cuda_ms(lambda: ss.scan_select_v2(qb, mb, e, a, valid, u, v, t_top=4))
     m_i8, s_row, e8, a8 = dt.prepare_int8(m)
     q_i8, t_q, u8, v8 = dt._int8_query_bounds(q)
-    out["K3_ms"] = cuda_ms(lambda: scan_select_int8_v3(q_i8, m_i8, s_row, e8, a8, valid, t_q, u8, v8, t_top=4))
-    del mb, m_i8
+    out["K3_ms"] = cuda_ms(lambda: ss.scan_select_int8_v3(q_i8, m_i8, s_row, e8, a8, valid, t_q, u8, v8, t_top=4))
+    del m_i8
+    n_tiles = N // TILE_N
+    live = torch.sort(torch.randperm(n_tiles, device="cuda", generator=gen)[:K5_LIVE]).values
+    ids = torch.cat([live, torch.full((K5_PADS,), n_tiles, device="cuda", dtype=live.dtype)]).to(torch.int32)
+    qb8, u8, v8 = dt._bf16_query_bounds(unit((8, DIM), gen))
+    out["K5_ms"] = cuda_ms(lambda: ss.scan_select_v3_indirect(qb8, mb, e, a, valid, u8, v8, ids, tile_n=TILE_N,
+                                                              t_top=16))
+    out["K10b_ms"] = cuda_ms(lambda: ss.scan_select_v2_indirect(qb8, mb, e, a, valid, u8, v8, ids, tile_n=TILE_N,
+                                                                t_top=16))
+    del m, mb, e, a
+    # the segment path's dense stage calls K1 with 64 queries over 17.8M rows
+    mb = torch.empty((N_SEG, DIM), dtype=torch.bfloat16, device="cuda")
+    e, a = torch.empty(N_SEG, device="cuda"), torch.empty(N_SEG, device="cuda")
+    for lo in range(0, N_SEG, N):
+        for dest, part in zip((mb, e, a), dt.prepare_tiered(unit((N, DIM), gen))):
+            dest[lo:lo + N].copy_(part)
+    valid = torch.ones(N_SEG, dtype=torch.int32, device="cuda")
+    out["K1_17.8M_B64_ms"] = cuda_ms(lambda: ss.scan_select_v3(qb[:64], mb, e, a, valid, u[:64], v[:64], t_top=4))
+    del mb, e, a, valid
+
+
+def dense_group(out, gen) -> None:
+    from trueno_rag_tpu_torch.ops.kernels.dense_score import blockmax_only, score_blockmax
+
+    m, q = unit((N, DIM), gen), unit((BATCH, DIM), gen)
     keep = torch.ones(N, dtype=torch.bool, device="cuda")
     out["K2_ms"] = cuda_ms(lambda: score_blockmax(q, m, keep))
     out["K2b_ms"] = cuda_ms(lambda: blockmax_only(q, m, keep))
     out["matmul_amax_ms"] = cuda_ms(lambda: torch.matmul(q, m.T).view(BATCH, -1, 128).amax(dim=2))
-    del m
+
+
+def maxsim_group(out, gen) -> None:
+    from trueno_rag_tpu_torch.ops import dense_tiered as dt
+    from trueno_rag_tpu_torch.ops import maxsim as pm
+    from trueno_rag_tpu_torch.ops.kernels import maxsim_scan as km
 
     tok = torch.empty((N, LT, H), dtype=torch.bfloat16, device="cuda")
     for lo in range(0, N, 1 << 16):
@@ -89,7 +119,14 @@ def main() -> None:
     t_mask = torch.ones((N, LT), dtype=torch.bool, device="cuda")
     tvalid = torch.ones(N, dtype=torch.bool, device="cuda")
     q16 = unit((BQ, LQ, H), gen).to(torch.bfloat16)
-    out["K6_ms"] = cuda_ms(lambda: maxsim_scan16_scores(q16, tok, t_mask, tvalid))
+    out["K6_ms"] = cuda_ms(lambda: km.maxsim_scan16_scores(q16, tok, t_mask, tvalid))
+    bias = pm.prepare_maxsim_bias_l(t_mask, GROUP)
+    out["K11b_ms"] = cuda_ms(lambda: km.maxsim_scan16_scores_self_v2(q16, tok, bias, tvalid, GROUP))
+    del bias
+    tok_l, bias_l, _, _ = pm.prepare_maxsim_scan16_opt(tok, t_mask, group=GROUP)
+    lt_p = tok_l.shape[0] // (-(-N // GROUP) * GROUP)
+    out["K11a_ms"] = cuda_ms(lambda: km.maxsim_scan16_scores_v2(q16, tok_l, bias_l, tvalid, lt_p, GROUP))
+    del tok_l, bias_l
     tok8 = torch.empty((N, LT, H), dtype=torch.int8, device="cuda")
     s_tok = torch.empty((N, LT), dtype=torch.float32, device="cuda")
     for lo in range(0, N, 1 << 16):
@@ -98,9 +135,12 @@ def main() -> None:
         s_tok[lo:lo + (1 << 16)] = scale.view(-1, LT)
     del tok
     q8, tq, _ = dt._quantize_rows(q16.float().reshape(-1, H), clip=True)
-    out["K7_ms"] = cuda_ms(lambda: maxsim_scan_int8_scores(q8.view(BQ, LQ, H), tq.view(BQ, LQ), tok8, s_tok,
-                                                          t_mask, tvalid))
-    del tok8, s_tok
+    out["K7_ms"] = cuda_ms(lambda: km.maxsim_scan_int8_scores(q8.view(BQ, LQ, H), tq.view(BQ, LQ), tok8, s_tok,
+                                                             t_mask, tvalid))
+
+
+def attention_group(out, gen) -> None:
+    from trueno_rag_tpu_torch.ops.kernels.attention import block_attention
 
     def qkv(bh, t, hd):
         return [torch.randn(bh, t, hd, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(3)]
@@ -123,6 +163,29 @@ def main() -> None:
     qb4, kb4, vb4 = qkv(b * heads, t, hd)
     mask = lengths_mask(t, [t, t - 14, t - 21, 0, t - 7, t - 26, t, t - 16])
     out["K4_b_ms"] = cuda_ms(lambda: block_attention(qb4, kb4, vb4, mask, causal=True, heads=heads))
+    keep = mask[:, None, None, :] & torch.ones(t, t, dtype=torch.bool, device="cuda").tril()[None, None]
+    qs, ks, vs = (x.view(b, heads, t, hd) for x in (qb4, kb4, vb4))
+    out["sdpa_masked_b_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=keep))
+
+
+GROUPS = {"scan": scan_group, "maxsim": maxsim_group, "dense": dense_group, "attention": attention_group}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--label", default="")
+    ap.add_argument("--groups", default=",".join(GROUPS), help="comma-separated: " + ", ".join(GROUPS))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("scan_kernel_times: needs a CUDA device")
+    from trueno_rag_tpu_torch.ops.dense import require_fp32
+
+    require_fp32()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {"label": args.label}
+    for name in args.groups.split(","):
+        GROUPS[name](out, gen)
+        torch.cuda.empty_cache()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     out["card"] = smi.stdout.strip()

@@ -23,36 +23,45 @@
 // order, one f32 rounding per add (and per multiply in the int8 form), as
 // the plain versions in ops/kernels/maxsim_scan.py do.
 //
-// Layout. One thread block per (128-chunk tile, group of QG whole queries).
-// A group holds QG = min(16, max(1, 64 / Lq)) queries, whose QG*Lq query
+// Layout. One thread block per (128-chunk tile, group of QG whole queries);
+// in the bf16 form the group is the fastest-varying part of the block
+// index, so the blocks that read one tile's tokens run together and the
+// tokens come from HBM once. A group holds QG = min(16, max(1, 64 / Lq)) queries, whose QG*Lq query
 // tokens run through sub-tiles of 64 rows, so B*Lq*H never has to fit in
-// shared memory and any Lq works. For each sub-tile the block walks the
-// chunks' Lt token positions; for each position j it stages a depth slice
-// of the 128 chunks' token j and of the 64 query rows in shared memory
-// (converted to f32, or kept as packed int8 words) and each of the 256
-// threads accumulates an 8-chunk x 4-row register tile of dots. After the
-// full depth the tile's dots fold into a running max (masked tokens are
-// skipped), so the [B*Lq, N*Lt] interaction never leaves registers. The
-// bests then pass through shared memory for the ordered Lq-sum. The
-// [N, Lt, H] replica is read in place at any N, Lt, B and H: a width H
-// that is not a multiple of the 16-byte vector (8 bf16, 16 int8) has no
-// aligned rows and a ragged last vector, so those loads go byte by byte
-// with the columns past H read as zero (row_load.cuh), which adds exactly
-// 0 to every dot; the zero-copy tier keeps reading the stored tokens in
-// place at any width. The Pallas
-// wrapper's TPU workarounds (the Lt-to-32 pad copy, the ragged-tail split,
-// the VMEM-sized tiles and query slabs) have no counterpart here.
+// shared memory and any Lq works. The [N, Lt, H] replica is read in place
+// at any N, Lt, B and H: a width H that is not a multiple of the 16-byte
+// vector (8 bf16, 16 int8) has no aligned rows and a ragged last vector,
+// so those loads go byte by byte with the columns past H read as zero
+// (row_load.cuh), which adds exactly 0 to every dot. The Pallas wrapper's
+// TPU workarounds (the Lt-to-32 pad copy, the ragged-tail split, the
+// VMEM-sized tiles and query slabs) have no counterpart here.
 //
-// Numbers. bf16: products of two bf16 values are exact in f32 and each
-// __fmaf_rn rounds once, so a dot is an f32 sum of exact products in some
-// order; its error stays inside the certificate's kappa = (H+Lq)*2^-23
-// share (ops/maxsim.py::_scan16_fused_widths) for any order. Tensor cores
-// (mma/wgmma) do not promise IEEE f32 rounding of their accumulation, so
-// they are not used until kappa is re-derived for them. int8: |q8|, |tok8|
-// <= 127 and H*127^2 < 2^24 (the wrapper checks H), so the __dp4a integer
-// dot is exact in any order and its conversion to f32 is exact; with the
-// scale multiplies and adds written as __fmul_rn/__fadd_rn (no contraction)
-// the result is bit-identical to the plain version.
+// bf16 (K6, K11a, K11b). A sub-tile's query rows are staged to shared
+// memory once, as bf16 (for H > 512 they stream beside the tokens instead).
+// The chunks' token rows stream through a 3-stage cp.async ring of
+// 128-chunk x 64-column bf16 slices, position after position, and the
+// 64 x 128 interaction tile S_j = Q . T_j^T of each position j is the mma
+// dot of mma_bf16.cuh (ldmatrix + mma.sync m16n8k16 bf16, one 16-column
+// slice per mma, f32 __fadd_rn between slices). The tile stays in the
+// mma's accumulator registers; after its full depth it folds elementwise
+// into a running max in the same fragment layout (kMask skips a masked
+// token; the v2 layouts add the bias first), so the [B*Lq, N*Lt]
+// interaction never leaves registers. The bests then pass through shared
+// memory for the ordered Lq-sum.
+//
+// int8 (K7). One 8-chunk x 4-row register tile of __dp4a dots per thread
+// over depth slices of 64 int8 staged as packed words in shared memory,
+// folded into the same kind of running max after the full depth.
+//
+// Numbers. bf16: mma_bf16.cuh derives the tensor-core dot's worst case,
+// (min(H,16) + (ceil(H/16)-1)/2)*2^-23*sum|p|, within the certificate's
+// H*2^-23 share of kappa = (H+Lq)*2^-23 (ops/maxsim.py::_scan16_fused_widths)
+// for every H, and chip_smoke.py's mma-probe phase holds the card to that
+// model. int8: |q8|, |tok8| <= 127 and H*127^2 < 2^24 (the wrapper checks
+// H), so the __dp4a integer dot is exact in any order and its conversion to
+// f32 is exact; with the scale multiplies and adds written as
+// __fmul_rn/__fadd_rn (no contraction) the result is bit-identical to the
+// plain version.
 //
 // The v2 pair (LAYOUT kLMajor and kSelf). The same bf16 dot program, with
 // the padding excluded by an additive f32 bias instead of a skip: bias_l
@@ -63,27 +72,27 @@
 // there is the pack's padded Lt_p, whose pad positions carry the bias);
 // kSelf (K11b) reads the primary [N, Lt, H] tokens in place at c*Lt + l,
 // as K6 does, and only the bias l-major. Each dot gets its bias added with
-// __fadd_rn (never contracted into the dot's last FMA), every position is
-// maxed, and a best at or below -2^29 (an empty chunk) resets to 0. Adding
-// 0.0 to a dot is exact, and a dot never starts at -0, so on the same bf16
-// values and valid tokens the v2 scores equal K6's bit for bit: the same
-// dot order, the same max over the valid dots, the same ordered Lq-sum.
-// Each chunk computes its own index, so a 128-chunk tile may straddle
-// groups and any group >= 1 works; offsets are 64-bit (a 1M x 32 x 128
-// pack holds 4.3e9 elements).
+// __fadd_rn after its full depth, every position is maxed, and a best at
+// or below -2^29 (an empty chunk) resets to 0. Adding 0.0 to a dot is
+// exact, and a dot never starts at -0 (the sum starts at +0), so on the
+// same bf16 values and valid tokens the v2 scores equal K6's bit for bit:
+// the same dot program, the same max over the valid dots, the same ordered
+// Lq-sum. Each chunk computes its own index, so a 128-chunk tile may
+// straddle groups and any group >= 1 works; offsets are 64-bit (a 1M x 32
+// x 128 pack holds 4.3e9 elements).
 //
 // What bounds it on the H100. At the JAX package's serving shape (N =
 // 1,048,576 chunks x Lt 32 x H 128, B = 8, Lq = 8) the bf16 form is
-// 2*B*Lq*N*Lt*H = 5.5e11 FLOP of f32 FMA, 8.2 ms at the 67 TFLOP/s CUDA-core
-// peak, against 2.6 ms to stream the 8.6 GB replica: the FMA rate is the
-// bound, so the design keeps 32 FMAs per 3 shared-memory vector loads.
-// The int8 form at 2,097,152 chunks is 1.1e12 integer operations, 0.56 ms
-// at the int8 tensor-core peak, against 2.7 ms of bytes; __dp4a on CUDA
-// cores runs far below that peak, so here too the dot's instruction rate,
-// not HBM, is what this first port will meet.
-//
-// The v2 pair does K6's work (the bias read adds 4 bytes per token
-// position, a sixteenth of the row), so the same FMA rate bounds it.
+// 2*B*Lq*N*Lt*H = 5.5e11 FLOP, 0.56 ms at the bf16 tensor-core peak,
+// against 2.6 ms to stream the 8.6 GB replica: the bytes are the bound,
+// so the design keeps copies in flight while the mma tiles run (the split
+// accumulation's adds and the max fold cost CUDA-core issue slots beside
+// them, well inside the byte time). The v2 pair does K6's work (the bias
+// read adds 4 bytes per token position, a sixteenth of the row). The int8
+// form at 2,097,152 chunks is 1.1e12 integer operations, 0.56 ms at the
+// int8 tensor-core peak, against 2.7 ms of bytes; __dp4a on CUDA cores
+// runs far below that peak, so there the dot's instruction rate, not HBM,
+// is what the kernel meets.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC; called through the plain C entry points
@@ -96,9 +105,10 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
-
+#include "mma_bf16.cuh"
 #include "row_load.cuh"
+
+namespace mb = mma_bf16;
 
 namespace {
 
@@ -106,12 +116,15 @@ constexpr int THREADS = 256;
 constexpr int CT = 128;     // chunks per block
 constexpr int RT = 64;      // query-token rows per sub-tile
 constexpr int QG_MAX = 16;  // whole queries per block
-constexpr int TC = 8;       // chunks per thread: cg*4 .. +3 and 64 + cg*4 .. +3
-constexpr int TR = 4;       // query rows per thread: rg*4 .. +3
-constexpr int KF = 32;      // bf16 depth staged per step (as f32)
+constexpr int TC = 8;       // int8: chunks per thread, cg*4 .. +3 and 64 + cg*4 .. +3
+constexpr int TR = 4;       // int8: query rows per thread, rg*4 .. +3
 constexpr int KW = 16;      // int8 depth staged per step, in words of 4 (64 int8)
+constexpr int NST = 3;      // bf16 ring stages
+constexpr int BSTR = 152;   // bf16 bests row stride (f32): float2 stores conflict-free
 
-static_assert((CT / TC) * (RT / TR) == THREADS, "the thread tiles cover the block tile");
+static_assert((CT / TC) * (RT / TR) == THREADS, "the int8 thread tiles cover the block tile");
+static_assert(mb::TILE_A == RT && mb::TILE_B == CT && mb::THREADS == THREADS,
+              "the mma tile is one sub-tile of query rows by one chunk tile");
 
 // How a chunk's token rows are found and its padding excluded.
 enum Layout {
@@ -127,46 +140,210 @@ __device__ __forceinline__ int64_t lmajor_index(int64_t c, int l, int lt, int gr
   return ((c / group) * lt + l) * (int64_t)group + c % group;
 }
 
-// Shared memory: the staging buffers and the bests of a sub-tile are never
-// live together, so they share storage.
+// The ordered Lq-sum of one sub-tile's bests best[r][c] (row stride bstr):
+// each (query, chunk) pair adds its rows of the sub-tile in ascending
+// order; tq (int8) scales each best first.
 template <bool INT8>
-struct Smem {
-  union {
-    struct {
-      // depth-major: a quarter warp reads 8 consecutive float4 / int4
-      typename std::conditional<INT8, int, float>::type tok[INT8 ? KW : KF][CT];
-      typename std::conditional<INT8, int, float>::type q[INT8 ? KW : KF][RT];
-    } stage;
-    float best[RT][CT];  // a sub-tile's bests (0 for an empty chunk)
-  } u;
-  unsigned char mask[CT];  // t_mask[chunk, j] of the current position (kMask)
-  float scale[CT];         // s_tok[chunk, j] (int8 only)
-  float bias[CT];          // bias_l at chunk, j (kLMajor, kSelf)
-  float sum[QG_MAX][CT];   // running Lq-sums of the block's queries
-};
-
-__device__ __forceinline__ void unpack_bf16x8(uint4 raw, float* f) {
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    f[2 * e] = __uint_as_float(w[e] << 16);
-    f[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+__device__ __forceinline__ void lq_sum(float (*sum)[CT], const float* best, int bstr, int sub,
+                                       int sub_rows, int qg, int lq, int64_t row0,
+                                       int64_t all_rows, const float* __restrict__ tq) {
+  for (int p = threadIdx.x; p < qg * CT; p += THREADS) {
+    const int qi = p / CT;
+    const int c = p % CT;
+    const int lo = max(qi * lq, sub * RT);
+    const int hi = min((qi + 1) * lq, sub * RT + sub_rows);
+    float s = sum[qi][c];
+    for (int r = lo; r < hi; ++r) {
+      const float x = best[(r - sub * RT) * bstr + c];
+      if constexpr (INT8) {
+        const int64_t flat = row0 + r;
+        const float t = flat < all_rows ? __ldg(tq + flat) : 1.0f;
+        s = __fadd_rn(s, __fmul_rn(t, x));
+      } else {
+        s = __fadd_rn(s, x);
+      }
+    }
+    sum[qi][c] = s;
   }
 }
 
-template <bool INT8, bool ALIGNED, int LAYOUT>
+// The bf16 scans (K6, K11a, K11b). Dynamic shared memory: the resident
+// query rows (mma_bf16.cuh), the ring (its first RT x BSTR floats hold a
+// sub-tile's bests once its positions are done), the Lq-sums, and each
+// chunk's l-major base index lmajor_index(c, 0, lt, group) (v2 layouts), so
+// that no position divides by the group.
+int scan16_smem_bytes(int h) {
+  return mb::resident_bytes(h) + NST * mb::stage_bytes(!mb::a_resident(h)) + QG_MAX * CT * 4 + CT * 8;
+}
+
+template <bool ALIGNED, int LAYOUT>
 __global__ void __launch_bounds__(THREADS, 2)
-maxsim_scan_kernel(const void* __restrict__ q_,          // [B*Lq, H] bf16 or int8
-                   const float* __restrict__ tq,         // [B*Lq] query scales (int8) or null
-                   const void* __restrict__ tok_,        // [N*Lt, H] bf16 or int8, or the l-major pack
-                   const float* __restrict__ s_tok,      // [N*Lt] token scales (int8) or null
-                   const unsigned char* __restrict__ t_mask,  // [N*Lt] bool (kMask) or null
-                   const float* __restrict__ bias_l,     // l-major mask bias (kLMajor, kSelf) or null
-                   const unsigned char* __restrict__ valid,   // [N] bool
-                   float* __restrict__ out,              // [B, N]
-                   int nq, int lq, int n, int lt, int h, int qg, int group) {
-  static_assert(LAYOUT == kMask || !INT8, "the v2 layouts are bf16 only");
-  __shared__ __align__(16) Smem<INT8> sm;
+maxsim_scan16_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Lq, H]
+                     const __nv_bfloat16* __restrict__ tok,    // [N*Lt, H], or the l-major pack
+                     const unsigned char* __restrict__ t_mask, // [N*Lt] bool (kMask) or null
+                     const float* __restrict__ bias_l,         // l-major mask bias (kLMajor, kSelf) or null
+                     const unsigned char* __restrict__ valid,  // [N] bool
+                     float* __restrict__ out,                  // [B, N]
+                     int nq, int lq, int n, int lt, int h, int qg, int n_groups, int group) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  unsigned char* ring = smem + mb::resident_bytes(h);
+  float* bests = reinterpret_cast<float*>(ring);
+  float(*sum)[CT] = reinterpret_cast<float(*)[CT]>(ring + NST * mb::stage_bytes(!mb::a_resident(h)));
+  int64_t* lbase = reinterpret_cast<int64_t*>(sum + QG_MAX);
+  static_assert(RT * BSTR * 4 <= NST * CT * mb::SROW * 2, "the bests fit in the ring");
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = blockIdx.x % n_groups;
+  const int64_t c0 = (int64_t)(blockIdx.x / n_groups) * CT;
+  const int64_t row0 = (int64_t)g * qg * lq;  // the group's first flat query row
+  const int rows = qg * lq;                   // the group's query rows
+  const int64_t all_rows = (int64_t)nq * lq;
+  const bool res = mb::a_resident(h);
+  const int hp = mb::pad16(h);
+  const int ks = mb::k_slices(h);
+  const int a_stride = res ? hp + mb::PAD : mb::SROW;
+
+  for (int p = tid; p < QG_MAX * CT; p += THREADS) (&sum[0][0])[p] = 0.0f;
+  if (LAYOUT != kMask && tid < CT) lbase[tid] = lmajor_index(c0 + tid, 0, lt, group);
+  __syncthreads();
+  // chunk c0 + i's position j in the l-major layout
+  auto lmajor = [&](int i, int j) -> int64_t { return lbase[i] + (int64_t)j * group; };
+
+  for (int sub = 0; sub * RT < rows; ++sub) {
+    const int sub_rows = min(RT, rows - sub * RT);
+    auto q_src = [&](int i) -> int64_t {
+      const int r = sub * RT + i;
+      return r < rows && row0 + r < all_rows ? (row0 + r) * h : -1;
+    };
+    if (res) mb::stage_rows<ALIGNED>(qs, a_stride, q, q_src, RT, 0, hp / 8, hp / 8, h);
+
+    mb::Acc acc, best;
+    mb::zero(acc);
+#pragma unroll
+    for (int mt = 0; mt < mb::MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < mb::NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) best[mt][nt][e] = -INFINITY;
+    // this thread's chunks' mask (kMask) or bias at the current position:
+    // chunk (warp & 3)*32 + nt*8 + 2*(lane & 3) + e of the tile
+    float keep[mb::NT][2];
+
+    mb::ring_run<NST>(
+        lt * ks, ring, mb::stage_bytes(!res),
+        [&](int step, unsigned char* st) {
+          const int j = step / ks, k0 = (step % ks) * mb::KD;
+          const int nv = min(mb::KD, hp - k0) / 8;
+          auto tok_src = [&](int i) -> int64_t {
+            const int64_t c = c0 + i;
+            if (c >= n) return -1;
+            return (LAYOUT == kLMajor ? lmajor(i, j) : c * lt + j) * h;
+          };
+          auto* t = reinterpret_cast<__nv_bfloat16*>(st);
+          mb::stage_rows<ALIGNED>(t, mb::SROW, tok, tok_src, CT, k0, 8, nv, h);
+          if (!res) mb::stage_rows<ALIGNED>(t + CT * mb::SROW, mb::SROW, q, q_src, RT, k0, 8, nv, h);
+        },
+        [&](int step, unsigned char* st) {
+          const int j = step / ks, kc = step % ks, k0 = kc * mb::KD;
+          if (kc == 0) {
+#pragma unroll
+            for (int nt = 0; nt < mb::NT; ++nt)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int i = (warp & 3) * 32 + nt * 8 + 2 * (lane & 3) + e;
+                const int64_t c = c0 + i;
+                if constexpr (LAYOUT == kMask) {
+                  keep[nt][e] = c < n && t_mask[c * lt + j] ? 1.0f : 0.0f;
+                } else {
+                  keep[nt][e] = c < n ? __ldg(bias_l + lmajor(i, j)) : MASK_BIAS;
+                }
+              }
+          }
+          auto* t = reinterpret_cast<const __nv_bfloat16*>(st);
+          const __nv_bfloat16* a = res ? qs + k0 : t + CT * mb::SROW;
+          mb::dot_slices(acc, a, a_stride, t, min(mb::KD, hp - k0) / 16, sub_rows);
+          if (kc != ks - 1) return;
+          // the full dot of position j: fold into the max
+#pragma unroll
+          for (int mt = 0; mt < mb::MT; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < mb::NT; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const float k = keep[nt][e & 1];
+                if constexpr (LAYOUT == kMask) {
+                  if (k != 0.0f) best[mt][nt][e] = fmaxf(best[mt][nt][e], acc[mt][nt][e]);
+                } else {
+                  best[mt][nt][e] = fmaxf(best[mt][nt][e], __fadd_rn(acc[mt][nt][e], k));
+                }
+                acc[mt][nt][e] = 0.0f;
+              }
+        });
+
+    // the sub-tile's bests (an empty chunk's -inf, or with the bias its
+    // ~-2^30, counts 0) → shared memory, over the ring
+    __syncthreads();
+#pragma unroll
+    for (int mt = 0; mt < mb::MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < mb::NT; ++nt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float x = best[mt][nt][2 * half + e];
+            if constexpr (LAYOUT == kMask) {
+              v[e] = isfinite(x) ? x : 0.0f;
+            } else {
+              v[e] = x > EMPTY_BELOW ? x : 0.0f;
+            }
+          }
+          const int r = (warp >> 2) * 32 + mt * 16 + (lane >> 2) + 8 * half;
+          const int c = (warp & 3) * 32 + nt * 8 + 2 * (lane & 3);
+          *reinterpret_cast<float2*>(&bests[r * BSTR + c]) = make_float2(v[0], v[1]);
+        }
+    __syncthreads();
+    lq_sum<false>(sum, bests, BSTR, sub, sub_rows, qg, lq, row0, all_rows, nullptr);
+    __syncthreads();
+  }
+
+  for (int p = tid; p < qg * CT; p += THREADS) {
+    const int qi = p / CT;
+    const int64_t b = (int64_t)g * qg + qi;
+    const int64_t c = c0 + p % CT;
+    if (b < nq && c < n) out[b * n + c] = valid[c] ? sum[qi][p % CT] : -INFINITY;
+  }
+}
+
+// The int8 scan (K7): __dp4a on CUDA cores, exact.
+struct SmemInt8 {
+  union {
+    struct {
+      // depth-major: a quarter warp reads 8 consecutive int4
+      int tok[KW][CT];
+      int q[KW][RT];
+    } stage;
+    float best[RT][CT];  // a sub-tile's bests (0 for an empty chunk)
+  } u;
+  unsigned char mask[CT];  // t_mask[chunk, j] of the current position
+  float scale[CT];         // s_tok[chunk, j]
+  float sum[QG_MAX][CT];   // running Lq-sums of the block's queries
+};
+
+template <bool ALIGNED>
+__global__ void __launch_bounds__(THREADS, 2)
+maxsim_scan_int8_kernel(const signed char* __restrict__ q,   // [B*Lq, H]
+                        const float* __restrict__ tq,        // [B*Lq] query scales
+                        const signed char* __restrict__ tok, // [N*Lt, H]
+                        const float* __restrict__ s_tok,     // [N*Lt] token scales
+                        const unsigned char* __restrict__ t_mask,  // [N*Lt] bool
+                        const unsigned char* __restrict__ valid,   // [N] bool
+                        float* __restrict__ out,             // [B, N]
+                        int nq, int lq, int n, int lt, int h, int qg) {
+  __shared__ __align__(16) SmemInt8 sm;
   const int tid = threadIdx.x;
   const int cg = tid & 15;  // chunk group: a quarter warp spans 8 of them
   const int rg = tid >> 4;  // row group
@@ -175,8 +352,7 @@ maxsim_scan_kernel(const void* __restrict__ q_,          // [B*Lq, H] bf16 or in
   const int64_t row0 = (int64_t)g * qg * lq;  // the group's first flat query row
   const int rows = qg * lq;                   // the group's query rows
   const int64_t all_rows = (int64_t)nq * lq;
-  const int step = INT8 ? 4 * KW : KF;        // depth per staging step
-  constexpr int ES = INT8 ? 1 : 2;            // bytes per element
+  constexpr int step = 4 * KW;                // depth per staging step
 
   for (int p = tid; p < QG_MAX * CT; p += THREADS) (&sm.sum[0][0])[p] = 0.0f;
 
@@ -189,7 +365,7 @@ maxsim_scan_kernel(const void* __restrict__ q_,          // [B*Lq, H] bf16 or in
       for (int r = 0; r < TR; ++r) best[e][r] = -INFINITY;
 
     for (int j = 0; j < lt; ++j) {
-      typename std::conditional<INT8, int, float>::type acc[TC][TR];
+      int acc[TC][TR];
 #pragma unroll
       for (int e = 0; e < TC; ++e)
 #pragma unroll
@@ -197,8 +373,7 @@ maxsim_scan_kernel(const void* __restrict__ q_,          // [B*Lq, H] bf16 or in
 
       // this thread stages chunk c0 + (tid & 127) at every depth step; its
       // token row at position j
-      const int64_t tok_row = LAYOUT == kLMajor ? lmajor_index(c0 + (tid & (CT - 1)), j, lt, group)
-                                                : (c0 + (tid & (CT - 1))) * lt + j;
+      const int64_t tok_row = (c0 + (tid & (CT - 1))) * lt + j;
       for (int k0 = 0; k0 < h; k0 += step) {
         // chunk tokens: 128 chunks x 4 vectors of 16 bytes; a warp covers 32
         // chunks of one vector column, so the shared stores are conflict-free
@@ -207,107 +382,66 @@ maxsim_scan_kernel(const void* __restrict__ q_,          // [B*Lq, H] bf16 or in
           const int v = tid + THREADS * s;
           const int c = v & (CT - 1);
           const int part = v >> 7;
-          const int kk = k0 + part * (INT8 ? 16 : 8);
+          const int kk = k0 + part * 16;
           uint4 raw = make_uint4(0, 0, 0, 0);
           if (ALIGNED) {  // written out: the shared helper measured 7% slower here
             if (c0 + c < n && kk < h) {
-              const int64_t off = tok_row * h + kk;
-              raw = __ldg(reinterpret_cast<const uint4*>(static_cast<const char*>(tok_) + off * ES));
+              raw = __ldg(reinterpret_cast<const uint4*>(tok + tok_row * h + kk));
             }
           } else if (c0 + c < n) {
-            raw = load_row16<ES, false>(tok_, tok_row * h, kk, h);
+            raw = load_row16<1, false>(tok, tok_row * h, kk, h);
           }
-          if constexpr (INT8) {
-            sm.u.stage.tok[part * 4 + 0][c] = (int)raw.x;
-            sm.u.stage.tok[part * 4 + 1][c] = (int)raw.y;
-            sm.u.stage.tok[part * 4 + 2][c] = (int)raw.z;
-            sm.u.stage.tok[part * 4 + 3][c] = (int)raw.w;
-          } else {
-            float f[8];
-            unpack_bf16x8(raw, f);
-#pragma unroll
-            for (int e = 0; e < 8; ++e) sm.u.stage.tok[part * 8 + e][c] = f[e];
-          }
+          sm.u.stage.tok[part * 4 + 0][c] = (int)raw.x;
+          sm.u.stage.tok[part * 4 + 1][c] = (int)raw.y;
+          sm.u.stage.tok[part * 4 + 2][c] = (int)raw.z;
+          sm.u.stage.tok[part * 4 + 3][c] = (int)raw.w;
         }
         // query rows: 64 rows x 4 vectors of 16 bytes, one per thread
         {
           const int r = tid & (RT - 1);
           const int part = tid >> 6;
-          const int kk = k0 + part * (INT8 ? 16 : 8);
+          const int kk = k0 + part * 16;
           const int64_t flat = row0 + sub * RT + r;
           uint4 raw = make_uint4(0, 0, 0, 0);
           if (ALIGNED) {
             if (sub * RT + r < rows && flat < all_rows && kk < h) {
-              raw = __ldg(reinterpret_cast<const uint4*>(static_cast<const char*>(q_) + (flat * h + kk) * ES));
+              raw = __ldg(reinterpret_cast<const uint4*>(q + flat * h + kk));
             }
           } else if (sub * RT + r < rows && flat < all_rows) {
-            raw = load_row16<ES, false>(q_, flat * h, kk, h);
+            raw = load_row16<1, false>(q, flat * h, kk, h);
           }
-          if constexpr (INT8) {
-            sm.u.stage.q[part * 4 + 0][r] = (int)raw.x;
-            sm.u.stage.q[part * 4 + 1][r] = (int)raw.y;
-            sm.u.stage.q[part * 4 + 2][r] = (int)raw.z;
-            sm.u.stage.q[part * 4 + 3][r] = (int)raw.w;
-          } else {
-            float f[8];
-            unpack_bf16x8(raw, f);
-#pragma unroll
-            for (int e = 0; e < 8; ++e) sm.u.stage.q[part * 8 + e][r] = f[e];
-          }
+          sm.u.stage.q[part * 4 + 0][r] = (int)raw.x;
+          sm.u.stage.q[part * 4 + 1][r] = (int)raw.y;
+          sm.u.stage.q[part * 4 + 2][r] = (int)raw.z;
+          sm.u.stage.q[part * 4 + 3][r] = (int)raw.w;
         }
         if (k0 == 0 && tid < CT) {
           const int64_t c = c0 + tid;
-          if constexpr (LAYOUT == kMask) {
-            sm.mask[tid] = c < n ? t_mask[c * lt + j] : 0;
-          } else {
-            sm.bias[tid] = c < n ? __ldg(bias_l + lmajor_index(c, j, lt, group)) : MASK_BIAS;
-          }
-          if constexpr (INT8) sm.scale[tid] = c < n ? s_tok[c * lt + j] : 1.0f;
+          sm.mask[tid] = c < n ? t_mask[c * lt + j] : 0;
+          sm.scale[tid] = c < n ? s_tok[c * lt + j] : 1.0f;
         }
         __syncthreads();
 
 #pragma unroll 4
-        for (int kk = 0; kk < (INT8 ? KW : KF); ++kk) {
-          if constexpr (INT8) {
-            const int4 a0 = *reinterpret_cast<const int4*>(&sm.u.stage.tok[kk][cg * 4]);
-            const int4 a1 = *reinterpret_cast<const int4*>(&sm.u.stage.tok[kk][64 + cg * 4]);
-            const int4 b4 = *reinterpret_cast<const int4*>(&sm.u.stage.q[kk][rg * 4]);
-            const int a[TC] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-            const int b[TR] = {b4.x, b4.y, b4.z, b4.w};
+        for (int kk = 0; kk < KW; ++kk) {
+          const int4 a0 = *reinterpret_cast<const int4*>(&sm.u.stage.tok[kk][cg * 4]);
+          const int4 a1 = *reinterpret_cast<const int4*>(&sm.u.stage.tok[kk][64 + cg * 4]);
+          const int4 b4 = *reinterpret_cast<const int4*>(&sm.u.stage.q[kk][rg * 4]);
+          const int a[TC] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+          const int b[TR] = {b4.x, b4.y, b4.z, b4.w};
 #pragma unroll
-            for (int e = 0; e < TC; ++e)
+          for (int e = 0; e < TC; ++e)
 #pragma unroll
-              for (int r = 0; r < TR; ++r) acc[e][r] = __dp4a(a[e], b[r], acc[e][r]);
-          } else {
-            const float4 a0 = *reinterpret_cast<const float4*>(&sm.u.stage.tok[kk][cg * 4]);
-            const float4 a1 = *reinterpret_cast<const float4*>(&sm.u.stage.tok[kk][64 + cg * 4]);
-            const float4 b4 = *reinterpret_cast<const float4*>(&sm.u.stage.q[kk][rg * 4]);
-            const float a[TC] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-            const float b[TR] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-            for (int e = 0; e < TC; ++e)
-#pragma unroll
-              for (int r = 0; r < TR; ++r) acc[e][r] = __fmaf_rn(a[e], b[r], acc[e][r]);
-          }
+            for (int r = 0; r < TR; ++r) acc[e][r] = __dp4a(a[e], b[r], acc[e][r]);
         }
         if (k0 + step >= h) {  // the full dot of position j: fold into the max
 #pragma unroll
           for (int e = 0; e < TC; ++e) {
             const int c = (e < 4 ? 0 : 64) + cg * 4 + (e & 3);
-            if constexpr (LAYOUT == kMask) {
-              if (!sm.mask[c]) continue;
-            }
+            if (!sm.mask[c]) continue;
 #pragma unroll
             for (int r = 0; r < TR; ++r) {
-              float x;
-              if constexpr (INT8) {
-                x = __fmul_rn(__int2float_rn(acc[e][r]), sm.scale[c]);
-              } else if constexpr (LAYOUT == kMask) {
-                x = acc[e][r];
-              } else {
-                x = __fadd_rn(acc[e][r], sm.bias[c]);
-              }
-              best[e][r] = fmaxf(best[e][r], x);
+              best[e][r] = fmaxf(best[e][r], __fmul_rn(__int2float_rn(acc[e][r]), sm.scale[c]));
             }
           }
         }
@@ -315,8 +449,7 @@ maxsim_scan_kernel(const void* __restrict__ q_,          // [B*Lq, H] bf16 or in
       }
     }
 
-    // the sub-tile's bests (an empty chunk's -inf, or with the bias its
-    // ~-2^30, counts 0) → shared memory
+    // the sub-tile's bests (an empty chunk's -inf counts 0) → shared memory
 #pragma unroll
     for (int r = 0; r < TR; ++r) {
 #pragma unroll
@@ -326,37 +459,13 @@ maxsim_scan_kernel(const void* __restrict__ q_,          // [B*Lq, H] bf16 or in
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float x = best[half * 4 + e][r];
-          if constexpr (LAYOUT == kMask) {
-            pv[e] = isfinite(x) ? x : 0.0f;
-          } else {
-            pv[e] = x > EMPTY_BELOW ? x : 0.0f;
-          }
+          pv[e] = isfinite(x) ? x : 0.0f;
         }
         *reinterpret_cast<float4*>(&sm.u.best[rg * TR + r][half * 64 + cg * 4]) = v;
       }
     }
     __syncthreads();
-
-    // the ordered Lq-sum: each (query, chunk) pair adds its rows of this
-    // sub-tile in ascending order
-    for (int p = tid; p < qg * CT; p += THREADS) {
-      const int qi = p / CT;
-      const int c = p % CT;
-      const int lo = max(qi * lq, sub * RT);
-      const int hi = min((qi + 1) * lq, sub * RT + sub_rows);
-      float s = sm.sum[qi][c];
-      for (int r = lo; r < hi; ++r) {
-        const float x = sm.u.best[r - sub * RT][c];
-        if constexpr (INT8) {
-          const int64_t flat = row0 + r;
-          const float t = flat < all_rows ? __ldg(tq + flat) : 1.0f;
-          s = __fadd_rn(s, __fmul_rn(t, x));
-        } else {
-          s = __fadd_rn(s, x);
-        }
-      }
-      sm.sum[qi][c] = s;
-    }
+    lq_sum<true>(sm.sum, &sm.u.best[0][0], CT, sub, sub_rows, qg, lq, row0, all_rows, tq);
     __syncthreads();
   }
 
@@ -378,18 +487,25 @@ bool bad_shape(int nq, int lq, int n, int lt, int h) {
          (nq + group_size(lq) - 1) / group_size(lq) > 65535;
 }
 
-// K11a (kLMajor) and K11b (kSelf): the bf16 scan with the l-major bias.
+// The bf16 scans: K6 (kMask), K11a (kLMajor), K11b (kSelf).
 template <int LAYOUT>
-int launch_v2(const void* q16, const void* tok, const void* bias_l, const void* valid, void* out,
-              int nq, int lq, int n, int lt, int h, int group, void* stream) {
-  if (bad_shape(nq, lq, n, lt, h) || group < 1) return (int)cudaErrorInvalidValue;
+int launch16(const void* q16, const void* tok, const void* t_mask, const void* bias_l,
+             const void* valid, void* out, int nq, int lq, int n, int lt, int h, int group,
+             void* stream) {
   const int qg = group_size(lq);
-  const dim3 grid((n + CT - 1) / CT, (nq + qg - 1) / qg);
-  auto kernel = rows_aligned<2>(h) ? maxsim_scan_kernel<false, true, LAYOUT>
-                                   : maxsim_scan_kernel<false, false, LAYOUT>;
-  kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      q16, nullptr, tok, nullptr, nullptr, static_cast<const float*>(bias_l),
-      static_cast<const unsigned char*>(valid), static_cast<float*>(out), nq, lq, n, lt, h, qg, group);
+  const int n_groups = (nq + qg - 1) / qg;
+  const int64_t blocks = (int64_t)((n + CT - 1) / CT) * n_groups;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  auto kernel = rows_aligned<2>(h) ? maxsim_scan16_kernel<true, LAYOUT>
+                                   : maxsim_scan16_kernel<false, LAYOUT>;
+  const int bytes = scan16_smem_bytes(h);
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q16), static_cast<const __nv_bfloat16*>(tok),
+      static_cast<const unsigned char*>(t_mask), static_cast<const float*>(bias_l),
+      static_cast<const unsigned char*>(valid), static_cast<float*>(out), nq, lq, n, lt, h, qg,
+      n_groups, group);
   return (int)cudaGetLastError();
 }
 
@@ -404,14 +520,7 @@ extern "C" int maxsim_scan16_launch(const void* q16, const void* tok16, const vo
                                     const void* valid, void* out, int nq, int lq, int n, int lt,
                                     int h, void* stream) {
   if (bad_shape(nq, lq, n, lt, h)) return (int)cudaErrorInvalidValue;
-  const int qg = group_size(lq);
-  const dim3 grid((n + CT - 1) / CT, (nq + qg - 1) / qg);
-  auto kernel = rows_aligned<2>(h) ? maxsim_scan_kernel<false, true, kMask>
-                                   : maxsim_scan_kernel<false, false, kMask>;
-  kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      q16, nullptr, tok16, nullptr, static_cast<const unsigned char*>(t_mask), nullptr,
-      static_cast<const unsigned char*>(valid), static_cast<float*>(out), nq, lq, n, lt, h, qg, 1);
-  return (int)cudaGetLastError();
+  return launch16<kMask>(q16, tok16, t_mask, nullptr, valid, out, nq, lq, n, lt, h, 1, stream);
 }
 
 extern "C" int maxsim_scan_int8_launch(const void* q8, const void* tq, const void* tok8,
@@ -423,12 +532,12 @@ extern "C" int maxsim_scan_int8_launch(const void* q8, const void* tq, const voi
   }
   const int qg = group_size(lq);
   const dim3 grid((n + CT - 1) / CT, (nq + qg - 1) / qg);
-  auto kernel = rows_aligned<1>(h) ? maxsim_scan_kernel<true, true, kMask>
-                                   : maxsim_scan_kernel<true, false, kMask>;
+  auto kernel = rows_aligned<1>(h) ? maxsim_scan_int8_kernel<true> : maxsim_scan_int8_kernel<false>;
   kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      q8, static_cast<const float*>(tq), tok8, static_cast<const float*>(s_tok),
-      static_cast<const unsigned char*>(t_mask), nullptr, static_cast<const unsigned char*>(valid),
-      static_cast<float*>(out), nq, lq, n, lt, h, qg, 1);
+      static_cast<const signed char*>(q8), static_cast<const float*>(tq),
+      static_cast<const signed char*>(tok8), static_cast<const float*>(s_tok),
+      static_cast<const unsigned char*>(t_mask), static_cast<const unsigned char*>(valid),
+      static_cast<float*>(out), nq, lq, n, lt, h, qg);
   return (int)cudaGetLastError();
 }
 
@@ -437,7 +546,8 @@ extern "C" int maxsim_scan_int8_launch(const void* q8, const void* tq, const voi
 extern "C" int maxsim_scan16_v2_launch(const void* q16, const void* tok_l, const void* bias_l,
                                        const void* valid, void* out, int nq, int lq, int n, int lt,
                                        int h, int group, void* stream) {
-  return launch_v2<kLMajor>(q16, tok_l, bias_l, valid, out, nq, lq, n, lt, h, group, stream);
+  if (bad_shape(nq, lq, n, lt, h) || group < 1) return (int)cudaErrorInvalidValue;
+  return launch16<kLMajor>(q16, tok_l, nullptr, bias_l, valid, out, nq, lq, n, lt, h, group, stream);
 }
 
 // K11b: tokens [n, lt, h] read in place, bias_l [ceil(n/group)*lt*group] f32
@@ -445,5 +555,6 @@ extern "C" int maxsim_scan16_v2_launch(const void* q16, const void* tok_l, const
 extern "C" int maxsim_scan16_self_v2_launch(const void* q16, const void* tokens, const void* bias_l,
                                             const void* valid, void* out, int nq, int lq, int n,
                                             int lt, int h, int group, void* stream) {
-  return launch_v2<kSelf>(q16, tokens, bias_l, valid, out, nq, lq, n, lt, h, group, stream);
+  if (bad_shape(nq, lq, n, lt, h) || group < 1) return (int)cudaErrorInvalidValue;
+  return launch16<kSelf>(q16, tokens, nullptr, bias_l, valid, out, nq, lq, n, lt, h, group, stream);
 }

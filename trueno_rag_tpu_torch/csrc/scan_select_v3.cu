@@ -36,27 +36,38 @@
 // replica on the card.
 //
 // What bounds it on the H100. At the main path's shape (N = 1,048,576,
-// d = 384, B = 256) the scan is 2*B*N*d ~ 2.1e11 FLOP of fp32 FMA and
-// reads the 0.8 GB bf16 replica. On CUDA cores (no tensor cores, see
-// below) the FMA rate is the bound: ~67 TFLOP/s fp32 at the full power
-// limit gives ~3 ms at best, while the replica streams in ~0.25 ms at
-// 3.35 TB/s. The design therefore spends its effort on FMA density:
-//   - one thread block per (group of QB=64 queries, 1024-row tile); the
+// d = 384, B = 256) the scan is 2*B*N*d ~ 2.1e11 FLOP and reads the 0.8 GB
+// bf16 replica (0.25 ms at 3.35 TB/s); at the segment path's (N =
+// 17,825,792, B = 64 a call) 8.8e11 FLOP against 13.7 GB (4.1 ms). On the
+// tensor cores the dot takes well under a millisecond at 1M, so the bytes
+// and the selection epilogue are what is left. The design:
+//   - one thread block per (group of QB = 64 queries, 1024-row tile); the
 //     query group is the fastest grid axis, so the B/64 blocks that read
 //     one tile run together and the tile comes from HBM once, then L2;
-//   - each of the 256 threads owns an 8-row x 4-query register tile of
-//     one 128-row block, fed from shared memory as float4 loads (3 shared
-//     loads per 32 FMAs); rows are converted bf16->f32 once, when staged;
-//   - the score tile never leaves registers: the selection epilogue works
-//     on it with half-warp shuffles.
+//   - the tile's rows and the group's queries stream through a 2-stage
+//     cp.async ring of 64-column bf16 slices (128 rows and 64 queries,
+//     zero past d and past nq), the 128-row blocks back to back. The
+//     queries' slices come again for every 128-row block, from L2; kept
+//     resident instead (50 KB at d = 384) they left room for one thread
+//     block per SM, and with one block the dot, the loads and the
+//     epilogue of a block run one after another. At ~105 KB two blocks
+//     share an SM and each one's epilogue overlaps the other's dot and
+//     loads (1.5x faster at the main path's shape on an H100);
+//   - each 128-row block's 128 x 64 score tile is computed by the mma dot
+//     of mma_bf16.cuh (ldmatrix + mma.sync m16n8k16 bf16, one 16-column
+//     slice per mma, f32 __fadd_rn between slices), then staged through
+//     shared memory into the epilogue's 8-row x 4-query thread tiles
+//     (scan_select_common.cuh), whose masks, bounds, selection and
+//     tournament are unchanged.
+// f32 rows (the inline-cast layout) and widths that are not a multiple of
+// 8 take a register path into the same ring (rounded to bf16 with
+// __float2bfloat16_rn, or read bytewise, as they are staged).
 //
 // Certificate soundness. dense_tiered._bf16_query_bounds budgets
-// d*2^-23*|a||b| for f32 accumulation error. A product of two bf16
-// values is exact in f32 and fmaf rounds once, so the sum below is an
-// f32 sum of exact products in some order, whose error is at most
-// ~d*2^-24*sum|p_i| <= d*2^-24*|a||b|: inside the budget for any order.
-// Tensor cores (mma/wgmma) do not promise IEEE f32 rounding of their
-// accumulation, so they are not used until that bound is re-derived.
+// d*2^-23*|a||b| for the dot's accumulation error; mma_bf16.cuh derives
+// the tensor-core dot's worst case, (min(d,16) + (ceil(d/16)-1)/2)*2^-23 *
+// sum|p_i|, which stays within it for every d, and chip_smoke.py's
+// mma-probe phase holds the card to that model.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC; called through the plain C entry points at
@@ -64,38 +75,27 @@
 
 #include <cuda_bf16.h>
 
+#include "mma_bf16.cuh"
 #include "scan_select_common.cuh"
 
 using namespace scan_select;
+namespace mb = mma_bf16;
 
 namespace {
 
-constexpr int KC = 32;  // depth staged per step
+constexpr int NST = 2;                 // ring stages
+constexpr int SSTR = 152;              // score tile row stride (f32): float2 stores conflict-free
+static_assert(mb::TILE_A == QB && mb::TILE_B == BLOCK && mb::THREADS == THREADS,
+              "the mma tile is one 128-row block of one query group");
 
-// Elements [col, col + 8) of a row as f32, zero at or past the width:
-// bf16 rows widen exactly; f32 rows are rounded to bf16 first (RNE).
-template <bool ALIGNED>
-__device__ __forceinline__ void load8(const __nv_bfloat16* base, int64_t row_off, int col,
-                                      int width, float* f) {
-  const uint4 raw = load_row16<2, ALIGNED>(base, row_off, col, width);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    float2 x = __bfloat1622float2(h[e]);
-    f[2 * e] = x.x;
-    f[2 * e + 1] = x.y;
-  }
-}
+// Shared memory: the tournament pool, the score tile [QB][SSTR] (rows
+// r + 4*(r/32), so the epilogue's float4 reads are conflict-free), the
+// ring (rows and queries): 105,216 bytes at any d.
+constexpr int SEL_BYTES = (sizeof(SelectSmem) + 15) / 16 * 16;
+constexpr int SCORE_BYTES = QB * SSTR * 4;
+constexpr int SMEM_BYTES = SEL_BYTES + SCORE_BYTES + NST * mb::stage_bytes(true);
 
-template <bool ALIGNED>
-__device__ __forceinline__ void load8(const float* base, int64_t row_off, int col, int width,
-                                      float* f) {
-  const uint4 lo = load_row16<4, ALIGNED>(base, row_off, col, width);
-  const uint4 hi = load_row16<4, ALIGNED>(base, row_off, col + 4, width);
-  const uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-#pragma unroll
-  for (int e = 0; e < 8; ++e) f[e] = __bfloat162float(__float2bfloat16_rn(__uint_as_float(w[e])));
-}
+__device__ __forceinline__ int score_col(int r) { return r + (r >> 5) * 4; }
 
 // INDIRECT = false: K1, output column y scans rows y*1024 .. y*1024+1023.
 // INDIRECT = true: K5 (scan_select_v3_indirect), output column y scans
@@ -123,9 +123,10 @@ scan_select_v3_kernel(const __nv_bfloat16* __restrict__ q,  // [B, d]
                       float* __restrict__ v_pack,           // [B, T+1, G']
                       int* __restrict__ r_pack,             // [B, T, G']
                       int nq, int d, int g_tiles, int t_top, int tile_n, int n_tiles) {
-  __shared__ __align__(16) float As[KC][BLOCK];  // staged rows, depth-major
-  __shared__ __align__(16) float Qs[KC][QB];     // staged queries, depth-major
-  __shared__ SelectSmem sel;
+  extern __shared__ __align__(16) unsigned char smem[];
+  SelectSmem& sel = *reinterpret_cast<SelectSmem*>(smem);
+  float* scores = reinterpret_cast<float*>(smem + SEL_BYTES);
+  unsigned char* ring = smem + SEL_BYTES + SCORE_BYTES;
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * QB;
@@ -146,64 +147,68 @@ scan_select_v3_kernel(const __nv_bfloat16* __restrict__ q,  // [B, d]
     lbase = (int64_t)min(max(s, 0), n_tiles - 1) * tile_n + off;
   }
 
-  for (int blk = 0; blk < BPT; ++blk) {
+  // masks, bounds and the block's candidates from this thread's 8 x 4 scores
+  auto epilogue = [&](int blk, const float (&s)[TQ][TM]) {
     const int64_t row0 = lbase + blk * BLOCK;
-    float acc[TQ][TM];
-#pragma unroll
-    for (int i = 0; i < TQ; ++i)
-#pragma unroll
-      for (int r = 0; r < TM; ++r) acc[i][r] = 0.0f;
-
-    for (int k0 = 0; live && k0 < d; k0 += KC) {
-      // rows: 128 x 4 vectors of 8 bf16; a warp covers 32 rows of one
-      // vector column, so the shared stores are conflict-free
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int r = tid & (BLOCK - 1);
-        const int part = (tid >> 7) + 2 * j;
-        const int kk = k0 + part * 8;
-        float f[8];
-        load8<ALIGNED>(m, (row0 + r) * d, kk, d, f);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) As[part * 8 + e][r] = f[e];
-      }
-      {
-        const int qq = tid & (QB - 1);
-        const int part = tid >> 6;
-        const int kk = k0 + part * 8;
-        float f[8];
-        if (q0 + qq < nq) {
-          load8<ALIGNED>(q, (int64_t)(q0 + qq) * d, kk, d, f);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) f[e] = 0.0f;
-        }
-#pragma unroll
-        for (int e = 0; e < 8; ++e) Qs[part * 8 + e][qq] = f[e];
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < KC; ++kk) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][lane0]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][lane0 + 4]);
-        const float4 b4 = *reinterpret_cast<const float4*>(&Qs[kk][qg * TQ]);
-        const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float b[TQ] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-        for (int i = 0; i < TQ; ++i)
-#pragma unroll
-          for (int r = 0; r < TM; ++r) acc[i][r] = fmaf(a[r], b[i], acc[i][r]);
-      }
-      __syncthreads();
-    }
-
-    // per-row bounds (kRow), then -inf on invalid rows and on rows failing
-    // the query's filter
     float x[TQ][TM];
-    mask_scores<BF>(acc, live, row0 + lane0, q0, qg, nq, valid, tag_bits, t_all, t_any, t_none,
+    mask_scores<BF>(s, live, row0 + lane0, q0, qg, nq, valid, tag_bits, t_all, t_any, t_none,
                     eb, ab, uq, vq, x);
     block_candidates<BF>(x, tid, q0, nq, base + blk * BLOCK, blk, (int)(row0 / BLOCK), eb, ab, uq,
                          vq, sel);
+  };
+
+  if (!live) {  // a pad slot: nothing loaded, every score -inf
+    float s[TQ][TM] = {};
+    for (int blk = 0; blk < BPT; ++blk) epilogue(blk, s);
+  } else {
+    const int a_rows = min(QB, nq - q0);
+    const int dp = mb::pad16(d);
+    const int ks = mb::k_slices(d);
+    auto q_src = [&](int i) -> int64_t { return i < a_rows ? (int64_t)(q0 + i) * d : -1; };
+    mb::Acc acc;
+    mb::zero(acc);
+    mb::ring_run<NST>(
+        BPT * ks, ring, mb::stage_bytes(true),
+        [&](int step, unsigned char* st) {
+          const int blk = step / ks, k0 = (step % ks) * mb::KD;
+          const int nv = min(mb::KD, dp - k0) / 8;
+          const int64_t row0 = lbase + blk * BLOCK;
+          auto m_src = [&](int i) -> int64_t { return (row0 + i) * d; };
+          auto* rows = reinterpret_cast<__nv_bfloat16*>(st);
+          mb::stage_rows<ALIGNED>(rows, mb::SROW, m, m_src, BLOCK, k0, 8, nv, d);
+          mb::stage_rows<ALIGNED>(rows + BLOCK * mb::SROW, mb::SROW, q, q_src, QB, k0, 8, nv, d);
+        },
+        [&](int step, unsigned char* st) {
+          const int blk = step / ks, kc = step % ks, k0 = kc * mb::KD;
+          auto* rows = reinterpret_cast<const __nv_bfloat16*>(st);
+          mb::dot_slices(acc, rows + BLOCK * mb::SROW, mb::SROW, rows, min(mb::KD, dp - k0) / 16, a_rows);
+          if (kc != ks - 1) return;
+          // the block's scores → shared memory, in the epilogue's layout
+          const int warp = tid >> 5, lane = tid & 31;
+#pragma unroll
+          for (int mt = 0; mt < mb::MT; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < mb::NT; ++nt)
+#pragma unroll
+              for (int half = 0; half < 2; ++half) {
+                const int qq = (warp >> 2) * 32 + mt * 16 + (lane >> 2) + 8 * half;
+                const int r = (warp & 3) * 32 + nt * 8 + 2 * (lane & 3);
+                *reinterpret_cast<float2*>(&scores[qq * SSTR + score_col(r)]) =
+                    make_float2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+              }
+          mb::zero(acc);
+          __syncthreads();
+          float s[TQ][TM];
+#pragma unroll
+          for (int i = 0; i < TQ; ++i) {
+            const float* p = &scores[(qg * TQ + i) * SSTR + score_col(lane0)];
+            const float4 lo = *reinterpret_cast<const float4*>(p);
+            const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+            s[i][0] = lo.x; s[i][1] = lo.y; s[i][2] = lo.z; s[i][3] = lo.w;
+            s[i][4] = hi.x; s[i][5] = hi.y; s[i][6] = hi.z; s[i][7] = hi.w;
+          }
+          epilogue(blk, s);
+        });
   }
   __syncthreads();
   tile_tournament(sel, tid, q0, nq, tile, g_tiles, t_top, v_pack, r_pack);
@@ -218,7 +223,9 @@ int launch_rows(const void* q, const void* m, const void* eb, const void* ab, co
   const dim3 grid((nq + QB - 1) / QB, g_tiles);
   auto kernel = rows_aligned<2>(d) ? scan_select_v3_kernel<INDIRECT, true, BF, RowT>
                                    : scan_select_v3_kernel<INDIRECT, false, BF, RowT>;
-  kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const RowT*>(m),
       static_cast<const float*>(eb), static_cast<const float*>(ab),
       static_cast<const int*>(valid), static_cast<const float*>(uq),
@@ -279,9 +286,9 @@ extern "C" int scan_select_v3_launch(const void* q, const void* m, const void* e
 // place. Outputs v_pack [nq, t_top+1, g*tile_n/1024], r_pack
 // [nq, t_top, g*tile_n/1024] with GLOBAL rows. eb/ab are the whole corpus's
 // per-128-row block maxes. What bounds it: the selected tiles' bytes
-// (|tiles|*tile_n*d*2 B) or their FMA work (2*B*|tiles|*tile_n*d), whichever
-// is larger; at small B the work per thread block is K1's, with most of the
-// 64-query group padded. Same requirements as scan_select_v3_launch, plus
+// (|tiles|*tile_n*d*2 B) or their dot (2*B*|tiles|*tile_n*d FLOP on the
+// tensor cores), whichever is larger; at small B the warps whose queries are
+// all padding skip their mma tiles. Same requirements as scan_select_v3_launch, plus
 // tile_n a positive multiple of 1024 dividing n, g >= 1, and
 // g*tile_n/1024 <= 65535.
 extern "C" int scan_select_v3_indirect_launch(const void* q, const void* m, const void* eb,
@@ -303,9 +310,9 @@ extern "C" int scan_select_v3_indirect_launch(const void* q, const void* m, cons
 // (pallas_call at scan_select_v2.py:274): scan_select_v3_launch with the
 // per-row bound (Bound::kRow), so e_l2/a_l2 are the per-row [n] f32 norms
 // (16-byte aligned), not block maxes. Same shapes and requirements as
-// scan_select_v3_launch otherwise. What bounds it is K1's: the fp32 FMA
-// work of the dot (2*B*N*d) on CUDA cores; the per-row bound adds 4*B*N
-// operations and N*8 bytes.
+// scan_select_v3_launch otherwise. What bounds it is K1's: the bytes of
+// the rows or the dot (2*B*N*d); the per-row bound adds 4*B*N operations and
+// N*8 bytes.
 extern "C" int scan_select_v2_launch(const void* q, const void* m, const void* e_l2,
                                      const void* a_l2, const void* valid, const void* uq,
                                      const void* vq, const void* tag_bits, const void* t_all,

@@ -19,8 +19,9 @@ Both → ``[B, N]`` f32: ``Σᵢ maxⱼ`` over the chunk's valid tokens, an empt
 chunk's best counting 0, -inf at invalid chunks. The Lq-sum runs over i in
 ascending order in the kernels and the plain versions alike. The int8
 kernel is bit-identical to its plain version; the bf16 kernel sums each
-dot's exact products in another f32 order than the plain version's
-matmul, within the certificate's ``κ = (H+Lq)·2⁻²³`` share per program.
+dot's exact products on the tensor cores, 16 at a time, the slices added
+in f32 (``csrc/mma_bf16.cuh``), within the certificate's
+``κ = (H+Lq)·2⁻²³`` share per program.
 Any width H: a width that is not a multiple of the kernels' 16-byte
 vector is read byte by byte with zero columns past H
 (``csrc/row_load.cuh``), so the zero-copy tier reads the stored tokens in

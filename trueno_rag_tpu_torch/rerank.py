@@ -6,9 +6,9 @@ Capability-equivalent to the reference's ``src/rerank.rs``: the
 ``CompositeReranker`` (rerank.rs:193-264) and ``NoOpReranker``
 (rerank.rs:266-287).
 
-These host rerankers operate on strings, so they stay host-side; the
+These host rerankers operate on strings, so they stay host-side. The
 neural cross-encoder reranker (the real capability the mock stands in
-for) is not ported yet.
+for) runs on the card: ``models.cross_encoder.CrossEncoderReranker``.
 
 All scoring rerankers return NEW result lists with ``rerank_score``
 attached and results ordered (score desc, chunk id asc), truncated to
