@@ -95,7 +95,9 @@ Run from the repository root. Phases, each fatal on failure:
    U = s + W at least the float64 MaxSim on 4,096 sampled chunks; K7
    ``maxsim_scan_int8_scores`` over 2,097,152 x 32 x 128 int8 tokens with
    scales at (8, 8), bit-identical to its plain version, U sound likewise;
-   times beside the plain versions and the bounds; then
+   times beside the plain versions and the bounds; K7 again at the
+   late-interaction store's launch shape (262,144 x 32 x 384 int8 tokens,
+   B = 8, Lq = 32 and 16), bit-identical and timed; then
    ``maxsim_topk_scan16_fused`` and ``maxsim_topk_int8_store`` on random
    and planted queries: at least 75% certified, every certified set equal
    to the float64 exact top-10 set;
@@ -204,7 +206,7 @@ Run from the repository root. Phases, each fatal on failure:
    the end).
 
 25. mma-probe (after phase 10, before phase 14): the worst-case model of
-   the tensor-core dot that K1, K5, K10a/b, K6 and K11a/b share
+   the tensor-core dot that K1, K5, K8, K10a/b, K6 and K11a/b share
    (``csrc/mma_bf16.cuh``) held to the card: K6 at Lt = Lq = 1 over 64
    crafted queries x 2,048 crafted rows (``ops.kernels.mma_model``: one
    large product beside fifteen just under its half-ulp or its ulp, a sweep
@@ -213,7 +215,9 @@ Run from the repository root. Phases, each fatal on failure:
    worst |error| over the model's allowance (fatal above 1), the worst
    error in ulps of the largest product and the window the alignment
    appears to keep; then K1 over the same rows at d = 384, sound against
-   float64 (``check_sound``) and bit-identical on the f32 rows.
+   float64 (``check_sound``) and bit-identical on the f32 rows, and K8
+   over them at top 2 and 4, every emitted upper at least its row's
+   float64 dot (``check_block_sound``, kernels-K8K9's check).
    Phase 21 also times K1 alone at the dense stage's call shape (B = 64
    over 17,825,792 rows); phases 21 and 22 add their K1 launches to the
    ``kernels`` line.
@@ -294,6 +298,7 @@ MS_SLAB = 1 << 15  # chunks made or scored in float64 at a time
 LI_N = 262_144  # late-interaction-262k: one-chunk documents (BEIR TREC-COVID's 171,332 fit)
 LI_WORDS = 30
 LI_MAX_LEN = 32  # the CLI's multi-vector store: max_len 32, 32 tokens per chunk
+LI_H = 384  # MiniLM-L6's hidden width: the store's token width
 LI_ENCODE_BATCH = 1024
 LI_BATCH = 8
 LI_BATCHES = 4
@@ -328,9 +333,9 @@ SEG_STORE_THRESHOLD = 1 << 19  # the moved MAX_BLOCK_ROWS of segments-store-1M, 
 BM25_ULPS = 16  # BM25 scores of two panel shapes: within 16 ulps of the panel's mass (bm25_near_ties)
 
 # H100 SXM peaks (NVIDIA data sheet) for the kernels' bounds
-BF16_FLOP_PER_S = 989e12  # tensor cores, dense: the peak for bf16 operands (K1, K4, K5, K6)
+BF16_FLOP_PER_S = 989e12  # tensor cores, dense: the peak for bf16 operands (K1, K4, K5, K6, K8)
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12  # CUDA-core fp32 FMA: K2/K2b's and K8's dot, and K12's arithmetic
+FP32_FLOP_PER_S = 67e12  # CUDA-core fp32 FMA: K2/K2b's dot and K12's arithmetic
 INT8_OP_PER_S = 1979e12  # tensor cores: K3's and K7's exact integer dot
 
 
@@ -2620,6 +2625,37 @@ def phase_kernels_k6k7(seed: int):
             f"the float64 exact top-{MS_K} set ({n_order} in the same order)")
     del tok8, s_tok, n_max, t_mask, valid
     torch.cuda.empty_cache()
+
+    # -- K7 at the late-interaction store's launch shape: 262,144 x 32 x 384, B = 8, Lq = LI_MAX_LEN --
+    n, lt_li, h_li = LI_N, LI_MAX_LEN, LI_H
+    tok8 = torch.empty((n, lt_li, h_li), dtype=torch.int8, device=DEV)
+    s_tok = torch.empty((n, lt_li), dtype=torch.float32, device=DEV)
+    t_mask = torch.ones((n, lt_li), dtype=torch.bool, device=DEV)
+    valid = torch.ones(n, dtype=torch.bool, device=DEV)
+    for lo in range(0, n, MS_SLAB):
+        t8, st, _, _ = ms._int8_slab(unit_token_slab(min(MS_SLAB, n - lo), lt_li, h_li, gen), t_mask[lo:lo + MS_SLAB])
+        tok8[lo:lo + MS_SLAB], s_tok[lo:lo + MS_SLAB] = t8, st
+    # the retriever pads a batch's query tokens to a power of two up to LI_MAX_LEN: 16 for late-interaction's
+    # 6-12-word queries (li_kernel_check logs the shape), 32 at most
+    for lq in (LI_MAX_LEN, LI_MAX_LEN // 2):
+        q = torch.randn((bq, lq, h_li), device=DEV, generator=gen)
+        _, q8, t_q, _, _, _ = ms._int8_query_pack(q, torch.ones((bq, lq), dtype=torch.bool, device=DEV))
+        got = maxsim_scan_int8_scores(q8, t_q, tok8, s_tok, t_mask, valid)
+        torch.cuda.synchronize()
+        check(torch.equal(got, maxsim_scan_int8_scores_reference(q8, t_q, tok8, s_tok, t_mask, valid)),
+              f"K7 at {n} x {lt_li} x {h_li}, Lq={lq}: not bit-identical to its plain version")
+        ms_k = cuda_ms(lambda: maxsim_scan_int8_scores(q8, t_q, tok8, s_tok, t_mask, valid), 10)
+        ms_p = cuda_ms(lambda: maxsim_scan_int8_scores_reference(q8, t_q, tok8, s_tok, t_mask, valid), 3)
+        ms_k2 = cuda_ms(lambda: maxsim_scan_int8_scores(q8, t_q, tok8, s_tok, t_mask, valid), 10)
+        ops = 2.0 * bq * lq * n * lt_li * h_li
+        bnd = bound(n * lt_li * h_li + n * lt_li * 4 + n * lt_li + n + bq * n * 4 + bq * lq * (h_li + 4), ops,
+                    INT8_OP_PER_S)
+        log(f"K7 at the late-interaction store's launch, N={n} Lt={lt_li} H={h_li} B={bq} Lq={lq}: kernel "
+            f"{ms_k:.3f} / {ms_k2:.3f} ms, plain {ms_p:.3f} ms (median, CUDA events); bound {bnd[0]:.3f} ms "
+            f"({bnd[1]}); {ops / (min(ms_k, ms_k2) * 1e-3) / 1e12:.1f} TOP/s int8; bit-identical to the plain version")
+        del got
+    del tok8, s_tok, t_mask, valid
+    torch.cuda.empty_cache()
     return rec6, rec7
 
 
@@ -2633,7 +2669,8 @@ def phase_mma_probe(seed: int):
     alignment keeps (the largest 2^-k of the largest term that still counts
     at H = 16: the smallest k lost, where no k above the largest k kept
     counts); then K1 over the same crafted rows at d = 384 under
-    check_sound, on the bf16 replica and the f32 rows (bit-identical)."""
+    check_sound, on the bf16 replica and the f32 rows (bit-identical), and
+    K8 over them (top 2 and 4) under check_block_sound."""
     import numpy as np
     import torch
 
@@ -2641,6 +2678,7 @@ def phase_mma_probe(seed: int):
     from trueno_rag_tpu_torch.ops.kernels import mma_model as mm
     from trueno_rag_tpu_torch.ops.kernels.maxsim_scan import maxsim_scan16_scores
     from trueno_rag_tpu_torch.ops.kernels.scan_select import SEL, scan_select_v3
+    from trueno_rag_tpu_torch.ops.kernels.scan_select_v1 import scan_select
 
     worst, worst_ulps, counted, lost = 0.0, 0.0, 0, 99
     for h in MMA_PROBE_WIDTHS:
@@ -2691,6 +2729,17 @@ def phase_mma_probe(seed: int):
             slack = check_sound(vk, rk, t64, q64, valid, range(MMA_PROBE_Q), range(n // SEL), "mma-probe K1")
             log(f"mma-probe K1 at d={h}: {MMA_PROBE_Q} crafted queries x {n} crafted rows, every emitted bound at "
                 f"least its float64 true score (least slack {slack:.3e}); f32 rows bit-identical to the replica")
+            # K8 over the same rows, with each row's own bound: every emitted upper at least its row's float64
+            # dot, v_(top+1) at least every row of its block it did not emit (kernels-K8K9's check)
+            for top in K8_TOPS:
+                out8 = scan_select(qb, mb, e, a, valid, u, v, tile_n=1024, top=top)
+                torch.cuda.synchronize()
+                slack8 = check_block_sound(out8, top, (t64 @ q64.T).contiguous(),
+                                           torch.arange(MMA_PROBE_Q, device=DEV), f"mma-probe K8 top {top}")
+                log(f"mma-probe K8 at d={h} (top {top}): {MMA_PROBE_Q} crafted queries x {n} crafted rows, every "
+                    f"emitted upper at least its row's float64 dot and v_(top+1) every unemitted row's (least "
+                    f"slack {slack8:.3e})")
+                del out8
         del got, exact, mass, big, err, ratio, ulps
     window = (f"an apparent window of {lost} bits" if counted < lost
               else "no plain window: fifteen small terms survive together where one alone would not")
@@ -3380,8 +3429,7 @@ def phase_kernels_k8k9(seed: int):
     k9_bound = bound(BATCH * DIM + N_ROWS * DIM + N_ROWS * 16 + BATCH * 12 + out_bytes, flop, INT8_OP_PER_S)
     log(f"K8 scan_select at N={N_ROWS} d={DIM} B={BATCH} top {top}: kernel {k8_ms:.3f} / {k8_ms2:.3f} ms, "
         f"plain {k8_plain:.3f} ms (median, CUDA events); top 4 {k8_top4:.3f} ms; bound {k8_bound[0]:.3f} ms "
-        f"({k8_bound[1]}); its fp32 CUDA-core ceiling {flop / FP32_FLOP_PER_S * 1e3:.3f} ms; rate "
-        f"{flop / (min(k8_ms, k8_ms2) * 1e-3) / 1e12:.1f} TFLOP/s")
+        f"({k8_bound[1]}); rate {flop / (min(k8_ms, k8_ms2) * 1e-3) / 1e12:.1f} TFLOP/s on the tensor cores")
     log(f"K9 scan_select_int8 at N={N_ROWS} d={DIM} B={BATCH} top {top}: kernel {k9_ms:.3f} / {k9_ms2:.3f} ms, "
         f"plain {k9_plain:.3f} ms (median, CUDA events); top 4 {k9_top4:.3f} ms; bound {k9_bound[0]:.3f} ms "
         f"({k9_bound[1]}); rate {flop / (min(k9_ms, k9_ms2) * 1e-3) / 1e12:.1f} TOP/s")

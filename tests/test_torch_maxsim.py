@@ -118,7 +118,8 @@ def _int8_inputs(shape, seed):
     return q8, t_q, tok8, s_tok, tm, valid
 
 
-@pytest.mark.parametrize("shape", [(301, 20, 64, 3, 5), (130, 7, 16, 2, 9)], ids=["ragged", "lt7"])
+@pytest.mark.parametrize("shape", [(301, 20, 64, 3, 5), (130, 7, 16, 2, 9), (301, 20, 384, 3, 5), (130, 7, 33, 2, 9)],
+                         ids=["ragged", "lt7", "h384", "h33"])
 def test_k7_plain_matches_jax_kernel(shape):
     """Within f32 rounding of the Lq-sum: the Pallas kernel sums
     ``Σᵢ t_qᵢ·bestᵢ`` as a selection matmul in its own order, the port in
@@ -549,3 +550,42 @@ def test_cuda_k6_at_widths_around_the_mma_depth(h):
     tol = 2 * (h + lq) * EPS23 * c1[:, None] * n_max[None, :] + 1e-7
     fin = torch.isfinite(want)
     assert bool(((got - want).abs()[fin] <= tol[fin]).all())
+
+
+def _k7_cuda_case(n, lt, h, b, lq, seed, masked_position=False):
+    """K7 on the card against its plain version, bit for bit, on
+    :func:`build`'s inputs (ragged Lt, an empty chunk, invalid chunks,
+    padded query tokens); ``masked_position`` masks the last token position
+    of every chunk."""
+    _cuda_or_skip()
+    q8, t_q, tok8, s_tok, tm, valid = _int8_inputs((n, lt, h, b, lq), seed)
+    if masked_position:
+        tm = tm.copy()
+        tm[:, -1] = False
+    args = [x.cuda() for x in (q8, t_q, tok8, s_tok, *T(tm, valid))]
+    before = maxsim_scan_int8_scores.launches
+    got = maxsim_scan_int8_scores(*args)
+    torch.cuda.synchronize()
+    assert maxsim_scan_int8_scores.launches == before + 1
+    want = maxsim_scan_int8_scores_reference(*args)
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [15, 16, 31, 32, 33, 100, 384, 520])
+def test_cuda_k7_at_widths_around_the_mma_depth(h):
+    """K7's s8 tensor-core dot (32 int8 of depth per mma) below, at and past
+    one k32 slice, at a width no vector divides, at MiniLM's 384 and past
+    the width whose query rows stay resident (512): bit-identical to its
+    plain version, with a token position masked in every chunk."""
+    _k7_cuda_case(2049, 13, h, 5, 9, seed=h, masked_position=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, lq", [(32, 8), (8, 32), (3, 5)], ids=["b32-lq8", "b8-lq32", "b3-lq5"])
+def test_cuda_k7_query_groups(b, lq):
+    """B·Lq over several query groups (64 query-token rows per group):
+    bit-identical to its plain version at a ragged Lt, with empty and
+    invalid chunks."""
+    _k7_cuda_case(1537, 20, 128, b, lq, seed=b * 100 + lq)

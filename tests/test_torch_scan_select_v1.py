@@ -2,7 +2,9 @@
 their plain PyTorch versions against the JAX package's Pallas kernels
 (interpret mode) at top 1, 2 and 4 with masked rows and planted ties, the
 wrappers' dispatch and checks, and (on a card only) the CUDA kernels
-against the plain versions at d = 384 and d = 100.
+against the plain versions at d = 384 and d = 100, K8's tensor-core dot
+at widths 15-520, batches 1-256 and tops 1-8, and bit for bit on exact
+data.
 
 Tolerances, and why:
 - K8 values: 1e-5 absolute. Both frameworks sum d bf16 products in f32 in
@@ -163,6 +165,47 @@ def test_k8_plain_matches_jax_kernel_with_exact_ties(top):
         np.testing.assert_array_equal(p.numpy(), j)
 
 
+def _tie_args(d, n=2048, b=8, seed=13):
+    """K8's inputs on exact data: small-integer bf16 rows and queries (every
+    product and every partial sum an integer, so each dot is exact in any
+    order), dyadic bound terms (each upper exact in f32), a partly and a
+    fully masked block, and planted equal uppers: row 9 copied into rows 5
+    and 100 of block 0 with the same norms, and query 0 equal to it."""
+    rng = np.random.default_rng(seed + d)
+    m = rng.integers(-3, 4, size=(n, d)).astype(np.float32)
+    q = rng.integers(-3, 4, size=(b, d)).astype(np.float32)
+    e_l2 = (rng.integers(0, 4, size=n) / 8.0).astype(np.float32)
+    a_l2 = (rng.integers(1, 5, size=n) / 4.0).astype(np.float32)
+    for r in (5, 100):
+        m[r], e_l2[r], a_l2[r] = m[9], e_l2[9], a_l2[9]
+    q[0] = m[9]
+    valid = np.ones(n, np.int32)
+    valid[300:330] = 0
+    valid[2 * BLOCK:3 * BLOCK] = 0
+    u_q = np.full(b, 0.25, np.float32)
+    v_q = np.full(b, 0.125, np.float32)
+    qb, mb = (_t(x).to(torch.bfloat16) for x in (q, m))
+    return [qb, mb] + [_t(x) for x in (e_l2, a_l2, valid, u_q, v_q)]
+
+
+@pytest.mark.parametrize("d", [17, 100])
+def test_k8_plain_matches_jax_kernel_bit_for_bit_on_planted_ties(d):
+    """On exact data both versions compute every upper exactly, so they
+    must agree bit for bit, values and lanes, through the planted three-way
+    tie (lanes 100, 9, 5 in that order) and the all-masked block (lane 127
+    in every pass)."""
+    top = 4
+    args = _tie_args(d)
+    jo = _jax_scan("bf16", args, top)
+    to = scan_select_reference(*args, tile_n=1024, top=top)
+    for j, p in zip(jo, to):
+        np.testing.assert_array_equal(p.numpy(), j)
+    assert [to[top + 1 + t][0, 0].item() for t in range(3)] == [100, 9, 5]
+    assert to[0][0, 0].item() == to[1][0, 0].item() == to[2][0, 0].item()
+    for lanes in to[top + 1:]:
+        assert (lanes[:, 2] == BLOCK - 1).all()
+
+
 def test_wrappers_run_the_plain_versions_for_cpu_tensors():
     m, q, valid = _inputs(2048, 24, 5, seed=3)
     for fn, ref, args in ((scan_select, scan_select_reference, _bf16_args(m, q, valid)),
@@ -285,3 +328,46 @@ def test_cuda_k9_is_bit_identical_to_plain_version(d, top):
     want = scan_select_int8_reference(*args, tile_n=1024, top=top)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [15, 16, 17, 100, 384, 520])
+@pytest.mark.parametrize("b", [1, 65, 200, 256])
+@pytest.mark.parametrize("top", [1, 2, 4, 8])
+def test_cuda_k8_at_widths_batches_and_tops(d, b, top):
+    """K8's tensor-core dot (mma_bf16.cuh) at widths below, at and past one
+    16-column slice, one no vector divides, 384 and past 512, at batches
+    that fill part of one, two, four and all four 64-query groups, every
+    top: values within 1e-4 of its plain version (the f32 summation
+    order), -inf slots equal, lanes equal except at near-ties (1e-3)."""
+    _cuda_or_skip()
+    m, q, valid = _inputs(65536, d, b, seed=d * 1000 + b)
+    args = [x.cuda() for x in _bf16_args(m, q, valid)]
+    got = scan_select(*args, tile_n=1024, top=top)
+    torch.cuda.synchronize()
+    want = scan_select_reference(*args, tile_n=1024, top=top)
+    for t in range(top + 1):
+        assert torch.equal(torch.isneginf(got[t]), torch.isneginf(want[t]))
+        fin = torch.isfinite(want[t])
+        assert (got[t][fin] - want[t][fin]).abs().max().item() <= 1e-4
+    for t in range(top + 1, 2 * top + 1):
+        assert (got[t] != want[t]).float().mean().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [17, 100, 384])
+@pytest.mark.parametrize("top", [2, 8])
+def test_cuda_k8_is_bit_identical_on_exact_data(d, top):
+    """On exact data (small-integer bf16, dyadic bound terms) the tensor-core
+    dot is exact, so K8 equals its plain version bit for bit, values and
+    lanes, through the planted tie and the all-masked block: the score
+    tile's way through shared memory into the selection keeps every row at
+    its lane."""
+    _cuda_or_skip()
+    args = [x.cuda() for x in _tie_args(d, n=8192, b=70)]
+    got = scan_select(*args, tile_n=1024, top=top)
+    torch.cuda.synchronize()
+    want = scan_select_reference(*args, tile_n=1024, top=top)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert [got[top + 1 + t][0, 0].item() for t in range(2)] == [100, 9]

@@ -3,7 +3,7 @@
 shapes on one NVIDIA GPU, to compare two trees of the repository on the
 same card.
 
-    cd <tree root> && PYTHONPATH=$PWD python3 <this file> [--label NAME] [--groups scan,maxsim,dense,attention]
+    cd <tree root> && PYTHONPATH=$PWD python3 <this file> [--label NAME] [--groups scan,block,maxsim,dense,attention]
 
 Run it from each tree's root (the ``trueno_rag_tpu_torch`` it imports is
 the one on ``PYTHONPATH``), alternating the trees (A, B, B, A) within one
@@ -15,10 +15,13 @@ median CUDA-event milliseconds of, by group,
   rows); K10a ``scan_select_v2`` at the K1 shape; K5
   ``scan_select_v3_indirect`` and K10b ``scan_select_v2_indirect`` at
   1,048,576 x 384, B = 8, tile_n 4096, t_top 16, 120 tiles + 8 pads;
+- block: K8 ``scan_select`` and K9 ``scan_select_int8`` at 1,048,576 x
+  384, B = 256, top 2 (the store's) and 4;
 - maxsim: K6 ``maxsim_scan16_scores``, K11a ``maxsim_scan16_scores_v2``
   and K11b ``maxsim_scan16_scores_self_v2`` (group 256) at 1,048,576
   chunks x 32 tokens x 128, and K7 ``maxsim_scan_int8_scores`` on the same
-  tokens in int8, B = 8, Lq = 8;
+  tokens in int8, B = 8, Lq = 8; K7 also at the late-interaction store's
+  launch shape, 262,144 chunks x 32 x 384, B = 8, Lq = 32 and 16;
 - dense: K2 ``score_blockmax`` and K2b ``blockmax_only`` at 1,048,576 x
   384, B = 256, f32, beside ``torch.matmul`` + ``amax``;
 - attention: K4 ``block_attention`` at (a) BH 32 x T 8192 x hd 128,
@@ -41,6 +44,7 @@ N, DIM, BATCH = 1 << 20, 384, 256
 N_SEG = (1 << 24) + (1 << 20)  # the segment path's rows
 TILE_N, K5_LIVE, K5_PADS = 4096, 120, 8  # the clustered path's tile list
 LT, H, BQ, LQ, GROUP = 32, 128, 8, 8, 256
+LI_N, LI_H = 262_144, 384  # the late-interaction store: chunks, MiniLM-L6's width
 REPS = 20
 
 
@@ -98,6 +102,23 @@ def scan_group(out, gen) -> None:
     del mb, e, a, valid
 
 
+def block_group(out, gen) -> None:
+    from trueno_rag_tpu_torch.ops import dense_tiered as dt
+    from trueno_rag_tpu_torch.ops.kernels import scan_select_v1 as v1
+
+    m, q = unit((N, DIM), gen), unit((BATCH, DIM), gen)
+    valid = torch.ones(N, dtype=torch.int32, device="cuda")
+    mb, e, a = dt.prepare_tiered(m)
+    qb, u, v = dt._bf16_query_bounds(q)
+    m_i8, s_row, e8, a8 = dt.prepare_int8(m)
+    q_i8, t_q, u8, v8 = dt._int8_query_bounds(q)
+    del m
+    for top in (2, 4):
+        out[f"K8_top{top}_ms"] = cuda_ms(lambda: v1.scan_select(qb, mb, e, a, valid, u, v, top=top))
+        out[f"K9_top{top}_ms"] = cuda_ms(lambda: v1.scan_select_int8(q_i8, m_i8, s_row, e8, a8, valid, t_q, u8, v8,
+                                                                      top=top))
+
+
 def dense_group(out, gen) -> None:
     from trueno_rag_tpu_torch.ops.kernels.dense_score import blockmax_only, score_blockmax
 
@@ -137,6 +158,21 @@ def maxsim_group(out, gen) -> None:
     q8, tq, _ = dt._quantize_rows(q16.float().reshape(-1, H), clip=True)
     out["K7_ms"] = cuda_ms(lambda: km.maxsim_scan_int8_scores(q8.view(BQ, LQ, H), tq.view(BQ, LQ), tok8, s_tok,
                                                              t_mask, tvalid))
+    del tok8, s_tok, t_mask, tvalid
+    # the late-interaction store's launch: 262,144 chunks x 32 x 384 (MiniLM-L6), B = 8
+    n, h = LI_N, LI_H
+    tok8 = torch.empty((n, LT, h), dtype=torch.int8, device="cuda")
+    s_tok = torch.empty((n, LT), dtype=torch.float32, device="cuda")
+    for lo in range(0, n, 1 << 15):
+        codes, scale, _ = dt._quantize_rows(unit((1 << 15, LT, h), gen).reshape(-1, h), clip=True)
+        tok8[lo:lo + (1 << 15)] = codes.view(-1, LT, h)
+        s_tok[lo:lo + (1 << 15)] = scale.view(-1, LT)
+    t_mask = torch.ones((n, LT), dtype=torch.bool, device="cuda")
+    tvalid = torch.ones(n, dtype=torch.bool, device="cuda")
+    for lq in (LT, LT // 2):  # the retriever pads query tokens to a power of two up to 32: 16 for short queries
+        q8, tq, _ = dt._quantize_rows(unit((BQ * lq, h), gen), clip=True)
+        out[f"K7_li_lq{lq}_ms"] = cuda_ms(lambda: km.maxsim_scan_int8_scores(q8.view(BQ, lq, h), tq.view(BQ, lq), tok8,
+                                                                            s_tok, t_mask, tvalid))
 
 
 def attention_group(out, gen) -> None:
@@ -168,7 +204,8 @@ def attention_group(out, gen) -> None:
     out["sdpa_masked_b_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=keep))
 
 
-GROUPS = {"scan": scan_group, "maxsim": maxsim_group, "dense": dense_group, "attention": attention_group}
+GROUPS = {"scan": scan_group, "block": block_group, "maxsim": maxsim_group, "dense": dense_group,
+          "attention": attention_group}
 
 
 def main() -> None:

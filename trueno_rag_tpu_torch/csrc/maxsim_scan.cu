@@ -1,7 +1,8 @@
 // maxsim_scan16_scores, maxsim_scan_int8_scores and the l-major v2 pair
 // maxsim_scan16_scores_v2 / maxsim_scan16_scores_self_v2 for Hopper
-// (sm_90a): the late-interaction tiers' bound pass, one template, four entry
-// points at the end of this file.
+// (sm_90a): the late-interaction tiers' bound pass, one template over the
+// element type (bf16, int8) and the token layout, four entry points at the
+// end of this file.
 //
 // Replaces the Pallas TPU kernels
 //   trueno_rag_tpu/ops/pallas/maxsim_scan.py::maxsim_scan16_scores
@@ -24,9 +25,9 @@
 // the plain versions in ops/kernels/maxsim_scan.py do.
 //
 // Layout. One thread block per (128-chunk tile, group of QG whole queries);
-// in the bf16 form the group is the fastest-varying part of the block
-// index, so the blocks that read one tile's tokens run together and the
-// tokens come from HBM once. A group holds QG = min(16, max(1, 64 / Lq)) queries, whose QG*Lq query
+// the group is the fastest-varying part of the block index, so the blocks
+// that read one tile's tokens run together and the tokens come from HBM
+// once. A group holds QG = min(16, max(1, 64 / Lq)) queries, whose QG*Lq query
 // tokens run through sub-tiles of 64 rows, so B*Lq*H never has to fit in
 // shared memory and any Lq works. The [N, Lt, H] replica is read in place
 // at any N, Lt, B and H: a width H that is not a multiple of the 16-byte
@@ -36,32 +37,36 @@
 // TPU workarounds (the Lt-to-32 pad copy, the ragged-tail split, the
 // VMEM-sized tiles and query slabs) have no counterpart here.
 //
-// bf16 (K6, K11a, K11b). A sub-tile's query rows are staged to shared
-// memory once, as bf16 (for H > 512 they stream beside the tokens instead).
-// The chunks' token rows stream through a 3-stage cp.async ring of
-// 128-chunk x 64-column bf16 slices, position after position, and the
-// 64 x 128 interaction tile S_j = Q . T_j^T of each position j is the mma
-// dot of mma_bf16.cuh (ldmatrix + mma.sync m16n8k16 bf16, one 16-column
-// slice per mma, f32 __fadd_rn between slices). The tile stays in the
-// mma's accumulator registers; after its full depth it folds elementwise
-// into a running max in the same fragment layout (kMask skips a masked
-// token; the v2 layouts add the bias first), so the [B*Lq, N*Lt]
-// interaction never leaves registers. The bests then pass through shared
-// memory for the ordered Lq-sum.
-//
-// int8 (K7). One 8-chunk x 4-row register tile of __dp4a dots per thread
-// over depth slices of 64 int8 staged as packed words in shared memory,
-// folded into the same kind of running max after the full depth.
+// The program. A sub-tile's query rows are staged to shared memory once
+// (for H > 512 they stream beside the tokens instead). The chunks' token
+// rows stream through a 3-stage cp.async ring of 128-chunk x 128-byte
+// slices (64 bf16 or 128 int8 columns), position after position, and the
+// 64 x 128 interaction tile S_j = Q . T_j^T of each position j is a
+// tensor-core dot fed by ldmatrix: bf16 (K6, K11a, K11b) through
+// mma_bf16.cuh (mma.sync m16n8k16, one 16-column slice per mma, f32
+// __fadd_rn between slices), int8 (K7) through mma_s8.cuh (mma.sync
+// m16n8k32 s8, the s32 sum chained through C across the whole depth). The
+// two accumulators share one fragment layout, so the rest is one program:
+// the tile stays in the mma's accumulator registers, and after its full
+// depth it folds elementwise into a running max (kMask skips a masked
+// token; int8 converts the dot and multiplies it by the token's scale,
+// f32(dot)*s_tok, first; the v2 layouts add the bias first), so the
+// [B*Lq, N*Lt] interaction never leaves registers. What the fold needs of
+// a chunk at a position (its mask, scale or bias) is loaded once per warp,
+// one position ahead, and passed to the lanes holding its dots by shuffles.
+// Warps whose query rows are all past the group skip their mma tiles. The
+// bests then pass through shared memory for the ordered Lq-sum (int8: each
+// best times its query token's scale t_q first).
 //
 // Numbers. bf16: mma_bf16.cuh derives the tensor-core dot's worst case,
 // (min(H,16) + (ceil(H/16)-1)/2)*2^-23*sum|p|, within the certificate's
 // H*2^-23 share of kappa = (H+Lq)*2^-23 (ops/maxsim.py::_scan16_fused_widths)
 // for every H, and chip_smoke.py's mma-probe phase holds the card to that
 // model. int8: |q8|, |tok8| <= 127 and H*127^2 < 2^24 (the wrapper checks
-// H), so the __dp4a integer dot is exact in any order and its conversion to
-// f32 is exact; with the scale multiplies and adds written as
-// __fmul_rn/__fadd_rn (no contraction) the result is bit-identical to the
-// plain version.
+// H), so the s32 dot is exact in any grouping and its conversion to f32 is
+// exact; with the scale multiplies and adds written as __fmul_rn/__fadd_rn
+// (no contraction), in the plain version's order, the result is
+// bit-identical to the plain version.
 //
 // The v2 pair (LAYOUT kLMajor and kSelf). The same bf16 dot program, with
 // the padding excluded by an additive f32 bias instead of a skip: bias_l
@@ -90,9 +95,12 @@
 // them, well inside the byte time). The v2 pair does K6's work (the bias
 // read adds 4 bytes per token position, a sixteenth of the row). The int8
 // form at 2,097,152 chunks is 1.1e12 integer operations, 0.56 ms at the
-// int8 tensor-core peak, against 2.7 ms of bytes; __dp4a on CUDA cores
-// runs far below that peak, so there the dot's instruction rate, not HBM,
-// is what the kernel meets.
+// int8 tensor-core peak, against 2.7 ms of bytes (the tokens, their 4-byte
+// scales and the mask); at the late-interaction store's launch (262,144 x 32
+// x 384, B = 8, Lq = 32) it is 1.65e12 operations, 0.83 ms, against 0.97 ms
+// of bytes. Either way the bytes bound it, and the dot, with half the mma
+// instructions per byte of the bf16 form and no split adds, stays beside
+// the copies.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC; called through the plain C entry points
@@ -105,10 +113,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "mma_bf16.cuh"
+#include "mma_s8.cuh"
 #include "row_load.cuh"
 
 namespace mb = mma_bf16;
+namespace ms8 = mma_s8;
 
 namespace {
 
@@ -116,13 +128,9 @@ constexpr int THREADS = 256;
 constexpr int CT = 128;     // chunks per block
 constexpr int RT = 64;      // query-token rows per sub-tile
 constexpr int QG_MAX = 16;  // whole queries per block
-constexpr int TC = 8;       // int8: chunks per thread, cg*4 .. +3 and 64 + cg*4 .. +3
-constexpr int TR = 4;       // int8: query rows per thread, rg*4 .. +3
-constexpr int KW = 16;      // int8 depth staged per step, in words of 4 (64 int8)
-constexpr int NST = 3;      // bf16 ring stages
-constexpr int BSTR = 152;   // bf16 bests row stride (f32): float2 stores conflict-free
+constexpr int NST = 3;      // ring stages
+constexpr int BSTR = 152;   // bests row stride (f32): float2 stores conflict-free
 
-static_assert((CT / TC) * (RT / TR) == THREADS, "the int8 thread tiles cover the block tile");
 static_assert(mb::TILE_A == RT && mb::TILE_B == CT && mb::THREADS == THREADS,
               "the mma tile is one sub-tile of query rows by one chunk tile");
 
@@ -167,29 +175,77 @@ __device__ __forceinline__ void lq_sum(float (*sum)[CT], const float* best, int 
   }
 }
 
-// The bf16 scans (K6, K11a, K11b). Dynamic shared memory: the resident
-// query rows (mma_bf16.cuh), the ring (its first RT x BSTR floats hold a
-// sub-tile's bests once its positions are done), the Lq-sums, and each
-// chunk's l-major base index lmajor_index(c, 0, lt, group) (v2 layouts), so
-// that no position divides by the group.
-int scan16_smem_bytes(int h) {
-  return mb::resident_bytes(h) + NST * mb::stage_bytes(!mb::a_resident(h)) + QG_MAX * CT * 4 + CT * 8;
+// What differs between the tile's two element types; the ring, the
+// staging, the warp grid and the accumulator's fragment layout do not.
+// bf16 (K6, K11a, K11b): mma_bf16.cuh's split f32 dot, 64 columns per ring
+// stage, widths padded to 16. int8 (K7): mma_s8.cuh's chained s32 dot, 128
+// columns per stage, widths padded to 32. Both stage 128 bytes of a row per
+// stage (eight 16-byte vectors) at the same 144-byte stride, so the ring's
+// stages have the same bytes.
+template <typename E>
+struct Dot;
+
+template <>
+struct Dot<__nv_bfloat16> {
+  using Acc = mb::Acc;
+  static constexpr int KD = mb::KD, DK = 16, PAD = mb::PAD, SROW = mb::SROW;
+  __host__ __device__ static constexpr int pad(int h) { return mb::pad16(h); }
+  __host__ __device__ static constexpr bool resident(int h) { return mb::a_resident(h); }
+  __host__ __device__ static constexpr int slices(int h) { return mb::k_slices(h); }
+  __host__ __device__ static constexpr int resident_bytes(int h) { return mb::resident_bytes(h); }
+  __device__ __forceinline__ static void zero(Acc& acc) { mb::zero(acc); }
+  __device__ __forceinline__ static void run(Acc& acc, const __nv_bfloat16* a, int a_stride,
+                                             const __nv_bfloat16* b, int nk, int a_rows) {
+    mb::dot_slices(acc, a, a_stride, b, nk, a_rows);
+  }
+};
+
+template <>
+struct Dot<int8_t> {
+  using Acc = ms8::Acc;
+  static constexpr int KD = ms8::KD, DK = 32, PAD = ms8::PAD, SROW = ms8::SROW;
+  __host__ __device__ static constexpr int pad(int h) { return ms8::pad32(h); }
+  __host__ __device__ static constexpr bool resident(int h) { return ms8::a_resident(h); }
+  __host__ __device__ static constexpr int slices(int h) { return ms8::k_slices(h); }
+  __host__ __device__ static constexpr int resident_bytes(int h) { return ms8::resident_bytes(h); }
+  __device__ __forceinline__ static void zero(Acc& acc) { ms8::zero(acc); }
+  __device__ __forceinline__ static void run(Acc& acc, const int8_t* a, int a_stride, const int8_t* b,
+                                             int nk, int a_rows) {
+    ms8::dot_slices(acc, a, a_stride, b, nk, a_rows);
+  }
+};
+
+// Dynamic shared memory: the resident query rows, the ring (its first
+// RT x BSTR floats hold a sub-tile's bests once its positions are done), the
+// Lq-sums, and each chunk's l-major base index lmajor_index(c, 0, lt, group)
+// (v2 layouts), so that no position divides by the group.
+template <typename E>
+int scan_smem_bytes(int h) {
+  return Dot<E>::resident_bytes(h) + NST * mb::stage_bytes(!Dot<E>::resident(h)) + QG_MAX * CT * 4 + CT * 8;
 }
 
-template <bool ALIGNED, int LAYOUT>
+// One template for the four scans: E = bf16 with LAYOUT kMask (K6), kLMajor
+// (K11a) or kSelf (K11b); E = int8 with kMask (K7, whose s_tok and tq are
+// read; null otherwise).
+template <typename E, bool ALIGNED, int LAYOUT>
 __global__ void __launch_bounds__(THREADS, 2)
-maxsim_scan16_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Lq, H]
-                     const __nv_bfloat16* __restrict__ tok,    // [N*Lt, H], or the l-major pack
-                     const unsigned char* __restrict__ t_mask, // [N*Lt] bool (kMask) or null
-                     const float* __restrict__ bias_l,         // l-major mask bias (kLMajor, kSelf) or null
-                     const unsigned char* __restrict__ valid,  // [N] bool
-                     float* __restrict__ out,                  // [B, N]
-                     int nq, int lq, int n, int lt, int h, int qg, int n_groups, int group) {
+maxsim_scan_kernel(const E* __restrict__ q,                 // [B*Lq, H]
+                   const float* __restrict__ tq,            // [B*Lq] query scales (int8) or null
+                   const E* __restrict__ tok,               // [N*Lt, H], or the l-major pack
+                   const float* __restrict__ s_tok,         // [N*Lt] token scales (int8) or null
+                   const unsigned char* __restrict__ t_mask,// [N*Lt] bool (kMask) or null
+                   const float* __restrict__ bias_l,        // l-major mask bias (kLMajor, kSelf) or null
+                   const unsigned char* __restrict__ valid, // [N] bool
+                   float* __restrict__ out,                 // [B, N]
+                   int nq, int lq, int n, int lt, int h, int qg, int n_groups, int group) {
+  using D = Dot<E>;
+  constexpr bool INT8 = std::is_same<E, int8_t>::value;
+  constexpr int VE = 16 / sizeof(E);  // elements per staged 16-byte vector
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  unsigned char* ring = smem + mb::resident_bytes(h);
+  E* qs = reinterpret_cast<E*>(smem);
+  unsigned char* ring = smem + D::resident_bytes(h);
   float* bests = reinterpret_cast<float*>(ring);
-  float(*sum)[CT] = reinterpret_cast<float(*)[CT]>(ring + NST * mb::stage_bytes(!mb::a_resident(h)));
+  float(*sum)[CT] = reinterpret_cast<float(*)[CT]>(ring + NST * mb::stage_bytes(!D::resident(h)));
   int64_t* lbase = reinterpret_cast<int64_t*>(sum + QG_MAX);
   static_assert(RT * BSTR * 4 <= NST * CT * mb::SROW * 2, "the bests fit in the ring");
 
@@ -200,10 +256,10 @@ maxsim_scan16_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Lq, H]
   const int64_t row0 = (int64_t)g * qg * lq;  // the group's first flat query row
   const int rows = qg * lq;                   // the group's query rows
   const int64_t all_rows = (int64_t)nq * lq;
-  const bool res = mb::a_resident(h);
-  const int hp = mb::pad16(h);
-  const int ks = mb::k_slices(h);
-  const int a_stride = res ? hp + mb::PAD : mb::SROW;
+  const bool res = D::resident(h);
+  const int hp = D::pad(h);
+  const int ks = D::slices(h);
+  const int a_stride = res ? hp + D::PAD : D::SROW;
 
   for (int p = tid; p < QG_MAX * CT; p += THREADS) (&sum[0][0])[p] = 0.0f;
   if (LAYOUT != kMask && tid < CT) lbase[tid] = lmajor_index(c0 + tid, 0, lt, group);
@@ -217,68 +273,77 @@ maxsim_scan16_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Lq, H]
       const int r = sub * RT + i;
       return r < rows && row0 + r < all_rows ? (row0 + r) * h : -1;
     };
-    if (res) mb::stage_rows<ALIGNED>(qs, a_stride, q, q_src, RT, 0, hp / 8, hp / 8, h);
+    if (res) mb::stage_rows<ALIGNED>(qs, a_stride, q, q_src, RT, 0, hp / VE, hp / VE, h);
 
-    mb::Acc acc, best;
-    mb::zero(acc);
+    typename D::Acc acc;
+    mb::Acc best;
+    D::zero(acc);
 #pragma unroll
     for (int mt = 0; mt < mb::MT; ++mt)
 #pragma unroll
       for (int nt = 0; nt < mb::NT; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) best[mt][nt][e] = -INFINITY;
-    // this thread's chunks' mask (kMask) or bias at the current position:
-    // chunk (warp & 3)*32 + nt*8 + 2*(lane & 3) + e of the tile
-    float keep[mb::NT][2];
+    // What the fold adds to (bf16) or multiplies by (int8) the dots of chunk
+    // (warp & 3)*32 + i of the tile at position j: lane i of each warp loads
+    // it one position ahead (kv_next), and the lanes that hold the chunk's
+    // dots take it by shuffles. kMask: 0 for a valid token (bf16) or its scale
+    // (int8), NaN for a masked one, which fmaxf ignores, as a skip would; the
+    // v2 layouts: the l-major bias.
+    auto fold_value = [&](int j) -> float {
+      const int i = (warp & 3) * 32 + lane;
+      const int64_t c = c0 + i;
+      if constexpr (LAYOUT == kMask) {
+        if (c >= n || !t_mask[c * lt + j]) return NAN;
+        return INT8 ? __ldg(s_tok + c * lt + j) : 0.0f;
+      } else {
+        return c < n ? __ldg(bias_l + lmajor(i, j)) : MASK_BIAS;
+      }
+    };
+    float kv = 0.0f, kv_next = fold_value(0);
 
     mb::ring_run<NST>(
         lt * ks, ring, mb::stage_bytes(!res),
         [&](int step, unsigned char* st) {
-          const int j = step / ks, k0 = (step % ks) * mb::KD;
-          const int nv = min(mb::KD, hp - k0) / 8;
+          const int j = step / ks, k0 = (step % ks) * D::KD;
+          const int nv = min(D::KD, hp - k0) / VE;
           auto tok_src = [&](int i) -> int64_t {
             const int64_t c = c0 + i;
             if (c >= n) return -1;
             return (LAYOUT == kLMajor ? lmajor(i, j) : c * lt + j) * h;
           };
-          auto* t = reinterpret_cast<__nv_bfloat16*>(st);
-          mb::stage_rows<ALIGNED>(t, mb::SROW, tok, tok_src, CT, k0, 8, nv, h);
-          if (!res) mb::stage_rows<ALIGNED>(t + CT * mb::SROW, mb::SROW, q, q_src, RT, k0, 8, nv, h);
+          auto* t = reinterpret_cast<E*>(st);
+          mb::stage_rows<ALIGNED>(t, D::SROW, tok, tok_src, CT, k0, D::KD / VE, nv, h);
+          if (!res) mb::stage_rows<ALIGNED>(t + CT * D::SROW, D::SROW, q, q_src, RT, k0, D::KD / VE, nv, h);
         },
         [&](int step, unsigned char* st) {
-          const int j = step / ks, kc = step % ks, k0 = kc * mb::KD;
+          const int j = step / ks, kc = step % ks, k0 = kc * D::KD;
           if (kc == 0) {
-#pragma unroll
-            for (int nt = 0; nt < mb::NT; ++nt)
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const int i = (warp & 3) * 32 + nt * 8 + 2 * (lane & 3) + e;
-                const int64_t c = c0 + i;
-                if constexpr (LAYOUT == kMask) {
-                  keep[nt][e] = c < n && t_mask[c * lt + j] ? 1.0f : 0.0f;
-                } else {
-                  keep[nt][e] = c < n ? __ldg(bias_l + lmajor(i, j)) : MASK_BIAS;
-                }
-              }
+            kv = kv_next;
+            if (j + 1 < lt) kv_next = fold_value(j + 1);
           }
-          auto* t = reinterpret_cast<const __nv_bfloat16*>(st);
-          const __nv_bfloat16* a = res ? qs + k0 : t + CT * mb::SROW;
-          mb::dot_slices(acc, a, a_stride, t, min(mb::KD, hp - k0) / 16, sub_rows);
+          auto* t = reinterpret_cast<const E*>(st);
+          const E* a = res ? qs + k0 : t + CT * D::SROW;
+          D::run(acc, a, a_stride, t, min(D::KD, hp - k0) / D::DK, sub_rows);
           if (kc != ks - 1) return;
           // the full dot of position j: fold into the max
+          float k[mb::NT][2];
+#pragma unroll
+          for (int nt = 0; nt < mb::NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) k[nt][e] = __shfl_sync(0xffffffffu, kv, nt * 8 + 2 * (lane & 3) + e);
 #pragma unroll
           for (int mt = 0; mt < mb::MT; ++mt)
 #pragma unroll
             for (int nt = 0; nt < mb::NT; ++nt)
 #pragma unroll
               for (int e = 0; e < 4; ++e) {
-                const float k = keep[nt][e & 1];
-                if constexpr (LAYOUT == kMask) {
-                  if (k != 0.0f) best[mt][nt][e] = fmaxf(best[mt][nt][e], acc[mt][nt][e]);
+                if constexpr (INT8) {
+                  best[mt][nt][e] = fmaxf(best[mt][nt][e], __fmul_rn(__int2float_rn(acc[mt][nt][e]), k[nt][e & 1]));
                 } else {
-                  best[mt][nt][e] = fmaxf(best[mt][nt][e], __fadd_rn(acc[mt][nt][e], k));
+                  best[mt][nt][e] = fmaxf(best[mt][nt][e], __fadd_rn(acc[mt][nt][e], k[nt][e & 1]));
                 }
-                acc[mt][nt][e] = 0.0f;
+                acc[mt][nt][e] = 0;
               }
         });
 
@@ -306,7 +371,7 @@ maxsim_scan16_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Lq, H]
           *reinterpret_cast<float2*>(&bests[r * BSTR + c]) = make_float2(v[0], v[1]);
         }
     __syncthreads();
-    lq_sum<false>(sum, bests, BSTR, sub, sub_rows, qg, lq, row0, all_rows, nullptr);
+    lq_sum<INT8>(sum, bests, BSTR, sub, sub_rows, qg, lq, row0, all_rows, tq);
     __syncthreads();
   }
 
@@ -315,165 +380,6 @@ maxsim_scan16_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Lq, H]
     const int64_t b = (int64_t)g * qg + qi;
     const int64_t c = c0 + p % CT;
     if (b < nq && c < n) out[b * n + c] = valid[c] ? sum[qi][p % CT] : -INFINITY;
-  }
-}
-
-// The int8 scan (K7): __dp4a on CUDA cores, exact.
-struct SmemInt8 {
-  union {
-    struct {
-      // depth-major: a quarter warp reads 8 consecutive int4
-      int tok[KW][CT];
-      int q[KW][RT];
-    } stage;
-    float best[RT][CT];  // a sub-tile's bests (0 for an empty chunk)
-  } u;
-  unsigned char mask[CT];  // t_mask[chunk, j] of the current position
-  float scale[CT];         // s_tok[chunk, j]
-  float sum[QG_MAX][CT];   // running Lq-sums of the block's queries
-};
-
-template <bool ALIGNED>
-__global__ void __launch_bounds__(THREADS, 2)
-maxsim_scan_int8_kernel(const signed char* __restrict__ q,   // [B*Lq, H]
-                        const float* __restrict__ tq,        // [B*Lq] query scales
-                        const signed char* __restrict__ tok, // [N*Lt, H]
-                        const float* __restrict__ s_tok,     // [N*Lt] token scales
-                        const unsigned char* __restrict__ t_mask,  // [N*Lt] bool
-                        const unsigned char* __restrict__ valid,   // [N] bool
-                        float* __restrict__ out,             // [B, N]
-                        int nq, int lq, int n, int lt, int h, int qg) {
-  __shared__ __align__(16) SmemInt8 sm;
-  const int tid = threadIdx.x;
-  const int cg = tid & 15;  // chunk group: a quarter warp spans 8 of them
-  const int rg = tid >> 4;  // row group
-  const int64_t c0 = (int64_t)blockIdx.x * CT;
-  const int g = blockIdx.y;
-  const int64_t row0 = (int64_t)g * qg * lq;  // the group's first flat query row
-  const int rows = qg * lq;                   // the group's query rows
-  const int64_t all_rows = (int64_t)nq * lq;
-  constexpr int step = 4 * KW;                // depth per staging step
-
-  for (int p = tid; p < QG_MAX * CT; p += THREADS) (&sm.sum[0][0])[p] = 0.0f;
-
-  for (int sub = 0; sub * RT < rows; ++sub) {
-    const int sub_rows = min(RT, rows - sub * RT);
-    float best[TC][TR];
-#pragma unroll
-    for (int e = 0; e < TC; ++e)
-#pragma unroll
-      for (int r = 0; r < TR; ++r) best[e][r] = -INFINITY;
-
-    for (int j = 0; j < lt; ++j) {
-      int acc[TC][TR];
-#pragma unroll
-      for (int e = 0; e < TC; ++e)
-#pragma unroll
-        for (int r = 0; r < TR; ++r) acc[e][r] = 0;
-
-      // this thread stages chunk c0 + (tid & 127) at every depth step; its
-      // token row at position j
-      const int64_t tok_row = (c0 + (tid & (CT - 1))) * lt + j;
-      for (int k0 = 0; k0 < h; k0 += step) {
-        // chunk tokens: 128 chunks x 4 vectors of 16 bytes; a warp covers 32
-        // chunks of one vector column, so the shared stores are conflict-free
-#pragma unroll
-        for (int s = 0; s < 2; ++s) {
-          const int v = tid + THREADS * s;
-          const int c = v & (CT - 1);
-          const int part = v >> 7;
-          const int kk = k0 + part * 16;
-          uint4 raw = make_uint4(0, 0, 0, 0);
-          if (ALIGNED) {  // written out: the shared helper measured 7% slower here
-            if (c0 + c < n && kk < h) {
-              raw = __ldg(reinterpret_cast<const uint4*>(tok + tok_row * h + kk));
-            }
-          } else if (c0 + c < n) {
-            raw = load_row16<1, false>(tok, tok_row * h, kk, h);
-          }
-          sm.u.stage.tok[part * 4 + 0][c] = (int)raw.x;
-          sm.u.stage.tok[part * 4 + 1][c] = (int)raw.y;
-          sm.u.stage.tok[part * 4 + 2][c] = (int)raw.z;
-          sm.u.stage.tok[part * 4 + 3][c] = (int)raw.w;
-        }
-        // query rows: 64 rows x 4 vectors of 16 bytes, one per thread
-        {
-          const int r = tid & (RT - 1);
-          const int part = tid >> 6;
-          const int kk = k0 + part * 16;
-          const int64_t flat = row0 + sub * RT + r;
-          uint4 raw = make_uint4(0, 0, 0, 0);
-          if (ALIGNED) {
-            if (sub * RT + r < rows && flat < all_rows && kk < h) {
-              raw = __ldg(reinterpret_cast<const uint4*>(q + flat * h + kk));
-            }
-          } else if (sub * RT + r < rows && flat < all_rows) {
-            raw = load_row16<1, false>(q, flat * h, kk, h);
-          }
-          sm.u.stage.q[part * 4 + 0][r] = (int)raw.x;
-          sm.u.stage.q[part * 4 + 1][r] = (int)raw.y;
-          sm.u.stage.q[part * 4 + 2][r] = (int)raw.z;
-          sm.u.stage.q[part * 4 + 3][r] = (int)raw.w;
-        }
-        if (k0 == 0 && tid < CT) {
-          const int64_t c = c0 + tid;
-          sm.mask[tid] = c < n ? t_mask[c * lt + j] : 0;
-          sm.scale[tid] = c < n ? s_tok[c * lt + j] : 1.0f;
-        }
-        __syncthreads();
-
-#pragma unroll 4
-        for (int kk = 0; kk < KW; ++kk) {
-          const int4 a0 = *reinterpret_cast<const int4*>(&sm.u.stage.tok[kk][cg * 4]);
-          const int4 a1 = *reinterpret_cast<const int4*>(&sm.u.stage.tok[kk][64 + cg * 4]);
-          const int4 b4 = *reinterpret_cast<const int4*>(&sm.u.stage.q[kk][rg * 4]);
-          const int a[TC] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-          const int b[TR] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-          for (int e = 0; e < TC; ++e)
-#pragma unroll
-            for (int r = 0; r < TR; ++r) acc[e][r] = __dp4a(a[e], b[r], acc[e][r]);
-        }
-        if (k0 + step >= h) {  // the full dot of position j: fold into the max
-#pragma unroll
-          for (int e = 0; e < TC; ++e) {
-            const int c = (e < 4 ? 0 : 64) + cg * 4 + (e & 3);
-            if (!sm.mask[c]) continue;
-#pragma unroll
-            for (int r = 0; r < TR; ++r) {
-              best[e][r] = fmaxf(best[e][r], __fmul_rn(__int2float_rn(acc[e][r]), sm.scale[c]));
-            }
-          }
-        }
-        __syncthreads();
-      }
-    }
-
-    // the sub-tile's bests (an empty chunk's -inf counts 0) → shared memory
-#pragma unroll
-    for (int r = 0; r < TR; ++r) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float4 v;
-        float* pv = &v.x;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x = best[half * 4 + e][r];
-          pv[e] = isfinite(x) ? x : 0.0f;
-        }
-        *reinterpret_cast<float4*>(&sm.u.best[rg * TR + r][half * 64 + cg * 4]) = v;
-      }
-    }
-    __syncthreads();
-    lq_sum<true>(sm.sum, &sm.u.best[0][0], CT, sub, sub_rows, qg, lq, row0, all_rows, tq);
-    __syncthreads();
-  }
-
-  for (int p = tid; p < qg * CT; p += THREADS) {
-    const int qi = p / CT;
-    const int64_t b = (int64_t)g * qg + qi;
-    const int64_t c = c0 + p % CT;
-    if (b < nq && c < n) out[b * n + c] = valid[c] ? sm.sum[qi][p % CT] : -INFINITY;
   }
 }
 
@@ -487,25 +393,25 @@ bool bad_shape(int nq, int lq, int n, int lt, int h) {
          (nq + group_size(lq) - 1) / group_size(lq) > 65535;
 }
 
-// The bf16 scans: K6 (kMask), K11a (kLMajor), K11b (kSelf).
-template <int LAYOUT>
-int launch16(const void* q16, const void* tok, const void* t_mask, const void* bias_l,
-             const void* valid, void* out, int nq, int lq, int n, int lt, int h, int group,
-             void* stream) {
+// K6 and K7 (kMask), K11a (kLMajor), K11b (kSelf).
+template <typename E, int LAYOUT>
+int launch(const void* q, const void* tq, const void* tok, const void* s_tok, const void* t_mask,
+           const void* bias_l, const void* valid, void* out, int nq, int lq, int n, int lt, int h,
+           int group, void* stream) {
   const int qg = group_size(lq);
   const int n_groups = (nq + qg - 1) / qg;
   const int64_t blocks = (int64_t)((n + CT - 1) / CT) * n_groups;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  auto kernel = rows_aligned<2>(h) ? maxsim_scan16_kernel<true, LAYOUT>
-                                   : maxsim_scan16_kernel<false, LAYOUT>;
-  const int bytes = scan16_smem_bytes(h);
+  auto kernel = rows_aligned<sizeof(E)>(h) ? maxsim_scan_kernel<E, true, LAYOUT>
+                                           : maxsim_scan_kernel<E, false, LAYOUT>;
+  const int bytes = scan_smem_bytes<E>(h);
   const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(unsigned)blocks, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q16), static_cast<const __nv_bfloat16*>(tok),
-      static_cast<const unsigned char*>(t_mask), static_cast<const float*>(bias_l),
-      static_cast<const unsigned char*>(valid), static_cast<float*>(out), nq, lq, n, lt, h, qg,
-      n_groups, group);
+      static_cast<const E*>(q), static_cast<const float*>(tq), static_cast<const E*>(tok),
+      static_cast<const float*>(s_tok), static_cast<const unsigned char*>(t_mask),
+      static_cast<const float*>(bias_l), static_cast<const unsigned char*>(valid), static_cast<float*>(out),
+      nq, lq, n, lt, h, qg, n_groups, group);
   return (int)cudaGetLastError();
 }
 
@@ -520,7 +426,8 @@ extern "C" int maxsim_scan16_launch(const void* q16, const void* tok16, const vo
                                     const void* valid, void* out, int nq, int lq, int n, int lt,
                                     int h, void* stream) {
   if (bad_shape(nq, lq, n, lt, h)) return (int)cudaErrorInvalidValue;
-  return launch16<kMask>(q16, tok16, t_mask, nullptr, valid, out, nq, lq, n, lt, h, 1, stream);
+  return launch<__nv_bfloat16, kMask>(q16, nullptr, tok16, nullptr, t_mask, nullptr, valid, out, nq, lq, n,
+                                      lt, h, 1, stream);
 }
 
 extern "C" int maxsim_scan_int8_launch(const void* q8, const void* tq, const void* tok8,
@@ -530,15 +437,8 @@ extern "C" int maxsim_scan_int8_launch(const void* q8, const void* tq, const voi
   if (bad_shape(nq, lq, n, lt, h) || (long long)h * 127 * 127 >= (1 << 24)) {
     return (int)cudaErrorInvalidValue;
   }
-  const int qg = group_size(lq);
-  const dim3 grid((n + CT - 1) / CT, (nq + qg - 1) / qg);
-  auto kernel = rows_aligned<1>(h) ? maxsim_scan_int8_kernel<true> : maxsim_scan_int8_kernel<false>;
-  kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const signed char*>(q8), static_cast<const float*>(tq),
-      static_cast<const signed char*>(tok8), static_cast<const float*>(s_tok),
-      static_cast<const unsigned char*>(t_mask), static_cast<const unsigned char*>(valid),
-      static_cast<float*>(out), nq, lq, n, lt, h, qg);
-  return (int)cudaGetLastError();
+  return launch<int8_t, kMask>(q8, tq, tok8, s_tok, t_mask, nullptr, valid, out, nq, lq, n, lt, h, 1,
+                               stream);
 }
 
 // K11a: tok_l is the l-major pack [Gp*lt*group, h] (lt = its padded Lt_p),
@@ -547,7 +447,8 @@ extern "C" int maxsim_scan16_v2_launch(const void* q16, const void* tok_l, const
                                        const void* valid, void* out, int nq, int lq, int n, int lt,
                                        int h, int group, void* stream) {
   if (bad_shape(nq, lq, n, lt, h) || group < 1) return (int)cudaErrorInvalidValue;
-  return launch16<kLMajor>(q16, tok_l, nullptr, bias_l, valid, out, nq, lq, n, lt, h, group, stream);
+  return launch<__nv_bfloat16, kLMajor>(q16, nullptr, tok_l, nullptr, nullptr, bias_l, valid, out, nq, lq, n,
+                                        lt, h, group, stream);
 }
 
 // K11b: tokens [n, lt, h] read in place, bias_l [ceil(n/group)*lt*group] f32
@@ -556,5 +457,6 @@ extern "C" int maxsim_scan16_self_v2_launch(const void* q16, const void* tokens,
                                             const void* valid, void* out, int nq, int lq, int n,
                                             int lt, int h, int group, void* stream) {
   if (bad_shape(nq, lq, n, lt, h) || group < 1) return (int)cudaErrorInvalidValue;
-  return launch16<kSelf>(q16, tokens, nullptr, bias_l, valid, out, nq, lq, n, lt, h, group, stream);
+  return launch<__nv_bfloat16, kSelf>(q16, nullptr, tokens, nullptr, nullptr, bias_l, valid, out, nq, lq, n,
+                                      lt, h, group, stream);
 }

@@ -1,9 +1,9 @@
 // The tensor-core bf16 dot shared by the certified scans (K1's template in
-// scan_select_v3.cu, K6's in maxsim_scan.cu): a 64 x 128 tile of f32 dots
-// S = A . B^T between 64 "A rows" (queries, or query tokens) and 128 "B
-// rows" (corpus rows, or the chunks' tokens at one position), over any
-// width, fed from shared memory by ldmatrix into mma.sync m16n8k16 bf16,
-// with the staging ring that streams the B rows in.
+// scan_select_v3.cu, K6's in maxsim_scan.cu, K8 in scan_select_v1.cu): a
+// 64 x 128 tile of f32 dots S = A . B^T between 64 "A rows" (queries, or
+// query tokens) and 128 "B rows" (corpus rows, or the chunks' tokens at one
+// position), over any width, fed from shared memory by ldmatrix into
+// mma.sync m16n8k16 bf16, with the staging ring that streams the B rows in.
 //
 // The split accumulation. Every mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32
 // is issued with C = 0, so it sums at most 16 products of one 16-column
@@ -194,23 +194,24 @@ __device__ __forceinline__ uint4 round8(uint4 lo, uint4 hi) {
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// Stage columns [k0, k0 + 8*nv) of `rows` rows into dst (row stride
-// `stride` bf16), iterating nvp >= nv vector slots per row. row_src(i) is
-// row i's first element in src, or -1 for an absent row (zeros). Columns at
-// or past `width` stage as zero. bf16 rows of an aligned width (ALIGNED:
-// width % 8 == 0) go by cp.async, with no registers on the way; f32 rows
-// (rounded to bf16) and unaligned widths (row_load.cuh's bytewise path) go
-// through registers and are stored at once.
-template <bool ALIGNED, typename RowT, typename RowSrc>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int stride, const RowT* src,
-                                           RowSrc row_src, int rows, int k0, int nvp, int nv,
-                                           int width) {
+// Stage columns [k0, k0 + VE*nv) of `rows` rows into dst (row stride
+// `stride` elements), iterating nvp >= nv vector slots per row, each one
+// 16-byte vector of VE = 8 bf16 (or 16 int8, mma_s8.cuh's tiles). row_src(i)
+// is row i's first element in src, or -1 for an absent row (zeros). Columns
+// at or past `width` stage as zero. Rows of the staged type at an aligned
+// width (ALIGNED: a whole number of vectors) go by cp.async, with no
+// registers on the way; f32 rows (rounded to bf16) and unaligned widths
+// (row_load.cuh's bytewise path) go through registers and are stored at once.
+template <bool ALIGNED, typename DstT, typename RowT, typename RowSrc>
+__device__ __forceinline__ void stage_rows(DstT* dst, int stride, const RowT* src, RowSrc row_src,
+                                           int rows, int k0, int nvp, int nv, int width) {
+  constexpr int VE = 16 / sizeof(DstT);
   for (int v = threadIdx.x; v < rows * nvp; v += THREADS) {
     const int r = v / nvp, c = v - r * nvp;
     if (c >= nv) continue;
-    const int col = k0 + c * 8;
+    const int col = k0 + c * VE;
     const int64_t off = row_src(r);
-    __nv_bfloat16* to = dst + r * stride + c * 8;
+    DstT* to = dst + r * stride + c * VE;
     if constexpr (std::is_same<RowT, float>::value) {
       uint4 w = make_uint4(0, 0, 0, 0);
       if (off >= 0) {
@@ -224,7 +225,7 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int stride, const
                  full);
     } else {
       *reinterpret_cast<uint4*>(to) =
-          off >= 0 ? load_row16<2, false>(src, off, col, width) : make_uint4(0, 0, 0, 0);
+          off >= 0 ? load_row16<sizeof(RowT), false>(src, off, col, width) : make_uint4(0, 0, 0, 0);
     }
   }
 }

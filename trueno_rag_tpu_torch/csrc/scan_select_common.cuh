@@ -1,9 +1,10 @@
-// Shared by the tile-scan kernels (scan_select_v3.cu, scan_select_int8_v3.cu):
-// the thread layout, the tag predicate, the two bound forms, and the
-// selection epilogue that turns a 128-row block of masked scores into the
-// tile's candidate pool and then runs the per-1024-row tournament. Both
-// files include this one, so their selection and tie rules cannot drift
-// apart.
+// Shared by the tile-scan kernels (scan_select_v3.cu, scan_select_int8_v3.cu)
+// and the block kernels (scan_select_v1.cu): the thread layout, the tag
+// predicate, the two bound forms, the score tile's way from the tensor-core
+// fragments into the thread tiles, and the selection epilogue that turns a
+// 128-row block of masked scores into the tile's candidate pool and then
+// runs the per-1024-row tournament. The files include this one, so their
+// bounds, selection and tie rules cannot drift apart.
 //
 // Bound forms. Bound::kBlock is the v3 form (K1, K5, K3): selection ranks
 // the raw masked scores, and each selected value and each block's third
@@ -153,6 +154,43 @@ __device__ __forceinline__ void mask_scores(const float (&s)[TQ][TM], bool live,
       if constexpr (BF == Bound::kRow) y = __fadd_rn(__fadd_rn(y, __fmul_rn(er[r], u)), __fmul_rn(ar[r], v));
       x[i][r] = (live && ok[r] && f.pass(bits[r])) ? y : -INFINITY;
     }
+  }
+}
+
+// One 128-row block's 64-query x 128-row score tile as the tensor-core
+// dot leaves it (mma_bf16.cuh's fragments: warp w holds acc[mt][nt][e] at
+// query (w >> 2)*32 + mt*16 + (lane >> 2) + 8*(e >> 1), row (w & 3)*32 +
+// nt*8 + 2*(lane & 3) + (e & 1)) → this thread's 8-row x 4-query tile
+// s[query][row], through `scores` [QB][SSTR] f32 in shared memory. Row r
+// sits at column r + 4*(r/32), so the float2 stores and the float4 reads
+// are conflict-free. Every thread of the block must call it, and the
+// caller keeps the next call's stores behind a __syncthreads().
+constexpr int SSTR = 152;  // the score tile's row stride (f32)
+
+__device__ __forceinline__ void tile_scores(const float (&acc)[2][4][4], float* scores,
+                                            float (&s)[TQ][TM]) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  auto col = [](int r) { return r + (r >> 5) * 4; };
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int q = (warp >> 2) * 32 + mt * 16 + (lane >> 2) + 8 * half;
+        const int r = (warp & 3) * 32 + nt * 8 + 2 * (lane & 3);
+        *reinterpret_cast<float2*>(&scores[q * SSTR + col(r)]) =
+            make_float2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+      }
+  __syncthreads();
+  const int lane0 = (tid & 15) * TM, qg = tid >> 4;
+#pragma unroll
+  for (int i = 0; i < TQ; ++i) {
+    const float* p = &scores[(qg * TQ + i) * SSTR + col(lane0)];
+    const float4 lo = *reinterpret_cast<const float4*>(p);
+    const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+    s[i][0] = lo.x; s[i][1] = lo.y; s[i][2] = lo.z; s[i][3] = lo.w;
+    s[i][4] = hi.x; s[i][5] = hi.y; s[i][6] = hi.z; s[i][7] = hi.w;
   }
 }
 

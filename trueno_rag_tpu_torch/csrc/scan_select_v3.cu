@@ -84,18 +84,15 @@ namespace mb = mma_bf16;
 namespace {
 
 constexpr int NST = 2;                 // ring stages
-constexpr int SSTR = 152;              // score tile row stride (f32): float2 stores conflict-free
 static_assert(mb::TILE_A == QB && mb::TILE_B == BLOCK && mb::THREADS == THREADS,
               "the mma tile is one 128-row block of one query group");
 
-// Shared memory: the tournament pool, the score tile [QB][SSTR] (rows
-// r + 4*(r/32), so the epilogue's float4 reads are conflict-free), the
-// ring (rows and queries): 105,216 bytes at any d.
+// Shared memory: the tournament pool, the score tile [QB][SSTR]
+// (scan_select_common.cuh's tile_scores), the ring (rows and queries):
+// 105,216 bytes at any d.
 constexpr int SEL_BYTES = (sizeof(SelectSmem) + 15) / 16 * 16;
 constexpr int SCORE_BYTES = QB * SSTR * 4;
 constexpr int SMEM_BYTES = SEL_BYTES + SCORE_BYTES + NST * mb::stage_bytes(true);
-
-__device__ __forceinline__ int score_col(int r) { return r + (r >> 5) * 4; }
 
 // INDIRECT = false: K1, output column y scans rows y*1024 .. y*1024+1023.
 // INDIRECT = true: K5 (scan_select_v3_indirect), output column y scans
@@ -183,30 +180,10 @@ scan_select_v3_kernel(const __nv_bfloat16* __restrict__ q,  // [B, d]
           auto* rows = reinterpret_cast<const __nv_bfloat16*>(st);
           mb::dot_slices(acc, rows + BLOCK * mb::SROW, mb::SROW, rows, min(mb::KD, dp - k0) / 16, a_rows);
           if (kc != ks - 1) return;
-          // the block's scores → shared memory, in the epilogue's layout
-          const int warp = tid >> 5, lane = tid & 31;
-#pragma unroll
-          for (int mt = 0; mt < mb::MT; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < mb::NT; ++nt)
-#pragma unroll
-              for (int half = 0; half < 2; ++half) {
-                const int qq = (warp >> 2) * 32 + mt * 16 + (lane >> 2) + 8 * half;
-                const int r = (warp & 3) * 32 + nt * 8 + 2 * (lane & 3);
-                *reinterpret_cast<float2*>(&scores[qq * SSTR + score_col(r)]) =
-                    make_float2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
-              }
-          mb::zero(acc);
-          __syncthreads();
+          // the block's scores → shared memory → the epilogue's thread tiles
           float s[TQ][TM];
-#pragma unroll
-          for (int i = 0; i < TQ; ++i) {
-            const float* p = &scores[(qg * TQ + i) * SSTR + score_col(lane0)];
-            const float4 lo = *reinterpret_cast<const float4*>(p);
-            const float4 hi = *reinterpret_cast<const float4*>(p + 4);
-            s[i][0] = lo.x; s[i][1] = lo.y; s[i][2] = lo.z; s[i][3] = lo.w;
-            s[i][4] = hi.x; s[i][5] = hi.y; s[i][6] = hi.z; s[i][7] = hi.w;
-          }
+          tile_scores(acc, scores, s);
+          mb::zero(acc);
           epilogue(blk, s);
         });
   }
