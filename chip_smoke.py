@@ -18,7 +18,9 @@ Run from the repository root. Phases, each fatal on failure:
    - both: the emitted bounds sound against float64 true scores, and both
      versions timed with CUDA events;
 3. tags: K1 and K3 with a filter masking whole 128-row blocks and with one
-   masking scattered rows, against their plain versions;
+   masking scattered rows, against their plain versions; then K3 on 65,536
+   exact int8 rows with a planted three-way tie and masked blocks, bit for
+   bit, the tie resolved as the plain version resolves it;
 4. tier, at 10,485,760 x 384 device-generated unit rows, B = 256, k = 50:
    ``dense_topk_compact_bf16r`` (K1), ``dense_topk_compact`` (K3; both
    with no fp32 matrix in their inputs) and
@@ -122,7 +124,9 @@ Run from the repository root. Phases, each fatal on failure:
    with every difference at a near-tie), K9 ``scan_select_int8`` bit for
    bit, both sound against float64 (every emitted value at least its row's
    true score, v_{top+1} at least every row of its block not emitted),
-   times beside the plain versions;
+   times beside the plain versions; K9 also on planted-tie exact data made
+   as phase 3's (lanes 100, 9 at equal values; the masked block's lane
+   127), bit for bit;
 17. kernels-K2 (after phase 16), the same shapes in fp32: K2
    ``score_blockmax`` within 2(d+1)·2⁻²⁴ of torch.matmul (TF32 off; two
    f32 sums of the same unit-vector products), its maxima exactly the max
@@ -318,6 +322,7 @@ PR_DUP, PR_SIGMA = 16, 0.05  # the tight law: 16 chunks share a cluster's topics
 PR_RESCORE = 128
 PR_SAMPLE = 2048  # chunks whose every token is checked inside its radius, in float64
 K8_TOPS = (2, 4)  # kernels-K8K9: the store's scan_block_top, then the kernel's default
+TIE_N = 65536  # kernels, kernels-K8K9: rows of the planted-tie exact int8 data
 K2_K = 10  # kernels-K2: k of the two top-k functions
 ODD_D = 100  # odd-widths: a width no kernel vector divides
 ODD_N = 65536
@@ -522,6 +527,37 @@ def check_filtered(name, v, r, allowed, t_top=T_TOP):
     check(bool(allowed[b_idx[live], r[live].long()].all()), f"{name} emitted a row its filter forbids")
 
 
+def int8_tie_inputs(n: int, b: int, gen):
+    """Exact int8 data for the planted-tie checks: codes in [-3, 3] and
+    dyadic row scales, query scales and bound norms, so every score and
+    upper bound is exact in f32; row 9 all +-3 (the largest dot any row can
+    have with query 0, which equals it) copied into rows 5 and 100 with its
+    scale and norms (a three-way tie at the top of block 0); a partly and a
+    fully masked block (rows 300-329, block 2) → the 9 arguments of K3, K10c
+    and K9 (per-row norms)."""
+    import torch
+
+    from trueno_rag_tpu_torch.ops.kernels.scan_select import BLOCK
+
+    def pick(values, size):
+        return torch.tensor(values, device=DEV)[torch.randint(0, len(values), (size,), device=DEV, generator=gen)]
+
+    m8 = torch.randint(-3, 4, (n, DIM), device=DEV, generator=gen, dtype=torch.int8)
+    q8 = torch.randint(-3, 4, (b, DIM), device=DEV, generator=gen, dtype=torch.int8)
+    m8[9] = torch.where(torch.rand(DIM, device=DEV, generator=gen) < 0.5, -3, 3).to(torch.int8)
+    s_row, e_l2, a_l2 = pick([0.125, 0.25, 0.5], n), pick([0.0, 0.125, 0.25, 0.375], n), pick([0.25, 0.5, 0.75, 1.0], n)
+    planted = torch.tensor([5, 9, 100], device=DEV)
+    m8[planted] = m8[9].clone()
+    s_row[planted], e_l2[planted], a_l2[planted] = 0.5, 0.375, 1.0
+    q8[0] = m8[9]
+    valid = torch.ones(n, dtype=torch.int32, device=DEV)
+    valid[300:330] = 0
+    valid[2 * BLOCK:3 * BLOCK] = 0
+    t_q = pick([1.0, 2.0], b)
+    u_q, v_q = torch.full((b,), 0.25, device=DEV), torch.full((b,), 0.125, device=DEV)
+    return q8, m8, s_row, e_l2, a_l2, valid, t_q, u_q, v_q
+
+
 def phase_kernels(seed: int):
     """K1 and K3 against their plain versions, soundness and times; then
     their tag variants. → (K1 record, K3 record)."""
@@ -591,7 +627,7 @@ def phase_kernels(seed: int):
     k3_bound = bound(BATCH * DIM + N_ROWS * DIM + N_ROWS * 16 + BATCH * 12 + out_bytes, flop, INT8_OP_PER_S)
     log(f"K3 scan_select_int8_v3 at N={N_ROWS} d={DIM} B={BATCH}: kernel {k3_ms:.3f} / {k3_ms2:.3f} ms, "
         f"plain {k3_plain:.3f} ms (median, CUDA events); bound {k3_bound[0]:.3f} ms ({k3_bound[1]})")
-    log(f"  K3 rate {flop / (min(k3_ms, k3_ms2) * 1e-3) / 1e12:.1f} TOP/s int8 dp4a (2*B*N*d / time)")
+    log(f"  K3 rate {flop / (min(k3_ms, k3_ms2) * 1e-3) / 1e12:.1f} TOP/s on the int8 tensor cores (2*B*N*d / time)")
 
     # -- tag variants ---------------------------------------------------------
     for pattern in ("blocks", "rows"):
@@ -609,6 +645,20 @@ def phase_kernels(seed: int):
         log(f"K3 tags ({pattern}): bit-identical to plain; kept {allowed.float().mean().item():.3f} of "
             f"(row, query) pairs; tagged kernel times K1 {t1:.3f} ms, K3 {t3:.3f} ms")
         del allowed, vr, rr, vr3, rr3
+
+    # -- planted ties on exact data ---------------------------------------------
+    tie = int8_tie_inputs(TIE_N, BATCH, gen)
+    vt, rt = scan_select_int8_v3(*tie, t_top=T_TOP)
+    vtr, rtr = scan_select_int8_v3_reference(*tie, t_top=T_TOP)
+    check(torch.equal(vt, vtr) and torch.equal(rt, rtr), "K3 on the planted ties differs from the plain version")
+    # rows 100 and 9 lead block 0 (ties: higher lane); in the tournament the
+    # higher slot (block 0's second candidate, row 9) wins the tie; row 5 is
+    # block 0's third value, so the tile threshold equals them
+    check(rt[0, :2, 0].tolist() == [9, 100], f"K3 planted tie: rows {rt[0, :2, 0].tolist()}, want [9, 100]")
+    check(vt[0, 0, 0].item() == vt[0, 1, 0].item() == vt[0, T_TOP, 0].item(), "K3 planted tie: values differ")
+    log(f"K3 planted ties ({TIE_N} exact int8 rows, B={BATCH}): bit-identical to plain; query 0's tile 0 emits "
+        f"rows 9, 100 at equal values and the threshold equal to them")
+    del tie, vt, rt, vtr, rtr
 
     del m, m64, q64, mb, m_i8
     torch.cuda.empty_cache()
@@ -1396,7 +1446,8 @@ def phase_kernels_k10(seed: int):
                        INT8_OP_PER_S)
     log(f"K10c scan_select_int8_v2 at N={N_ROWS} d={DIM} B={BATCH}: kernel {k10c_ms:.3f} / {k10c_ms2:.3f} ms, "
         f"plain {k10c_plain:.3f} ms (median, CUDA events); bound {k10c_bound[0]:.3f} ms ({k10c_bound[1]}); "
-        f"K3 in the same call {k3_ms:.3f} ms")
+        f"K3 in the same call {k3_ms:.3f} ms; rate {flop / (min(k10c_ms, k10c_ms2) * 1e-3) / 1e12:.1f} TOP/s on the "
+        f"int8 tensor cores")
 
     # -- tag variants of K10a and K10c ------------------------------------------
     for pattern in ("blocks", "rows"):
@@ -3412,6 +3463,19 @@ def phase_kernels_k8k9(seed: int):
         log(f"K9 soundness (top {top}): 16 queries x {g} blocks bounded, least slack {worst:.3e}")
         del got, want
     del true
+    tie = int8_tie_inputs(TIE_N, BATCH, gen)
+    for top in K8_TOPS:
+        got = scan_select_int8(*tie, tile_n=1024, top=top)
+        want = scan_select_int8_reference(*tie, tile_n=1024, top=top)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)), f"K9 (top {top}) on the planted ties differs from plain")
+        # block 0, query 0: lanes 100 then 9 (equal values: the larger lane first), the next value row 5's
+        check([got[top + 1 + t][0, 0].item() for t in range(2)] == [100, 9], f"K9 (top {top}): planted tie lanes")
+        check(got[0][0, 0].item() == got[1][0, 0].item() == got[2][0, 0].item(), f"K9 (top {top}): planted tie values")
+        check(all(bool((x[:, 2] == BLOCK - 1).all()) for x in got[top + 1:]), f"K9 (top {top}): masked block lanes")
+        check(all(bool(torch.isneginf(x[:, 2]).all()) for x in got[:top + 1]), f"K9 (top {top}): masked block values")
+    log(f"K9 planted ties ({TIE_N} exact int8 rows, B={BATCH}, top {K8_TOPS}): bit-identical to plain; lanes 100, 9 "
+        f"at equal values; the masked block emits lane 127 and -inf")
+    del tie, got, want
 
     top = K8_TOPS[0]  # the store's scan_block_top
     k8_ms = cuda_ms(lambda: scan_select(*args8, tile_n=1024, top=top), 20)
@@ -3432,7 +3496,7 @@ def phase_kernels_k8k9(seed: int):
         f"({k8_bound[1]}); rate {flop / (min(k8_ms, k8_ms2) * 1e-3) / 1e12:.1f} TFLOP/s on the tensor cores")
     log(f"K9 scan_select_int8 at N={N_ROWS} d={DIM} B={BATCH} top {top}: kernel {k9_ms:.3f} / {k9_ms2:.3f} ms, "
         f"plain {k9_plain:.3f} ms (median, CUDA events); top 4 {k9_top4:.3f} ms; bound {k9_bound[0]:.3f} ms "
-        f"({k9_bound[1]}); rate {flop / (min(k9_ms, k9_ms2) * 1e-3) / 1e12:.1f} TOP/s")
+        f"({k9_bound[1]}); rate {flop / (min(k9_ms, k9_ms2) * 1e-3) / 1e12:.1f} TOP/s on the int8 tensor cores")
     del m, mb, m_i8
     torch.cuda.empty_cache()
     src = "trueno_rag_tpu_torch/csrc/scan_select_v1.cu"

@@ -1,7 +1,11 @@
 """The plain PyTorch version of scan_select_v3 against the JAX package's
 Pallas kernel (interpret mode), its soundness against float64, the
 wrapper's dispatch rule, and (on a card only) the CUDA kernel against
-the plain version."""
+the plain version; then K3 ``scan_select_int8_v3`` and K10c
+``scan_select_int8_v2``: their plain versions against the Pallas kernels
+(interpret mode) on exact int8 data (d = 1040 at +-127, planted ties at
+d = 17 and 100), bit for bit, and on a card K3 at widths 15-1040, batches
+1-256 and both tag patterns, both on the planted ties."""
 
 import numpy as np
 import pytest
@@ -16,6 +20,8 @@ from trueno_rag_tpu_torch.ops.kernels.scan_select import (
     scan_select_v3,
     scan_select_v3_reference,
 )
+
+from test_torch_scan_select_v1 import _int8_sign_args, _tie_args
 
 T_TOP = 4
 # Scores are compared across frameworks whose f32 sums of d = 32 bf16
@@ -355,3 +361,132 @@ def test_cuda_tile_scans_at_widths_around_the_mma_depth(d):
         assert (vk[fin] - vr[fin]).abs().max().item() <= 1e-4
         assert (rk != rr).float().mean().item() <= 1e-3
         assert torch.equal(rk[:, :, 8:], rr[:, :, 8:])  # the pad slot
+
+
+# -- K3 and K10c (the int8 tile scans) on exact data --------------------------------
+
+INT8_TILE = ("scan_select_int8_v3", "scan_select_int8_v2")  # K3, K10c
+
+
+def _jax_int8_tile(name, args, t_top):
+    jnp = pytest.importorskip("jax.numpy")
+    from trueno_rag_tpu.ops.pallas import scan_select_v2 as jss
+
+    jv, jr = getattr(jss, name)(*(jnp.asarray(x) for x in args), tile_n=2048, t_top=t_top, use_int8_mxu=False,
+                                interpret=True)
+    return np.asarray(jv), np.asarray(jr)
+
+
+def _port_int8_tile(name, args, t_top):
+    from trueno_rag_tpu_torch.ops.kernels import scan_select as ss
+
+    v, r = getattr(ss, name + "_reference")(*(torch.from_numpy(x) for x in args), t_top=t_top)
+    return v.numpy(), r.numpy()
+
+
+@pytest.mark.parametrize("name", INT8_TILE)
+def test_int8_tile_plain_matches_jax_kernel_at_the_widest_width(name):
+    """K3's and K10c's plain versions against the Pallas kernels (interpret
+    mode) at d = 1040 on +-127 data: sums up to d*127^2 < 2^24 stay exact,
+    so values and rows agree bit for bit through the many exact ties."""
+    args = [x.numpy() for x in _int8_sign_args(1040, n=4096)]
+    jv, jr = _jax_int8_tile(name, args, T_TOP)
+    tv, tr = _port_int8_tile(name, args, T_TOP)
+    np.testing.assert_array_equal(tv, jv)
+    np.testing.assert_array_equal(tr, jr)
+    for i in (1, 2, 3):  # the planted copies: d*127^2 = 16,774,160, exact through both scales
+        assert tr[i, 0, i] == i * SEL + 7 * i
+        assert tv[i, 0, i] == 1040 * 127 * 127 * 0.5 * args[6][i]
+
+
+@pytest.mark.parametrize("name", INT8_TILE)
+@pytest.mark.parametrize("d", [17, 100])
+def test_int8_tile_plain_matches_jax_kernel_on_planted_ties(name, d):
+    """On exact data both versions compute every value exactly, so they agree
+    bit for bit, values and rows; the planted tie resolves as the JAX code
+    resolves it: rows 100 and 9 lead block 0, the tournament takes the
+    higher slot (block 0's second candidate, row 9) first, and row 5, block
+    0's third value, sets the tile threshold to the same value."""
+    args = [x.numpy() for x in _tie_args(d, int8=True)]
+    jv, jr = _jax_int8_tile(name, args, T_TOP)
+    tv, tr = _port_int8_tile(name, args, T_TOP)
+    np.testing.assert_array_equal(tv, jv)
+    np.testing.assert_array_equal(tr, jr)
+    assert tr[0, :2, 0].tolist() == [9, 100]
+    assert tv[0, 0, 0] == tv[0, 1, 0] == tv[0, T_TOP, 0]
+
+
+def _cuda_tag_pattern(pattern, n, b, seed):
+    """None, or a filter with one tag word per 128-row block ("blocks") or
+    per row ("rows"), as the smoke's two patterns."""
+    if pattern is None:
+        return None
+    g = torch.Generator().manual_seed(seed)
+    if pattern == "blocks":
+        bits = torch.randint(0, 16, (n // BLOCK,), generator=g, dtype=torch.int32).repeat_interleave(BLOCK)
+    else:
+        bits = torch.randint(0, 16, (n,), generator=g, dtype=torch.int32)
+    words = [torch.randint(0, 16, (b,), generator=g, dtype=torch.int32) & w for w in (1, 6, 8)]
+    return tuple(t.cuda() for t in (bits, *words))
+
+
+def _cuda_int8_args(d, b, n, seed):
+    """Quantized unit rows (prepare_int8) with masked rows; at d = 1040 the
+    +-127 rows of _int8_sign_args instead, whose dots approach 2^24."""
+    if d == 1040:
+        return [x.cuda() for x in _int8_sign_args(d, n=n, b=b, seed=seed)]
+    rng = np.random.default_rng(seed)
+    m = torch.from_numpy(_unit(rng, n, d)).cuda()
+    q = torch.from_numpy(_unit(rng, b, d)).cuda()
+    valid = torch.ones(n, dtype=torch.int32, device="cuda")
+    valid[1000:1300] = 0
+    m_i8, s_row, e_l2, a_l2 = dt.prepare_int8(m)
+    q_i8, t_q, u_q, v_q = dt._int8_query_bounds(q)
+    return [q_i8, m_i8, s_row, e_l2, a_l2, valid, t_q, u_q, v_q]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [15, 16, 17, 32, 33, 100, 384, 520, 1040])
+@pytest.mark.parametrize("b", [1, 65, 200, 256])
+@pytest.mark.parametrize("tags", [None, "blocks", "rows"])
+def test_cuda_int8_tile_scan_at_widths_and_batches(d, b, tags):
+    """K3 (mma_s8.cuh's exact dot in the tile-scan program) bit for bit
+    against its plain version at widths below, at and past one 32-column
+    mma slice, ones no 16-byte vector divides, 384, past 512 and the widest
+    (1040, sums near 2^24), at batches that fill part of one, two, four and
+    all four 64-query groups, untagged and under both tag patterns."""
+    _cuda_or_skip()
+    from trueno_rag_tpu_torch.ops.kernels.scan_select import (
+        scan_select_int8_v3,
+        scan_select_int8_v3_reference,
+    )
+
+    n = 16384
+    args = _cuda_int8_args(d, b, n, seed=d * 1000 + b)
+    tg = _cuda_tag_pattern(tags, n, b, seed=d + b)
+    before = scan_select_int8_v3.launches
+    vk, rk = scan_select_int8_v3(*args, t_top=T_TOP, tags=tg)
+    torch.cuda.synchronize()
+    assert scan_select_int8_v3.launches == before + 1
+    vr, rr = scan_select_int8_v3_reference(*args, t_top=T_TOP, tags=tg)
+    assert torch.equal(vk, vr)
+    assert torch.equal(rk, rr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", INT8_TILE)
+@pytest.mark.parametrize("d", [17, 100, 384])
+def test_cuda_int8_tile_scans_are_bit_identical_on_planted_ties(name, d):
+    """K3 and K10c on the planted-tie data: bit for bit against their plain
+    versions, values and rows, with the tie resolved as the plain version
+    does (rows 9, 100 at equal values, the threshold equal to them): the
+    s32 tile's way through shared memory keeps every row at its lane."""
+    _cuda_or_skip()
+    from trueno_rag_tpu_torch.ops.kernels import scan_select as ss
+
+    args = [x.cuda() for x in _tie_args(d, n=8192, b=70, int8=True)]
+    vk, rk = getattr(ss, name)(*args, t_top=T_TOP)
+    torch.cuda.synchronize()
+    vr, rr = getattr(ss, name + "_reference")(*args, t_top=T_TOP)
+    assert torch.equal(vk, vr) and torch.equal(rk, rr)
+    assert rk[0, :2, 0].tolist() == [9, 100]

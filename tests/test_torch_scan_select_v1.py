@@ -1,10 +1,11 @@
 """The block-kernel scans (K8 ``scan_select``, K9 ``scan_select_int8``):
 their plain PyTorch versions against the JAX package's Pallas kernels
-(interpret mode) at top 1, 2 and 4 with masked rows and planted ties, the
-wrappers' dispatch and checks, and (on a card only) the CUDA kernels
-against the plain versions at d = 384 and d = 100, K8's tensor-core dot
-at widths 15-520, batches 1-256 and tops 1-8, and bit for bit on exact
-data.
+(interpret mode) at top 1, 2 and 4 with masked rows and planted ties
+(K9 also at d = 1040 on +-127 data and on planted int8 ties, bit for bit),
+the wrappers' dispatch and checks, and (on a card only) the CUDA kernels
+against the plain versions at d = 384 and d = 100, both tensor-core dots
+at widths 15-520 (K9 to 1040), batches 1-256 and tops 1-8, and bit for bit
+on exact data.
 
 Tolerances, and why:
 - K8 values: 1e-5 absolute. Both frameworks sum d bf16 products in f32 in
@@ -27,6 +28,7 @@ import torch
 
 from trueno_rag_tpu_torch.errors import InvalidConfigError
 from trueno_rag_tpu_torch.ops import dense_tiered as dt
+from trueno_rag_tpu_torch.ops.kernels.scan_select import SEL
 from trueno_rag_tpu_torch.ops.kernels.scan_select_v1 import (
     BLOCK,
     scan_select,
@@ -165,15 +167,22 @@ def test_k8_plain_matches_jax_kernel_with_exact_ties(top):
         np.testing.assert_array_equal(p.numpy(), j)
 
 
-def _tie_args(d, n=2048, b=8, seed=13):
-    """K8's inputs on exact data: small-integer bf16 rows and queries (every
-    product and every partial sum an integer, so each dot is exact in any
-    order), dyadic bound terms (each upper exact in f32), a partly and a
-    fully masked block, and planted equal uppers: row 9 copied into rows 5
-    and 100 of block 0 with the same norms, and query 0 equal to it."""
+def _tie_args(d, n=2048, b=8, seed=13, int8=False):
+    """Exact data for K8 (bf16) or, with ``int8``, K9, K3 and K10c:
+    small-integer rows and queries in [-3, 3] (every product and every
+    partial sum an integer, so each dot is exact in any order), dyadic bound
+    terms (each upper exact in f32), a partly and a fully masked block, and
+    planted equal uppers: row 9 copied into rows 5 and 100 of block 0 with
+    the same norms, and query 0 equal to it. In int8 the row and query
+    scales are dyadic too, and row 9 is all +-3 at the largest row scale and
+    norms: the largest upper any row can have with query 0. → torch
+    tensors in the kernel's argument order."""
     rng = np.random.default_rng(seed + d)
     m = rng.integers(-3, 4, size=(n, d)).astype(np.float32)
     q = rng.integers(-3, 4, size=(b, d)).astype(np.float32)
+    if int8:
+        m[9] = np.where(rng.random(d) < 0.5, -3, 3)
+        s_row = np.array([0.125, 0.25, 0.5], np.float32)[rng.integers(0, 3, n)]
     e_l2 = (rng.integers(0, 4, size=n) / 8.0).astype(np.float32)
     a_l2 = (rng.integers(1, 5, size=n) / 4.0).astype(np.float32)
     for r in (5, 100):
@@ -184,8 +193,12 @@ def _tie_args(d, n=2048, b=8, seed=13):
     valid[2 * BLOCK:3 * BLOCK] = 0
     u_q = np.full(b, 0.25, np.float32)
     v_q = np.full(b, 0.125, np.float32)
-    qb, mb = (_t(x).to(torch.bfloat16) for x in (q, m))
-    return [qb, mb] + [_t(x) for x in (e_l2, a_l2, valid, u_q, v_q)]
+    if not int8:
+        qb, mb = (_t(x).to(torch.bfloat16) for x in (q, m))
+        return [qb, mb] + [_t(x) for x in (e_l2, a_l2, valid, u_q, v_q)]
+    s_row[[5, 9, 100]], e_l2[[5, 9, 100]], a_l2[[5, 9, 100]] = 0.5, 0.375, 1.0
+    t_q = np.array([1.0, 2.0], np.float32)[rng.integers(0, 2, b)]
+    return [_t(x) for x in (q.astype(np.int8), m.astype(np.int8), s_row, e_l2, a_l2, valid, t_q, u_q, v_q)]
 
 
 @pytest.mark.parametrize("d", [17, 100])
@@ -371,3 +384,103 @@ def test_cuda_k8_is_bit_identical_on_exact_data(d, top):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert [got[top + 1 + t][0, 0].item() for t in range(2)] == [100, 9]
+
+
+# -- K9 on exact int8 data ------------------------------------------------------------
+
+
+def _int8_sign_args(d, n=2048, b=8, seed=17):
+    """Rows and queries of +-127 only, with query i (1-3, if b > i and the
+    row exists) copied into row i*1024 + 7i at the largest row scale, so
+    its dot reaches d*127^2 (just below 2^24 at d = 1040, the widest width
+    the int8 kernels take) and leads its block and tile for query i; many
+    other dots tie exactly. Power-of-two scales and zero bound norms keep
+    every value exact. → torch tensors in the int8 kernels' argument order."""
+    rng = np.random.default_rng(seed + d)
+    m = np.where(rng.random((n, d)) < 0.5, -127, 127).astype(np.int8)
+    q = np.where(rng.random((b, d)) < 0.5, -127, 127).astype(np.int8)
+    s_row = np.array([0.25, 0.5], np.float32)[rng.integers(0, 2, n)]
+    for i in range(1, min(b, 4, n // SEL)):
+        m[i * SEL + 7 * i], s_row[i * SEL + 7 * i] = q[i], 0.5
+    valid = np.ones(n, np.int32)
+    valid[300:330] = 0
+    valid[2 * BLOCK:3 * BLOCK] = 0
+    t_q = np.array([1.0, 2.0], np.float32)[rng.integers(0, 2, b)]
+    zeros = np.zeros(n, np.float32)
+    return [_t(x) for x in (q, m, s_row, zeros, zeros.copy(), valid, t_q, np.full(b, 0.25, np.float32),
+                            np.full(b, 0.125, np.float32))]
+
+
+@pytest.mark.parametrize("top", [2, 4])
+def test_k9_plain_matches_jax_kernel_at_the_widest_width(top):
+    """At d = 1040 on +-127 data (sums up to d*127^2 < 2^24, exact), K9's
+    plain version equals the Pallas kernel bit for bit, values and lanes,
+    through the many exact ties; the planted copy leads its block."""
+    args = _int8_sign_args(1040)
+    to = scan_select_int8_reference(*args, tile_n=1024, top=top)
+    for j, p in zip(_jax_scan("int8", args, top), to):
+        np.testing.assert_array_equal(p.numpy(), j)
+    assert to[top + 1][1, 1031 // BLOCK].item() == 1031 % BLOCK
+    assert to[0][1, 1031 // BLOCK].item() == 1040 * 127 * 127 * 0.5 * args[6][1].item()
+
+
+@pytest.mark.parametrize("d", [17, 100])
+def test_k9_plain_matches_jax_kernel_bit_for_bit_on_planted_ties(d):
+    """On exact int8 data both versions compute every upper exactly, so they
+    agree bit for bit, values and lanes, through the planted three-way tie
+    (lanes 100, 9, 5 in that order) and the all-masked block (lane 127 in
+    every pass)."""
+    top = 4
+    args = _tie_args(d, int8=True)
+    to = scan_select_int8_reference(*args, tile_n=1024, top=top)
+    for j, p in zip(_jax_scan("int8", args, top), to):
+        np.testing.assert_array_equal(p.numpy(), j)
+    assert [to[top + 1 + t][0, 0].item() for t in range(3)] == [100, 9, 5]
+    assert to[0][0, 0].item() == to[1][0, 0].item() == to[2][0, 0].item()
+    for lanes in to[top + 1:]:
+        assert (lanes[:, 2] == BLOCK - 1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [15, 16, 17, 32, 33, 100, 384, 520, 1040])
+@pytest.mark.parametrize("b", [1, 65, 200, 256])
+@pytest.mark.parametrize("top", [1, 2, 4, 8])
+def test_cuda_k9_at_widths_batches_and_tops(d, b, top):
+    """K9 (K8's program on mma_s8.cuh's exact dot) bit for bit against its
+    plain version at widths below, at and past one 32-column mma slice, ones
+    no 16-byte vector divides, 384, past 512 and the widest (1040, +-127
+    rows whose dots approach 2^24), at batches that fill part of one, two,
+    four and all four 64-query groups, every top."""
+    _cuda_or_skip()
+    n = 16384
+    if d == 1040:
+        args = [x.cuda() for x in _int8_sign_args(d, n=n, b=b, seed=b)]
+    else:
+        m, q, valid = _inputs(n, d, b, seed=d * 1000 + b)
+        args = [x.cuda() for x in _int8_args(m, q, valid)]
+    before = scan_select_int8.launches
+    got = scan_select_int8(*args, tile_n=1024, top=top)
+    torch.cuda.synchronize()
+    assert scan_select_int8.launches == before + 1
+    want = scan_select_int8_reference(*args, tile_n=1024, top=top)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [17, 100, 384])
+@pytest.mark.parametrize("top", [2, 8])
+def test_cuda_k9_is_bit_identical_on_planted_ties(d, top):
+    """K9 on the planted-tie data: bit for bit against its plain version,
+    values and lanes, the tie resolved to lanes 100 then 9 and the
+    all-masked block to lane 127: the s32 tile's way through shared memory
+    into the selection keeps every row at its lane."""
+    _cuda_or_skip()
+    args = [x.cuda() for x in _tie_args(d, n=8192, b=70, int8=True)]
+    got = scan_select_int8(*args, tile_n=1024, top=top)
+    torch.cuda.synchronize()
+    want = scan_select_int8_reference(*args, tile_n=1024, top=top)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert [got[top + 1 + t][0, 0].item() for t in range(2)] == [100, 9]
+    assert all(bool((lanes[:, 2] == BLOCK - 1).all()) for lanes in got[top + 1:])

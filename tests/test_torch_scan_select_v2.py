@@ -32,6 +32,8 @@ from trueno_rag_tpu_torch.ops import dense_tiered as tdt
 from trueno_rag_tpu_torch.ops.kernels import scan_select as ss
 from trueno_rag_tpu_torch.ops.kernels.scan_select import BLOCK, SEL
 
+from test_torch_scan_select_v1 import _int8_sign_args
+
 T_TOP = 4
 GAP = 2e-5
 SOUND_EPS = 1e-5  # the JAX package's own soundness pin: f32 rounding of the kernel's upper
@@ -636,3 +638,39 @@ def test_cuda_tiered2_inline_cast_equals_replica():
     assert torch.equal(rep[0], inl[0]) and torch.equal(rep[1], inl[1]) and rep[2] == inl[2]
     xs, xr = tdense.dense_topk(q, m, valid, 20, "cosine")
     assert torch.equal(inl[1], xr) and torch.equal(inl[0], xs)
+
+
+def _cuda_int8_sweep_args(d, b, n, seed):
+    """K10c's sweep data: quantized unit rows (prepare_int8) with masked
+    rows; at d = 1040 the +-127 rows of _int8_sign_args instead, whose dots
+    approach 2^24."""
+    if d == 1040:
+        return [x.cuda() for x in _int8_sign_args(d, n=n, b=b, seed=seed)]
+    rng = np.random.default_rng(seed)
+    valid = torch.ones(n, dtype=torch.int32, device="cuda")
+    valid[1000:1300] = 0
+    m8, s_row, e, a = tdt.prepare_int8(_t(_unit(rng, n, d)).cuda())
+    q8, t_q, u, v = tdt._int8_query_bounds(_t(_unit(rng, b, d)).cuda())
+    return [q8, m8, s_row, e, a, valid, t_q, u, v]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [15, 16, 17, 32, 33, 100, 384, 520, 1040])
+@pytest.mark.parametrize("b", [1, 65, 200, 256])
+@pytest.mark.parametrize("tagged", [False, True])
+def test_cuda_int8_v2_at_widths_and_batches(d, b, tagged):
+    """K10c (K3's tile-scan program with the per-row bound, on mma_s8.cuh's
+    exact dot) bit for bit against its plain version at widths around the
+    32-column mma slice and the 16-byte vector, 384, past 512 and the widest
+    (1040), at batches filling part of one to all four 64-query groups,
+    untagged and with a per-row tag filter."""
+    _cuda_or_skip()
+    n = 16384
+    args = _cuda_int8_sweep_args(d, b, n, seed=d * 1000 + b)
+    tags = _cuda_tags(n, b, d + b) if tagged else None
+    before = ss.scan_select_int8_v2.launches
+    vk, rk = ss.scan_select_int8_v2(*args, t_top=T_TOP, tags=tags)
+    torch.cuda.synchronize()
+    assert ss.scan_select_int8_v2.launches == before + 1
+    vr, rr = ss.scan_select_int8_v2_reference(*args, t_top=T_TOP, tags=tags)
+    assert torch.equal(vk, vr) and torch.equal(rk, rr)

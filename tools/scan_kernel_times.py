@@ -12,7 +12,8 @@ median CUDA-event milliseconds of, by group,
 - scan: K1 ``scan_select_v3`` and K3 ``scan_select_int8_v3`` at 1,048,576
   x 384, B = 256, t_top 4, K1 also on the f32 rows (the inline-cast
   layout) and at the segment path's call shape (B = 64 over 17,825,792
-  rows); K10a ``scan_select_v2`` at the K1 shape; K5
+  rows); K10a ``scan_select_v2`` and K10c ``scan_select_int8_v2`` at the
+  K1 and K3 shape; K5
   ``scan_select_v3_indirect`` and K10b ``scan_select_v2_indirect`` at
   1,048,576 x 384, B = 8, tile_n 4096, t_top 16, 120 tiles + 8 pads;
 - block: K8 ``scan_select`` and K9 ``scan_select_int8`` at 1,048,576 x
@@ -81,6 +82,7 @@ def scan_group(out, gen) -> None:
     m_i8, s_row, e8, a8 = dt.prepare_int8(m)
     q_i8, t_q, u8, v8 = dt._int8_query_bounds(q)
     out["K3_ms"] = cuda_ms(lambda: ss.scan_select_int8_v3(q_i8, m_i8, s_row, e8, a8, valid, t_q, u8, v8, t_top=4))
+    out["K10c_ms"] = cuda_ms(lambda: ss.scan_select_int8_v2(q_i8, m_i8, s_row, e8, a8, valid, t_q, u8, v8, t_top=4))
     del m_i8
     n_tiles = N // TILE_N
     live = torch.sort(torch.randperm(n_tiles, device="cuda", generator=gen)[:K5_LIVE]).values

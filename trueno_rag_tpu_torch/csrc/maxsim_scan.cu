@@ -116,11 +116,10 @@
 #include <type_traits>
 
 #include "mma_bf16.cuh"
-#include "mma_s8.cuh"
+#include "mma_dot.cuh"
 #include "row_load.cuh"
 
 namespace mb = mma_bf16;
-namespace ms8 = mma_s8;
 
 namespace {
 
@@ -175,45 +174,10 @@ __device__ __forceinline__ void lq_sum(float (*sum)[CT], const float* best, int 
   }
 }
 
-// What differs between the tile's two element types; the ring, the
-// staging, the warp grid and the accumulator's fragment layout do not.
-// bf16 (K6, K11a, K11b): mma_bf16.cuh's split f32 dot, 64 columns per ring
-// stage, widths padded to 16. int8 (K7): mma_s8.cuh's chained s32 dot, 128
-// columns per stage, widths padded to 32. Both stage 128 bytes of a row per
-// stage (eight 16-byte vectors) at the same 144-byte stride, so the ring's
-// stages have the same bytes.
-template <typename E>
-struct Dot;
-
-template <>
-struct Dot<__nv_bfloat16> {
-  using Acc = mb::Acc;
-  static constexpr int KD = mb::KD, DK = 16, PAD = mb::PAD, SROW = mb::SROW;
-  __host__ __device__ static constexpr int pad(int h) { return mb::pad16(h); }
-  __host__ __device__ static constexpr bool resident(int h) { return mb::a_resident(h); }
-  __host__ __device__ static constexpr int slices(int h) { return mb::k_slices(h); }
-  __host__ __device__ static constexpr int resident_bytes(int h) { return mb::resident_bytes(h); }
-  __device__ __forceinline__ static void zero(Acc& acc) { mb::zero(acc); }
-  __device__ __forceinline__ static void run(Acc& acc, const __nv_bfloat16* a, int a_stride,
-                                             const __nv_bfloat16* b, int nk, int a_rows) {
-    mb::dot_slices(acc, a, a_stride, b, nk, a_rows);
-  }
-};
-
-template <>
-struct Dot<int8_t> {
-  using Acc = ms8::Acc;
-  static constexpr int KD = ms8::KD, DK = 32, PAD = ms8::PAD, SROW = ms8::SROW;
-  __host__ __device__ static constexpr int pad(int h) { return ms8::pad32(h); }
-  __host__ __device__ static constexpr bool resident(int h) { return ms8::a_resident(h); }
-  __host__ __device__ static constexpr int slices(int h) { return ms8::k_slices(h); }
-  __host__ __device__ static constexpr int resident_bytes(int h) { return ms8::resident_bytes(h); }
-  __device__ __forceinline__ static void zero(Acc& acc) { ms8::zero(acc); }
-  __device__ __forceinline__ static void run(Acc& acc, const int8_t* a, int a_stride, const int8_t* b,
-                                             int nk, int a_rows) {
-    ms8::dot_slices(acc, a, a_stride, b, nk, a_rows);
-  }
-};
+// The element type's dot (mma_dot.cuh): bf16 for K6, K11a and K11b, int8
+// for K7; the ring, the staging, the warp grid and the accumulator's
+// fragment layout are the same for both.
+using mma_dot::Dot;
 
 // Dynamic shared memory: the resident query rows, the ring (its first
 // RT x BSTR floats hold a sub-tile's bests once its positions are done), the

@@ -1,7 +1,8 @@
-// Shared by the tile-scan kernels (scan_select_v3.cu, scan_select_int8_v3.cu)
-// and the block kernels (scan_select_v1.cu): the thread layout, the tag
-// predicate, the two bound forms, the score tile's way from the tensor-core
-// fragments into the thread tiles, and the selection epilogue that turns a
+// Shared by the tile-scan kernels (scan_select_tile.cuh, built into
+// scan_select_v3.cu and scan_select_int8_v3.cu) and the block kernels
+// (scan_select_v1.cu): the thread layout, the tag predicate, the two bound
+// forms, the score tile's way from the tensor-core fragments into the
+// thread tiles, the int8 dequantization, and the selection epilogue that turns a
 // 128-row block of masked scores into the tile's candidate pool and then
 // runs the per-1024-row tournament. The files include this one, so their
 // bounds, selection and tie rules cannot drift apart.
@@ -158,16 +159,23 @@ __device__ __forceinline__ void mask_scores(const float (&s)[TQ][TM], bool live,
 }
 
 // One 128-row block's 64-query x 128-row score tile as the tensor-core
-// dot leaves it (mma_bf16.cuh's fragments: warp w holds acc[mt][nt][e] at
-// query (w >> 2)*32 + mt*16 + (lane >> 2) + 8*(e >> 1), row (w & 3)*32 +
-// nt*8 + 2*(lane & 3) + (e & 1)) → this thread's 8-row x 4-query tile
-// s[query][row], through `scores` [QB][SSTR] f32 in shared memory. Row r
-// sits at column r + 4*(r/32), so the float2 stores and the float4 reads
-// are conflict-free. Every thread of the block must call it, and the
-// caller keeps the next call's stores behind a __syncthreads().
+// dot leaves it (mma_bf16.cuh's f32 fragments, or mma_s8.cuh's s32 ones at
+// the same positions: warp w holds acc[mt][nt][e] at query (w >> 2)*32 +
+// mt*16 + (lane >> 2) + 8*(e >> 1), row (w & 3)*32 + nt*8 + 2*(lane & 3) +
+// (e & 1)) → this thread's 8-row x 4-query tile s[query][row] in f32,
+// through `scores` [QB][SSTR] f32 in shared memory. An s32 sum converts
+// with __int2float_rn, exact below 2^24 (the int8 launchers check
+// d*127^2 < 2^24). Row r sits at column r + 4*(r/32), so the float2 stores
+// and the float4 reads are conflict-free. Every thread of the block must
+// call it, and the caller keeps the next call's stores behind a
+// __syncthreads().
 constexpr int SSTR = 152;  // the score tile's row stride (f32)
 
-__device__ __forceinline__ void tile_scores(const float (&acc)[2][4][4], float* scores,
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(int x) { return __int2float_rn(x); }
+
+template <typename T>
+__device__ __forceinline__ void tile_scores(const T (&acc)[2][4][4], float* scores,
                                             float (&s)[TQ][TM]) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   auto col = [](int r) { return r + (r >> 5) * 4; };
@@ -180,7 +188,7 @@ __device__ __forceinline__ void tile_scores(const float (&acc)[2][4][4], float* 
         const int q = (warp >> 2) * 32 + mt * 16 + (lane >> 2) + 8 * half;
         const int r = (warp & 3) * 32 + nt * 8 + 2 * (lane & 3);
         *reinterpret_cast<float2*>(&scores[q * SSTR + col(r)]) =
-            make_float2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+            make_float2(to_f32(acc[mt][nt][2 * half]), to_f32(acc[mt][nt][2 * half + 1]));
       }
   __syncthreads();
   const int lane0 = (tid & 15) * TM, qg = tid >> 4;
@@ -191,6 +199,25 @@ __device__ __forceinline__ void tile_scores(const float (&acc)[2][4][4], float* 
     const float4 hi = *reinterpret_cast<const float4*>(p + 4);
     s[i][0] = lo.x; s[i][1] = lo.y; s[i][2] = lo.z; s[i][3] = lo.w;
     s[i][4] = hi.x; s[i][5] = hi.y; s[i][6] = hi.z; s[i][7] = hi.w;
+  }
+}
+
+// The int8 scans' dequantization of this thread's 8 x 4 exact dots
+// s[query][row] (f32, from tile_scores): (s * s_row[row]) * t_q[query], each
+// product rounded once, in the JAX code's order (scan_select_v2.py:706,
+// scan_select_int8.py:64). s_row points at the thread's first row (a
+// multiple of 8: the float4 loads are aligned); padding queries (>= nq)
+// scale by 0.
+__device__ __forceinline__ void scale_int8(float (&s)[TQ][TM], const float* __restrict__ s_row,
+                                           const float* __restrict__ tq, int q, int nq) {
+  const float4 sa = __ldg(reinterpret_cast<const float4*>(s_row));
+  const float4 sb = __ldg(reinterpret_cast<const float4*>(s_row + 4));
+  const float sr[TM] = {sa.x, sa.y, sa.z, sa.w, sb.x, sb.y, sb.z, sb.w};
+#pragma unroll
+  for (int i = 0; i < TQ; ++i) {
+    const float t = q + i < nq ? __ldg(tq + q + i) : 0.0f;
+#pragma unroll
+    for (int r = 0; r < TM; ++r) s[i][r] = __fmul_rn(__fmul_rn(s[i][r], sr[r]), t);
   }
 }
 

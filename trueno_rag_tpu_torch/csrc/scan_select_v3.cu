@@ -1,8 +1,9 @@
 // scan_select_v3 for Hopper (sm_90a): the certified bf16 tile scan, its
 // tile-indirect form scan_select_v3_indirect, and their v2 siblings
-// scan_select_v2 and scan_select_v2_indirect (one template, four entry
-// points at the end of this file, so the four cannot drift apart). The
-// template's parameters: direct or indirect tiles, the bound form
+// scan_select_v2 and scan_select_v2_indirect (one template, the tile-scan
+// program of scan_select_tile.cuh at element type bf16, four entry points
+// at the end of this file, so the four cannot drift apart). The
+// template's parameters here: direct or indirect tiles, the bound form
 // (scan_select_common.cuh: per-block for v3, per-row for v2), and the row
 // type of the corpus (bf16, or f32 rows rounded to bf16 as they are staged:
 // the inline-cast layout).
@@ -40,25 +41,14 @@
 // bf16 replica (0.25 ms at 3.35 TB/s); at the segment path's (N =
 // 17,825,792, B = 64 a call) 8.8e11 FLOP against 13.7 GB (4.1 ms). On the
 // tensor cores the dot takes well under a millisecond at 1M, so the bytes
-// and the selection epilogue are what is left. The design:
-//   - one thread block per (group of QB = 64 queries, 1024-row tile); the
-//     query group is the fastest grid axis, so the B/64 blocks that read
-//     one tile run together and the tile comes from HBM once, then L2;
-//   - the tile's rows and the group's queries stream through a 2-stage
-//     cp.async ring of 64-column bf16 slices (128 rows and 64 queries,
-//     zero past d and past nq), the 128-row blocks back to back. The
-//     queries' slices come again for every 128-row block, from L2; kept
-//     resident instead (50 KB at d = 384) they left room for one thread
-//     block per SM, and with one block the dot, the loads and the
-//     epilogue of a block run one after another. At ~105 KB two blocks
-//     share an SM and each one's epilogue overlaps the other's dot and
-//     loads (1.5x faster at the main path's shape on an H100);
-//   - each 128-row block's 128 x 64 score tile is computed by the mma dot
-//     of mma_bf16.cuh (ldmatrix + mma.sync m16n8k16 bf16, one 16-column
-//     slice per mma, f32 __fadd_rn between slices), then staged through
-//     shared memory into the epilogue's 8-row x 4-query thread tiles
-//     (scan_select_common.cuh), whose masks, bounds, selection and
-//     tournament are unchanged.
+// and the selection epilogue are what is left. The program is
+// scan_select_tile.cuh's, at element type bf16 (K3 and K10c are its int8
+// instantiation): the tile's rows and the 64-query group stream through a
+// 2-stage cp.async ring, each 128-row block's score tile is the tensor-core
+// dot of mma_bf16.cuh (ldmatrix + mma.sync m16n8k16 bf16, one 16-column
+// slice per mma, f32 __fadd_rn between slices), then goes through shared
+// memory into the 8-row x 4-query thread tiles of the unchanged epilogue
+// (scan_select_common.cuh). Two thread blocks share an SM.
 // f32 rows (the inline-cast layout) and widths that are not a multiple of
 // 8 take a register path into the same ring (rounded to bf16 with
 // __float2bfloat16_rn, or read bytewise, as they are staged).
@@ -75,144 +65,11 @@
 
 #include <cuda_bf16.h>
 
-#include "mma_bf16.cuh"
-#include "scan_select_common.cuh"
+#include "scan_select_tile.cuh"
 
 using namespace scan_select;
-namespace mb = mma_bf16;
 
 namespace {
-
-constexpr int NST = 2;                 // ring stages
-static_assert(mb::TILE_A == QB && mb::TILE_B == BLOCK && mb::THREADS == THREADS,
-              "the mma tile is one 128-row block of one query group");
-
-// Shared memory: the tournament pool, the score tile [QB][SSTR]
-// (scan_select_common.cuh's tile_scores), the ring (rows and queries):
-// 105,216 bytes at any d.
-constexpr int SEL_BYTES = (sizeof(SelectSmem) + 15) / 16 * 16;
-constexpr int SCORE_BYTES = QB * SSTR * 4;
-constexpr int SMEM_BYTES = SEL_BYTES + SCORE_BYTES + NST * mb::stage_bytes(true);
-
-// INDIRECT = false: K1, output column y scans rows y*1024 .. y*1024+1023.
-// INDIRECT = true: K5 (scan_select_v3_indirect), output column y scans
-// 1024-row part (y mod spt) of corpus tile sel = tile_ids[y / spt], with
-// spt = tile_n / 1024. A pad slot (sel outside [0, n_tiles)) loads
-// nothing, scores -inf everywhere, and still emits rows from the unclamped
-// sel (sel*tile_n + offset), as the Pallas kernel does; its bound
-// corrections read the clamped tile's blocks (or rows, under kRow).
-// ALIGNED: d is a multiple of 8, so every row of q and m (bf16 or f32)
-// starts 16-byte aligned and loads as whole vectors.
-template <bool INDIRECT, bool ALIGNED, Bound BF, typename RowT>
-__global__ void __launch_bounds__(THREADS, 2)
-scan_select_v3_kernel(const __nv_bfloat16* __restrict__ q,  // [B, d]
-                      const RowT* __restrict__ m,           // [N, d] bf16 or f32
-                      const float* __restrict__ eb,         // kBlock: [N/128] block max e_l2; kRow: [N] e_l2
-                      const float* __restrict__ ab,         // kBlock: [N/128] block max a_l2; kRow: [N] a_l2
-                      const int* __restrict__ valid,        // [N]
-                      const float* __restrict__ uq,         // [B]
-                      const float* __restrict__ vq,         // [B]
-                      const int* __restrict__ tile_ids,     // [G] (INDIRECT only)
-                      const int* __restrict__ tag_bits,     // [N] or null: no filter
-                      const int* __restrict__ t_all,        // [B]
-                      const int* __restrict__ t_any,        // [B]
-                      const int* __restrict__ t_none,       // [B]
-                      float* __restrict__ v_pack,           // [B, T+1, G']
-                      int* __restrict__ r_pack,             // [B, T, G']
-                      int nq, int d, int g_tiles, int t_top, int tile_n, int n_tiles) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  SelectSmem& sel = *reinterpret_cast<SelectSmem*>(smem);
-  float* scores = reinterpret_cast<float*>(smem + SEL_BYTES);
-  unsigned char* ring = smem + SEL_BYTES + SCORE_BYTES;
-
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * QB;
-  const int tile = blockIdx.y;
-  const int rg = tid & 15;
-  const int qg = tid >> 4;
-  const int lane0 = rg * TM;
-
-  int64_t base = (int64_t)tile * SEL;  // first row as emitted
-  int64_t lbase = base;                // first row read
-  bool live = true;                    // uniform over the thread block
-  if (INDIRECT) {
-    const int spt = tile_n / SEL;
-    const int s = __ldg(tile_ids + tile / spt);
-    const int64_t off = (int64_t)(tile % spt) * SEL;
-    live = s >= 0 && s < n_tiles;
-    base = (int64_t)s * tile_n + off;
-    lbase = (int64_t)min(max(s, 0), n_tiles - 1) * tile_n + off;
-  }
-
-  // masks, bounds and the block's candidates from this thread's 8 x 4 scores
-  auto epilogue = [&](int blk, const float (&s)[TQ][TM]) {
-    const int64_t row0 = lbase + blk * BLOCK;
-    float x[TQ][TM];
-    mask_scores<BF>(s, live, row0 + lane0, q0, qg, nq, valid, tag_bits, t_all, t_any, t_none,
-                    eb, ab, uq, vq, x);
-    block_candidates<BF>(x, tid, q0, nq, base + blk * BLOCK, blk, (int)(row0 / BLOCK), eb, ab, uq,
-                         vq, sel);
-  };
-
-  if (!live) {  // a pad slot: nothing loaded, every score -inf
-    float s[TQ][TM] = {};
-    for (int blk = 0; blk < BPT; ++blk) epilogue(blk, s);
-  } else {
-    const int a_rows = min(QB, nq - q0);
-    const int dp = mb::pad16(d);
-    const int ks = mb::k_slices(d);
-    auto q_src = [&](int i) -> int64_t { return i < a_rows ? (int64_t)(q0 + i) * d : -1; };
-    mb::Acc acc;
-    mb::zero(acc);
-    mb::ring_run<NST>(
-        BPT * ks, ring, mb::stage_bytes(true),
-        [&](int step, unsigned char* st) {
-          const int blk = step / ks, k0 = (step % ks) * mb::KD;
-          const int nv = min(mb::KD, dp - k0) / 8;
-          const int64_t row0 = lbase + blk * BLOCK;
-          auto m_src = [&](int i) -> int64_t { return (row0 + i) * d; };
-          auto* rows = reinterpret_cast<__nv_bfloat16*>(st);
-          mb::stage_rows<ALIGNED>(rows, mb::SROW, m, m_src, BLOCK, k0, 8, nv, d);
-          mb::stage_rows<ALIGNED>(rows + BLOCK * mb::SROW, mb::SROW, q, q_src, QB, k0, 8, nv, d);
-        },
-        [&](int step, unsigned char* st) {
-          const int blk = step / ks, kc = step % ks, k0 = kc * mb::KD;
-          auto* rows = reinterpret_cast<const __nv_bfloat16*>(st);
-          mb::dot_slices(acc, rows + BLOCK * mb::SROW, mb::SROW, rows, min(mb::KD, dp - k0) / 16, a_rows);
-          if (kc != ks - 1) return;
-          // the block's scores → shared memory → the epilogue's thread tiles
-          float s[TQ][TM];
-          tile_scores(acc, scores, s);
-          mb::zero(acc);
-          epilogue(blk, s);
-        });
-  }
-  __syncthreads();
-  tile_tournament(sel, tid, q0, nq, tile, g_tiles, t_top, v_pack, r_pack);
-}
-
-template <bool INDIRECT, Bound BF, typename RowT>
-int launch_rows(const void* q, const void* m, const void* eb, const void* ab, const void* valid,
-                const void* uq, const void* vq, const void* tile_ids, const void* tag_bits,
-                const void* t_all, const void* t_any, const void* t_none, void* v_pack,
-                void* r_pack, int nq, int d, int g_tiles, int t_top, int tile_n, int n_tiles,
-                void* stream) {
-  const dim3 grid((nq + QB - 1) / QB, g_tiles);
-  auto kernel = rows_aligned<2>(d) ? scan_select_v3_kernel<INDIRECT, true, BF, RowT>
-                                   : scan_select_v3_kernel<INDIRECT, false, BF, RowT>;
-  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const RowT*>(m),
-      static_cast<const float*>(eb), static_cast<const float*>(ab),
-      static_cast<const int*>(valid), static_cast<const float*>(uq),
-      static_cast<const float*>(vq), static_cast<const int*>(tile_ids),
-      static_cast<const int*>(tag_bits), static_cast<const int*>(t_all),
-      static_cast<const int*>(t_any), static_cast<const int*>(t_none),
-      static_cast<float*>(v_pack), static_cast<int*>(r_pack), nq, d, g_tiles, t_top, tile_n,
-      n_tiles);
-  return (int)cudaGetLastError();
-}
 
 // The row type by the m_f32 flag of the entry points.
 template <bool INDIRECT, Bound BF>
@@ -221,9 +78,10 @@ int launch(int m_f32, const void* q, const void* m, const void* eb, const void* 
            const void* tag_bits, const void* t_all, const void* t_any, const void* t_none,
            void* v_pack, void* r_pack, int nq, int d, int g_tiles, int t_top, int tile_n,
            int n_tiles, void* stream) {
-  auto run = m_f32 ? launch_rows<INDIRECT, BF, float> : launch_rows<INDIRECT, BF, __nv_bfloat16>;
-  return run(q, m, eb, ab, valid, uq, vq, tile_ids, tag_bits, t_all, t_any, t_none, v_pack,
-             r_pack, nq, d, g_tiles, t_top, tile_n, n_tiles, stream);
+  auto run = m_f32 ? scan_tile::launch<INDIRECT, BF, __nv_bfloat16, float>
+                   : scan_tile::launch<INDIRECT, BF, __nv_bfloat16, __nv_bfloat16>;
+  return run(q, m, nullptr, nullptr, eb, ab, valid, uq, vq, tile_ids, tag_bits, t_all, t_any,
+             t_none, v_pack, r_pack, nq, d, g_tiles, t_top, tile_n, n_tiles, stream);
 }
 
 bool bad_indirect(int nq, int d, int n, int t_top, int tile_n, int g) {
