@@ -225,6 +225,33 @@ Run from the repository root. Phases, each fatal on failure:
    Phase 21 also times K1 alone at the dense stage's call shape (B = 64
    over 17,825,792 rows); phases 21 and 22 add their K1 launches to the
    ``kernels`` line.
+26. persist-1M (right after phase 5, on its pipeline): the 1,048,576-chunk
+   index through ``save_index_streaming`` (the CLI's writer past 50,000
+   chunks) under ``default_compression()`` after a free-disk check,
+   ``read_index_info``, ``load_index(scan_tier="auto")`` onto the card, and
+   phase 5's four batches through ``query_with_context_batch(k=5)`` (K1):
+   every dense row and score and every context identical to the in-memory
+   pipeline's; save, load and device-build seconds, artifact bytes, the
+   loaded pipeline's queries/s and the host RSS logged;
+27. metrics-1M (after phase 26): 256 planted queries (8 words of a known
+   chunk) through ``retrieve_batch(k=10)``, ``pad_ids`` and
+   ``batched_metrics`` on the card, each query within 1e-6 of the host
+   ``RetrievalMetrics``; recall@5, MRR and NDCG@10 logged, not gated;
+28. clustered-artifact (inside phase 8, on its clean store after the first
+   pass): saved (codec none) and loaded with ``scan_tier="clustered"``: no k-means build
+   on load, the same layout, K5 on the loaded path, every dense row and
+   score and every context equal to the saved store's;
+29. cli (after phase 15): 2,048 .md files of slice 1's text law, a quarter
+   in each of three tag folders, through ``cli.main`` in this process:
+   ``index --embedder semantic --model mini-lm`` (MiniLM-L6 on the card),
+   ``query --scan-tier bf16 --format json`` with and without
+   ``--filter-any`` (K1), ``index --multi-vector`` and ``query`` (K6), each
+   result equal to an in-memory pipeline's or retriever's over the same
+   files; ``info`` and ``demo``;
+30. checkpoint (after phase 29): ``save_checkpoint``/``load_checkpoint`` of
+   MiniLM-L6 and of the Nemotron-class model at full width and 2 of its 32
+   layers (depth cut: the 32-layer f32 file is 31.6 GB), embeddings
+   bit-identical after the reload.
 
 The last two lines of standard output are JSON: the per-kernel record, then
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
@@ -316,6 +343,11 @@ MIN_CERTIFIED = 0.75  # share of queries a certified MaxSim tier must prove (a K
 K11_GROUP = 256  # the v2 scans' default group
 K11_RAGGED = ((1 << 20) - 37, 30)  # kernels-K11's ragged corpus (N, Lt): the pack pads Lt to 32
 K11_GROUPS = (128, 512)  # the other groups it runs, beside the default
+METRIC_QUERIES = 256  # metrics-1M: planted queries (8 words of a known chunk)
+METRIC_K = 10
+CLI_DOCS = 2048  # cli: .md files of hybrid-1M's text law
+CLI_QUERIES = 4
+CKPT_NEMO_LAYERS = 2  # checkpoint: the Nemotron-class model at full width, 2 of 32 layers (depth cut)
 PR_N = 1 << 20  # kernels-K11's centroid-pruned corpora: 1,048,576 x 32 x 128 f32
 PR_TOPICS, PR_NOISE = 4096, 0.15  # benches/maxsim_bench.py's topic law (its defaults)
 PR_DUP, PR_SIGMA = 16, 0.05  # the tight law: 16 chunks share a cluster's topics; token noise of norm ~0.05
@@ -929,7 +961,7 @@ def phase_slice(seed: int):
         check_fused(retr.config.fusion, r_t, s_t, r_s, s_s, f"batch {i}")
     log(f"dense rows and scores identical to exact fp32 dense_topk for all {n_q} queries; "
         f"fused lists match the host oracle")
-    return pipe, launches
+    return pipe, launches, batches
 
 
 def sibling_pipeline(pipe, vcfg):
@@ -1787,6 +1819,8 @@ def phase_clustered_store(pipe, seed: int) -> int:
                 f"equals the float64 exact top-{cand} set over the whole corpus; fused lists match the host oracle")
 
         measure(f"{retr.config.candidates_per_source} candidates")
+        # the clean store through an artifact and back
+        k5_total += phase_clustered_artifact(retr, p, embedder, runs, pipe)
         # fewer dense candidates per query (a top-k that fits the kernel's
         # 16 per 1024-row tile), the regime the tier certifies in
         retr.config = dataclasses.replace(base.config, candidates_per_source=CL_FEW)
@@ -4185,6 +4219,424 @@ def phase_segments_store(pipe, seed: int):
     return n1, na, nb
 
 
+def rss_gib() -> float:
+    """This process's resident set (VmRSS) in GiB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def need_disk(path: str, nbytes: float, label: str) -> None:
+    """Fail the run when the file system under ``path`` has less than
+    ``nbytes`` free (a phase is never shrunk to fit)."""
+    import shutil
+
+    free = shutil.disk_usage(path).free
+    log(f"{label}: {free / 2**30:.1f} GiB free under {path}, {nbytes / 2**30:.1f} GiB needed")
+    check(free >= nbytes, f"{label}: {free / 2**30:.1f} GiB free under {path}, {nbytes / 2**30:.1f} GiB needed")
+
+
+def context_rows(contexts):
+    """Every chunk of every context with its score and citation."""
+    return [[(c.chunk_id, c.document_id, c.content, c.score, c.citation_id) for c in ctx.chunks]
+            + [(cit.id, cit.chunk_id, cit.snippet) for cit in ctx.citations] for ctx in contexts]
+
+
+def phase_persist_1m(pipe, batches, seed: int) -> int:
+    """persist-1M: hybrid-1M's index through the CLI's large-index writer
+    (``save_index_streaming``), ``read_index_info`` and ``load_index`` onto
+    the card (``scan_tier="auto"``), then hybrid-1M's batches: every dense
+    row and score and every context identical to the in-memory pipeline's
+    → K1 launches on the loaded path."""
+    import numpy as np
+
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    import trueno_rag_tpu_torch as rag
+    from trueno_rag_tpu_torch import persist
+    from trueno_rag_tpu_torch.ops.kernels.scan_select import scan_select_v3
+
+    retr = pipe.retriever
+    store = retr.vector_store
+    n = len(retr.registry)
+    tmp = tempfile.mkdtemp(prefix="smoke_persist_")
+    try:
+        # the matrix, the header (~1 KB of chunk text and postings a row),
+        # and the atomic writer's temporary file beside a previous artifact
+        need_disk(tmp, 2.0 * n * (DIM * 4 + 1024), "persist-1M")
+        codec = persist.default_compression()
+        path = os.path.join(tmp, "index.trag")
+        info = {"type": "mock", "dimension": DIM}
+        t0 = time.perf_counter()
+        stats = persist.save_index_streaming(path, retr, embedder_info=info, codec=codec)
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        log(f"persist-1M save_index_streaming ({codec.value}): {n} chunks in {t_save:.1f} s; {size} bytes "
+            f"({stats['matrix_frames']} matrix frames, {stats['matrix_compressed_bytes']} bytes of matrix); "
+            f"host RSS {rss_gib():.1f} GiB")
+        t0 = time.perf_counter()
+        meta = persist.read_index_info(path)
+        t_info = time.perf_counter() - t0
+        check(meta["version"] == 2 and meta["dimension"] == DIM and len(meta["chunks"]) == n
+              and meta["embedder"] == info and meta["metric"] == "cosine", "read_index_info")
+        del meta
+        t0 = time.perf_counter()
+        loaded, emb_info = persist.load_index(path, rag.MockEmbedder(DIM), scan_tier="auto", device=DEV)
+        t_load = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded.ensure_ready()
+        torch.cuda.synchronize()
+        t_ready = time.perf_counter() - t0
+        lstore = loaded.vector_store
+        check(emb_info == info and len(loaded.registry) == n, "the loaded index")
+        check(lstore._effective_tier() == "bf16", f"loaded tier {lstore._effective_tier()!r}, expected 'bf16'")
+        check(bool((lstore._host[:n] == store._host[[retr.registry.row_of(c) for c in loaded.registry.ids()]]).all()),
+              "a loaded row differs from its saved row")
+        log(f"persist-1M read_index_info {t_info:.1f} s; load_index {t_load:.1f} s; device build "
+            f"(upload, bf16 replica, BM25 block table) {t_ready:.1f} s; host RSS {rss_gib():.1f} GiB")
+        lp = rag.RagPipeline(pipe.embedder, pipe.reranker, pipe.chunker, loaded, pipe.assembler)
+        lp.query_with_context_batch(batches[0], k=K)  # first-call set-up
+        torch.cuda.synchronize()
+        scan_select_v3.launches = 0
+        lat, got = [], []
+        for qs in batches:
+            t0 = time.perf_counter()
+            got.append(lp.query_with_context_batch(qs, k=K))
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+        launches = scan_select_v3.launches
+        check(launches > 0, "the loaded index never launched scan_select_v3")
+        log(f"persist-1M loaded path: scan_select_v3 launches {launches}; batches "
+            f"{', '.join(f'{t * 1e3:.1f}' for t in lat)} ms = {BATCH * len(lat) / sum(lat):.0f} queries/s "
+            f"(host clock, query_with_context_batch k={K})")
+        cand = retr.config.candidates_per_source
+        for i, qs in enumerate(batches):
+            check(context_rows(got[i]) == context_rows(pipe.query_with_context_batch(qs, k=K)),
+                  f"persist-1M batch {i}: a context differs from the in-memory pipeline's")
+            qv = np.asarray(retr.embedder.embed_queries(qs), dtype=np.float32)
+            s_a, r_a = store.search_arrays(qv, cand)
+            s_b, r_b = lstore.search_arrays(qv, cand)
+            check(torch.equal(r_a, r_b) and torch.equal(s_a, s_b),
+                  f"persist-1M batch {i}: dense rows or scores differ from the in-memory store's")
+        log(f"persist-1M: every dense row and score and every context of {BATCH * len(batches)} queries "
+            f"identical to the in-memory pipeline's")
+        del lp, loaded, lstore
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_metrics_1m(pipe, seed: int) -> None:
+    """metrics-1M: planted queries (8 words of a known chunk, relevant =
+    that chunk) through ``retrieve_batch(k=10)``, scored by ``pad_ids`` +
+    ``batched_metrics`` on the card and held per query to the host
+    ``RetrievalMetrics``."""
+    import numpy as np
+
+    import torch
+
+    from trueno_rag_tpu_torch.metrics import AggregatedMetrics, RetrievalMetrics
+    from trueno_rag_tpu_torch.ops.metrics import batched_metrics, pad_ids
+
+    rng = np.random.default_rng(seed + 14)
+    retr = pipe.retriever
+    reg = retr.registry
+    rows = rng.choice(reg.capacity_rows, size=METRIC_QUERIES, replace=False)
+    queries = [" ".join(rng.choice(reg.chunk_of(int(r)).content.split(), size=8, replace=False)) for r in rows]
+    t0 = time.perf_counter()
+    res = retr.retrieve_batch(queries, METRIC_K)
+    t_retr = time.perf_counter() - t0
+    ks = (1, 5, 10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ret = pad_ids([[reg.row_of(r.chunk.id) for r in q] for q in res], METRIC_K, device=DEV)
+    rel = pad_ids([[int(r)] for r in rows], 1, device=DEV)
+    dev = batched_metrics(ret, rel, k_values=ks)
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    check(all(v.device == ret.device for v in dev.values()), "batched_metrics left the card")
+    dev = {k: v.cpu().numpy() for k, v in dev.items()}
+    host = [RetrievalMetrics.compute([r.chunk.id for r in q], [reg.id_of(int(row))], ks)
+            for q, row in zip(res, rows)]
+    worst = 0.0
+    for i, m in enumerate(host):
+        pairs = [(m.mrr, dev["mrr"][i]), (m.map, dev["map"][i])]
+        for k in ks:
+            pairs += [(m.recall[k], dev[f"recall@{k}"][i]), (m.precision[k], dev[f"precision@{k}"][i]),
+                      (m.ndcg[k], dev[f"ndcg@{k}"][i])]
+        worst = max(worst, max(abs(a - float(b)) for a, b in pairs))
+    check(worst <= 1e-6, f"batched_metrics differs from RetrievalMetrics by {worst:.2e}")
+    agg = AggregatedMetrics.aggregate(host)
+    log(f"metrics-1M: {METRIC_QUERIES} planted queries, retrieve_batch(k={METRIC_K}) {t_retr * 1e3:.1f} ms, "
+        f"pad_ids + batched_metrics on the card {t_dev * 1e3:.1f} ms; max |device - host| {worst:.2e}; "
+        f"recall@5 {agg.mean_recall[5]:.4f}, MRR {agg.mean_mrr:.4f}, NDCG@10 {agg.mean_ndcg[10]:.4f} "
+        f"(recorded, not gated: the embedder is the hash mock)")
+
+
+def run_cli(argv):
+    """``cli.main(argv)`` in this process → (exit code, standard output)."""
+    import contextlib
+    import io
+
+    from trueno_rag_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+CLI_FIELDS = ("title", "content", "score", "dense_score", "sparse_score", "fused_score")
+
+
+def cli_rows(results):
+    """Retrieval results as the CLI's JSON fields."""
+    return [{"title": r.chunk.metadata.title, "content": r.chunk.content, "score": r.best_score(),
+             "dense_score": r.dense_score, "sparse_score": r.sparse_score, "fused_score": r.fused_score}
+            for r in results]
+
+
+def json_rows(rows):
+    """The CLI's JSON results, the fields :func:`cli_rows` gives."""
+    return [{k: r[k] for k in CLI_FIELDS} for r in rows]
+
+
+def phase_cli(seed: int):
+    """cli: CLI_DOCS .md files of hybrid-1M's text law (a quarter in each
+    of three tag folders) through ``cli.main`` in this process: ``index
+    --embedder semantic --model mini-lm`` and ``query --scan-tier bf16``
+    (K1; also ``--filter-any``) against an in-memory pipeline of the same
+    files and embedder; ``index --multi-vector`` and ``query`` (K6) against
+    an in-memory ``LateInteractionRetriever``; ``info`` and ``demo`` →
+    (K1 launches, K6 launches) of the CLI's queries."""
+    import numpy as np
+
+    import argparse
+    import json
+    import os
+    import shutil
+    import tempfile
+
+    import trueno_rag_tpu_torch as rag
+    from trueno_rag_tpu_torch import cli
+    from trueno_rag_tpu_torch.models.encoder import EncoderConfig, EncoderEmbedder
+    from trueno_rag_tpu_torch.ops.kernels.maxsim_scan import maxsim_scan16_scores
+    from trueno_rag_tpu_torch.ops.kernels.scan_select import scan_select_v3
+
+    rng = np.random.default_rng(seed + 15)
+    texts = make_texts(rng, CLI_DOCS, DOC_WORDS)
+    tmp = tempfile.mkdtemp(prefix="smoke_cli_")
+    try:
+        need_disk(tmp, 1 << 30, "cli")
+        docs_dir = os.path.join(tmp, "docs")
+        folders = ["", "tag_a", "tag_b", "tag_c"]
+        for sub in folders:
+            os.makedirs(os.path.join(docs_dir, sub), exist_ok=True)
+        for i, t in enumerate(texts):
+            with open(os.path.join(docs_dir, folders[i % 4], f"doc{i:05d}.md"), "w") as f:
+                f.write(t)
+        queries = [" ".join(rng.choice(texts[j].split(), size=QUERY_WORDS, replace=False))
+                   for j in rng.choice(CLI_DOCS, size=CLI_QUERIES, replace=False)]
+        hybrid_dir, mv_dir = os.path.join(tmp, "hybrid"), os.path.join(tmp, "mv")
+
+        t0 = time.perf_counter()
+        rc, out = run_cli(["index", "--path", docs_dir, "--output", hybrid_dir, "--embedder", "semantic",
+                           "--model", "mini-lm", "--tag-by-dir"])
+        check(rc == 0, f"cli index exit {rc}")
+        log(f"cli index --embedder semantic --model mini-lm: {out.strip()} ({time.perf_counter() - t0:.1f} s)")
+        scan_select_v3.launches = 0
+        t0 = time.perf_counter()
+        plain = [json.loads(run_cli(["query", q, "--index", hybrid_dir, "--scan-tier", "bf16", "--format",
+                                     "json"])[1]) for q in queries]
+        filtered = [json.loads(run_cli(["query", q, "--index", hybrid_dir, "--scan-tier", "bf16", "--format",
+                                        "json", "--filter-any", "dir:tag_a,dir:tag_b"])[1]) for q in queries]
+        t_query = time.perf_counter() - t0
+        k1 = scan_select_v3.launches
+        check(k1 > 0, "the CLI's bf16-tier queries never launched scan_select_v3")
+
+        # the in-memory reference: the same files, chunker, tags and embedder
+        docs = cli._walk_documents(docs_dir)
+        tags = cli._doc_tags_for(docs, argparse.Namespace(tags=None, tag_by_dir=True, path=docs_dir))
+        emb = EncoderEmbedder(config=EncoderConfig.minilm_l6(), seed=0, model_name="mini-lm", device=DEV)
+        ref = (rag.RagPipelineBuilder().with_embedder(emb).with_reranker(rag.NoOpReranker())
+               .with_chunker(rag.RecursiveChunker(chunk_size=512, overlap=64))
+               .with_vector_config(rag.VectorStoreConfig(dimension=emb.dimension, scan_tier="bf16"))
+               .with_device(DEV).build())
+        ref.index_documents(docs, tags=tags)
+        f_any = rag.TagFilter(any=("dir:tag_a", "dir:tag_b"))
+        for q, a, b in zip(queries, plain, filtered):
+            check(json_rows(a) == cli_rows(ref.retriever.retrieve(q, 5)),
+                  f"cli query {q!r}: results differ from the in-memory pipeline's")
+            check(len(b) > 0 and all(int(r["title"][3:8]) % 4 in (1, 2) for r in b),
+                  f"cli query {q!r} --filter-any: a result outside the filter")
+            check(json_rows(b) == cli_rows(ref.retriever.retrieve(q, 5, tag_filter=f_any)),
+                  f"cli query {q!r} --filter-any: results differ from the in-memory pipeline's")
+        log(f"cli query --scan-tier bf16 --format json: {2 * len(queries)} queries ({len(queries)} with "
+            f"--filter-any) in {t_query:.1f} s, scan_select_v3 launches {k1}; every result equal to the "
+            f"in-memory pipeline's over the same files")
+        del ref, emb
+
+        t0 = time.perf_counter()
+        rc, out = run_cli(["index", "--path", docs_dir, "--output", mv_dir, "--multi-vector", "--tag-by-dir"])
+        check(rc == 0, f"cli index --multi-vector exit {rc}")
+        log(f"cli index --multi-vector: {out.strip()} ({time.perf_counter() - t0:.1f} s)")
+        maxsim_scan16_scores.launches = 0
+        mv = [json.loads(run_cli(["query", q, "--index", mv_dir, "--format", "json"])[1]) for q in queries]
+        k6 = maxsim_scan16_scores.launches
+        check(k6 > 0, "the CLI's multi-vector queries never launched maxsim_scan16_scores")
+        li = cli._multi_vector_retriever(DEV)
+        chunker = rag.RecursiveChunker(chunk_size=512, overlap=64)
+        for d, t in zip(docs, tags):
+            chunks = chunker.chunk(d)
+            li.index_batch(chunks)
+            for c in chunks:
+                if t:
+                    li.store.registry.set_tags(c.id, t)
+        for q, a in zip(queries, mv):
+            check(json_rows(a) == cli_rows(li.retrieve(q, 5)),
+                  f"cli multi-vector query {q!r}: results differ from the in-memory retriever's")
+        log(f"cli query (multi-vector): {len(queries)} queries, maxsim_scan16_scores launches {k6}; every result "
+            f"equal to the in-memory LateInteractionRetriever's")
+        del li
+        for argv in (["info"], ["demo"]):
+            rc, out = run_cli(argv)
+            check(rc == 0 and out, f"cli {argv[0]} exit {rc}")
+        log("cli info and demo: exit 0")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return k1, k6
+
+
+def phase_checkpoint(seed: int) -> None:
+    """checkpoint: ``save_checkpoint`` / ``load_checkpoint`` on the card,
+    MiniLM-L6 at full size and the Nemotron-class model at full width and
+    CKPT_NEMO_LAYERS layers (depth cut: the 32-layer f32 file is 31.6 GB);
+    every embedding bit-identical after the reload."""
+    import numpy as np
+
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from trueno_rag_tpu_torch.models.encoder import EncoderConfig, EncoderEmbedder
+    from trueno_rag_tpu_torch.models.nemotron import NemotronConfig, NemotronEmbedder
+
+    rng = np.random.default_rng(seed + 16)
+    texts = make_texts(rng, 64, 30)
+    tmp = tempfile.mkdtemp(prefix="smoke_ckpt_")
+    try:
+        n_cfg = dataclasses.replace(NemotronConfig.full(), num_layers=CKPT_NEMO_LAYERS)
+        n_params = n_cfg.vocab_size * n_cfg.hidden_dim + n_cfg.num_layers * (
+            4 * n_cfg.hidden_dim ** 2 + 3 * n_cfg.hidden_dim * n_cfg.mlp_dim)
+        need_disk(tmp, 2.0 * 4 * n_params, "checkpoint")
+        for label, cls, cfg, n_texts in (("MiniLM-L6", EncoderEmbedder, EncoderConfig.minilm_l6(), 64),
+                                         (f"Nemotron full width, {CKPT_NEMO_LAYERS} layers", NemotronEmbedder,
+                                          n_cfg, 8)):
+            model = cls(config=cfg, seed=seed + 16, device=DEV)
+            want = model.embed_batch(texts[:n_texts])
+            path = os.path.join(tmp, "model.safetensors")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.save_checkpoint(path)
+            t_save = time.perf_counter() - t0
+            size = os.path.getsize(path)
+            del model
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            back = cls.load_checkpoint(path, config=cfg, device=DEV)
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+            got = back.embed_batch(texts[:n_texts])
+            check(np.array_equal(want, got), f"checkpoint {label}: embeddings differ after the reload")
+            log(f"checkpoint {label}: {size} bytes of safetensors, save {t_save:.1f} s, load onto the card "
+                f"{t_load:.1f} s; {n_texts} embeddings bit-identical after the reload")
+            del back
+            os.unlink(path)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_clustered_artifact(retr, p, embedder, runs, pipe) -> int:
+    """clustered-artifact (inside clustered-1M, on its clean store): the
+    store saved with its k-means layout and loaded with
+    ``scan_tier="clustered"``: no k-means build on load, K5 on the loaded
+    path, every dense row and score and every context equal to the saved
+    store's → K5 launches on the loaded path."""
+    import numpy as np
+
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    import trueno_rag_tpu_torch as rag
+    from trueno_rag_tpu_torch import persist
+    from trueno_rag_tpu_torch.ops.kernels.scan_select import scan_select_v3_indirect
+
+    store = retr.vector_store
+    n = len(retr.registry)
+    tmp = tempfile.mkdtemp(prefix="smoke_clustered_")
+    try:
+        need_disk(tmp, 2.0 * n * (DIM * 4 + 1024), "clustered-artifact")
+        path = os.path.join(tmp, "index.trag")
+        t0 = time.perf_counter()
+        # no codec: the layout is what this phase carries (persist-1M covers
+        # the card's default codec), and compressing 1.9 GB costs ~20 s
+        persist.save_index_streaming(path, retr, embedder_info={"type": "blob"},
+                                     codec=persist.Compression.NONE)
+        t_save = time.perf_counter() - t0
+        builds = count_cluster_builds()
+        t0 = time.perf_counter()
+        loaded, _ = persist.load_index(path, embedder, scan_tier="clustered", device=DEV)
+        lstore = loaded.vector_store
+        check(lstore._cluster_preset is not None, "the artifact carried no clustered layout")
+        loaded.ensure_ready()
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        check(builds == [], f"k-means ran on load: {builds}")
+        check(np.array_equal(lstore._cluster[0], store._cluster[0])
+              and torch.equal(lstore._cluster[3], store._cluster[3]), "the loaded layout differs from the saved one")
+        log(f"clustered-artifact: {os.path.getsize(path)} bytes saved in {t_save:.1f} s; loaded and built "
+            f"(scan_tier='clustered', the saved layout as the preset, no k-means) in {t_load:.1f} s")
+        lp = rag.RagPipeline(embedder, pipe.reranker, pipe.chunker, loaded, pipe.assembler)
+        lp.query_with_context_batch(runs[0], k=K)  # first-call set-up
+        torch.cuda.synchronize()
+        scan_select_v3_indirect.launches = 0
+        got = [lp.query_with_context_batch(qs, k=K) for qs in runs]
+        n5 = scan_select_v3_indirect.launches
+        check(n5 > 0, "the loaded clustered store never launched K5")
+        cand = retr.config.candidates_per_source
+        for i, qs in enumerate(runs):
+            check(context_rows(got[i]) == context_rows(p.query_with_context_batch(qs, k=K)),
+                  f"clustered-artifact run {i}: a context differs from the saved store's")
+            qv = np.asarray(embedder.embed_queries(qs), np.float32)
+            s_a, r_a = store.search_arrays(qv, cand)
+            s_b, r_b = lstore.search_arrays(qv, cand)
+            check(torch.equal(r_a, r_b) and torch.equal(s_a, s_b),
+                  f"clustered-artifact run {i}: dense rows or scores differ from the saved store's")
+        log(f"clustered-artifact: K5 launches {n5} on the loaded path; every dense row and score and every "
+            f"context of {sum(len(r) for r in runs)} queries equal to the saved store's")
+        del lp, loaded, lstore
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return n5
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4221,7 +4673,9 @@ def main() -> int:
     del seg_idx
     gc.collect()
     torch.cuda.empty_cache()
-    pipe, k1["launches"] = phase_slice(args.seed)
+    pipe, k1["launches"], batches = phase_slice(args.seed)
+    k1["launches"] += phase_persist_1m(pipe, batches, args.seed)
+    phase_metrics_1m(pipe, args.seed)
     _, k3["launches"] = phase_stores(pipe, args.seed)
     k8["launches"], k9["launches"] = phase_block_stores(pipe, args.seed)
     n_1, n_a, n_b = phase_segments_store(pipe, args.seed)
@@ -4241,6 +4695,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     k6["launches"], k7["launches"] = phase_late_interaction(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    k1_cli, k6_cli = phase_cli(args.seed)
+    k1["launches"] += k1_cli
+    k6["launches"] += k6_cli
+    phase_checkpoint(args.seed)
     k1["launches"] += k1_odd + k1_inline
     k6["launches"] += k6_odd
     n10 = [kern.launches for kern in k10_kernels]

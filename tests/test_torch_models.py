@@ -135,8 +135,8 @@ def test_encoder_embedder_matches_jax_and_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(InvalidConfigError, match="CUDA"):
         te.EncoderEmbedder(config=cfg)
-    with pytest.raises(InvalidConfigError, match="persist.py"):
-        temb.save_checkpoint("x")
+    with pytest.raises(trag.SerializationError, match="no checkpoint"):
+        te.EncoderEmbedder.load_checkpoint("no/such/model.safetensors", device="cpu")
 
 
 def test_embedding_config_overrides_like_jax():

@@ -9,8 +9,11 @@ token store), a device-resident dense store (exact fp32; the certified
 bf16 and int8 tile tiers; the compact and clustered tiers, which keep no
 fp32 matrix on the card), tag filters, BM25 over the block table and,
 past 2**24 rows, over the packed segment layout, on-device rank fusion,
-the encoder-fused query path, reranking and context assembly with
-citations. The tile scans, the long-context attention, the MaxSim scans
+the encoder-fused query path, query preprocessing, ingest dedup,
+reranking and context assembly with citations, IR metrics, index
+artifacts and model checkpoints that load in either package
+(:mod:`~trueno_rag_tpu_torch.persist`) and the CLI
+(``python -m trueno_rag_tpu_torch.cli``). The tile scans, the long-context attention, the MaxSim scans
 and the BM25 segment fetch are the hand-written CUDA kernels in
 ``csrc/``. The JAX package stays the reference; this package imports
 ``torch`` and never ``jax``.
@@ -64,6 +67,7 @@ from trueno_rag_tpu_torch.index import (
     VectorStore,
     VectorStoreConfig,
 )
+from trueno_rag_tpu_torch.metrics import AggregatedMetrics, RetrievalMetrics
 from trueno_rag_tpu_torch.pipeline import (
     AssembledContext,
     AssemblyStrategy,
@@ -85,11 +89,25 @@ from trueno_rag_tpu_torch.rerank import (
     Reranker,
 )
 from trueno_rag_tpu_torch.retrieve import (
+    DenseRetriever,
     HybridRetriever,
     HybridRetrieverConfig,
     RetrievalResult,
+    SparseRetriever,
     TagFilter,
 )
+from trueno_rag_tpu_torch.preprocess import (
+    ChainedPreprocessor,
+    HydePreprocessor,
+    KeywordExpander,
+    MultiQueryPreprocessor,
+    PassthroughPreprocessor,
+    QueryAnalysis,
+    QueryAnalyzer,
+    QueryIntent,
+    SynonymExpander,
+)
+from trueno_rag_tpu_torch.preprocess_adaptive import AdaptivePreprocessor
 from trueno_rag_tpu_torch.models import (
     CrossEncoderReranker,
     EncoderConfig,
@@ -144,10 +162,12 @@ __all__ = [
     "TokenStoreConfig",
     "TokenVectorStore",
     "FusionStrategy",
+    "DenseRetriever",
     "HybridRetriever",
     "HybridRetrieverConfig",
     "RetrievalResult",
     "TagFilter",
+    "SparseRetriever",
     "CompositeReranker",
     "LexicalReranker",
     "MMRReranker",
@@ -171,5 +191,17 @@ __all__ = [
     "RagPipelineBuilder",
     "RagPipelineConfig",
     "pipeline_builder",
+    "RetrievalMetrics",
+    "AggregatedMetrics",
+    "AdaptivePreprocessor",
+    "ChainedPreprocessor",
+    "HydePreprocessor",
+    "KeywordExpander",
+    "MultiQueryPreprocessor",
+    "PassthroughPreprocessor",
+    "QueryAnalysis",
+    "QueryAnalyzer",
+    "QueryIntent",
+    "SynonymExpander",
     "__version__",
 ]

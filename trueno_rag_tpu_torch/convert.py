@@ -2,7 +2,8 @@
 numpy objects: the retriever's index state (:func:`retriever_from_state`),
 a token store's state (:func:`token_store_from_state`,
 :func:`late_interaction_from_state`) and the models' parameters (:func:`encoder_params_from_jax`,
-:func:`nemotron_params_from_jax`, :func:`cross_encoder_params_from_jax`).
+:func:`nemotron_params_from_jax`, :func:`cross_encoder_params_from_jax`; back with
+:func:`params_to_jax`, the layout of a checkpoint file).
 
 The JAX package's ``HybridRetriever`` exposes everything needed:
 
@@ -31,7 +32,7 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from trueno_rag_tpu_torch.chunking import Chunk
+from trueno_rag_tpu_torch.chunking import Chunk, ChunkMetadata, new_chunk_id
 from trueno_rag_tpu_torch.embed import Embedder
 from trueno_rag_tpu_torch.errors import InvalidConfigError
 from trueno_rag_tpu_torch.index.vector_store import VectorStoreConfig
@@ -39,8 +40,15 @@ from trueno_rag_tpu_torch.retrieve import HybridRetriever, HybridRetrieverConfig
 
 
 def _port_chunk(c) -> Chunk:
-    """A chunk object of either package → the port's :class:`Chunk`."""
-    return Chunk.from_dict(c.to_dict())
+    """A chunk object of either package → the port's :class:`Chunk`: the
+    copy ``Chunk.from_dict(c.to_dict())`` makes, without sending the
+    embedding through a Python list."""
+    return Chunk(
+        document_id=c.document_id, content=c.content, start_offset=c.start_offset,
+        end_offset=c.end_offset, metadata=ChunkMetadata.from_dict(c.metadata.to_dict()),
+        embedding=None if c.embedding is None else np.array(c.embedding, dtype=np.float32),
+        id=c.id or new_chunk_id(),
+    )
 
 
 def _tag_words(chunks: Sequence, tag_bits, tag_vocab) -> np.ndarray:
@@ -151,6 +159,21 @@ def _layered(params: Mapping[str, Any], layer_keys, matrices, device) -> Dict[st
          for k in layer_keys}
         for i in range(np.asarray(params[layer_keys[0]]).shape[0])
     ]
+    return out
+
+
+def params_to_jax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The port's parameter dict (per-layer dicts under ``"layers"``) → the
+    JAX package's flat layout: f32 arrays, per-layer weights stacked on a
+    leading ``[L]`` axis (the inverse of ``*_params_from_jax``; a bf16
+    matrix widens exactly). This is the layout of a model checkpoint, so
+    one file serves both packages."""
+    def host(t):
+        return t.detach().to(torch.float32).cpu().numpy()
+
+    out = {k: host(v) for k, v in params.items() if k != "layers"}
+    for k in params["layers"][0]:
+        out[k] = np.stack([host(layer[k]) for layer in params["layers"]])
     return out
 
 

@@ -46,6 +46,18 @@ def _term_of(indptr, n_postings: int) -> np.ndarray:
     return term_of if len(term_of) == n_postings else np.zeros(n_postings, dtype=np.int32)
 
 
+class CsrPostings:
+    """Postings held as the CSR arrays of an export (a loaded artifact's:
+    terms sorted, rows ascending), outside the Python dicts until a
+    mutation needs them; stands where the native builder stands."""
+
+    def __init__(self, export: Dict[str, object]) -> None:
+        self._export = export
+
+    def export(self) -> Dict[str, object]:
+        return self._export
+
+
 class BM25Index:
     def __init__(
         self,
@@ -102,8 +114,14 @@ class BM25Index:
 
     @property
     def native_active(self) -> bool:
-        """True while postings live in the C++ builder only."""
+        """True while postings live outside the Python dicts: in the C++
+        builder, or as a loaded artifact's CSR (:meth:`load_csr`)."""
         return self._native_builder is not None
+
+    def _thaw(self) -> None:
+        """Loaded CSR postings become dicts before a mutation."""
+        if isinstance(self._native_builder, CsrPostings):
+            self._materialize_postings()
 
     def _materialize_postings(self) -> None:
         """Pull postings out of the native builder into Python dicts so
@@ -133,6 +151,7 @@ class BM25Index:
         # Replacement must clear the OLD content's postings before the
         # registry swaps in the new chunk (remove re-tokenizes the stored
         # chunk), so resolve the row first.
+        self._thaw()
         existing_row = self.registry.row_of(chunk.id)
         if existing_row is not None and existing_row in self._doc_len:
             self._materialize_postings()
@@ -155,6 +174,7 @@ class BM25Index:
         self._dirty = True
 
     def add_batch(self, chunks: Sequence[Chunk]) -> None:
+        self._thaw()
         if self._native_builder is not None:
             # The fast path must be detected BEFORE registering anything:
             # registry.add() swaps the stored chunk, after which a
@@ -477,6 +497,89 @@ class BM25Index:
             "doc_len": {str(r): l for r, l in self._doc_len.items()},
             "total_len": self._total_len,
         }
+
+    def csr_state(self) -> Dict[str, object]:
+        """The postings as CSR arrays without materializing dicts: terms
+        (sorted), indptr, rows (ascending within a term), tfs (int), the
+        doc-length rows and values, total_len."""
+        if self._native_builder is not None:
+            ex = self._native_builder.export()
+            return {
+                "terms": list(ex["terms"]), "indptr": np.asarray(ex["indptr"], np.int64),
+                "rows": np.asarray(ex["rows"], np.int64), "tfs": np.asarray(ex["tfs"]).astype(np.int64),
+                "doc_len_rows": np.asarray(ex["doc_len_rows"], np.int64),
+                "doc_len_vals": np.asarray(ex["doc_len_vals"], np.int64),
+                "total_len": int(self._total_len),
+            }
+        terms = sorted(self._postings)
+        indptr = np.zeros(len(terms) + 1, dtype=np.int64)
+        np.cumsum([len(self._postings[t]) for t in terms], out=indptr[1:])
+        pairs = [sorted(self._postings[t].items()) for t in terms]
+        rows = np.fromiter((r for p in pairs for r, _ in p), np.int64, count=int(indptr[-1]))
+        tfs = np.fromiter((tf for p in pairs for _, tf in p), np.int64, count=int(indptr[-1]))
+        dl = sorted(self._doc_len.items())
+        return {
+            "terms": terms, "indptr": indptr, "rows": rows, "tfs": tfs,
+            "doc_len_rows": np.fromiter((r for r, _ in dl), np.int64, count=len(dl)),
+            "doc_len_vals": np.fromiter((v for _, v in dl), np.int64, count=len(dl)),
+            "total_len": int(self._total_len),
+        }
+
+    def load_csr(self, terms, indptr, rows, tfs, doc_len_rows, doc_len_vals, total_len: int,
+                 k1: float, b: float, min_token_len: int = 2, stopwords=None) -> None:
+        """Restore postings from CSR arrays (a loaded artifact's) without
+        building dicts: they stay arrays (:class:`CsrPostings`) until a
+        mutation, sorted here as the native export is (terms ascending,
+        rows ascending within a term), so the device snapshot is the one an
+        in-memory index of the same postings builds."""
+        self.k1, self.b, self.min_token_len = float(k1), float(b), int(min_token_len)
+        if stopwords is not None:  # absent in older artifacts: keep current
+            self.stopwords = frozenset(stopwords)
+        indptr = np.asarray(indptr, dtype=np.int64)
+        rows = np.asarray(rows, dtype=np.int64)
+        tfs = np.asarray(tfs, dtype=np.int64)
+        counts = np.diff(indptr)
+        keep = counts > 0  # a term with no postings is not in the index
+        order = sorted(range(len(terms)), key=terms.__getitem__)
+        if not keep.all() or order != list(range(len(terms))):
+            order = [i for i in order if keep[i]]
+            gather = np.concatenate([np.arange(indptr[i], indptr[i + 1]) for i in order] or
+                                    [np.zeros(0, np.int64)])
+            terms = [terms[i] for i in order]
+            rows, tfs = rows[gather], tfs[gather]
+            counts = counts[order]
+            indptr = np.zeros(len(terms) + 1, dtype=np.int64)
+            np.cumsum(counts, out=indptr[1:])
+        term_of = _term_of(indptr, len(rows))
+        if len(rows) > 1 and ((np.diff(rows) <= 0) & (np.diff(term_of) == 0)).any():
+            perm = np.lexsort((rows, term_of))
+            rows, tfs = rows[perm], tfs[perm]
+        if len(rows) > 1 and ((np.diff(rows) == 0) & (np.diff(term_of) == 0)).any():
+            raise ValueError("a term lists the same row twice")
+        self._native_builder = CsrPostings({
+            "terms": list(terms), "indptr": indptr, "rows": rows.astype(np.int32),
+            "tfs": tfs.astype(np.float32), "doc_len_rows": np.asarray(doc_len_rows, np.int32),
+            "doc_len_vals": np.asarray(doc_len_vals, np.int32), "total_len": int(total_len),
+        })
+        self._postings = {}
+        self._doc_len = dict(zip(np.asarray(doc_len_rows).tolist(), np.asarray(doc_len_vals).tolist()))
+        self._total_len = int(total_len)
+        self._dirty = True
+
+    def to_compressed_bytes(self, codec=None) -> bytes:
+        """Compressed snapshot of the index state (the JAX package's
+        ``BM25Index.to_compressed_bytes``)."""
+        from trueno_rag_tpu_torch.persist import serialize_compressed
+
+        return serialize_compressed(self.state_dict(), codec)
+
+    @classmethod
+    def from_compressed_bytes(cls, data: bytes, registry=None, device=None) -> "BM25Index":
+        from trueno_rag_tpu_torch.persist import deserialize_compressed
+
+        idx = cls(registry=registry, device=device)
+        idx.load_state_dict(deserialize_compressed(data))
+        return idx
 
     def load_state_dict(self, d: Dict[str, object]) -> None:
         self._native_builder = None  # dicts become the source of truth

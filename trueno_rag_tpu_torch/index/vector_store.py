@@ -256,6 +256,25 @@ class VectorStore:
             else:
                 self._dirty_rows.update(int(r) for r in uniq)
 
+    def load_rows(self, chunks: Sequence[Chunk], matrix: np.ndarray) -> None:
+        """Restore rows ``[M, d]`` as stored (a loaded artifact's: cosine
+        rows already normalized, so their bytes round-trip exactly, with no
+        second normalization). Rows allocate sequentially, so index i ==
+        store row i on a fresh store."""
+        matrix = np.asarray(matrix, dtype=np.float32)
+        if matrix.shape != (len(chunks), self.config.dimension):
+            raise DimensionMismatchError(self.config.dimension, int(matrix.shape[-1]) if matrix.ndim else 0)
+        if not len(chunks):
+            return
+        rows = np.asarray(self.registry.add_batch(chunks), dtype=np.int64)
+        self._ensure_capacity(int(rows.max()) + 1)
+        self._count += int(np.count_nonzero(~self._valid[np.unique(rows)]))
+        self._host[rows] = matrix
+        self._valid[rows] = True
+        self._dirty = True
+        self._dirty_rows = None
+        self._cluster_preset = None
+
     def remove(self, chunk_id: str) -> bool:
         row = self.registry.row_of(chunk_id)
         if row is None or not self._valid[row]:

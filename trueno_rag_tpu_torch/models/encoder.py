@@ -342,12 +342,6 @@ def pad_batch_pow2(ids: np.ndarray) -> np.ndarray:
     return ids if b == ids.shape[0] else np.pad(ids, ((0, b - ids.shape[0]), (0, 0)))
 
 
-def checkpoint_not_ported(*_args, **_kw):
-    raise InvalidConfigError(
-        "model checkpoints need persist.py, which is not ported yet (ROADMAP Queue 1)"
-    )
-
-
 # ---------------------------------------------------------------------------
 # Embedder wrapper
 # ---------------------------------------------------------------------------
@@ -427,5 +421,27 @@ class EncoderEmbedder(Embedder):
         """Device-resident query embeddings for the fused retrieval path."""
         return self._forward_texts([self.config.query_prefix + q for q in queries])
 
-    save_checkpoint = checkpoint_not_ported
-    load_checkpoint = classmethod(checkpoint_not_ported)
+    # -- checkpointing ---------------------------------------------------------
+
+    def save_checkpoint(self, path: str) -> None:
+        """Write the parameters as a safetensors file in the JAX package's
+        layout (``convert.params_to_jax``): the JAX package's
+        ``JaxEncoderEmbedder.load_checkpoint`` reads it, and so does
+        :meth:`load_checkpoint`."""
+        from trueno_rag_tpu_torch.convert import params_to_jax
+        from trueno_rag_tpu_torch.persist import save_params
+
+        save_params(path, params_to_jax(self.params), meta={"model_name": self._model_name})
+
+    @classmethod
+    def load_checkpoint(cls, path: str, config: Optional[EncoderConfig] = None, device=None,
+                        **kw) -> "EncoderEmbedder":
+        """An embedder over a checkpoint of either package (safetensors, the
+        JAX layout) on ``device`` (default: the card)."""
+        from trueno_rag_tpu_torch.convert import encoder_params_from_jax
+        from trueno_rag_tpu_torch.persist import load_params
+
+        params, meta = load_params(path)
+        device = resolve_device(device)
+        return cls(config=config, params=encoder_params_from_jax(params, device),
+                   model_name=meta.get("model_name", "jax-encoder"), device=device, **kw)

@@ -34,7 +34,7 @@ from trueno_rag_tpu_torch.device import resolve_device
 from trueno_rag_tpu_torch.embed import Embedder, EmbeddingConfig
 from trueno_rag_tpu_torch.errors import InvalidConfigError
 from trueno_rag_tpu_torch.models.encoder import (
-    MASKED, PAD_ID, HashTokenizer, _normal, _rope_heads, checkpoint_not_ported, pad_batch_pow2,
+    MASKED, PAD_ID, HashTokenizer, _normal, _rope_heads, pad_batch_pow2,
 )
 from trueno_rag_tpu_torch.ops.kernels.attention import block_attention
 
@@ -217,8 +217,26 @@ class NemotronEmbedder(Embedder):
             out.append(nemotron_forward(self.params, ids, self.nemotron_config)[: len(block)].cpu().numpy())
         return np.concatenate(out, axis=0)
 
-    save_checkpoint = checkpoint_not_ported
-    load_checkpoint = classmethod(checkpoint_not_ported)
+    def save_checkpoint(self, path: str) -> None:
+        """Write the parameters as a safetensors file in the JAX package's
+        layout (f32, ``convert.params_to_jax``), read by either package's
+        ``load_checkpoint``."""
+        from trueno_rag_tpu_torch.convert import params_to_jax
+        from trueno_rag_tpu_torch.persist import save_params
+
+        save_params(path, params_to_jax(self.params), meta={"model_name": self.model_id})
+
+    @classmethod
+    def load_checkpoint(cls, path: str, config: Optional[NemotronConfig] = None, device=None,
+                        **kw) -> "NemotronEmbedder":
+        """An embedder over a checkpoint of either package on ``device``
+        (default: the card)."""
+        from trueno_rag_tpu_torch.convert import nemotron_params_from_jax
+        from trueno_rag_tpu_torch.persist import load_params
+
+        params, _ = load_params(path)
+        device = resolve_device(device)
+        return cls(config=config, params=nemotron_params_from_jax(params, device), device=device, **kw)
 
     @classmethod
     def from_gguf(cls, path: str, config: Optional[NemotronConfig] = None, device=None,

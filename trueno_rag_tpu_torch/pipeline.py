@@ -3,8 +3,12 @@
 PyTorch-port counterpart of ``trueno_rag_tpu/pipeline.py`` (the host
 orchestration is the same code; retrieval runs through the port's
 :class:`~trueno_rag_tpu_torch.retrieve.HybridRetriever`, with tag filters
-at ingest and query time). Query preprocessing, ingest dedup and learned
-sparse are not ported yet (ROADMAP). Capability-equivalent to the reference's ``src/pipeline.rs``:
+at ingest and query time, query preprocessing
+(:mod:`~trueno_rag_tpu_torch.preprocess`: the variants of a query retrieve
+as one device batch and fuse by reciprocal rank) and ingest
+near-duplicate dedup (:mod:`~trueno_rag_tpu_torch.ops.dedup`). The
+learned-sparse source is not ported yet (ROADMAP). Capability-equivalent
+to the reference's ``src/pipeline.rs``:
 ``Citation`` (pipeline.rs:16-30), ``ContextChunk``/``AssembledContext``
 with the three formatters (pipeline.rs:33-148), ``AssemblyStrategy``
 (pipeline.rs:150-160), ``ContextAssembler`` with greedy token budgeting
@@ -242,14 +246,48 @@ class RagPipeline:
         chunker: Chunker,
         retriever: HybridRetriever,
         assembler: ContextAssembler,
+        preprocessor=None,
+        dedup_threshold: Optional[float] = None,
     ) -> None:
         self.embedder = embedder
         self.reranker = reranker
         self.chunker = chunker
         self.retriever = retriever
         self.assembler = assembler
+        self.preprocessor = preprocessor  # optional QueryPreprocessor
+        self.dedup_threshold = dedup_threshold
         self.document_count = 0
         self.chunk_count = 0
+        self.duplicates_skipped = 0
+
+    def _drop_near_duplicates(self, chunks: List[Chunk]) -> List[Chunk]:
+        """Ingest-time near-duplicate filter (one pass of two products on
+        the store's device, :mod:`~trueno_rag_tpu_torch.ops.dedup`): drops
+        chunks whose cosine similarity to the existing index or an earlier
+        chunk of the batch reaches the threshold."""
+        if self.dedup_threshold is None or not chunks:
+            return chunks
+        import numpy as np
+
+        from trueno_rag_tpu_torch.index.vector_store import DistanceMetric
+        from trueno_rag_tpu_torch.ops.dedup import near_duplicates
+
+        store = self.retriever.vector_store
+        emb = np.stack([np.asarray(c.embedding, dtype=np.float32) for c in chunks])
+        if len(store) > 0 and not store.is_compact:
+            matrix, valid = store.device_matrix, store.device_valid
+        elif len(store) > 0:  # compact/clustered: no fp32 device matrix
+            matrix, valid = store._host, store._valid
+        else:
+            matrix = np.zeros((0, emb.shape[1]), np.float32)
+            valid = np.zeros((0,), bool)
+        is_dup, _, _ = near_duplicates(
+            emb, matrix, valid, threshold=self.dedup_threshold,
+            rows_normalized=(store.config.metric == DistanceMetric.COSINE), device=store.device,
+        )
+        is_dup = is_dup.cpu().numpy()
+        self.duplicates_skipped += int(is_dup.sum())
+        return [c for c, d in zip(chunks, is_dup) if not d]
 
     # -- ingest -----------------------------------------------------------------
 
@@ -259,6 +297,7 @@ class RagPipeline:
         ``tags`` label every chunk for tag-filtered retrieval."""
         chunks = self.chunker.chunk(document)
         self.embedder.embed_chunks(chunks)
+        chunks = self._drop_near_duplicates(chunks)
         self.retriever.index_batch(chunks, tags=tags)
         self.document_count += 1
         self.chunk_count += len(chunks)
@@ -289,6 +328,11 @@ class RagPipeline:
             all_chunks.extend(doc_chunks)
             chunk_tags.extend([None if tags is None else tags[i]] * len(doc_chunks))
         self.embedder.embed_chunks(all_chunks)
+        if self.dedup_threshold is not None:
+            kept = self._drop_near_duplicates(all_chunks)
+            kept_ids = {c.id for c in kept}
+            chunk_tags = [t for c, t in zip(all_chunks, chunk_tags) if c.id in kept_ids]
+            all_chunks = kept
         self.retriever.index_batch(all_chunks)
         if tags is not None:
             reg = self.retriever.registry
@@ -302,15 +346,54 @@ class RagPipeline:
     # -- query ------------------------------------------------------------------
 
     def query(self, query: str, k: int = 5, tag_filter=None) -> List[RetrievalResult]:
+        if self.preprocessor is not None:
+            return self._query_preprocessed(query, k, tag_filter=tag_filter)
         candidates = self.retriever.retrieve(query, k * 2, tag_filter=tag_filter)
         return self.reranker.rerank(query, candidates, k)
+
+    def _query_preprocessed(self, query: str, k: int, tag_filter=None) -> List[RetrievalResult]:
+        """Multi-query retrieval: preprocess into variants, retrieve all
+        variants as ONE device batch, fuse the per-variant rankings by
+        reciprocal rank (RRF 60), then rerank against the original query.
+        A preprocessor with ``fusion_for`` (AdaptivePreprocessor) picks the
+        merge strategy per query; None keeps the configured one."""
+        variants = self.preprocessor.preprocess(query)
+        fusion_for = getattr(self.preprocessor, "fusion_for", None)
+        fusion = fusion_for(query) if fusion_for is not None else None
+        per_variant = self.retriever.retrieve_batch(variants, k * 2, fusion=fusion, tag_filter=tag_filter)
+        rrf_k = 60.0
+        acc: dict = {}
+        best: dict = {}
+        for results in per_variant:
+            for rank, res in enumerate(results):
+                cid = res.chunk.id
+                acc[cid] = acc.get(cid, 0.0) + 1.0 / (rrf_k + rank + 1.0)
+                prev = best.get(cid)
+                if prev is None or res.best_score() > prev.best_score():
+                    best[cid] = res
+        ranked = sorted(acc.items(), key=lambda kv: (-kv[1], kv[0]))[: k * 2]
+        fused = []
+        for cid, score in ranked:
+            res = best[cid]
+            res.fused_score = score
+            fused.append(res)
+        return self.reranker.rerank(query, fused, k)
 
     def query_batch(self, queries: Sequence[str], k: int = 5,
                     tag_filter=None) -> List[List[RetrievalResult]]:
         """Batched :meth:`query` — the same results per query as the
-        single path, with one device batch for retrieval. ``tag_filter``
-        is one :class:`~trueno_rag_tpu_torch.retrieve.TagFilter` for every
-        query or a list with one per query."""
+        single path, including the configured preprocessor (each query's
+        variants retrieve as one batch), with one device batch for
+        retrieval otherwise. ``tag_filter`` is one
+        :class:`~trueno_rag_tpu_torch.retrieve.TagFilter` for every query
+        or a list with one per query."""
+        if self.preprocessor is not None:
+            return [
+                self._query_preprocessed(
+                    q, k, tag_filter=tag_filter[i] if isinstance(tag_filter, (list, tuple)) else tag_filter,
+                )
+                for i, q in enumerate(queries)
+            ]
         batches = self.retriever.retrieve_batch(queries, k * 2, tag_filter=tag_filter)
         return [self.reranker.rerank(q, cands, k) for q, cands in zip(queries, batches)]
 
@@ -345,6 +428,8 @@ class RagPipelineBuilder:
         self._vector_config: Optional[VectorStoreConfig] = None
         self._assembler_config: Optional[ContextAssemblerConfig] = None
         self._device = None
+        self._preprocessor = None
+        self._dedup_threshold: Optional[float] = None
 
     def with_embedder(self, embedder: Embedder) -> "RagPipelineBuilder":
         self._embedder = embedder
@@ -374,6 +459,21 @@ class RagPipelineBuilder:
         self._assembler_config = config
         return self
 
+    def with_preprocessor(self, preprocessor) -> "RagPipelineBuilder":
+        """Route queries through a QueryPreprocessor (HyDE, multi-query,
+        chained, adaptive — :mod:`trueno_rag_tpu_torch.preprocess`)."""
+        self._preprocessor = preprocessor
+        return self
+
+    def with_dedup(self, threshold: float = 0.97) -> "RagPipelineBuilder":
+        """Skip near-duplicate chunks at ingest (cosine ≥ threshold vs the
+        index or an earlier chunk of the same batch); skips count in
+        ``pipeline.duplicates_skipped``."""
+        if not (0.0 < threshold <= 1.0):
+            raise InvalidConfigError("dedup threshold must be in (0, 1]")
+        self._dedup_threshold = threshold
+        return self
+
     def with_device(self, device) -> "RagPipelineBuilder":
         """Where the indexes' tensors live (default: the CUDA device;
         "cpu" must be asked for)."""
@@ -400,7 +500,10 @@ class RagPipelineBuilder:
             device=self._device,
         )
         assembler = ContextAssembler(self._assembler_config)
-        return RagPipeline(self._embedder, self._reranker, chunker, retriever, assembler)
+        return RagPipeline(
+            self._embedder, self._reranker, chunker, retriever, assembler,
+            preprocessor=self._preprocessor, dedup_threshold=self._dedup_threshold,
+        )
 
 
 def pipeline_builder() -> RagPipelineBuilder:

@@ -3,7 +3,8 @@
 PyTorch counterpart of ``trueno_rag_tpu/retrieve.py``. Capability-
 equivalent to the reference's ``src/retrieve.rs``: ``RetrievalResult``
 with the four-score model and ``best_score`` priority,
-``HybridRetrieverConfig`` and ``HybridRetriever``.
+``HybridRetrieverConfig``, ``HybridRetriever`` and the single-source
+``DenseRetriever`` and ``SparseRetriever``.
 
 Query plan: embed the query batch on the host → dense top-C and BM25
 top-C over the *shared row space* (both stores use one
@@ -626,3 +627,59 @@ class HybridRetriever:
 
     def __len__(self) -> int:
         return len(self.registry)
+
+
+# ---------------------------------------------------------------------------
+# Single-source conveniences
+# ---------------------------------------------------------------------------
+
+
+class DenseRetriever:
+    """Vector-only retriever over its own :class:`VectorStore` on
+    ``device`` (default: the card)."""
+
+    def __init__(self, embedder: Embedder, vector_config: Optional[VectorStoreConfig] = None,
+                 device=None) -> None:
+        self.embedder = embedder
+        self.store = VectorStore(vector_config or VectorStoreConfig(dimension=embedder.dimension),
+                                 device=device)
+
+    def index(self, chunk: Chunk) -> None:
+        self.store.insert(chunk)
+
+    def index_batch(self, chunks: Sequence[Chunk]) -> None:
+        self.store.insert_many(chunks)
+
+    def retrieve(self, query: str, k: int) -> List[RetrievalResult]:
+        qvec = self.embedder.embed_query(query)
+        return [
+            RetrievalResult(chunk=self.store.get(cid), dense_score=s)
+            for cid, s in self.store.search(qvec, k)
+        ]
+
+    def __len__(self) -> int:
+        return len(self.store)
+
+
+class SparseRetriever:
+    """BM25-only retriever with its own chunk registry, so sparse-only
+    deployments work standalone; the index lives on ``device`` (default:
+    the card)."""
+
+    def __init__(self, device=None) -> None:
+        self.index_ = BM25Index(device=device)
+
+    def index(self, chunk: Chunk) -> None:
+        self.index_.add(chunk)
+
+    def index_batch(self, chunks: Sequence[Chunk]) -> None:
+        self.index_.add_batch(chunks)
+
+    def retrieve(self, query: str, k: int) -> List[RetrievalResult]:
+        return [
+            RetrievalResult(chunk=self.index_.registry.get_chunk(cid), sparse_score=s)
+            for cid, s in self.index_.search(query, k)
+        ]
+
+    def __len__(self) -> int:
+        return len(self.index_)
