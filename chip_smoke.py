@@ -54,8 +54,9 @@ Run from the repository root. Phases, each fatal on failure:
    set equal to the float64 exact set; fusion equal to the host oracle),
    a tag-filtered batch, and a 1% mutation that must refresh without
    k-means and stay exact; the store's build (``prepare_clustered_stream``
-   over host slabs) is timed beside the host build ``prepare_clustered``
-   on the same rows;
+   over host slabs) is timed (no longer the host build
+   ``prepare_clustered`` beside it: a depth cut for the smoke's time,
+   PERF.md §4);
 9. clustered-10.5M: ``prepare_clustered_stream`` over 10,485,760 blob rows
    generated on the card from their ids (its greedy fill held to, and
    timed against, the plain sequential loop), then the pruned op at B = 8 with
@@ -82,8 +83,10 @@ Run from the repository root. Phases, each fatal on failure:
    documents of 990-1,022 words (K4 in every layer of every batch) and
    answers 8 batches of 8 short queries (the materialized path): dense
    top-5 equal to the float64 exact top-5, fusion equal to the host oracle;
-13. encoder-1M: ``EncoderEmbedder(EncoderConfig.minilm_l6())`` through
-   ``index_documents`` over 1,048,576 documents like slice 1's; 4 batches
+13. encoder-262k: ``EncoderEmbedder(EncoderConfig.minilm_l6())`` through
+   ``index_documents`` over 262,144 documents like slice 1's (a depth cut
+   from 1,048,576 for the smoke's time, PERF.md §4; ``scan_tier="bf16"``,
+   which "auto" engages only past 400,000 rows); 4 batches
    of 256 staged on the bf16 tier (K1), one batch with ``fused=True`` over
    the fp32 matrix and 32 queries with ``fused=True`` on a compact bf16r
    store of the same rows (K1 + the host patch), every dense set equal to
@@ -228,7 +231,8 @@ Run from the repository root. Phases, each fatal on failure:
 26. persist-1M (right after phase 5, on its pipeline): the 1,048,576-chunk
    index through ``save_index_streaming`` (the CLI's writer past 50,000
    chunks) under ``default_compression()`` after a free-disk check,
-   ``read_index_info``, ``load_index(scan_tier="auto")`` onto the card, and
+   ``load_index(scan_tier="auto")`` onto the card (``read_index_info`` is
+   no longer timed at 1M: a depth cut for the smoke's time), and
    phase 5's four batches through ``query_with_context_batch(k=5)`` (K1):
    every dense row and score and every context identical to the in-memory
    pipeline's; save, load and device-build seconds, artifact bytes, the
@@ -251,7 +255,29 @@ Run from the repository root. Phases, each fatal on failure:
 30. checkpoint (after phase 29): ``save_checkpoint``/``load_checkpoint`` of
    MiniLM-L6 and of the Nemotron-class model at full width and 2 of its 32
    layers (depth cut: the 32-layer f32 file is 31.6 GB), embeddings
-   bit-identical after the reload.
+   bit-identical after the reload;
+31. serve-1M (after phase 8, on phase 5's pipeline): ``prewarm`` and
+   ``autotune_serving`` over batch sizes 1-256, then 1,024 single-query
+   POSTs from 32 client threads through a ``MicroBatcher`` behind an
+   in-process ``RagHTTPServer`` and behind a two-worker
+   ``MultiProcessServer``: every answer equal to ``retrieve_batch``'s for
+   the same query, ``/health`` on the bf16 tier, K1 launched; served q/s,
+   p50/p99 request latency, batches and the mean batch size logged;
+32. tri-hybrid-262k (after phase 15): 262,144 documents of phase 5's text
+   law (scale cut: the 1M expansion is ~128M postings on the host),
+   ``MockEmbedder(384)`` and a seeded ``SpladeEncoder`` at MiniLM-L6 width
+   (64 tokens, 128 document and 32 query terms) through
+   ``with_learned_sparse`` on tier "bf16" (staged, K1): 2 batches of 256,
+   every learned candidate list against the float64 oracle up to
+   near-ties; one batch staged on a sibling store on tier "none" (the fp32
+   matrix, the default below the tier crossover), its lists identical to
+   the bf16 tier's where the dense scores are tie-free; the index saved
+   with its learned section (codec none),
+   reloaded with the encoder (fingerprint checked) and identical answers;
+   expansion s, postings, host snapshot s and batch ms logged;
+33. inside phase 29: ``index --with-learned-sparse`` and ``serve`` on it in
+   a subprocess (port 0, ready on its printed address), each query's
+   ``/query`` JSON equal to ``query --format json``'s.
 
 The last two lines of standard output are JSON: the per-kernel record, then
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
@@ -367,6 +393,15 @@ SEG_RUNS = 2  # staged batches at 17.8M (the first pays the set-up)
 SEG_SINGLES = 8  # single queries through search_arrays
 SEG_FUSED_B = 32  # hybrid_query_arrays_segments at 17.8M: its [B, N] fp32 scores take B x 71 MB
 SEG_STORE_THRESHOLD = 1 << 19  # the moved MAX_BLOCK_ROWS of segments-store-1M, below its 1M rows
+ENC_N = 1 << 18  # encoder-262k's documents: a depth cut from 1,048,576 for the smoke's time (PERF.md §4)
+TRI_N = 262_144  # tri-hybrid-262k: scale cut (the 1M expansion: ~128M postings on the host)
+TRI_BATCHES = 2
+TRI_MAX_LEN = 64  # the SpladeEncoder's defaults: 64 tokens, 128 document terms, 32 query terms
+TRI_DOC_TOP = 128
+TRI_QUERY_TOP = 32
+SERVE_REQUESTS = 1024  # serve-1M: single-query POSTs per server
+SERVE_CLIENTS = 32
+SERVE_BATCH_SIZES = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 BM25_ULPS = 16  # BM25 scores of two panel shapes: within 16 ulps of the panel's mass (bm25_near_ties)
 
 # H100 SXM peaks (NVIDIA data sheet) for the kernels' bounds
@@ -799,13 +834,19 @@ def phase_tier(seed: int) -> None:
 
 
 def make_texts(rng, n: int, words: int):
+    """``n`` texts of ``words`` words ``w00000``..: every word is 6 bytes, so
+    a slab's texts are one gather of the words' bytes (with their spaces),
+    cut at a fixed width and decoded."""
     import numpy as np
 
-    word_arr = np.array([f"w{i:05d}" for i in range(VOCAB)])
+    check(VOCAB <= 100_000, "make_texts: words are six bytes")
+    table = np.frombuffer("".join(f"w{i:05d} " for i in range(VOCAB)).encode(), np.uint8).reshape(VOCAB, 7)
+    width = 7 * words - 1
     out = []
     for lo in range(0, n, 65536):
         ids = rng.integers(0, VOCAB, size=(min(65536, n - lo), words))
-        out.extend(" ".join(row) for row in word_arr[ids])
+        raw = table[ids].reshape(len(ids), 7 * words)[:, :width].tobytes()
+        out.extend(raw[i:i + width].decode() for i in range(0, len(raw), width))
     return out
 
 
@@ -1732,11 +1773,9 @@ def phase_clustered_store(pipe, seed: int) -> int:
     # would round-trip 60M postings through Python dicts
     retr.sparse_index = base.sparse_index
     log(f"clustered-1M retriever from state: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    h_order, _, _ = cl.prepare_clustered(host, tile_n=CL_TILE)  # the host build, for its time
-    t_host_build = time.perf_counter() - t0
-    check(len(h_order) == n and (np.sort(h_order) == np.arange(n)).all(), "the host build lost or repeated a row")
-    del host, h_order
+    # (the host build prepare_clustered is no longer timed beside the
+    # store's build here: a depth cut for the smoke's time, PERF.md §4)
+    del host
     store = retr.vector_store
     builds = count_cluster_builds()
     torch.cuda.reset_peak_memory_stats()
@@ -1751,7 +1790,7 @@ def phase_clustered_store(pipe, seed: int) -> int:
     log(f"clustered-1M store build (stream k-means over host slabs, permuted replicas): {t_build:.1f} s; "
         f"{len(radii)} tiles, median radius {float(radii.median()):.4f}; peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
-        f"allocated after; the host build prepare_clustered on the same rows: {t_host_build:.1f} s")
+        f"allocated after")
     p = rag.RagPipeline(embedder, pipe.reranker, pipe.chunker, retr, pipe.assembler)
 
     # each call of the pruned op inside the store: certified flags and the
@@ -2360,8 +2399,9 @@ def phase_nemotron_rag(emb, seed: int) -> int:
     return launches
 
 
-def phase_encoder_1m(seed: int) -> int:
-    """MiniLM-L6 through index_documents at 1M one-chunk documents, then the
+def phase_encoder_262k(seed: int) -> int:
+    """MiniLM-L6 through index_documents at ENC_N one-chunk documents (a
+    depth cut from 1M for the smoke's time), then the
     staged bf16 tier (K1), the fused query over the fp32 matrix and the fused
     compact query (K1 + host patch), then the cross-encoder → K1 launches."""
     import numpy as np
@@ -2374,14 +2414,15 @@ def phase_encoder_1m(seed: int) -> int:
 
     rng = np.random.default_rng(seed + 14)
     t0 = time.perf_counter()
-    docs = [rag.Document(t, id=f"edoc{i}") for i, t in enumerate(make_texts(rng, N_ROWS, DOC_WORDS))]
-    log(f"encoder-1M documents: {len(docs)} generated in {time.perf_counter() - t0:.1f} s")
+    docs = [rag.Document(t, id=f"edoc{i}") for i, t in enumerate(make_texts(rng, ENC_N, DOC_WORDS))]
+    log(f"encoder-262k documents: {len(docs)} generated in {time.perf_counter() - t0:.1f} s")
     emb = rag.EncoderEmbedder(config=rag.EncoderConfig.minilm_l6(), seed=seed, device=DEV)
     pipe = (
         rag.RagPipelineBuilder()
         .with_embedder(emb)
         .with_reranker(rag.LexicalReranker())
-        .with_vector_config(rag.VectorStoreConfig(dimension=emb.dimension, scan_tier="auto"))
+        # "bf16": below 400,000 rows "auto" would keep the fp32 matrix
+        .with_vector_config(rag.VectorStoreConfig(dimension=emb.dimension, scan_tier="bf16"))
         .with_device(DEV)
         .build()
     )
@@ -2391,9 +2432,9 @@ def phase_encoder_1m(seed: int) -> int:
     n_chunks = pipe.index_documents(docs)
     t_ingest = time.perf_counter() - t0
     del docs
-    check(n_chunks == N_ROWS, f"encoder-1M: indexed {n_chunks} chunks")
-    check(store._effective_tier() == "bf16", f"encoder-1M: tier {store._effective_tier()!r}, expected 'bf16'")
-    log(f"encoder-1M ingest (chunk + MiniLM-L6 embed on the card + index): {n_chunks} chunks in {t_ingest:.1f} s = "
+    check(n_chunks == ENC_N, f"encoder-262k: indexed {n_chunks} chunks")
+    check(store._effective_tier() == "bf16", f"encoder-262k: tier {store._effective_tier()!r}, expected 'bf16'")
+    log(f"encoder-262k ingest (chunk + MiniLM-L6 embed on the card + index): {n_chunks} chunks in {t_ingest:.1f} s = "
         f"{n_chunks / t_ingest:.0f} chunks/s (host clock)")
     retr.ensure_ready()
     cand = retr.config.candidates_per_source
@@ -2413,11 +2454,11 @@ def phase_encoder_1m(seed: int) -> int:
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t0)
     launches = scan_select_v3.launches
-    check(launches >= N_BATCHES, f"encoder-1M staged: K1 launched {launches} times")
+    check(launches >= N_BATCHES, f"encoder-262k staged: K1 launched {launches} times")
     for i, qs in enumerate(batches[:N_BATCHES]):
         _, r_t = store.search_arrays(np.asarray(emb.embed_queries(qs), np.float32), cand)
-        check(torch.equal(r_t, exact_rows(qs)), f"encoder-1M staged batch {i}: rows differ from the exact path")
-    log(f"encoder-1M staged (bf16 tier, K1 launches {launches}): median {sorted(lat)[len(lat) // 2] * 1e3:.1f} ms per "
+        check(torch.equal(r_t, exact_rows(qs)), f"encoder-262k staged batch {i}: rows differ from the exact path")
+    log(f"encoder-262k staged (bf16 tier, K1 launches {launches}): median {sorted(lat)[len(lat) // 2] * 1e3:.1f} ms per "
         f"batch of {BATCH}, {BATCH * len(lat) / sum(lat):.0f} queries/s; dense rows equal to the exact path")
 
     # fused=True over the fp32 matrix (fused_hybrid_query)
@@ -2436,14 +2477,14 @@ def phase_encoder_1m(seed: int) -> int:
     finally:
         hy.fused_hybrid_query = fused
         retr.config = dataclasses.replace(retr.config, fused=None)
-    check(len(calls) == 2 and len(res) == BATCH and all(res), "encoder-1M: the fused query did not run")
+    check(len(calls) == 2 and len(res) == BATCH and all(res), "encoder-262k: the fused query did not run")
     ids, bids, blo, bhi = retr._fused_preamble(qs)
     out = fused(emb.params, ids, store.device_matrix, store.device_valid, bids, blo, bhi,
                 retr.sparse_index._snap["blocks"], encoder_config=emb.encoder_config, cand=cand, k=2 * K)
     want = exact_rows(qs)
     check(all(set(a) == set(b) for a, b in zip(out[2][:BATCH].tolist(), want.tolist())),
-          "encoder-1M fused: dense row sets differ from the exact path")
-    log(f"encoder-1M fused=True over the fp32 matrix: {t_fused * 1e3:.1f} ms per batch of {BATCH} = "
+          "encoder-262k fused: dense row sets differ from the exact path")
+    log(f"encoder-262k fused=True over the fp32 matrix: {t_fused * 1e3:.1f} ms per batch of {BATCH} = "
         f"{BATCH / t_fused:.0f} queries/s (retrieve_batch, host clock); dense sets equal to the exact path")
 
     # fused=True on a compact bf16r store of the same rows
@@ -2464,15 +2505,15 @@ def phase_encoder_1m(seed: int) -> int:
     torch.cuda.synchronize()
     t_compact = time.perf_counter() - t0
     n_k1 = scan_select_v3.launches  # the scan, plus any widened retry of the host patch
-    check(handle[0] == "fused_compact" and n_k1 >= 1, "encoder-1M: the fused compact query did not run K1")
+    check(handle[0] == "fused_compact" and n_k1 >= 1, "encoder-262k: the fused compact query did not run K1")
     launches += n_k1
     b = len(qs_c)
     ok = handle[1][6].cpu().numpy()[:b]
     d_r = patched[-1][1] if patched else handle[1][2].cpu().numpy()
     check(all(set(x) == set(y) for x, y in zip(d_r[:b].tolist(), exact_rows(qs_c).tolist())),
-          "encoder-1M fused compact: dense row sets (after the host patch) differ from the exact path")
-    check(len(res) == b and all(res), "encoder-1M fused compact: empty results")
-    log(f"encoder-1M fused=True on a compact bf16r store: {t_compact * 1e3:.1f} ms per batch of {b} = "
+          "encoder-262k fused compact: dense row sets (after the host patch) differ from the exact path")
+    check(len(res) == b and all(res), "encoder-262k fused compact: empty results")
+    log(f"encoder-262k fused=True on a compact bf16r store: {t_compact * 1e3:.1f} ms per batch of {b} = "
         f"{b / t_compact:.0f} queries/s (submit + collect, first call, host clock); certified {int(ok.sum())}/{b} "
         f"(the rest host-patched: {cs.compact_candidate_patched} by candidates, {cs.compact_gemm_patched} by "
         f"GEMM); K1 launches {n_k1}; dense sets equal to the exact path")
@@ -4246,8 +4287,8 @@ def context_rows(contexts):
 
 def phase_persist_1m(pipe, batches, seed: int) -> int:
     """persist-1M: hybrid-1M's index through the CLI's large-index writer
-    (``save_index_streaming``), ``read_index_info`` and ``load_index`` onto
-    the card (``scan_tier="auto"``), then hybrid-1M's batches: every dense
+    (``save_index_streaming``) and ``load_index`` onto the card
+    (``scan_tier="auto"``), then hybrid-1M's batches: every dense
     row and score and every context identical to the in-memory pipeline's
     → K1 launches on the loaded path."""
     import numpy as np
@@ -4280,12 +4321,8 @@ def phase_persist_1m(pipe, batches, seed: int) -> int:
         log(f"persist-1M save_index_streaming ({codec.value}): {n} chunks in {t_save:.1f} s; {size} bytes "
             f"({stats['matrix_frames']} matrix frames, {stats['matrix_compressed_bytes']} bytes of matrix); "
             f"host RSS {rss_gib():.1f} GiB")
-        t0 = time.perf_counter()
-        meta = persist.read_index_info(path)
-        t_info = time.perf_counter() - t0
-        check(meta["version"] == 2 and meta["dimension"] == DIM and len(meta["chunks"]) == n
-              and meta["embedder"] == info and meta["metric"] == "cosine", "read_index_info")
-        del meta
+        # (read_index_info is no longer timed here at 1M: a depth cut for the
+        # smoke's time, PERF.md §4; the cli phase reads its indexes' headers)
         t0 = time.perf_counter()
         loaded, emb_info = persist.load_index(path, rag.MockEmbedder(DIM), scan_tier="auto", device=DEV)
         t_load = time.perf_counter() - t0
@@ -4298,7 +4335,7 @@ def phase_persist_1m(pipe, batches, seed: int) -> int:
         check(lstore._effective_tier() == "bf16", f"loaded tier {lstore._effective_tier()!r}, expected 'bf16'")
         check(bool((lstore._host[:n] == store._host[[retr.registry.row_of(c) for c in loaded.registry.ids()]]).all()),
               "a loaded row differs from its saved row")
-        log(f"persist-1M read_index_info {t_info:.1f} s; load_index {t_load:.1f} s; device build "
+        log(f"persist-1M load_index {t_load:.1f} s; device build "
             f"(upload, bf16 replica, BM25 block table) {t_ready:.1f} s; host RSS {rss_gib():.1f} GiB")
         lp = rag.RagPipeline(pipe.embedder, pipe.reranker, pipe.chunker, loaded, pipe.assembler)
         lp.query_with_context_batch(batches[0], k=K)  # first-call set-up
@@ -4506,6 +4543,7 @@ def phase_cli(seed: int):
         log(f"cli query (multi-vector): {len(queries)} queries, maxsim_scan16_scores launches {k6}; every result "
             f"equal to the in-memory LateInteractionRetriever's")
         del li
+        phase_cli_tri_serve(docs_dir, os.path.join(tmp, "tri"), queries)
         for argv in (["info"], ["demo"]):
             rc, out = run_cli(argv)
             check(rc == 0 and out, f"cli {argv[0]} exit {rc}")
@@ -4513,6 +4551,60 @@ def phase_cli(seed: int):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return k1, k6
+
+
+SERVE_FIELDS = ("title", "content", "score", "dense_score", "sparse_score", "fused_score", "learned_score")
+
+
+def phase_cli_tri_serve(docs_dir: str, tri_dir: str, queries) -> None:
+    """Inside cli: ``index --with-learned-sparse`` in this process, then
+    ``serve`` on that index in a subprocess (``--port 0``; ready when it
+    prints its address), every query's /query JSON equal to ``query --format
+    json``'s; the server is terminated in a ``finally``."""
+    import os
+    import select
+    import urllib.request
+
+    t0 = time.perf_counter()
+    rc, out = run_cli(["index", "--path", docs_dir, "--output", tri_dir, "--with-learned-sparse", "--tag-by-dir"])
+    check(rc == 0, f"cli index --with-learned-sparse exit {rc}")
+    log(f"cli index --with-learned-sparse: {out.strip()} ({time.perf_counter() - t0:.1f} s)")
+    want = [json.loads(run_cli(["query", q, "--index", tri_dir, "--format", "json"])[1]) for q in queries]
+    check(all(want) and any(r["learned_score"] is not None for w in want for r in w),
+          "cli query of the tri-hybrid index: no learned scores")
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-u", "-m", "trueno_rag_tpu_torch.cli", "serve", "--index", tri_dir,
+                             "--port", "0", "--max-batch", "8"],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=root)
+    try:
+        seen, line = [], ""
+        deadline = time.monotonic() + 300
+        while "serving" not in line:
+            ready, _, _ = select.select([proc.stdout], [], [], max(0.0, deadline - time.monotonic()))
+            check(bool(ready), f"cli serve: no address within 300 s: {''.join(seen)[-2000:]}")
+            line = proc.stdout.readline()
+            check(bool(line), f"cli serve exited {proc.poll()}: {''.join(seen)[-2000:]}")
+            seen.append(line)
+        url = line.split(" on ")[1].split()[0]
+        t_ready = time.perf_counter() - t0
+        for q, w in zip(queries, want):
+            req = urllib.request.Request(url + "/query", data=json.dumps({"query": q, "k": 5}).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                got = json.loads(resp.read())["results"]
+            check([{f: r[f] for f in SERVE_FIELDS} for r in got] == [{f: r[f] for f in SERVE_FIELDS} for r in w],
+                  f"cli serve {q!r}: /query differs from cli query's JSON")
+        log(f"cli serve (subprocess, tri-hybrid index): ready in {t_ready:.1f} s at {url}; {len(queries)} "
+            f"queries over HTTP equal to cli query's JSON")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
+        proc.stdout.close()
 
 
 def phase_checkpoint(seed: int) -> None:
@@ -4637,6 +4729,330 @@ def phase_clustered_artifact(retr, p, embedder, runs, pipe) -> int:
     return n5
 
 
+def learned_mass(li, q_terms, q_weights):
+    """Per query, the float64 sum of every contribution its panel holds
+    (Σ_t q_w · Σ of term t's document weights): the bound the candidate
+    tail's f32 prefix sums round against."""
+    import numpy as np
+
+    snap = li._snap
+    csum = np.concatenate([[0.0], np.cumsum(snap["weights"], dtype=np.float64)])
+    term_sum = csum[snap["indptr"][1:]] - csum[snap["indptr"][:-1]]
+    pos = np.clip(np.searchsorted(snap["term_ids"], q_terms), 0, max(len(snap["term_ids"]) - 1, 0))
+    hit = (q_terms >= 0) & (q_weights > 0) & (snap["term_ids"][pos] == q_terms)
+    return (np.where(hit, term_sum[pos], 0.0) * q_weights).sum(axis=1)
+
+
+def check_learned_exact(li, q_terms, q_weights, scores, rows, cand, label) -> int:
+    """Every query's learned top-``cand`` (device) against the float64 oracle
+    ``search_host``: scores within BM25_ULPS ulps of the panel's mass, rows
+    equal up to near-ties (``bm25_near_ties``) → queries whose rows differ."""
+    import numpy as np
+
+    mass = learned_mass(li, q_terms, q_weights)
+    s_host = np.full(scores.shape, -np.inf, np.float32)
+    r_host = np.full(rows.shape, -1, np.int32)
+    for i in range(len(q_terms)):
+        for j, (r, s) in enumerate(li.search_host(q_terms[i], q_weights[i], cand)):
+            r_host[i, j], s_host[i, j] = r, s
+    worst = 0.0
+    for i in range(len(q_terms)):
+        host = dict(zip(r_host[i].tolist(), s_host[i].tolist()))
+        err = [abs(float(s) - host[r]) / host[r] for r, s in zip(rows[i].tolist(), scores[i].tolist()) if r in host]
+        worst = max([worst] + err)
+        if np.array_equal(rows[i], r_host[i]):
+            fin = rows[i] >= 0
+            tol = BM25_ULPS * 2.0**-24 * float(mass[i])
+            check(bool(np.all(np.abs(scores[i][fin] - s_host[i][fin]) <= tol)),
+                  f"{label} query {i}: a learned score differs from float64 past {tol}")
+    n = bm25_near_ties(s_host, r_host, scores, rows, mass, label)
+    log(f"{label}: learned scores off the float64 oracle by at most {worst:.2e} relative (panel mass "
+        f"{float(np.median(mass)):.3g} median, {float(mass.max()):.3g} max); {n} of {len(q_terms)} lists differ "
+        f"only at near-ties within {BM25_ULPS} ulps of the mass")
+    return n
+
+
+def phase_tri_hybrid(seed: int) -> int:
+    """tri-hybrid-262k: hybrid-1M's text law at TRI_N documents,
+    ``MockEmbedder(384)`` and a seeded ``SpladeEncoder`` at MiniLM-L6 width
+    through ``RagPipelineBuilder.with_learned_sparse`` on tier "bf16"
+    (staged, K1), the learned candidates held to the float64 oracle, one
+    batch on a sibling store at tier "none" held to the bf16 tier's lists
+    where the dense scores are tie-free, and the index saved with its
+    learned section, reloaded with the encoder and asked again → K1 launches
+    of the bf16 tier."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import trueno_rag_tpu_torch as rag
+    from trueno_rag_tpu_torch import persist
+    from trueno_rag_tpu_torch.models.splade import SpladeEncoder
+    from trueno_rag_tpu_torch.ops.kernels.scan_select import scan_select_v3
+
+    rng = np.random.default_rng(seed + 17)
+    t0 = time.perf_counter()
+    docs = [rag.Document(t, id=f"tri{i}") for i, t in enumerate(make_texts(rng, TRI_N, DOC_WORDS))]
+    log(f"tri-hybrid: {TRI_N} documents made in {time.perf_counter() - t0:.1f} s")
+    enc = SpladeEncoder(config=rag.EncoderConfig.minilm_l6(), seed=seed + 17, max_len=TRI_MAX_LEN,
+                        doc_top=TRI_DOC_TOP, query_top=TRI_QUERY_TOP, device=DEV)
+    spent = [0.0]
+    expand = enc.expand_documents
+
+    def timed_expand(texts):  # the expansion's share of the ingest, synchronized by its host copy
+        t = time.perf_counter()
+        out = expand(texts)
+        spent[0] += time.perf_counter() - t
+        return out
+
+    enc.expand_documents = timed_expand  # an instance attribute over the method, removed after the ingest
+    pipe = (rag.RagPipelineBuilder().with_embedder(rag.MockEmbedder(DIM)).with_reranker(rag.LexicalReranker())
+            .with_vector_config(rag.VectorStoreConfig(scan_tier="bf16")).with_learned_sparse(enc)
+            .with_device(DEV).build())
+    retr = pipe.retriever
+    t0 = time.perf_counter()
+    check(pipe.index_documents(docs) == TRI_N, "tri-hybrid: chunk count")
+    t_ingest = time.perf_counter() - t0
+    del docs, enc.expand_documents
+    li = retr.learned_index
+    t0 = time.perf_counter()
+    li.ensure_ready()
+    torch.cuda.synchronize()
+    t_pack = time.perf_counter() - t0
+    postings = int(li._snap["indptr"][-1])
+    sizes = np.diff(li._snap["indptr"])
+    log(f"tri-hybrid ingest (chunk, embed, BM25, dense, SPLADE expansion): {t_ingest:.1f} s, of which expansion "
+        f"(MiniLM-L6 trunk + f32 head, {TRI_N} x {TRI_MAX_LEN} tokens) {spent[0]:.1f} s; {postings} postings "
+        f"({postings / TRI_N:.1f} a document) over {len(sizes)} terms (largest list {int(sizes.max())}); host "
+        f"snapshot + block table upload {t_pack:.1f} s")
+    check(postings > 0 and len(li) == TRI_N, "tri-hybrid: the learned index")
+    retr.ensure_ready()
+    check(retr.vector_store._effective_tier() == "bf16", "tri-hybrid: the store's tier")
+    batches = query_batches(rng, TRI_BATCHES)
+    cand = retr.config.candidates_per_source
+    strategy = retr.config.fusion
+    retr.retrieve_batch(batches[0], K)  # first-call set-up
+    torch.cuda.synchronize()
+    times = []
+    scan_select_v3.launches = 0
+    staged = []
+    for qs in batches:
+        t0 = time.perf_counter()
+        staged.append(retr.retrieve_batch(qs, K))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = scan_select_v3.launches
+    check(launches > 0, "tri-hybrid: the bf16 tier never launched scan_select_v3")
+    log(f"tri-hybrid retrieve_batch (k={K}, B = {BATCH}) staged on bf16 (K1 launches {launches}): "
+        f"{', '.join(f'{t:.1f}' for t in times)} ms (host clock, synchronized)")
+    n_near = 0
+    for i, qs in enumerate(batches):
+        q_terms, q_w = enc.expand_queries(qs)
+        t0 = time.perf_counter()
+        s_l, r_l = li.search_arrays(q_terms, q_w, cand)
+        torch.cuda.synchronize()
+        t_l = (time.perf_counter() - t0) * 1e3
+        n_near += check_learned_exact(li, q_terms, q_w, s_l.cpu().numpy(), r_l.cpu().numpy(), cand,
+                                      f"tri-hybrid batch {i}")
+        log(f"tri-hybrid batch {i}: LearnedSparseIndex.search_arrays {t_l:.1f} ms (B = {BATCH}, "
+            f"{cand} candidates)")
+    log(f"tri-hybrid: every learned candidate list equal to the float64 oracle up to near-ties ({n_near} of "
+        f"{BATCH * TRI_BATCHES} queries differ only there)")
+    # one batch staged on tier "none" (the fp32 matrix), the default route
+    # of a tri-hybrid index below the tier crossover
+    sib = sibling_pipeline(pipe, rag.VectorStoreConfig(scan_tier="none"))
+    sretr = sib.retriever
+    sretr.learned_encoder, sretr.learned_index = retr.learned_encoder, li
+    sretr.ensure_ready()
+    check(sretr.vector_store._effective_tier() == "none", "tri-hybrid: the sibling store's tier")
+    qs = batches[0]
+    qv = np.asarray(retr.embedder.embed_queries(qs), np.float32)
+    sretr.retrieve_batch(qs, K)  # first-call set-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sretr.retrieve_batch(qs, K)
+    torch.cuda.synchronize()
+    t_none = (time.perf_counter() - t0) * 1e3
+    a = retr._tri_candidates(qs, qv, cand, None, strategy, True, True)
+    b = sretr._tri_candidates(qs, qv, cand, None, strategy, True, True)
+    s_d, _ = retr.vector_store.search_arrays(qv, cand + 1)  # the boundary's next score
+    gaps = np.abs(np.diff(s_d.cpu().numpy(), axis=1)).min(axis=1)
+    tie_free = np.flatnonzero(gaps > 1e-6)
+    for name, x, y in zip(("fused rows", "fused scores", "dense rows", "dense scores", "bm25 rows",
+                           "bm25 scores", "learned rows", "learned scores"), a, b):
+        x, y = x.cpu().numpy(), y.cpu().numpy()
+        for j in tie_free:
+            check(np.array_equal(x[j], y[j]), f"tri-hybrid query {j}: tiers none and bf16 differ in {name}")
+    log(f"tri-hybrid on tier none: {t_none:.1f} ms per batch of {BATCH} (host clock, synchronized); on "
+        f"{len(tie_free)} queries with tie-free dense scores the fused, dense, BM25 and learned lists equal "
+        f"the bf16 tier's")
+    del sib, sretr
+    tmp = tempfile.mkdtemp(prefix="smoke_tri_")
+    try:
+        need_disk(tmp, 2.0 * TRI_N * (DIM * 4 + 4096), "tri-hybrid")
+        path = os.path.join(tmp, "index.trag")
+        t0 = time.perf_counter()
+        persist.save_index_streaming(path, retr, embedder_info={"type": "mock", "dimension": DIM},
+                                     codec=persist.Compression.NONE)
+        t_save = time.perf_counter() - t0
+        # the encoder rebuilt from its seed; load_index checks its fingerprint
+        # against the artifact's (the header read of read_index_info costs a
+        # second decode at this size: the cli phase exercises it)
+        enc2 = SpladeEncoder(config=rag.EncoderConfig.minilm_l6(), seed=seed + 17, max_len=TRI_MAX_LEN,
+                             doc_top=TRI_DOC_TOP, query_top=TRI_QUERY_TOP, device=DEV)
+        t0 = time.perf_counter()
+        loaded, _ = persist.load_index(path, rag.MockEmbedder(DIM), scan_tier="bf16", learned_encoder=enc2,
+                                       device=DEV)
+        loaded.ensure_ready()
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        got = [loaded.retrieve_batch(qs, K) for qs in batches]
+        for i in range(len(batches)):
+            check([[(r.chunk.id, r.dense_score, r.sparse_score, r.fused_score, r.learned_score) for r in res]
+                   for res in got[i]] ==
+                  [[(r.chunk.id, r.dense_score, r.sparse_score, r.fused_score, r.learned_score) for r in res]
+                   for res in staged[i]], f"tri-hybrid batch {i}: the reloaded index answers otherwise")
+        log(f"tri-hybrid artifact: {os.path.getsize(path)} bytes (codec none) saved in {t_save:.1f} s, loaded "
+            f"with the rebuilt encoder (fingerprint checked) and built in {t_load:.1f} s; every answer of "
+            f"{BATCH * TRI_BATCHES} queries identical")
+        del loaded
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del pipe, retr, li
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def drive_http(url: str, queries, n_clients: int):
+    """``queries`` as single POST /query requests from ``n_clients`` threads,
+    each on its own keep-alive connection → (answers by query index,
+    request latencies ms, wall s)."""
+    import http.client
+    import threading
+    from urllib.parse import urlparse
+
+    host = urlparse(url)
+    answers = [None] * len(queries)
+    lat = []
+    lock = threading.Lock()
+    errors = []
+
+    def client(c):
+        conn = http.client.HTTPConnection(host.hostname, host.port, timeout=120)
+        try:
+            for i in range(c, len(queries), n_clients):
+                body = json.dumps({"query": queries[i], "k": K})
+                t = time.perf_counter()
+                conn.request("POST", "/query", body, {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                data = json.loads(resp.read())
+                ms = (time.perf_counter() - t) * 1e3
+                if resp.status != 200:
+                    raise RuntimeError(f"HTTP {resp.status}: {data}")
+                answers[i] = data["results"]
+                with lock:
+                    lat.append(ms)
+        except Exception as e:  # noqa: BLE001 — reported as a failed check below
+            errors.append(e)
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not errors and not any(t.is_alive() for t in threads), f"serve: client failures {errors[:3]}")
+    return answers, sorted(lat), wall
+
+
+def phase_serve_1m(pipe, seed: int) -> int:
+    """serve-1M: hybrid-1M's retriever behind the port's server: ``prewarm``,
+    ``autotune_serving`` over batch sizes 1-256, then SERVE_REQUESTS single
+    queries from SERVE_CLIENTS client threads through a ``MicroBatcher``
+    behind an in-process ``RagHTTPServer`` and behind a two-worker
+    ``MultiProcessServer``: every answer equal to ``retrieve_batch``'s,
+    ``/health`` on the bf16 tier → K1 launches of the served runs."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from trueno_rag_tpu_torch import serve, tune
+    from trueno_rag_tpu_torch.ops.kernels.scan_select import scan_select_v3
+
+    retr = pipe.retriever
+    rng = np.random.default_rng(seed + 18)
+    words = np.array([f"w{i:05d}" for i in range(VOCAB)])
+    queries = [" ".join(r) for r in words[rng.integers(0, VOCAB, size=(SERVE_REQUESTS, QUERY_WORDS))]]
+    t0 = time.perf_counter()
+    serve.prewarm(retr, max(SERVE_BATCH_SIZES), k=K, sample_queries=tune.calibration_queries(retr, 16))
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tuned = tune.autotune_serving(retr, k=K, batch_sizes=SERVE_BATCH_SIZES, iters=3)
+    log(f"serve-1M: prewarm {t_warm:.1f} s; autotune_serving {time.perf_counter() - t0:.1f} s → max_batch "
+        f"{tuned.max_batch}, max_wait_ms {tuned.max_wait_ms:.2f}; table (batch: p50 ms, q/s): "
+        + ", ".join(f"{p.batch_size}: {p.p50_ms:.2f}, {p.qps:.0f}" for p in tuned.table))
+    launches = 0
+    served = {}
+    for label in ("in-process", "2 workers"):
+        batcher = serve.MicroBatcher(retr, max_batch=tuned.max_batch, max_wait_ms=tuned.max_wait_ms)
+        srv = mp = thread = None
+        try:
+            if label == "in-process":
+                srv = serve.RagHTTPServer(("127.0.0.1", 0), serve.make_handler(batcher))
+                thread = threading.Thread(target=srv.serve_forever, daemon=True)
+                thread.start()
+                url = f"http://127.0.0.1:{srv.server_address[1]}"
+            else:
+                mp = serve.MultiProcessServer(batcher, "127.0.0.1", 0, 2)
+                url = f"http://127.0.0.1:{mp.port}"
+            scan_select_v3.launches = 0
+            answers, lat, wall = drive_http(url, queries, SERVE_CLIENTS)
+            n1 = scan_select_v3.launches
+            with urllib.request.urlopen(url + "/health", timeout=60) as resp:
+                health = json.loads(resp.read())
+        finally:
+            if srv is not None:
+                srv.shutdown()
+                srv.server_close()
+                thread.join(timeout=60)
+            if mp is not None:
+                mp.stop()
+            batcher.shutdown()
+        check(n1 > 0, f"serve-1M {label}: the served queries never launched scan_select_v3")
+        check(health["scan_tier"] == "bf16", f"serve-1M {label}: /health scan_tier {health['scan_tier']!r}")
+        check(health["queries_served"] == SERVE_REQUESTS, f"serve-1M {label}: {health['queries_served']} served")
+        launches += n1
+        served[label] = answers
+        pick = lambda q: lat[min(len(lat) - 1, int(q * len(lat)))]  # noqa: E731
+        log(f"serve-1M {label}: {SERVE_REQUESTS} single-query POSTs from {SERVE_CLIENTS} clients in {wall:.2f} s "
+            f"= {SERVE_REQUESTS / wall:.0f} q/s served; request latency p50 {pick(0.5):.1f} ms, p99 "
+            f"{pick(0.99):.1f} ms; {health['batches_served']} batches, mean batch "
+            f"{health['queries_served'] / health['batches_served']:.1f}; K1 launches {n1}")
+    want = []
+    for lo in range(0, SERVE_REQUESTS, BATCH):
+        want.extend([serve.result_to_dict(r) for r in res] for res in retr.retrieve_batch(queries[lo:lo + BATCH], K))
+    for label, answers in served.items():
+        bad = [i for i in range(SERVE_REQUESTS) if answers[i] != want[i]]
+        for i in bad[:2]:  # what differs, before the check fails
+            fields = ("chunk_id", "dense_score", "sparse_score", "fused_score")
+            log(f"serve-1M {label} query {i} {queries[i]!r}: served {[tuple(r[f] for f in fields) for r in answers[i]]}; "
+                f"batched {[tuple(r[f] for f in fields) for r in want[i]]}; alone "
+                f"{[(r.chunk.id, r.dense_score, r.sparse_score, r.fused_score) for r in retr.retrieve_batch([queries[i]], K)[0]]}")
+        check(not bad, f"serve-1M {label}: {len(bad)} answers differ from retrieve_batch's (first: query {bad[:1]})")
+    log(f"serve-1M: every served answer ({2 * SERVE_REQUESTS}) equal to retrieve_batch's for the same query")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4684,6 +5100,7 @@ def main() -> int:
     k12b["launches"] += n_b
     check(k12b["launches"] > 0, "the segment path never launched fetch_contribs8")
     k5["launches"] = phase_clustered_store(pipe, args.seed)
+    k1["launches"] += phase_serve_1m(pipe, args.seed)
     del pipe
     phase_clustered_stream(args.seed)
     emb, k4["launches"] = phase_nemotron_8k(args.seed)
@@ -4691,12 +5108,13 @@ def main() -> int:
     del emb
     gc.collect()
     torch.cuda.empty_cache()
-    k1["launches"] += phase_encoder_1m(args.seed)
+    k1["launches"] += phase_encoder_262k(args.seed)
     gc.collect()
     torch.cuda.empty_cache()
     k6["launches"], k7["launches"] = phase_late_interaction(args.seed)
     gc.collect()
     torch.cuda.empty_cache()
+    k1["launches"] += phase_tri_hybrid(args.seed)
     k1_cli, k6_cli = phase_cli(args.seed)
     k1["launches"] += k1_cli
     k6["launches"] += k6_cli

@@ -2,8 +2,9 @@
 process give JSON equal to the JAX CLI's on the same files (TF-IDF; tags
 by folder and by flag; every filter kind), each CLI queries the other's
 index, the multi-vector and semantic indexes answer as the in-memory
-retrievers do, ``info`` and ``demo`` run, the branches that wait for
-later ROADMAP items raise ``InvalidConfigError``, the entry points need
+retrievers do, ``info`` and ``demo`` run, the learned-sparse indexes
+build, the branch that waits for a later ROADMAP item raises
+``InvalidConfigError``, the entry points need
 ``--device cpu`` without a card; and the port (package and
 ``chip_smoke.py``) names neither JAX nor the JAX package."""
 
@@ -146,15 +147,15 @@ def test_info_demo_and_the_unported_branches(corpus, tmp_path):
     rc, text = _run(tcli, CPU + ["demo", "--top-k", "2"])
     assert rc == 0 and "--- citations ---" in text
     base = CPU + ["index", "--path", corpus["docs"], "--output", str(tmp_path / "x")]
-    for extra in (["--learned-sparse"], ["--with-learned-sparse"]):
-        with pytest.raises(trag.InvalidConfigError, match="item 4"):
-            _run(tcli, base + extra)
+    for extra in (["--learned-sparse"], ["--with-learned-sparse"]):  # ported (tests/test_torch_tri_hybrid.py)
+        rc, text = _run(tcli, base + extra)
+        assert rc == 0 and "indexed 60 documents" in text
     with pytest.raises(SystemExit):
         _run(tcli, base + ["--multi-vector", "--learned-sparse"])
     with pytest.raises(trag.InvalidConfigError, match="item 5"):
         _run(tcli, base + ["--embedder", "semantic", "--model", str(tmp_path)])
-    with pytest.raises(trag.InvalidConfigError, match="item 6"):
-        _run(tcli, CPU + ["serve", "--index", corpus["port"]])
+    with pytest.raises(SystemExit):  # serve is ported (tests/test_torch_serve.py): a missing index exits
+        _run(tcli, CPU + ["serve", "--index", str(tmp_path / "nothing")])
     with pytest.raises(SystemExit):
         _run(tcli, CPU + ["query", "w001", "--index", str(tmp_path / "nothing")])
     if not torch.cuda.is_available():  # the card is the default: the CPU must be asked for

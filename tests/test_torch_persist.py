@@ -344,8 +344,10 @@ def test_damaged_artifacts_raise_the_jax_error_types(dot_pipelines, tmp_path):
         tp.load_index(str(tmp_path / "none.trag"), trag.MockEmbedder(DIM), device="cpu")
     with pytest.raises(trag.IndexNotFoundError):
         tp.read_index_info(str(tmp_path / "none.trag"))
-    with pytest.raises(trag.InvalidConfigError):
-        tp.load_index(path + ".v1", trag.MockEmbedder(DIM), learned_encoder=object(), device="cpu")
+    # an artifact without a learned-sparse section ignores the encoder, as
+    # the JAX package does: a two-source hybrid
+    plain, _ = tp.load_index(path + ".v1", trag.MockEmbedder(DIM), learned_encoder=object(), device="cpu")
+    assert plain.learned_index is None
 
 
 def test_zstd_artifact_without_zstandard_raises(dot_pipelines, tmp_path, monkeypatch):

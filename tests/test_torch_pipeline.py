@@ -142,17 +142,20 @@ def test_retriever_from_jax_state_answers_like_jax():
 
 
 def test_unported_paths_raise():
-    """The learned-sparse source is not ported; the fused path (ported,
-    tests/test_torch_fused.py) keeps the JAX package's contract that
-    fused=True needs an encoder embedder."""
+    """The fused path (ported, tests/test_torch_fused.py) keeps the JAX
+    package's contract that fused=True needs an encoder embedder; attaching
+    a learned-sparse source (ported, tests/test_torch_tri_hybrid.py) expands
+    the indexed chunks at once, so an object without ``expand_documents``
+    raises there, as in the JAX package."""
     p = _pipeline(trag, "none", n=50)
     jp = _pipeline(jrag, "none", n=50)
     for pipe, rag in ((p, trag), (jp, jrag)):
         pipe.retriever.config.fused = True
         with pytest.raises(rag.QueryError, match="fused=True requires"):
             pipe.retriever.retrieve_batch(QUERIES, K)
-    with pytest.raises(trag.InvalidConfigError, match="ROADMAP"):
-        p.retriever.attach_learned_sparse(object())
+    for pipe in (p, jp):
+        with pytest.raises(AttributeError, match="expand_documents"):
+            pipe.retriever.attach_learned_sparse(object())
 
 
 def test_single_source_retrieval_matches_jax(pipelines):

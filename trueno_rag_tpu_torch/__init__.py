@@ -5,14 +5,19 @@ chunking, embedders (hash, TF-IDF and the neural models of
 :mod:`~trueno_rag_tpu_torch.models`: the MiniLM/BGE-class encoder, the
 4096-d Nemotron-class embedder, the cross-encoder reranker and the
 late-interaction (MaxSim) reranker and retriever over a multi-vector
-token store), a device-resident dense store (exact fp32; the certified
+token store, and the SPLADE-class learned-sparse encoder), a
+device-resident dense store (exact fp32; the certified
 bf16 and int8 tile tiers; the compact and clustered tiers, which keep no
 fp32 matrix on the card), tag filters, BM25 over the block table and,
-past 2**24 rows, over the packed segment layout, on-device rank fusion,
+past 2**24 rows, over the packed segment layout, learned-sparse postings
+(the tri-hybrid's third source), on-device rank fusion,
 the encoder-fused query path, query preprocessing, ingest dedup,
 reranking and context assembly with citations, IR metrics, index
 artifacts and model checkpoints that load in either package
-(:mod:`~trueno_rag_tpu_torch.persist`) and the CLI
+(:mod:`~trueno_rag_tpu_torch.persist`), the micro-batched HTTP server
+with its autotuner (:mod:`~trueno_rag_tpu_torch.serve`,
+:mod:`~trueno_rag_tpu_torch.tune`), stage timing and device traces
+(:mod:`~trueno_rag_tpu_torch.utils`) and the CLI
 (``python -m trueno_rag_tpu_torch.cli``). The tile scans, the long-context attention, the MaxSim scans
 and the BM25 segment fetch are the hand-written CUDA kernels in
 ``csrc/``. The JAX package stays the reference; this package imports

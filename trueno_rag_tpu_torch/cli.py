@@ -1,4 +1,5 @@
-"""Command-line interface: ``info`` / ``demo`` / ``index`` / ``query``.
+"""Command-line interface: ``info`` / ``demo`` / ``index`` / ``query`` /
+``serve``.
 
 PyTorch-port counterpart of ``trueno_rag_tpu/cli.py``, with the same
 commands, options and artifacts (an index written by either package's
@@ -9,17 +10,20 @@ CLI is queried by the other's):
   assembled context + citations;
 - ``index`` — walk .txt/.md files, chunk, embed, persist an index
   artifact (:mod:`trueno_rag_tpu_torch.persist`; the v2 streaming writer
-  past 50,000 chunks), or with ``--multi-vector`` a late-interaction
-  token index;
-- ``query`` — load an index and run a hybrid (or MaxSim) query, printed as
-  text or JSON.
+  past 50,000 chunks); with ``--with-learned-sparse`` the hybrid index
+  gains a learned-sparse (SPLADE-class) third source; ``--multi-vector``
+  writes a late-interaction token index instead, ``--learned-sparse`` a
+  learned-sparse posting index;
+- ``query`` — load an index and run a hybrid, tri-hybrid, MaxSim or
+  learned-sparse query, printed as text or JSON;
+- ``serve`` — serve an index over HTTP through the micro-batcher
+  (:mod:`trueno_rag_tpu_torch.serve`; ``--workers N`` adds N front-end
+  processes, ``--autotune`` calibrates the batch size).
 
 Usage: ``python -m trueno_rag_tpu_torch.cli [--device cpu] <command> ...``.
-Everything runs on the card unless ``--device`` names another device.
-Not ported yet, and raising :class:`InvalidConfigError` with their
-ROADMAP item: ``--learned-sparse`` and ``--with-learned-sparse`` (item
-4), a ``semantic`` model from a local Hugging Face directory (item 5) and
-``serve`` (item 6).
+Everything runs on the card unless ``--device`` names another device. Not
+ported yet, and raising :class:`InvalidConfigError` with its ROADMAP item:
+a ``semantic`` model from a local Hugging Face directory (item 5).
 """
 
 from __future__ import annotations
@@ -108,13 +112,15 @@ def cmd_info(args) -> int:
         "  chunking: recursive, fixed-size, sentence, paragraph, structural, semantic",
         "  embedders: mock, tfidf, encoder (MiniLM/BGE-class), nemotron-class",
         "  indexes: dense vector store (card-resident; bf16/int8/compact/clustered tiers),",
-        "           BM25 (block table, segment fetch), late-interaction (MaxSim token index)",
+        "           BM25 (block table, segment fetch), late-interaction (MaxSim token index),",
+        "           learned-sparse (SPLADE)",
         "  fusion: rrf, linear, convex, dbsf, union, intersection",
         "  rerankers: noop, lexical, mmr, mock-cross-encoder, neural cross-encoder, late-interaction",
         "  context: sequential / document-grouped / interleaved assembly + citations",
         "  metrics: recall/precision/NDCG/MRR/MAP/F1/hit-rate @k + aggregation",
         "  preprocessing: hyde, multi-query, keyword/synonym expansion, analyzer, adaptive",
         "  persistence: zstd/zlib/lz4 compressed index artifacts, safetensors checkpoints",
+        "  serving: micro-batched HTTP server, worker processes, autotuning",
     ]:
         print(line)
     return 0
@@ -247,6 +253,37 @@ def _cmd_index_multi_vector(args, docs) -> int:
     return 0
 
 
+def _cmd_index_learned_sparse(args, docs) -> int:
+    """Learned-sparse (SPLADE-class) indexing: each chunk stores a top-T
+    vocabulary expansion; queries score through the weighted block-gather
+    path. The encoder identity is the deterministic seed-0 tiny encoder;
+    checkpoints go through the library API
+    (``persist.load_splade_index(params=...)``)."""
+    from trueno_rag_tpu_torch import RecursiveChunker
+    from trueno_rag_tpu_torch.models.splade import SpladeRetriever
+    from trueno_rag_tpu_torch.persist import save_splade_index
+
+    chunker = RecursiveChunker(chunk_size=args.chunk_size, overlap=args.chunk_overlap)
+    retr = SpladeRetriever(seed=0, device=args.device)
+    doc_tags = _doc_tags_for(docs, args)
+    n_chunks = 0
+    for di, d in enumerate(docs):
+        chunks = chunker.chunk(d)
+        retr.index_batch(chunks)
+        n_chunks += len(chunks)
+        if doc_tags is not None and doc_tags[di]:
+            for c in chunks:
+                retr.registry.set_tags(c.id, doc_tags[di])
+    os.makedirs(args.output, exist_ok=True)
+    out_path = os.path.join(args.output, "splade_index.trag")
+    stats = save_splade_index(out_path, retr)
+    print(
+        f"indexed {len(docs)} documents, {n_chunks} chunks (learned-sparse, "
+        f"{stats['postings']} postings) -> {out_path} ({stats['compressed_bytes']} bytes compressed)"
+    )
+    return 0
+
+
 def cmd_index(args) -> int:
     from trueno_rag_tpu_torch import NoOpReranker, RagPipelineBuilder, RecursiveChunker
     from trueno_rag_tpu_torch.persist import save_index, save_index_streaming
@@ -258,22 +295,28 @@ def cmd_index(args) -> int:
             "error: --with-learned-sparse augments the HYBRID index; it "
             "cannot combine with --multi-vector/--learned-sparse"
         )
-    if args.learned_sparse or args.with_learned_sparse:
-        raise _not_ported("the learned-sparse index (--learned-sparse, --with-learned-sparse)", 4)
     docs = _walk_documents(args.path)
     if args.multi_vector:
         return _cmd_index_multi_vector(args, docs)
+    if args.learned_sparse:
+        return _cmd_index_learned_sparse(args, docs)
     embedder = _build_embedder(args.embedder, args.dimension, args.model, device=args.device)
     if args.embedder == "tfidf":
         embedder.fit([d.content for d in docs])
-    pipeline = (
+    builder = (
         RagPipelineBuilder()
         .with_embedder(embedder)
         .with_reranker(NoOpReranker())
         .with_chunker(RecursiveChunker(chunk_size=args.chunk_size, overlap=args.chunk_overlap))
         .with_device(args.device)
-        .build()
     )
+    if args.with_learned_sparse:
+        # the seed-0 encoder identity; the loader rebuilds it from the
+        # artifact's expansion config
+        from trueno_rag_tpu_torch.models.splade import SpladeEncoder
+
+        builder = builder.with_learned_sparse(SpladeEncoder(seed=0, device=args.device))
+    pipeline = builder.build()
     n_chunks = pipeline.index_documents(docs, tags=_doc_tags_for(docs, args))
     os.makedirs(args.output, exist_ok=True)
     out_path = os.path.join(args.output, "index.trag")
@@ -293,19 +336,22 @@ def cmd_index(args) -> int:
 
 def _load(index_dir: str, scan_tier=None, device=None):
     """The retriever of an index directory (either package's artifact):
-    the hybrid ``index.trag``, or the multi-vector ``token_index.trag``."""
+    the hybrid ``index.trag`` (a tri-hybrid's learned source re-attached
+    with the seed-0 encoder its config names), the multi-vector
+    ``token_index.trag`` or the learned-sparse ``splade_index.trag``."""
     from trueno_rag_tpu_torch.embed import TfIdfEmbedder
-    from trueno_rag_tpu_torch.persist import load_index, load_token_index, read_index_info
+    from trueno_rag_tpu_torch.persist import load_index, load_splade_index, load_token_index, read_index_info
 
     path = os.path.join(index_dir, "index.trag")
     tok_path = os.path.join(index_dir, "token_index.trag")
+    splade_path = os.path.join(index_dir, "splade_index.trag")
     if not os.path.exists(path):
+        # the CLI's seed-0 encoder identities; a token index's scan tier
+        # persisted with its store config
         if os.path.exists(tok_path):
-            # the CLI's seed-0 encoder identity; the scan tier persisted
-            # with the store config
             return load_token_index(tok_path, seed=0, device=device)
-        if os.path.exists(os.path.join(index_dir, "splade_index.trag")):
-            raise _not_ported("the learned-sparse index (splade_index.trag)", 4)
+        if os.path.exists(splade_path):
+            return load_splade_index(splade_path, seed=0, device=device)
         raise SystemExit(f"error: no index found at {path}")
     payload = read_index_info(path)  # header only: both artifact formats
     info = payload.get("embedder", {})
@@ -326,9 +372,18 @@ def _load(index_dir: str, scan_tier=None, device=None):
     else:
         embedder = _build_embedder("semantic", info.get("dimension", 384), info.get("model"),
                                    info.get("seed", 0), device=device)
-    # an artifact's learned-sparse section loads as the JAX package loads
-    # it without an encoder: a two-source hybrid (ROADMAP Queue 1 item 4)
-    retr, _ = load_index(path, embedder, scan_tier=scan_tier, device=device)
+    learned_encoder = None
+    learned = payload.get("learned")
+    if learned:
+        # a tri-hybrid: the encoder of the saved identity (load_index checks
+        # its weights' fingerprint) re-attaches the learned source
+        from trueno_rag_tpu_torch.models.splade import SpladeEncoder
+
+        learned_encoder = SpladeEncoder(
+            seed=int(learned.get("seed") or 0), max_len=int(learned["max_len"]),
+            doc_top=int(learned["doc_top"]), query_top=int(learned["query_top"]), device=device,
+        )
+    retr, _ = load_index(path, embedder, scan_tier=scan_tier, learned_encoder=learned_encoder, device=device)
     return retr
 
 
@@ -352,7 +407,7 @@ def cmd_query(args) -> int:
                 "dense_score": r.dense_score,
                 "sparse_score": r.sparse_score,
                 "fused_score": r.fused_score,
-                "learned_score": None,  # no learned-sparse source in the port yet
+                "learned_score": r.learned_score,
                 "title": r.chunk.metadata.title,
                 "source": r.chunk.metadata.custom.get("source"),
                 "content": r.chunk.content,
@@ -371,7 +426,15 @@ def cmd_query(args) -> int:
 
 
 def cmd_serve(args) -> int:
-    raise _not_ported("the HTTP server (serve)", 6)
+    from trueno_rag_tpu_torch.serve import run_server
+
+    retr = _load(args.index, scan_tier=args.scan_tier, device=args.device)
+    run_server(retr, host=args.host, port=args.port,
+               max_batch="auto" if args.autotune else args.max_batch, max_wait_ms=args.max_wait_ms,
+               latency_budget_ms=args.latency_budget_ms, workers=args.workers,
+               # POST /reload re-reads the directory with the same tier
+               index_loader=lambda: _load(args.index, scan_tier=args.scan_tier, device=args.device))
+    return 0
 
 
 _SCAN_TIERS = ["none", "auto", "bf16", "int8", "compact", "clustered"]
@@ -406,9 +469,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="build a late-interaction (MaxSim) token index instead of the hybrid "
                         "dense+BM25 index; query auto-detects the artifact (token_index.trag)")
     i.add_argument("--learned-sparse", action="store_true",
-                   help="a learned-sparse (SPLADE-class) index: not ported yet")
+                   help="build a learned-sparse (SPLADE-class) posting index instead of the hybrid "
+                        "dense+BM25 index: every chunk stores a top-T vocabulary expansion; "
+                        "query/serve auto-detect the artifact (splade_index.trag)")
     i.add_argument("--with-learned-sparse", action="store_true",
-                   help="a learned-sparse third source on the hybrid index: not ported yet")
+                   help="also attach a learned-sparse (SPLADE-class) third source to the hybrid "
+                        "index: queries fuse dense + BM25 + learned expansions N-way; the "
+                        "expansions persist inside index.trag and query/serve re-attach them")
     i.set_defaults(fn=cmd_index)
 
     q = sub.add_parser("query", help="query a persisted index")
@@ -425,16 +492,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "indexes without a fp32 matrix on the card)")
     q.set_defaults(fn=cmd_query)
 
-    s = sub.add_parser("serve", help="serve a persisted index over HTTP: not ported yet")
+    s = sub.add_parser("serve", help="serve a persisted index over HTTP (micro-batched)")
     s.add_argument("--index", required=True, help="directory containing index.trag")
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--port", type=int, default=8080)
     s.add_argument("--max-batch", type=int, default=32)
     s.add_argument("--max-wait-ms", type=float, default=5.0)
-    s.add_argument("--autotune", action="store_true")
-    s.add_argument("--latency-budget-ms", type=float, default=None)
-    s.add_argument("--scan-tier", choices=_SCAN_TIERS, default="auto")
-    s.add_argument("--workers", type=int, default=0)
+    s.add_argument("--autotune", action="store_true",
+                   help="calibrate max-batch/max-wait by measurement at startup")
+    s.add_argument("--latency-budget-ms", type=float, default=None,
+                   help="with --autotune: exclude batch sizes whose p50 exceeds this")
+    s.add_argument("--scan-tier", choices=_SCAN_TIERS, default="auto",
+                   help="dense scan tier for serving (default 'auto': fp32 below ~400k rows, the "
+                        "certified bf16 tier past it)")
+    s.add_argument("--workers", type=int, default=0,
+                   help="HTTP front-end worker processes (SO_REUSEPORT); 0 = serve HTTP from this process")
     s.set_defaults(fn=cmd_serve)
     return p
 

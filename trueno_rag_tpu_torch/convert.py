@@ -2,7 +2,8 @@
 numpy objects: the retriever's index state (:func:`retriever_from_state`),
 a token store's state (:func:`token_store_from_state`,
 :func:`late_interaction_from_state`) and the models' parameters (:func:`encoder_params_from_jax`,
-:func:`nemotron_params_from_jax`, :func:`cross_encoder_params_from_jax`; back with
+:func:`nemotron_params_from_jax`, :func:`cross_encoder_params_from_jax`,
+:func:`splade_params_from_jax`; back with
 :func:`params_to_jax`, the layout of a checkpoint file).
 
 The JAX package's ``HybridRetriever`` exposes everything needed:
@@ -184,6 +185,20 @@ def encoder_params_from_jax(params: Mapping[str, Any], device) -> Dict[str, Any]
     from trueno_rag_tpu_torch.models.encoder import LAYER_KEYS, MATRICES
 
     return _layered(params, LAYER_KEYS, MATRICES, device)
+
+
+def splade_params_from_jax(params: Mapping[str, Any], device) -> Dict[str, Any]:
+    """``init_splade_params``' output of the JAX package (the encoder's
+    parameters plus the f32 head ``splade_tr_w``/``splade_tr_b``/
+    ``splade_ln_scale``/``splade_ln_bias``/``splade_vocab_bias``) →
+    :mod:`~trueno_rag_tpu_torch.models.splade`'s layout, every array in
+    f32: the trunk casts each matrix to its compute dtype at use, as the
+    JAX package does, and :func:`params_to_jax` gives the JAX arrays back
+    bit for bit, so ``SpladeEncoder.params_fingerprint`` equals the JAX
+    package's. The way back is :func:`params_to_jax`."""
+    from trueno_rag_tpu_torch.models.encoder import LAYER_KEYS
+
+    return _layered(params, LAYER_KEYS, (), device)
 
 
 def cross_encoder_params_from_jax(params: Mapping[str, Any], device) -> Dict[str, Any]:

@@ -11,14 +11,16 @@ reranking, the counterparts of the JAX package's ``models``:
 - :mod:`~trueno_rag_tpu_torch.models.late_interaction` — ColBERT-style
   MaxSim: the late-interaction reranker and the corpus-scale retriever
   over the token store (its tiered scan is the CUDA kernels K6/K7);
+- :mod:`~trueno_rag_tpu_torch.models.splade` — the SPLADE-class
+  learned-sparse expansion encoder and its retriever;
 - :mod:`~trueno_rag_tpu_torch.models.gguf` — GGUF model files;
 - :mod:`~trueno_rag_tpu_torch.models.tokenization` — WordPiece.
 
 Weights: no network here, so constructors draw seeded random weights
 from a ``torch.Generator`` on the model's device, or take a parameter
 dict (``convert.py`` carries the JAX package's across; ``from_gguf``
-reads a model file). Not ported yet (ROADMAP Queue 1): SPLADE, the
-Hugging Face importers and device-side GGUF dequantization.
+reads a model file). Not ported yet (ROADMAP Queue 1): the Hugging Face
+importers and device-side GGUF dequantization.
 """
 
 from trueno_rag_tpu_torch.models.encoder import (
@@ -48,6 +50,12 @@ from trueno_rag_tpu_torch.models.late_interaction import (
     maxsim,
     maxsim_oracle,
 )
+from trueno_rag_tpu_torch.models.splade import (
+    SpladeEncoder,
+    SpladeRetriever,
+    init_splade_params,
+    splade_activations,
+)
 from trueno_rag_tpu_torch.models.gguf import load_nemotron_gguf, read_gguf, write_gguf
 from trueno_rag_tpu_torch.models.tokenization import WordPieceTokenizer
 
@@ -71,6 +79,10 @@ __all__ = [
     "late_interaction_scores",
     "maxsim",
     "maxsim_oracle",
+    "SpladeEncoder",
+    "SpladeRetriever",
+    "init_splade_params",
+    "splade_activations",
     "load_nemotron_gguf",
     "read_gguf",
     "write_gguf",

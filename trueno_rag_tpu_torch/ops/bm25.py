@@ -20,6 +20,10 @@ layouts of the postings:
 Both end in the same candidate tail: sort by row, segment-sum equal-row
 runs and take an exact top-k. :func:`bm25_topk_candidates` (element
 gather) and :func:`bm25_topk_scatter` (dense scatter) are the oracles.
+The learned-sparse postings ride the block-table layout too
+(:func:`pack_weighted_blocks`, lane 1 the document weight) and the same
+tail, with the per-slot query weight multiplied in on the device
+(:func:`weighted_topk_blocks`).
 
 Scoring math matches the reference exactly:
 ``idf = ln((N - df + 0.5) / (df + 0.5) + 1)`` and
@@ -53,6 +57,30 @@ MAX_BLOCK_ROWS = 1 << 24
 _ROW_PAD = torch.iinfo(torch.int32).max
 
 
+_SCAN_ROWS = 32  # rows per cumsum launch on the card (see _row_cumsum)
+
+
+def _row_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Per-row inclusive cumsum of ``[B, L]`` whose f32 association depends
+    on the lane alone, so a query's scores do not depend on the queries
+    batched with it (a served query equals itself in any micro-batch). On
+    the card torch scans a lone row with a device-wide scan and picks its
+    per-row scan's thread shape from the row count and length; in groups
+    of 2-32 rows of at least 2**14 lanes (every slot bucket's floor: 64
+    slots of 256) each row is scanned in the same 1,024-lane chunks. That
+    is how torch 2.11.0+cu128 scans on an H100; the ``cuda``-marked
+    ``tests/test_torch_batch_invariance.py`` holds a newer torch to
+    it. The CPU scans each row in order."""
+    if x.device.type != "cuda":
+        return torch.cumsum(x, dim=1)
+    out = []
+    for lo in range(0, x.shape[0], _SCAN_ROWS):
+        g = x[lo:lo + _SCAN_ROWS]
+        n = g.shape[0]
+        out.append(torch.cumsum(g if n > 1 else torch.cat([g, g]), dim=1)[:n])
+    return torch.cat(out)
+
+
 def _candidate_topk(r_key: torch.Tensor, contrib: torch.Tensor, k: int):
     """Batched candidate tail: per query, (row-key, contribution) pairs
     ``[B, L]`` → exact ``(scores [B, k], rows [B, k])`` with the (score
@@ -63,7 +91,7 @@ def _candidate_topk(r_key: torch.Tensor, contrib: torch.Tensor, k: int):
     bsz, L = r_key.shape
     r_sorted, perm = torch.sort(r_key, dim=1, stable=True)
     c_sorted = torch.gather(contrib, 1, perm)
-    csum = torch.cumsum(c_sorted, dim=1)
+    csum = _row_cumsum(c_sorted)
     nxt = torch.cat([r_sorted[:, 1:], torch.full_like(r_sorted[:, :1], -1)], dim=1)
     is_end = r_sorted != nxt
     run_max = torch.cummax(torch.where(is_end, csum, NEG_INF), dim=1).values
@@ -269,3 +297,62 @@ def bm25_topk_scatter(
     top_s, top_r = blockwise_topk(torch.where(scores > 0.0, scores, NEG_INF), min(k, n))
     top_r = torch.where(torch.isneginf(top_s), -1, top_r).to(torch.int32)
     return _pad_k(top_s, top_r, k)
+
+
+def pack_weighted_blocks(rows, weights) -> np.ndarray:
+    """Host: pack learned-sparse postings into the same ``[NB, 2,
+    BLOCK_LEN]`` f32 block table as :func:`pack_posting_blocks` — lane 0 =
+    row id as an f32 VALUE (exact below 2**24 rows), lane 1 = the
+    document-side term weight. The query weight is a per-slot scalar, so
+    :func:`weighted_topk_blocks` completes ``q_w · d_w`` on the device. The
+    block after the last posting is the always-masked padding target."""
+    rows = np.asarray(rows, dtype=np.int32)
+    p = len(rows)
+    if p and int(rows.max()) >= MAX_BLOCK_ROWS:
+        raise InvalidConfigError("row ids exceed the f32-exact range; shard the index instead")
+    w32 = np.asarray(weights, dtype=np.float32)
+    nb = p // BLOCK_LEN + 1
+    table = np.zeros((nb, 2, BLOCK_LEN), dtype=np.float32)
+    fb, rem = divmod(p, BLOCK_LEN)
+    if fb:
+        table[:fb, 0, :] = rows[: fb * BLOCK_LEN].astype(np.float32).reshape(fb, BLOCK_LEN)
+        table[:fb, 1, :] = w32[: fb * BLOCK_LEN].reshape(fb, BLOCK_LEN)
+    if rem:
+        table[fb, 0, :rem] = rows[fb * BLOCK_LEN:].astype(np.float32)
+        table[fb, 1, :rem] = w32[fb * BLOCK_LEN:]
+    return table
+
+
+def weighted_topk_blocks(
+    block_ids: torch.Tensor,  # [B, S] int32 — block index per slot
+    lo: torch.Tensor,  # [B, S] int32 — first valid lane within the block
+    hi: torch.Tensor,  # [B, S] int32 — one past the last valid lane
+    q_w: torch.Tensor,  # [B, S] f32 — query-side weight per slot
+    blocks: torch.Tensor,  # [NB, 2, BLOCK_LEN] f32 — see pack_weighted_blocks
+    k: int,
+    allowed: torch.Tensor = None,  # optional [N] or [B, N] bool row filter
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Weighted block-gather sparse top-k → ``(scores [B, k], rows [B, k])``,
+    the learned-sparse scoring ``score(q, d) = Σ_t q_w[t] · d_w[d, t]``: one
+    gather of the slots' block rows (as :func:`bm25_topk_blocks`), the
+    per-slot query weight multiplied in, then the candidate tail. A term
+    spanning several blocks repeats its weight on every slot. ``allowed``
+    zeroes excluded rows' contributions, so the tail's score > 0 rule drops
+    them — an exact filtered top-k. (score desc, row asc), ``-1``/``-inf``
+    past the hits."""
+    bsz, s = block_ids.shape
+    bl = blocks.shape[-1]
+    g = blocks[block_ids.reshape(-1).long()].view(bsz, s, 2, bl)
+    lane = torch.arange(bl, device=blocks.device, dtype=torch.int32)
+    mask = (lane >= lo[:, :, None]) & (lane < hi[:, :, None])
+    r = g[:, :, 0, :].to(torch.int32)  # f32 row VALUES — exact < 2**24
+    contrib = torch.where(mask, g[:, :, 1, :] * q_w[:, :, None], 0.0)
+    if allowed is not None:
+        safe = torch.clamp(r, min=0).long()
+        if allowed.dim() == 1:  # one filter for the whole batch
+            ok = allowed[safe]
+        else:  # per-query filters [B, N]
+            ok = torch.gather(allowed, 1, safe.reshape(bsz, s * bl)).view(r.shape)
+        contrib = torch.where(ok, contrib, 0.0)
+    r_key = torch.where(mask, r, _ROW_PAD).reshape(bsz, s * bl)
+    return _candidate_topk(r_key, contrib.reshape(bsz, s * bl), k)

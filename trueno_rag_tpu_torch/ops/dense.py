@@ -84,8 +84,11 @@ def _pad_k(top_scores: torch.Tensor, rows: torch.Tensor, k: int):
 
 
 def normalize_queries(queries: torch.Tensor) -> torch.Tensor:
-    """L2-normalize query rows; zero rows stay zero."""
-    qn = torch.linalg.vector_norm(queries, dim=-1, keepdim=True)
+    """L2-normalize query rows; zero rows stay zero. The norm is summed in
+    float64 and rounded once, so a row's result does not depend on the
+    rows batched beside it (on the card an f32 reduction's order follows
+    the batch shape, which moved a served query's scores by an ulp)."""
+    qn = torch.linalg.vector_norm(queries.double(), dim=-1, keepdim=True).to(queries.dtype)
     return queries / torch.where(qn == 0.0, torch.ones_like(qn), qn)
 
 

@@ -1,7 +1,8 @@
 """Rank fusion on device over padded top-k candidate arrays.
 
-PyTorch counterpart of ``trueno_rag_tpu/ops/fusion.py::fuse_topk``, with
-the batch dimension written out. Candidate lists arrive as fixed-width
+PyTorch counterpart of ``trueno_rag_tpu/ops/fusion.py``'s ``fuse_topk``
+(two lists) and ``fuse_topk_many`` (N lists, the tri-hybrid's), with the
+batch dimension written out. Candidate lists arrive as fixed-width
 ``(rows, scores)`` pairs (row ``-1`` + score ``-inf`` = empty slot),
 exactly what :func:`~trueno_rag_tpu_torch.ops.dense.dense_topk` and
 :func:`~trueno_rag_tpu_torch.ops.bm25.bm25_topk_blocks` emit. Id matching
@@ -20,7 +21,7 @@ Output ordering is deterministic: (score desc, row asc); Union orders by
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
@@ -165,3 +166,70 @@ def fuse_topk(
     )
     rows_all = torch.cat([rows_d, torch.where(matched_s, -1, rows_s)], dim=1)
     return _sort_desc(rows_all, scores_all)
+
+
+def fuse_topk_many(
+    rows: Sequence[torch.Tensor],
+    scores: Sequence[torch.Tensor],
+    kind: str = "rrf",
+    param: float = 60.0,
+    weights: Sequence[float] = (),
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched N-way fusion: sequences of ``[B, K_j]`` candidate arrays (one
+    per source, in priority order) → ``[B, ΣK_j]`` (rows, scores),
+    deterministically ordered, invalid slots ``(-1, -inf)``. Each list holds
+    a row at most once; across lists the FIRST slot naming a row owns its
+    fused entry. ``weights`` are the per-list Linear/Convex weights
+    (:meth:`FusionStrategy.resolve_weights`), ``()`` for the other kinds.
+    ``fuse_topk_many((d, s), …)`` equals :func:`fuse_topk` on the two lists."""
+    if kind not in FUSION_KINDS:
+        raise InvalidConfigError(f"unknown fusion kind: {kind!r}")
+    rows = [r.to(torch.int32) for r in rows]
+    scores = list(scores)
+    if kind in ("linear", "convex") and len(weights) != len(rows):
+        raise InvalidConfigError(f"got {len(weights)} fusion weights for {len(rows)} lists")
+    n_lists = len(rows)
+    dev = rows[0].device
+    ks = [r.shape[1] for r in rows]
+    rows_all = torch.cat(rows, dim=1)  # [B, K]
+    scores_all = torch.cat(scores, dim=1)
+    k_total = rows_all.shape[1]
+    valid = rows_all >= 0
+    lid = torch.cat([torch.full((k,), j, dtype=torch.int64, device=dev) for j, k in enumerate(ks)])
+    rank = torch.cat([torch.arange(k, dtype=torch.int32, device=dev) for k in ks])
+    # eq[b, i, j]: slots i and j name the same valid row
+    eq = (rows_all[:, :, None] == rows_all[:, None, :]) & valid[:, :, None] & valid[:, None, :]
+    idx = torch.arange(k_total, device=dev)
+    own = valid & ~(eq & (idx[None, :] < idx[:, None])).any(dim=2)
+
+    def summed(vals):
+        """Per slot, the sum of ``vals`` [B, K] over the slots naming its row."""
+        return torch.where(eq, vals[:, None, :], 0.0).sum(dim=2)
+
+    if kind == "rrf":
+        vals = (1.0 / (param + rank.to(torch.float32) + 1.0))[None, :].expand(rows_all.shape[0], k_total)
+        fused = summed(vals)
+    elif kind in ("linear", "convex"):
+        fused = summed(torch.cat([w * _minmax_norm(s, r >= 0) for w, s, r in zip(weights, scores, rows)], dim=1))
+    elif kind == "dbsf":
+        fused = summed(torch.cat([_zscore_norm(s, r >= 0) for s, r in zip(scores, rows)], dim=1))
+    elif kind == "union":
+        # entries unmatched in every EARLIER list, ordered by (list
+        # priority, rank): list j's keys are offset by the count of VALID
+        # slots in earlier lists, the two-list key space of fuse_topk, so
+        # lists with interior holes fuse as there
+        include = valid & ~(eq & (lid[None, :] < lid[:, None])).any(dim=2)
+        onehot = lid[:, None] == torch.arange(n_lists, device=dev)[None, :]  # [K, L]
+        n_valid = (valid[:, :, None] & onehot[None]).sum(dim=1, dtype=torch.int32)  # [B, L]
+        offsets = torch.cumsum(n_valid, dim=1, dtype=torch.int32) - n_valid
+        keys = torch.where(include, offsets[:, lid] + rank, _INT_MAX)
+        rows_u = torch.where(include, rows_all, -1)
+        scores_u = torch.where(include, scores_all, NEG_INF)
+        perm = _lexsort(keys, rows_u)
+        return torch.gather(rows_u, 1, perm), torch.gather(scores_u, 1, perm)
+    else:  # intersection: rows present in ALL lists, at the mean of their scores
+        onehot = lid[:, None] == torch.arange(n_lists, device=dev)[None, :]  # [K, L]
+        in_all = (eq[:, :, :, None] & onehot[None, None]).any(dim=2).all(dim=2)
+        fused = summed(scores_all) / float(n_lists)
+        own = own & in_all
+    return _sort_desc(torch.where(own, rows_all, -1), torch.where(own, fused, NEG_INF))

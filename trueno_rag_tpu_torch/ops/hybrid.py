@@ -4,7 +4,9 @@ device tensors, and the encoder-fused variants that take query token ids.
 PyTorch counterpart of ``trueno_rag_tpu/ops/hybrid.py``'s
 ``hybrid_query_arrays``, ``hybrid_query_arrays_segments`` (the BM25
 segment path, for corpora past the block table's f32-exact row range),
-``fused_hybrid_query`` and ``fused_hybrid_query_compact``. The fused variants run the encoder forward
+``tri_query_arrays`` (the tri-hybrid's dense + BM25 + learned-sparse
+candidates with one N-way fusion), ``fused_hybrid_query`` and
+``fused_hybrid_query_compact``. The fused variants run the encoder forward
 on the card and hand its output straight to the dense scan, so no query
 vector crosses to the host on the way (eager PyTorch, so no single
 compiled program as in the JAX package).
@@ -17,10 +19,10 @@ from typing import Tuple
 import torch
 
 from trueno_rag_tpu_torch.models.encoder import EncoderConfig, encoder_forward
-from trueno_rag_tpu_torch.ops.bm25 import bm25_topk_blocks
+from trueno_rag_tpu_torch.ops.bm25 import bm25_topk_blocks, weighted_topk_blocks
 from trueno_rag_tpu_torch.ops.dense import dense_topk
 from trueno_rag_tpu_torch.ops.kernels.bm25_fetch import bm25_topk_fetch
-from trueno_rag_tpu_torch.ops.fusion import fuse_topk
+from trueno_rag_tpu_torch.ops.fusion import fuse_topk, fuse_topk_many
 
 
 def hybrid_query_arrays(
@@ -140,3 +142,39 @@ def fused_hybrid_query_compact(
     )
     return (f_rows[:, :k], f_scores[:, :k], d_rows, d_scores, s_rows,
             s_scores, ok, cand_rows, thr, q)
+
+
+def tri_query_arrays(
+    qvecs: torch.Tensor,  # [B, d] query vectors (any embedder)
+    matrix: torch.Tensor,
+    valid_mask: torch.Tensor,
+    block_ids: torch.Tensor,  # [B, S] BM25 block slots
+    block_lo: torch.Tensor,  # [B, S]
+    block_hi: torch.Tensor,  # [B, S]
+    blocks: torch.Tensor,  # [NB, 2, BLOCK_LEN] BM25 contribution table
+    l_block_ids: torch.Tensor,  # [B, Sl] learned-sparse block slots
+    l_lo: torch.Tensor,  # [B, Sl]
+    l_hi: torch.Tensor,  # [B, Sl]
+    l_qw: torch.Tensor,  # [B, Sl] per-slot query expansion weights
+    l_blocks: torch.Tensor,  # [NBl, 2, BLOCK_LEN] learned weight table
+    cand: int = 50,
+    metric: str = "cosine",
+    fusion_kind: str = "rrf",
+    fusion_param: float = 60.0,
+    fusion_weights: Tuple[float, ...] = (),
+) -> Tuple[torch.Tensor, ...]:
+    """The tri-hybrid candidates over the fp32 matrix and the two block
+    tables: dense top-c + BM25 top-c + learned-sparse top-c + one N-way
+    fusion → ``(f_rows, f_scores, d_rows, d_scores, s_rows, s_scores,
+    l_rows, l_scores)``, so the caller can attach per-source scores. The
+    learned panel is scored whole, without ``LearnedSparseIndex``'s lane
+    grouping; the retriever makes the same calls source by source
+    (``HybridRetriever._tri_candidates``)."""
+    d_scores, d_rows = dense_topk(qvecs, matrix, valid_mask, cand, metric)
+    s_scores, s_rows = bm25_topk_blocks(block_ids, block_lo, block_hi, blocks, k=cand)
+    l_scores, l_rows = weighted_topk_blocks(l_block_ids, l_lo, l_hi, l_qw, l_blocks, k=cand)
+    f_rows, f_scores = fuse_topk_many(
+        (d_rows, s_rows, l_rows), (d_scores, s_scores, l_scores),
+        kind=fusion_kind, param=fusion_param, weights=fusion_weights,
+    )
+    return f_rows, f_scores, d_rows, d_scores, s_rows, s_scores, l_rows, l_scores

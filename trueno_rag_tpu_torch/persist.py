@@ -9,7 +9,11 @@ other:
   raw float32 bytes) in a codec frame ``MAGIC | codec\\0 | compressed
   payload``; v2 (:func:`save_index_streaming`) is a header plus
   independently compressed matrix frames;
-- token-index artifacts (:func:`save_token_index`);
+- token-index artifacts (:func:`save_token_index`) and learned-sparse
+  (SPLADE) index artifacts (:func:`save_splade_index`); an index
+  artifact of a tri-hybrid carries the learned expansions too, re-attached
+  on load when the caller passes the encoder (its weights' fingerprint
+  checked);
 - model checkpoints: safetensors files (:func:`save_params`).
 
 Codecs: ``zlib`` (stdlib), ``lz4`` (the system liblz4 via ctypes,
@@ -285,6 +289,30 @@ def _bm25_wire(sparse) -> Dict[str, Any]:
     }
 
 
+def _learned_wire(retriever, rows) -> Optional[Dict[str, Any]]:
+    """A tri-hybrid's learned-sparse expansions as a ragged CSR in saved
+    chunk order (weight bytes round-trip, so scores after a load are
+    identical) with the encoder's expansion config and identity (seed,
+    weights fingerprint). The encoder's weights travel separately."""
+    li = getattr(retriever, "learned_index", None)
+    if li is None:
+        return None
+    enc = retriever.learned_encoder
+    indptr, terms, weights = li.row_expansions(rows)
+    return {
+        "encoder": {
+            "max_len": enc.max_len,
+            "doc_top": enc.doc_top,
+            "query_top": enc.query_top,
+            "seed": getattr(enc, "seed", None),
+            "params_fingerprint": enc.params_fingerprint(),
+        },
+        "indptr": indptr.tobytes(),
+        "terms": terms.tobytes(),
+        "weights": weights.tobytes(),
+    }
+
+
 def _build_header(retriever, embedder_info) -> tuple:
     """Everything an index artifact carries except the embedding matrix
     (shared by the v1 and v2 writers) → (header, chunk ids in saved order,
@@ -307,7 +335,7 @@ def _build_header(retriever, embedder_info) -> tuple:
             "fusion": retriever.config.fusion.to_dict(),
             "use_dense": retriever.config.use_dense,
             "use_sparse": retriever.config.use_sparse,
-            "use_learned": True,  # the port has no learned source (ROADMAP)
+            "use_learned": retriever.config.use_learned,
         },
         "embedder": embedder_info or {},
         "tags": _tag_wire(reg, ids),
@@ -315,6 +343,9 @@ def _build_header(retriever, embedder_info) -> tuple:
     cluster = _cluster_wire(store, rows)
     if cluster is not None:
         header["cluster"] = cluster
+    learned = _learned_wire(retriever, rows)
+    if learned is not None:
+        header["learned"] = learned
     return header, ids, rows
 
 
@@ -385,6 +416,7 @@ def _retriever_from_header(header, embedder, scan_tier, device):
         fusion=FusionStrategy.from_dict(rcfg["fusion"]),
         use_dense=rcfg["use_dense"],
         use_sparse=rcfg["use_sparse"],
+        use_learned=rcfg.get("use_learned", True),
     )
     return HybridRetriever(
         embedder, config=config,
@@ -425,8 +457,9 @@ def _bm25_csr(state: Dict[str, Any], row_remap: np.ndarray):
     return terms, indptr, remap(rows), tfs, remap(dl_rows), dl_vals
 
 
-def _finish_load(retr, header, scan_tier):
-    """BM25 state remap, tags and the clustered preset (shared by both
+def _finish_load(retr, header, scan_tier, learned_encoder=None):
+    """BM25 state remap, tags, the clustered preset and, with
+    ``learned_encoder``, the learned-sparse expansions (shared by both
     loaders; saved order is row order because the loads allocate rows
     0..n-1 in sequence)."""
     keys, vals = _int_pairs(header["bm25_rows"])
@@ -455,8 +488,28 @@ def _finish_load(retr, header, scan_tier):
             "centroids": np.frombuffer(cluster["centroids"], dtype=np.float32).reshape(-1, d).copy(),
             "radii": np.frombuffer(cluster["radii"], dtype=np.float32).copy(),
         }
-    # the learned-sparse section (when present) loads as the JAX package
-    # loads it without an encoder: a two-source hybrid (ROADMAP)
+    learned = header.get("learned")
+    if learned is not None and learned_encoder is not None:
+        # the postings are the SAVED encoder's document expansions: a query
+        # encoder with other weights would score them as noise, silently
+        saved_fp = (learned.get("encoder") or {}).get("params_fingerprint")
+        if saved_fp is not None:
+            got_fp = learned_encoder.params_fingerprint()
+            if got_fp != saved_fp:
+                raise InvalidConfigError(
+                    "learned_encoder does not match this artifact's learned-sparse model "
+                    f"(saved fingerprint {saved_fp}, supplied {got_fp}); rebuild the encoder "
+                    "with the original seed/params (read_index_info()['learned'])"
+                )
+        from trueno_rag_tpu_torch.index.learned_sparse import LearnedSparseIndex
+
+        indptr = np.frombuffer(learned["indptr"], np.int64)
+        li = LearnedSparseIndex(registry=retr.registry, device=retr.device)
+        li.load_rows([retr.registry.chunk_of(i) for i in range(len(indptr) - 1)], indptr,
+                     np.frombuffer(learned["terms"], np.int32), np.frombuffer(learned["weights"], np.float32))
+        retr.learned_encoder = learned_encoder
+        retr.learned_index = li
+    # without an encoder a learned section is skipped: a two-source hybrid
     return retr
 
 
@@ -492,19 +545,17 @@ def load_index(path: str, embedder, codec: Optional[Compression] = None,
     ``embedder`` dict says which; :func:`read_index_info` peeks without
     loading). ``scan_tier`` configures the store's tier (default fp32); a
     saved clustered layout is the preset of ``scan_tier="clustered"`` (no
-    k-means on load). ``learned_encoder`` is not supported yet: an
-    artifact's learned-sparse section is skipped."""
-    if learned_encoder is not None:
-        raise InvalidConfigError(
-            "the learned-sparse source is not ported yet (ROADMAP Queue 1 item 4); "
-            "load without learned_encoder for the two-source hybrid"
-        )
+    k-means on load). ``learned_encoder`` (a SpladeEncoder with the weights
+    the index was built with; ``read_index_info()['learned']`` gives its
+    expansion config) re-attaches a saved learned-sparse section, its
+    expansions restored verbatim, after checking its weights' fingerprint;
+    without one such an artifact loads as a two-source hybrid."""
     if not os.path.exists(path):
         raise IndexNotFoundError(f"no index at {path}")
     with open(path, "rb") as f:
         magic = f.read(len(MAGIC2))
         if magic == MAGIC2:  # v2 streaming container
-            return _load_index_streaming(f, embedder, scan_tier, device)
+            return _load_index_streaming(f, embedder, scan_tier, device, learned_encoder)
         payload = deserialize_compressed(magic + f.read(), hooks=_HEADER_HOOKS)
     retr = _retriever_from_header(payload, embedder, scan_tier, device)
     dim = payload["dimension"]
@@ -514,7 +565,7 @@ def load_index(path: str, embedder, codec: Optional[Compression] = None,
     except ValueError as e:
         raise SerializationError(f"corrupt embedding matrix: {e}") from e
     _insert_block(retr, payload["chunks"], matrix, 0)
-    _finish_load(retr, payload, scan_tier)
+    _finish_load(retr, payload, scan_tier, learned_encoder)
     return retr, payload.get("embedder", {})
 
 
@@ -614,7 +665,7 @@ def _read_streaming_header(f, hooks=None):
     return codec, header
 
 
-def _load_index_streaming(f, embedder, scan_tier, device):
+def _load_index_streaming(f, embedder, scan_tier, device, learned_encoder=None):
     """Resume after MAGIC2: codec id, compressed header, then each matrix
     frame decompressed and inserted in order."""
     codec, header = _read_streaming_header(f)
@@ -635,7 +686,7 @@ def _load_index_streaming(f, embedder, scan_tier, device):
         block = np.frombuffer(raw, dtype=np.float32).reshape(-1, dim)
         _insert_block(retr, chunk_dicts, block[: n - loaded], loaded)
         loaded += block.shape[0]
-    _finish_load(retr, header, scan_tier)
+    _finish_load(retr, header, scan_tier, learned_encoder)
     return retr, header.get("embedder", {})
 
 
@@ -721,6 +772,66 @@ def load_token_index(path: str, encoder_config=None, params: Optional[Dict[str, 
     tags = payload.get("tags")
     if tags:
         retr.store.registry.load_tag_state(tags["vocab"], tags["rows"])
+    return retr
+
+
+# ---------------------------------------------------------------------------
+# Learned-sparse (SPLADE) index artifacts
+# ---------------------------------------------------------------------------
+
+
+def save_splade_index(path: str, retriever, codec: Optional[Compression] = None) -> Dict[str, Any]:
+    """Persist a SpladeRetriever's posting index (chunks, each chunk's
+    expansion as a ragged CSR, tags, the expansion config). Weights
+    round-trip exactly (f32 bytes), so scores after a load are identical.
+    Encoder weights travel separately (:func:`save_params`). Atomic write
+    → stats (bytes, postings, chunks)."""
+    idx = retriever.index_store
+    reg = idx.registry
+    ids = [cid for cid in reg.ids() if reg.row_of(cid) in idx._row_terms]
+    indptr, terms, weights = idx.row_expansions([reg.row_of(cid) for cid in ids])
+    enc = retriever.encoder
+    payload = {
+        "format": "trueno-rag-tpu-splade-index",
+        "version": 1,
+        "encoder": {"max_len": enc.max_len, "doc_top": enc.doc_top, "query_top": enc.query_top},
+        "chunks": _pack_chunks([reg.get_chunk(cid) for cid in ids]),
+        "indptr": indptr.tobytes(),
+        "terms": terms.tobytes(),
+        "weights": weights.tobytes(),
+        "tags": _tag_wire(reg, ids),
+    }
+    blob = serialize_compressed(payload, codec)
+    with _atomic_writer(path) as f:
+        f.write(blob)
+    return {"compressed_bytes": len(blob), "postings": len(terms), "chunks": len(ids)}
+
+
+def load_splade_index(path: str, encoder_config=None, params: Optional[Dict[str, Any]] = None,
+                      seed: int = 0, device=None):
+    """Rebuild a SpladeRetriever from :func:`save_splade_index` (either
+    package's) on ``device``. The encoder identity (the port's
+    ``EncoderConfig``, its parameters or a seed) is supplied by the caller
+    and must be the one the index was built with."""
+    if not os.path.exists(path):
+        raise IndexNotFoundError(f"no splade index at {path}")
+    with open(path, "rb") as f:
+        payload = deserialize_compressed(f.read())
+    if payload.get("format") != "trueno-rag-tpu-splade-index":
+        raise SerializationError(f"not a splade-index artifact: {payload.get('format')!r}")
+    from trueno_rag_tpu_torch.models.splade import SpladeRetriever
+
+    enc = payload["encoder"]
+    retr = SpladeRetriever(config=encoder_config, params=params, seed=seed, max_len=int(enc["max_len"]),
+                           doc_top=int(enc["doc_top"]), query_top=int(enc["query_top"]), device=device)
+    chunk_dicts = payload["chunks"]
+    retr.index_store.load_rows(
+        _chunks_of(chunk_dicts, 0, len(chunk_dicts)), np.frombuffer(payload["indptr"], np.int64),
+        np.frombuffer(payload["terms"], np.int32), np.frombuffer(payload["weights"], np.float32),
+    )
+    tags = payload.get("tags")
+    if tags:
+        retr.registry.load_tag_state(tags["vocab"], tags["rows"])
     return retr
 
 

@@ -6,8 +6,8 @@ orchestration is the same code; retrieval runs through the port's
 at ingest and query time, query preprocessing
 (:mod:`~trueno_rag_tpu_torch.preprocess`: the variants of a query retrieve
 as one device batch and fuse by reciprocal rank) and ingest
-near-duplicate dedup (:mod:`~trueno_rag_tpu_torch.ops.dedup`). The
-learned-sparse source is not ported yet (ROADMAP). Capability-equivalent
+near-duplicate dedup (:mod:`~trueno_rag_tpu_torch.ops.dedup`) and the
+learned-sparse third source (``with_learned_sparse``). Capability-equivalent
 to the reference's ``src/pipeline.rs``:
 ``Citation`` (pipeline.rs:16-30), ``ContextChunk``/``AssembledContext``
 with the three formatters (pipeline.rs:33-148), ``AssemblyStrategy``
@@ -430,6 +430,7 @@ class RagPipelineBuilder:
         self._device = None
         self._preprocessor = None
         self._dedup_threshold: Optional[float] = None
+        self._learned_encoder = None
 
     def with_embedder(self, embedder: Embedder) -> "RagPipelineBuilder":
         self._embedder = embedder
@@ -474,6 +475,13 @@ class RagPipelineBuilder:
         self._dedup_threshold = threshold
         return self
 
+    def with_learned_sparse(self, encoder) -> "RagPipelineBuilder":
+        """Attach a SPLADE-class expansion encoder as a third candidate
+        source (the tri-hybrid: dense + BM25 + learned-sparse fused N-way;
+        see :meth:`HybridRetriever.attach_learned_sparse`)."""
+        self._learned_encoder = encoder
+        return self
+
     def with_device(self, device) -> "RagPipelineBuilder":
         """Where the indexes' tensors live (default: the CUDA device;
         "cpu" must be asked for)."""
@@ -499,6 +507,8 @@ class RagPipelineBuilder:
             vector_config=self._vector_config,
             device=self._device,
         )
+        if self._learned_encoder is not None:
+            retriever.attach_learned_sparse(self._learned_encoder)
         assembler = ContextAssembler(self._assembler_config)
         return RagPipeline(
             self._embedder, self._reranker, chunker, retriever, assembler,

@@ -27,7 +27,11 @@ does: ``None`` takes it only on tier "none" (past the tier crossover the
 staged certified scan is faster), ``True`` forces it over the fp32 matrix
 or the compact bf16r replicas, ``False`` never takes it.
 
-Not ported yet (raises, see ROADMAP): the learned-sparse third source.
+A learned-sparse (SPLADE-class) third source
+(:meth:`HybridRetriever.attach_learned_sparse`) makes the query a
+tri-hybrid: dense, BM25 and learned-sparse candidates fused N-way
+(:func:`~trueno_rag_tpu_torch.ops.fusion.fuse_topk_many`), staged source
+by source on every tier; results carry ``learned_score``.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ import torch
 from trueno_rag_tpu_torch.chunking import Chunk
 from trueno_rag_tpu_torch.device import resolve_device
 from trueno_rag_tpu_torch.embed import Embedder
-from trueno_rag_tpu_torch.errors import InvalidConfigError, QueryError
+from trueno_rag_tpu_torch.errors import QueryError
 from trueno_rag_tpu_torch.fusion import FusionStrategy
 from trueno_rag_tpu_torch.index import BM25Index, ChunkRegistry, VectorStore, VectorStoreConfig
 from trueno_rag_tpu_torch.index.base import IMPOSSIBLE_BIT
@@ -49,17 +53,20 @@ from trueno_rag_tpu_torch.index.base import IMPOSSIBLE_BIT
 
 @dataclass
 class RetrievalResult:
-    """A retrieved chunk plus its per-source scores."""
+    """A retrieved chunk plus its per-source scores; ``learned_score`` is
+    the learned-sparse source's, when one is attached."""
 
     chunk: Chunk
     dense_score: Optional[float] = None
     sparse_score: Optional[float] = None
     fused_score: Optional[float] = None
     rerank_score: Optional[float] = None
+    learned_score: Optional[float] = None
 
     def best_score(self) -> float:
-        """Priority: rerank > fused > dense > sparse > 0.0."""
-        for s in (self.rerank_score, self.fused_score, self.dense_score, self.sparse_score):
+        """Priority: rerank > fused > dense > sparse > learned > 0.0."""
+        for s in (self.rerank_score, self.fused_score, self.dense_score, self.sparse_score,
+                  self.learned_score):
             if s is not None:
                 return s
         return 0.0
@@ -72,14 +79,17 @@ class RetrievalResult:
 @dataclass
 class HybridRetrieverConfig:
     """Reference defaults: 50 candidates per source, RRF(60) fusion,
-    both sources enabled. ``fused``: the encoder-fused query path — None
-    (auto: fused on tier "none" with an encoder embedder), True (always;
-    raises where it cannot run) or False (never)."""
+    both sources enabled. ``use_learned`` takes effect once
+    :meth:`HybridRetriever.attach_learned_sparse` installs a third source.
+    ``fused``: the encoder-fused query path — None (auto: fused on tier
+    "none" with an encoder embedder), True (always; raises where it cannot
+    run) or False (never)."""
 
     candidates_per_source: int = 50
     fusion: FusionStrategy = field(default_factory=FusionStrategy.rrf)
     use_dense: bool = True
     use_sparse: bool = True
+    use_learned: bool = True
     fused: Optional[bool] = None
 
 
@@ -165,9 +175,34 @@ class HybridRetriever:
         vcfg = vector_config or VectorStoreConfig(dimension=embedder.dimension)
         self.vector_store = VectorStore(vcfg, registry=self.registry, device=self.device)
         self.sparse_index = BM25Index(registry=self.registry, device=self.device)
+        # the optional learned-sparse (SPLADE-class) third source
+        self.learned_encoder = None
+        self.learned_index = None
+        self._learned_encode_batch = 128
 
     def attach_learned_sparse(self, encoder, encode_batch: int = 128) -> None:
-        raise InvalidConfigError("the learned-sparse source is not ported yet (ROADMAP)")
+        """Install a SPLADE-class expansion encoder (e.g.
+        :class:`~trueno_rag_tpu_torch.models.splade.SpladeEncoder`) as a
+        third candidate source: queries then fuse dense + BM25 +
+        learned-sparse candidates N-way and results carry
+        ``learned_score``. Chunks already indexed are expanded now; later
+        ``index``/``index_batch`` calls feed all three stores."""
+        from trueno_rag_tpu_torch.index.learned_sparse import LearnedSparseIndex
+
+        self.learned_encoder = encoder
+        self.learned_index = LearnedSparseIndex(registry=self.registry, device=self.device)
+        self._learned_encode_batch = int(encode_batch)
+        live = [c for c in (self.registry.chunk_of(r) for r in range(self.registry.capacity_rows))
+                if c is not None]
+        if live:
+            self._learned_add(live)
+
+    def _learned_add(self, chunks: Sequence[Chunk]) -> None:
+        eb = self._learned_encode_batch
+        for lo in range(0, len(chunks), eb):
+            batch = chunks[lo:lo + eb]
+            terms, w = self.learned_encoder.expand_documents([c.content for c in batch])
+            self.learned_index.add_batch(batch, terms, w)
 
     # -- indexing -------------------------------------------------------------
 
@@ -180,6 +215,8 @@ class HybridRetriever:
         self.vector_store.validate_chunk(chunk)
         self.sparse_index.add(chunk)
         self.vector_store.insert(chunk)
+        if self.learned_index is not None:
+            self._learned_add([chunk])
         if tags is not None:
             self.registry.set_tags(chunk.id, tags)
 
@@ -191,23 +228,29 @@ class HybridRetriever:
             self.vector_store.validate_chunk(chunk)
         self.sparse_index.add_batch(chunks)
         self.vector_store.insert_many(chunks)
+        if self.learned_index is not None:
+            self._learned_add(list(chunks))
         if tags is not None:
             for chunk in chunks:
                 self.registry.set_tags(chunk.id, tags)
 
     def remove(self, chunk_id: str) -> bool:
-        """Remove from both stores and free the shared row."""
+        """Remove from every store and free the shared row."""
         found_sparse = self.sparse_index.remove(chunk_id)
         found_dense = self.vector_store.remove(chunk_id)
-        if found_dense or found_sparse:
+        found_learned = self.learned_index.remove(chunk_id) if self.learned_index is not None else False
+        if found_dense or found_sparse or found_learned:
             self.registry.remove(chunk_id)
-        return found_dense or found_sparse
+        return found_dense or found_sparse or found_learned
 
     def ensure_ready(self) -> None:
         """Apply pending mutations to the device state now instead of on
-        the next query."""
+        the next query (a server warms a reloaded index with it before the
+        swap)."""
         self.vector_store.ensure_ready()
         self.sparse_index.ensure_ready()
+        if self.learned_index is not None:
+            self.learned_index.ensure_ready()
         self.vector_store._device_tag_bits()  # lazy per-row tag masks
 
     # -- tag filters -----------------------------------------------------------
@@ -237,8 +280,16 @@ class HybridRetriever:
             raise QueryError("empty query")
         use_dense = self.config.use_dense
         use_sparse = self.config.use_sparse
-        if not use_dense and not use_sparse:
+        use_learned = (self.learned_index is not None and self.config.use_learned
+                       and len(self.learned_index) > 0)
+        if not use_dense and not use_sparse and not use_learned:
             raise QueryError("all retrieval sources disabled")
+        if self.config.fused is True and use_learned:
+            raise QueryError(
+                "fused=True is the two-source one-program path; the "
+                "learned-sparse source serves the staged tri-hybrid "
+                "(leave fused=None or set use_learned=False)"
+            )
         if self.config.fused is True and not (use_dense and use_sparse):
             # a disabled source must not silently degrade the explicit
             # fused contract to the staged path
@@ -248,7 +299,7 @@ class HybridRetriever:
             )
         if len(self.registry) == 0:
             return [[] for _ in queries]
-        if use_dense and use_sparse and self.config.fused is not False:
+        if use_dense and use_sparse and not use_learned and self.config.fused is not False:
             from trueno_rag_tpu_torch.models.encoder import EncoderEmbedder
 
             if isinstance(self.embedder, EncoderEmbedder):
@@ -292,7 +343,11 @@ class HybridRetriever:
             masks is None or store.supports_tagged_scan
         )
 
-        if use_dense and use_sparse:
+        l_rows = l_scores = None
+        if use_learned:
+            f_rows, f_scores, d_rows, d_scores, s_rows, s_scores, l_rows, l_scores = self._tri_candidates(
+                queries, qvecs if use_dense else None, cand, masks, strategy, use_dense, use_sparse)
+        elif use_dense and use_sparse:
             from trueno_rag_tpu_torch.ops.fusion import fuse_topk
 
             if staged_tier:
@@ -353,11 +408,13 @@ class HybridRetriever:
 
         d_maps = self._score_maps(d_rows, d_scores) if use_dense else [{}] * b
         s_maps = self._score_maps(s_rows, s_scores) if use_sparse else [{}] * b
+        l_maps = self._score_maps(l_rows, l_scores) if use_learned else None
         return self._hydrate(b, k, f_rows.cpu().numpy(), f_scores.cpu().numpy(), d_maps, s_maps,
-                             fused_is_real=use_dense and use_sparse)
+                             fused_is_real=int(use_dense) + int(use_sparse) + int(use_learned) >= 2,
+                             l_maps=l_maps)
 
     def _hydrate(self, b: int, k: int, f_rows, f_scores, d_maps, s_maps,
-                 fused_is_real: bool = True) -> List[List[RetrievalResult]]:
+                 fused_is_real: bool = True, l_maps=None) -> List[List[RetrievalResult]]:
         """The first ``b`` queries' final rows (host arrays, -1 = none) →
         results with their per-source scores, at most ``k`` per query."""
         out: List[List[RetrievalResult]] = []
@@ -375,10 +432,54 @@ class HybridRetriever:
                         dense_score=d_maps[i].get(int(row)),
                         sparse_score=s_maps[i].get(int(row)),
                         fused_score=float(score) if fused_is_real else None,
+                        learned_score=None if l_maps is None else l_maps[i].get(int(row)),
                     )
                 )
             out.append(results)
         return out
+
+    # -- the tri-hybrid (learned-sparse third source) ---------------------------
+
+    def _tri_candidates(self, queries, qvecs, cand: int, masks, strategy, use_dense: bool,
+                        use_sparse: bool):
+        """The tri-hybrid's lists → ``(f_rows, f_scores, d_rows, d_scores,
+        s_rows, s_scores, l_rows, l_scores)`` (a disabled source's pair is
+        None): each source staged, then the lists fused N-way (a lone learned
+        list is the answer). Eager PyTorch runs the same launches as
+        :func:`~trueno_rag_tpu_torch.ops.hybrid.tri_query_arrays` either way,
+        so every tier takes this path; the learned source's panels keep
+        :meth:`LearnedSparseIndex.search_arrays`'s grouping."""
+        from trueno_rag_tpu_torch.ops.fusion import fuse_topk_many
+
+        d = s = (None, None)
+        lists = []
+        if use_dense:
+            d = self._dense_candidates(qvecs, cand, masks)
+            lists.append(d)
+        if use_sparse:
+            s = self._sparse_candidates(queries, cand, masks)
+            lists.append(s)
+        l_scores, l_rows = self._learned_candidates(queries, cand, masks)
+        if not lists:
+            f_rows, f_scores = l_rows, l_scores
+        else:
+            lists.append((l_scores, l_rows))
+            weights = (tuple(strategy.resolve_weights(len(lists)))
+                       if strategy.kind in ("linear", "convex") else ())
+            f_rows, f_scores = fuse_topk_many(
+                [r for _, r in lists], [x for x, _ in lists],
+                kind=strategy.kind, param=strategy.device_param, weights=weights,
+            )
+        return f_rows, f_scores, d[1], d[0], s[1], s[0], l_rows, l_scores
+
+    def _learned_candidates(self, queries, cand: int, masks):
+        """Learned-sparse top-C candidates; a tag filter's allowed-row mask
+        rides the weighted scoring op, so the filtered top-k is exact."""
+        from trueno_rag_tpu_torch.models.splade import allowed_rows
+
+        q_terms, q_w = self.learned_encoder.expand_queries(list(queries))
+        allowed = None if masks is None else allowed_rows(self.registry, masks, self.learned_index.capacity_rows)
+        return self.learned_index.search_arrays(q_terms, q_w, cand, allowed_rows=allowed)
 
     # -- per-source candidate stages -------------------------------------------
 
@@ -439,6 +540,7 @@ class HybridRetriever:
         splittable = (
             self.config.fused is not False
             and self.config.use_dense and self.config.use_sparse
+            and self.learned_index is None
             and tag_filter is None
             and bool(queries)
             and len(self.registry) > 0
