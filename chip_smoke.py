@@ -48,7 +48,7 @@ Run from the repository root. Phases, each fatal on failure:
    the same tiles, its bounds against float64, its tag variant, times;
 8. clustered-1M: the slice's chunks, tags and BM25 index behind
    ``VectorStoreConfig(scan_tier="clustered")`` with a 1M blob corpus
-   (``convert.retriever_from_state``): 2 batches of 8 and 4 single
+   (``convert.retriever_from_state``): 2 batches of 8 and 2 single
    queries through ``query_with_context_batch(k=5)`` at 50 and at 12
    dense candidates per query (K5's launch count must rise; every dense
    set equal to the float64 exact set; fusion equal to the host oracle),
@@ -263,8 +263,9 @@ Run from the repository root. Phases, each fatal on failure:
    ``MultiProcessServer``: every answer equal to ``retrieve_batch``'s for
    the same query, ``/health`` on the bf16 tier, K1 launched; served q/s,
    p50/p99 request latency, batches and the mean batch size logged;
-32. tri-hybrid-262k (after phase 15): 262,144 documents of phase 5's text
-   law (scale cut: the 1M expansion is ~128M postings on the host),
+32. tri-hybrid-65k (after phase 15): 65,536 documents of phase 5's text
+   law (scale cut: the 1M expansion is ~128M postings on the host; 262,144
+   until slice 16, cut for the smoke's time),
    ``MockEmbedder(384)`` and a seeded ``SpladeEncoder`` at MiniLM-L6 width
    (64 tokens, 128 document and 32 query terms) through
    ``with_learned_sparse`` on tier "bf16" (staged, K1): 2 batches of 256,
@@ -278,6 +279,39 @@ Run from the repository root. Phases, each fatal on failure:
 33. inside phase 29: ``index --with-learned-sparse`` and ``serve`` on it in
    a subprocess (port 0, ready on its printed address), each query's
    ``/query`` JSON equal to ``query --format json``'s.
+34. gguf-quantized (after phase 15's Nemotron phases): the Nemotron-class
+   model at ``NemotronConfig.full()`` width (4,096-d, MLP 14,336, 32 heads)
+   and GGUF_LAYERS of its 32 layers (depth cut: the host quantizer's time),
+   seeded f32 weights made on the card, quantized on the host into Q4_K_M
+   blocks (``quantize_nemotron_layer``) and kept on the card as uint8;
+   ``nemotron_forward_quantized`` on B = 8 texts at T = 1,024 (K4 under
+   ``attention_impl="auto"``, its launches counted) against the bf16
+   forward on the host-dequantized copies of the same blocks: cosine >
+   0.999 per row; tokens/s, peak allocated memory and the stacks' bytes
+   of both logged;
+35. hf-import (inside phase 29, on its 2,048 files): a MiniLM-L6-shaped
+   BERT checkpoint directory written by the smoke (numpy-seeded weights
+   through ``persist.save_params``, ``config.json``, a 30,522-entry
+   ``vocab.txt``) indexed by ``python -m trueno_rag_tpu_torch.cli index
+   --embedder semantic --model DIR`` in a subprocess and queried through
+   ``cli.main`` (``--scan-tier bf16``, K1): every answer equal to an
+   in-process pipeline's over ``load_hf_bert_encoder(DIR)``;
+36. maxsim-xla (inside phase 16, on the tiered store's replica): one batch
+   of 8 through the blockwise tiers ``maxsim_topk_scan16`` (the bf16
+   replica) and ``maxsim_topk_int8`` (an int8 replica of the same tokens),
+   uncertified queries patched by the exact scan as the store patches
+   them: rows and scores equal to the K6/K7 tiers' on the same store and
+   to the float64 exact top-10; certified fractions logged;
+37. train-minilm (last): ``fit`` on ``EncoderConfig.minilm_l6()`` at full
+   width (384-d, 6 layers, vocabulary 30,522, max_len 64) with ICT pairs of
+   4,096 three-sentence documents of phase 5's text law, batch 64, 50
+   steps: steps/s, the losses, ``evaluate_retrieval`` before and after on
+   256 held-out probes (4 words of a document among 4 random words);
+   one card step at f32 against the port's CPU step on the same batch and
+   state; 3 steps each of the SPLADE, MaxSim and dense-distillation
+   objectives; a checkpoint saved, reloaded and stepped identically to the
+   state it was saved from; peak memory of a step with and without
+   ``remat`` (losses equal).
 
 The last two lines of standard output are JSON: the per-kernel record, then
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
@@ -318,7 +352,7 @@ CL_PLANT = 8  # planted rows per blob at 1M (the bench's default k)
 CL_PLANTED_BLOBS = 64
 CL_BATCH = 8
 CL_BATCHES = 2  # 4 until slice 7, and 8 singles: depth cut for the smoke's time
-CL_SINGLES = 4
+CL_SINGLES = 2  # 8 until slice 7, 4 until slice 16: depth cut for the smoke's time (PERF.md §4)
 CL_T_TOP = 16  # the store's t_top for its 50 dense candidates per query
 CL_FEW = 12  # a second pass with 12 dense candidates per query
 CL_MUTATE = 0.01
@@ -374,6 +408,16 @@ METRIC_K = 10
 CLI_DOCS = 2048  # cli: .md files of hybrid-1M's text law
 CLI_QUERIES = 4
 CKPT_NEMO_LAYERS = 2  # checkpoint: the Nemotron-class model at full width, 2 of 32 layers (depth cut)
+GGUF_LAYERS = 6  # gguf-quantized: full width, 6 of 32 layers (depth cut: the host quantizer and decoder, PERF.md §4)
+GGUF_B = 8
+GGUF_WORDS = 1022  # + [CLS] and [SEP] = T 1,024: K4 under attention_impl="auto"
+TRAIN_DOCS = 4096  # train-minilm: three-sentence documents of the text law
+TRAIN_STEPS = 50
+TRAIN_BATCH = 64
+TRAIN_MAX_LEN = 64
+TRAIN_EVAL_QUERIES = 256
+TRAIN_LR = 5e-5
+TRAIN_SIDE_STEPS = 3  # SPLADE, MaxSim and distillation steps
 PR_N = 1 << 20  # kernels-K11's centroid-pruned corpora: 1,048,576 x 32 x 128 f32
 PR_TOPICS, PR_NOISE = 4096, 0.15  # benches/maxsim_bench.py's topic law (its defaults)
 PR_DUP, PR_SIGMA = 16, 0.05  # the tight law: 16 chunks share a cluster's topics; token noise of norm ~0.05
@@ -394,7 +438,7 @@ SEG_SINGLES = 8  # single queries through search_arrays
 SEG_FUSED_B = 32  # hybrid_query_arrays_segments at 17.8M: its [B, N] fp32 scores take B x 71 MB
 SEG_STORE_THRESHOLD = 1 << 19  # the moved MAX_BLOCK_ROWS of segments-store-1M, below its 1M rows
 ENC_N = 1 << 18  # encoder-262k's documents: a depth cut from 1,048,576 for the smoke's time (PERF.md §4)
-TRI_N = 262_144  # tri-hybrid-262k: scale cut (the 1M expansion: ~128M postings on the host)
+TRI_N = 65_536  # tri-hybrid-65k: scale cut (the 1M expansion: ~128M postings on the host; 262,144 until slice 16)
 TRI_BATCHES = 2
 TRI_MAX_LEN = 64  # the SpladeEncoder's defaults: 64 tokens, 128 document terms, 32 query terms
 TRI_DOC_TOP = 128
@@ -1864,8 +1908,8 @@ def phase_clustered_store(pipe, seed: int) -> int:
         # 16 per 1024-row tile), the regime the tier certifies in
         retr.config = dataclasses.replace(base.config, candidates_per_source=CL_FEW)
         measure(f"{CL_FEW} candidates")
-        device_profile(lambda: p.query_with_context_batch(runs[0], k=K),
-                       f"clustered-1M {CL_FEW} candidates B={CL_BATCH} profile")
+        device_profile(lambda: p.query_with_context_batch(runs[0], k=K),  # reps 3 until slice 16: the smoke's time
+                       f"clustered-1M {CL_FEW} candidates B={CL_BATCH} profile", reps=1)
         retr.config = base.config
         cand = retr.config.candidates_per_source
 
@@ -3260,6 +3304,56 @@ def li_check(retr, batches, results, k, label, allowed=None):
     return rows_all
 
 
+def phase_maxsim_xla(retr, qs, want_rows) -> None:
+    """maxsim-xla, on the late-interaction store: one batch through the
+    blockwise tiers (the bf16 replica; an int8 replica of the same tokens)
+    and the K6/K7 tiers, uncertified queries patched by the exact scan as
+    the store patches them: rows and scores equal, rows the float64 exact
+    top-k ``want_rows``."""
+    import numpy as np
+    import torch
+
+    from trueno_rag_tpu_torch.ops import maxsim as ms
+
+    store = retr.store
+    tokens, t_mask, valid = store._device()
+    tier = store._device_tier()
+    check(tier[0] == "bfloat16", f"maxsim-xla: the store's replica is {tier[0]}, expected bfloat16")
+    q, qm = li_unit_queries(retr, qs)
+    t0 = time.perf_counter()
+    pack8 = ms.prepare_maxsim_int8(tokens, t_mask)
+    torch.cuda.synchronize()
+    t_pack = time.perf_counter() - t0
+    block, rescore = store.config.scan_block, max(store.config.rescore, LI_K)
+    runs = (("scan16 blockwise", ms.maxsim_topk_scan16, tier[1:], {"block": block}),
+            ("K6 tier", ms.maxsim_topk_scan16_fused, tier[1:], {}),
+            ("int8 blockwise", ms.maxsim_topk_int8, pack8, {"block": block}),
+            ("K7 tier", ms.maxsim_topk_int8_fused, pack8, {}))
+    out = {}
+    for label, fn, pack, kw in runs:
+        fn(q, qm, tokens, t_mask, *pack, valid, LI_K, rescore=rescore, **kw)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s, r, cert = fn(q, qm, tokens, t_mask, *pack, valid, LI_K, rescore=rescore, **kw)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        miss = torch.nonzero(~cert).flatten()
+        if miss.numel():
+            s_e, r_e = ms.maxsim_scan_topk(q[miss], qm[miss], tokens, t_mask, valid, LI_K, block, store._d_norm)
+            s, r = s.clone(), r.clone()
+            s[miss], r[miss] = s_e, r_e
+        out[label] = (s.cpu().numpy(), r.cpu().numpy())
+        check(np.array_equal(out[label][1], want_rows), f"maxsim-xla {label}: rows differ from the float64 top-k")
+        log(f"maxsim-xla {label}: B={q.shape[0]} at {tokens.shape[0]} x {tokens.shape[1]} x {tokens.shape[2]}: "
+            f"{dt:.1f} ms (host clock, synchronized); certified {int(cert.sum())}/{q.shape[0]}")
+    for a, b in (("scan16 blockwise", "K6 tier"), ("int8 blockwise", "K7 tier")):
+        check(np.array_equal(out[a][1], out[b][1]) and np.array_equal(out[a][0], out[b][0]),
+              f"maxsim-xla: {a} and {b} answer differently")
+    log(f"maxsim-xla: int8 replica packed in {t_pack:.1f} s; both blockwise tiers' rows and scores equal to the "
+        f"K6/K7 tiers' on the same store and to the float64 exact top-{LI_K}")
+    del pack8
+
+
 def phase_late_interaction(seed: int):
     """Slice 5's main path: LateInteractionRetriever (MiniLM-L6, seeded
     weights) with the CLI's tiered token store at 262,144 one-chunk
@@ -3321,6 +3415,10 @@ def phase_late_interaction(seed: int):
         f"{sorted(lat)[len(lat) // 2]:.1f} ms per batch = {LI_BATCH * len(lat) / sum(lat) * 1e3:.1f} queries/s "
         f"(retrieve_batch, host clock); certified {n_q - store.uncertified}/{n_q} (at least {MIN_CERTIFIED:.0%} "
         f"required); K6 launches {k6}; every answer equal to the float64 exact top-{LI_K}")
+
+    phase_maxsim_xla(retr, batches[0], rows_main[0])
+    gc.collect()
+    torch.cuda.empty_cache()
 
     rows = device_profile(lambda: retr.retrieve_batch(batches[0], LI_K), "late-interaction-262k profile (one batch)")
     busy = sum(r[0] for r in rows)
@@ -4544,6 +4642,7 @@ def phase_cli(seed: int):
             f"equal to the in-memory LateInteractionRetriever's")
         del li
         phase_cli_tri_serve(docs_dir, os.path.join(tmp, "tri"), queries)
+        k1 += phase_hf_import(docs_dir, tmp, queries, seed)
         for argv in (["info"], ["demo"]):
             rc, out = run_cli(argv)
             check(rc == 0 and out, f"cli {argv[0]} exit {rc}")
@@ -4551,6 +4650,107 @@ def phase_cli(seed: int):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return k1, k6
+
+
+def write_minilm_checkpoint(path: str, seed: int) -> None:
+    """A MiniLM-L6-shaped BERT checkpoint directory (all-MiniLM-L6-v2's
+    config: 384-d, 6 layers, 12 heads, MLP 1,536, vocabulary 30,522, 512
+    positions) with numpy-seeded weights: ``model.safetensors`` through
+    ``persist.save_params``, ``config.json`` and a ``vocab.txt`` whose
+    words include the text law's."""
+    import numpy as np
+
+    import json
+    import os
+
+    from trueno_rag_tpu_torch.persist import save_params
+
+    h, layers, mlp, vocab_n = 384, 6, 1536, 30522
+    rng = np.random.default_rng(seed + 35)
+
+    def normal(*shape):
+        return (rng.standard_normal(shape, dtype=np.float32) * 0.05).astype(np.float32)
+
+    state = {"embeddings.word_embeddings.weight": normal(vocab_n, h),
+             "embeddings.position_embeddings.weight": normal(512, h),
+             "embeddings.token_type_embeddings.weight": normal(2, h),
+             "embeddings.LayerNorm.weight": np.ones(h, np.float32),
+             "embeddings.LayerNorm.bias": np.zeros(h, np.float32)}
+    for i in range(layers):
+        p = f"encoder.layer.{i}."
+        for name, shape in (("attention.self.query", (h, h)), ("attention.self.key", (h, h)),
+                            ("attention.self.value", (h, h)), ("attention.output.dense", (h, h)),
+                            ("intermediate.dense", (mlp, h)), ("output.dense", (h, mlp))):
+            state[p + name + ".weight"] = normal(*shape)
+            state[p + name + ".bias"] = normal(shape[0])
+        for ln in ("attention.output.LayerNorm", "output.LayerNorm"):
+            state[p + ln + ".weight"] = np.ones(h, np.float32)
+            state[p + ln + ".bias"] = np.zeros(h, np.float32)
+    os.makedirs(path, exist_ok=True)
+    save_params(os.path.join(path, "model.safetensors"), state)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"model_type": "bert", "_name_or_path": "smoke-minilm-l6", "vocab_size": vocab_n,
+                   "hidden_size": h, "num_hidden_layers": layers, "num_attention_heads": 12,
+                   "intermediate_size": mlp, "max_position_embeddings": 512, "pad_token_id": 0}, f)
+    words = [f"w{i:05d}" for i in range(VOCAB)]
+    special = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    pieces = [f"##{i}" for i in range(10)] + [str(i) for i in range(10)]
+    filler = [f"[unused{i}]" for i in range(vocab_n - len(special) - len(words) - len(pieces))]
+    with open(os.path.join(path, "vocab.txt"), "w") as f:
+        f.write("\n".join(special + pieces + words + filler) + "\n")
+
+
+def phase_hf_import(docs_dir: str, tmp: str, queries, seed: int) -> int:
+    """Inside cli: a MiniLM-L6-shaped checkpoint directory indexed by the
+    CLI in a subprocess (``python -m trueno_rag_tpu_torch.cli index
+    --embedder semantic --model DIR``) and queried through ``cli.main``
+    (K1), each answer equal to an in-process pipeline's over
+    ``load_hf_bert_encoder(DIR)`` → K1 launches of the CLI's queries."""
+    import json
+    import os
+
+    import trueno_rag_tpu_torch as rag
+    from trueno_rag_tpu_torch import cli
+    from trueno_rag_tpu_torch.models.hf_import import load_hf_bert_encoder
+    from trueno_rag_tpu_torch.models.tokenization import WordPieceTokenizer
+    from trueno_rag_tpu_torch.ops.kernels.scan_select import scan_select_v3
+
+    model_dir, out_dir = os.path.join(tmp, "minilm_hf"), os.path.join(tmp, "hf_index")
+    t0 = time.perf_counter()
+    write_minilm_checkpoint(model_dir, seed)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "trueno_rag_tpu_torch.cli", "index", "--path", docs_dir,
+                           "--output", out_dir, "--embedder", "semantic", "--model", model_dir, "--tag-by-dir"],
+                          capture_output=True, text=True, timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    t_index = time.perf_counter() - t0
+    check(proc.returncode == 0, f"hf-import: cli index exit {proc.returncode}: {proc.stderr[-2000:]}")
+    log(f"hf-import: checkpoint written in {t_write:.1f} s; python -m trueno_rag_tpu_torch.cli index --embedder "
+        f"semantic --model DIR: {proc.stdout.strip()} ({t_index:.1f} s, a subprocess)")
+    scan_select_v3.launches = 0
+    answers = [json.loads(run_cli(["query", q, "--index", out_dir, "--scan-tier", "bf16", "--format", "json"])[1])
+               for q in queries]
+    k1 = scan_select_v3.launches
+    check(k1 > 0, "hf-import: the CLI's bf16-tier queries never launched scan_select_v3")
+    emb = load_hf_bert_encoder(model_dir, device=DEV)
+    check(isinstance(emb.tokenizer, WordPieceTokenizer) and emb.encoder_config.hidden_dim == 384
+          and emb.encoder_config.num_layers == 6, "hf-import: the loaded encoder is not MiniLM-L6-shaped")
+    docs = cli._walk_documents(docs_dir)
+    import argparse
+
+    tags = cli._doc_tags_for(docs, argparse.Namespace(tags=None, tag_by_dir=True, path=docs_dir))
+    ref = (rag.RagPipelineBuilder().with_embedder(emb).with_reranker(rag.NoOpReranker())
+           .with_chunker(rag.RecursiveChunker(chunk_size=512, overlap=64))
+           .with_vector_config(rag.VectorStoreConfig(dimension=emb.dimension, scan_tier="bf16"))
+           .with_device(DEV).build())
+    ref.index_documents(docs, tags=tags)
+    for q, a in zip(queries, answers):
+        check(len(a) > 0 and json_rows(a) == cli_rows(ref.retriever.retrieve(q, 5)),
+              f"hf-import: cli query {q!r} differs from the in-process pipeline over load_hf_bert_encoder")
+    log(f"hf-import: {len(queries)} queries through cli query --scan-tier bf16, scan_select_v3 launches {k1}; "
+        f"every answer equal to the in-process pipeline's over load_hf_bert_encoder(DIR)")
+    del ref, emb
+    return k1
 
 
 SERVE_FIELDS = ("title", "content", "score", "dense_score", "sparse_score", "fused_score", "learned_score")
@@ -4658,6 +4858,274 @@ def phase_checkpoint(seed: int) -> None:
             torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_gguf_quantized(seed: int) -> int:
+    """gguf-quantized: the Nemotron-class model at full width and
+    GGUF_LAYERS layers in device k-quant blocks, its forward against the
+    bf16 forward on the host-dequantized blocks → K4 launches of the
+    quantized forward."""
+    import numpy as np
+    import torch
+
+    from trueno_rag_tpu_torch.models import gguf_device as gd
+    from trueno_rag_tpu_torch.models.encoder import HashTokenizer
+    from trueno_rag_tpu_torch.models.nemotron import NemotronConfig, nemotron_forward
+    from trueno_rag_tpu_torch.ops.kernels.attention import block_attention
+
+    cfg = dataclasses.replace(NemotronConfig.full(), num_layers=GGUF_LAYERS)
+    h, m = cfg.hidden_dim, cfg.mlp_dim
+    shapes = {"qkv_w": (h, 3 * h), "attn_out_w": (h, h), "mlp_gate_w": (h, m), "mlp_up_w": (h, m),
+              "mlp_down_w": (m, h)}
+    gen = torch.Generator(device=DEV).manual_seed(seed + 34)
+
+    def normal(shape):
+        return torch.randn(shape, generator=gen, device=DEV).mul_(0.02)
+
+    t0 = time.perf_counter()
+    layers, t_layer = [], []
+    for _ in range(cfg.num_layers):
+        t1 = time.perf_counter()
+        layer = {name: normal(shape).cpu().numpy() for name, shape in shapes.items()}
+        layer["rms1_scale"] = layer["rms2_scale"] = np.ones(h, np.float32)
+        layers.append(gd.quantize_nemotron_layer(layer, DEV))
+        del layer
+        t_layer.append(time.perf_counter() - t1)
+    qp = {"tok_emb": normal((cfg.vocab_size, h)).to(torch.bfloat16),
+          "final_rms_scale": torch.ones(h, device=DEV), "layers": layers,
+          "shapes": {name: (shape, gd.WEIGHT_KINDS[name]) for name, shape in shapes.items()}}
+    t_quant = time.perf_counter() - t0
+    q_bytes = sum(lq[name].numel() for lq in layers for name in shapes)
+    bf16_bytes = 2 * cfg.num_layers * sum(a * b for a, b in shapes.values())
+    log(f"gguf-quantized: {cfg.num_layers} of 32 layers at full width ({h}-d, MLP {m}) made on the card and "
+        f"quantized on the host (Q4_K_M) in {t_quant:.1f} s ({np.median(t_layer):.1f} s a layer); the stack "
+        f"{q_bytes / 2**30:.3f} GiB of k-quant blocks against {bf16_bytes / 2**30:.3f} GiB of bf16 matrices")
+
+    rng = np.random.default_rng(seed + 34)
+    texts = long_texts(rng, GGUF_B, GGUF_WORDS, GGUF_WORDS)
+    ids = torch.from_numpy(HashTokenizer(cfg.vocab_size, 1024).encode_batch(texts)).to(DEV)
+    check(tuple(ids.shape) == (GGUF_B, 1024), f"gguf-quantized: token batch {tuple(ids.shape)}")
+    gd.nemotron_forward_quantized(qp, ids, cfg)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    block_attention.launches = 0
+    t0 = time.perf_counter()
+    got = gd.nemotron_forward_quantized(qp, ids, cfg)
+    torch.cuda.synchronize()
+    dt_q = time.perf_counter() - t0
+    k4 = block_attention.launches
+    peak_q = torch.cuda.max_memory_allocated()
+    check(k4 == cfg.num_layers, f"gguf-quantized: K4 launched {k4} times, expected {cfg.num_layers}")
+    tokens = int((ids != 0).sum())
+
+    t0 = time.perf_counter()
+    ref_params = gd.dequantize_nemotron_params(qp)
+    t_deq = time.perf_counter() - t0
+    del qp, layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    nemotron_forward(ref_params, ids, cfg)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    want = nemotron_forward(ref_params, ids, cfg)
+    torch.cuda.synchronize()
+    dt_b = time.perf_counter() - t0
+    peak_b = torch.cuda.max_memory_allocated()
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    check(got.shape == (GGUF_B, h) and np.isfinite(got).all(), "gguf-quantized: malformed embeddings")
+    cos = (got * want).sum(axis=1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(want, axis=1))
+    check(bool((cos > 0.999).all()), f"gguf-quantized: cosine to the dequantized bf16 forward {cos}")
+    log(f"gguf-quantized: B={GGUF_B} T=1024, {tokens} tokens: quantized forward {dt_q:.3f} s = "
+        f"{tokens / dt_q:.0f} tokens/s, peak allocated {peak_q / 2**30:.2f} GiB (weights resident before it "
+        f"{base / 2**30:.2f} GiB); bf16 forward on the host-dequantized blocks ({t_deq:.1f} s to decode) "
+        f"{dt_b:.3f} s = {tokens / dt_b:.0f} tokens/s, peak allocated {peak_b / 2**30:.2f} GiB; K4 launches "
+        f"{k4}; cosine per row min {cos.min():.6f}")
+    del ref_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return k4
+
+
+def train_texts(rng, n: int):
+    """``n`` documents of three 20-word sentences of the text law."""
+    out = []
+    for t in make_texts(rng, n, 60):
+        w = t.split()
+        out.append(". ".join(" ".join(w[i:i + 20]) for i in range(0, 60, 20)) + ".")
+    return out
+
+
+def phase_train_minilm(seed: int) -> None:
+    """train-minilm: ``fit`` on MiniLM-L6 at full width with ICT pairs, a
+    card step against the CPU step, the other objectives, a checkpoint
+    resume and remat's peak memory."""
+    import numpy as np
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from trueno_rag_tpu_torch.chunking import Chunk, chunk_id_from_int
+    from trueno_rag_tpu_torch.convert import params_to_jax
+    from trueno_rag_tpu_torch.models.encoder import EncoderConfig, HashTokenizer
+    from trueno_rag_tpu_torch.models.cross_encoder import CrossEncoderReranker
+    from trueno_rag_tpu_torch.train import checkpoint as tck, contrastive as tc, distill as td, loop as tl
+    from trueno_rag_tpu_torch.train.data import PairBatcher, ict_pairs
+
+    import random
+
+    cfg = dataclasses.replace(EncoderConfig.minilm_l6(), max_len=TRAIN_MAX_LEN)
+    rng = np.random.default_rng(seed + 37)
+    texts = train_texts(rng, TRAIN_DOCS)
+    chunks = [Chunk(document_id=f"tdoc{i}", content=t, start_offset=0, end_offset=len(t), id=chunk_id_from_int(i))
+              for i, t in enumerate(texts)]
+    tok = HashTokenizer(cfg.vocab_size, TRAIN_MAX_LEN)
+    # held-out probes: 4 words of a document among 4 random words (the
+    # self-ICT probes are substrings of their chunk: an untrained encoder
+    # already finds them all)
+    words = np.array([f"w{i:05d}" for i in range(VOCAB)])
+    rows = rng.choice(TRAIN_DOCS, size=TRAIN_EVAL_QUERIES, replace=False)
+    probes = [" ".join(rng.permutation(np.concatenate([rng.choice(texts[r].replace(".", "").split(), 4,
+                                                                  replace=False),
+                                                       words[rng.integers(0, VOCAB, 4)]])))
+              for r in rows]
+    evalset = tl.EvalSet(queries=probes, relevant=[[int(r)] for r in rows])
+    gen = torch.Generator(device=DEV).manual_seed(seed + 37)
+    state, tx = tc.create_train_state(gen, cfg, learning_rate=TRAIN_LR, device=DEV)
+    n_params = sum(t.numel() for t in tc.tree_leaves(state.params))
+
+    losses, step_s = [], []
+    real_step = tl.train_step
+
+    def timed_step(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_step(*a, **kw)
+        losses.append(float(out[1]["loss"]))  # a host read: synchronizes
+        step_s.append(time.perf_counter() - t0)
+        return out
+
+    tl.train_step = timed_step
+    try:
+        t0 = time.perf_counter()
+        result = tl.fit(state, tx, cfg, tok, chunks, steps=TRAIN_STEPS, batch_size=TRAIN_BATCH,
+                        max_len=TRAIN_MAX_LEN, eval_every=TRAIN_STEPS, k=10, seed=seed, evalset=evalset)
+        t_fit = time.perf_counter() - t0
+    finally:
+        tl.train_step = real_step
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), "train-minilm: a loss is not finite")
+    before, after = result.history[0], result.history[-1]
+    check(after["step"] == TRAIN_STEPS and result.best_step in (0, TRAIN_STEPS), "train-minilm: history")
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    log(f"train-minilm: MiniLM-L6 ({n_params} f32 master parameters), {TRAIN_STEPS} steps of {TRAIN_BATCH} ICT "
+        f"pairs at max_len {TRAIN_MAX_LEN}: fit {t_fit:.1f} s (2 evaluations included); step median "
+        f"{steady * 1e3:.1f} ms = {1 / steady:.2f} steps/s (host clock, synchronized; the first step "
+        f"{step_s[0] * 1e3:.0f} ms); loss {losses[0]:.4f} -> {losses[-1]:.4f} (every 10th: "
+        f"{[round(x, 4) for x in losses[::10]]})")
+    log(f"train-minilm: evaluate_retrieval over {TRAIN_DOCS} documents, {TRAIN_EVAL_QUERIES} held-out probes: "
+        f"before recall@10 {before['recall@10']:.4f} mrr {before['mrr']:.4f}; after recall@10 "
+        f"{after['recall@10']:.4f} mrr {after['mrr']:.4f}; best step {result.best_step}")
+    check(losses[-1] < losses[0], f"train-minilm: loss did not fall ({losses[0]:.4f} -> {losses[-1]:.4f})")
+
+    # one step at f32 on the card against the same step on the CPU
+    batcher = PairBatcher(tok, batch_size=TRAIN_BATCH, max_len=TRAIN_MAX_LEN)
+    stream = batcher.batches(ict_pairs(chunks, random.Random(seed + 1)))
+    q_ids, d_ids = next(stream)
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    s_card = result.state
+    s_cpu = tc.TrainState(tc.tree_map(lambda t: t.cpu(), s_card.params),
+                          s_card.opt_state._replace(mu=tc.tree_map(lambda t: t.cpu(), s_card.opt_state.mu),
+                                                    nu=tc.tree_map(lambda t: t.cpu(), s_card.opt_state.nu)),
+                          s_card.step)
+    a, ma = tc.train_step(s_card, q_ids, d_ids, tx, cfg32)
+    t0 = time.perf_counter()
+    b, mb = tc.train_step(s_cpu, q_ids, d_ids, tx, cfg32)
+    t_cpu = time.perf_counter() - t0
+    la, lb = float(ma["loss"]), float(mb["loss"])
+    check(abs(la - lb) <= 1e-4 * abs(lb) + 1e-6, f"train-minilm: card loss {la} vs CPU {lb}")
+    diffs = np.concatenate([(x.cpu() - y).abs().flatten().numpy()
+                            for x, y in zip(tc.tree_leaves(a.params), tc.tree_leaves(b.params))])
+    close = float((diffs <= 5e-4 * TRAIN_LR).mean())
+    check(close >= 0.99 and diffs.max() <= 2.01 * TRAIN_LR,
+          f"train-minilm: card and CPU steps differ (within 5e-4·lr: {close:.4f}, max {diffs.max():.3e})")
+    log(f"train-minilm: one f32 step on the card vs the port's CPU step ({t_cpu:.1f} s) on the same batch and "
+        f"state: loss {la:.6f} vs {lb:.6f}; {close:.4%} of parameters within 5e-4·lr, max |diff| "
+        f"{diffs.max():.3e} (<= 2·lr: Adam's step of a gradient near its rounding noise)")
+    del a, b, s_cpu
+
+    # the other objectives, a few steps each
+    sp, stx = tc.create_train_state(gen, cfg, learning_rate=TRAIN_LR, kind="splade", device=DEV)
+    side = {}
+    for name, st, stx_, fn, kw in (("splade", sp, stx, tc.splade_train_step,
+                                    {"score_norm": "cosine", "temperature": 0.05}),
+                                   ("maxsim", result.state, tx, tc.maxsim_train_step, {})):
+        out = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_SIDE_STEPS):
+            qb, db = next(stream)
+            st, mt = fn(st, qb, db, stx_, cfg, **kw)
+            out.append(float(mt["loss"]))
+        side[name] = (out, (time.perf_counter() - t0) / TRAIN_SIDE_STEPS)
+        check(all(np.isfinite(out)) and st.step == (TRAIN_SIDE_STEPS if name == "splade" else
+                                                    result.state.step + TRAIN_SIDE_STEPS), f"train-minilm {name}")
+    del sp
+    teacher = CrossEncoderReranker(config=cfg, seed=seed + 37, max_len=TRAIN_MAX_LEN, device=DEV)
+    qs = [texts[i].split(". ")[0] for i in range(16)]
+    slates = [[texts[(i + j) % TRAIN_DOCS] for j in range(4)] for i in range(16)]
+    teach = td.teacher_slate_scores(teacher, qs, slates)
+    q_ids = tok.encode_batch(qs)
+    cand = np.stack([np.pad(x, ((0, 0), (0, TRAIN_MAX_LEN - x.shape[1])))[:, :TRAIN_MAX_LEN]
+                     for x in (tok.encode_batch(s) for s in slates)])
+    st, out = result.state, []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_SIDE_STEPS):
+        st, mt = td.distill_step(st, q_ids, cand, teach, tx, cfg)
+        out.append(float(mt["loss"]))
+    side["distill"] = (out, (time.perf_counter() - t0) / TRAIN_SIDE_STEPS)
+    check(all(np.isfinite(out)), "train-minilm distill: a loss is not finite")
+    log("train-minilm other objectives (" + "; ".join(
+        f"{k}: losses {[round(x, 4) for x in v[0]]}, {v[1] * 1e3:.0f} ms a step" for k, v in side.items())
+        + f"; SPLADE and MaxSim at batch {TRAIN_BATCH}, distillation 16 queries x 4 candidates)")
+    del teacher, st
+
+    # checkpoint: saved, reloaded, both stepped once
+    tmp = tempfile.mkdtemp(prefix="smoke_train_")
+    try:
+        need_disk(tmp, 16 * n_params, "train-minilm")
+        path = os.path.join(tmp, "state")
+        tck.save_train_state(path, result.state)
+        back = tck.load_train_state(path, device=DEV)
+        qb, db = next(stream)
+        x, _ = tc.train_step(result.state, qb, db, tx, cfg)
+        y, _ = tc.train_step(back, qb, db, tx, cfg)
+        fx, fy = params_to_jax(x.params), params_to_jax(y.params)
+        same = sorted(fx) == sorted(fy) and all(np.array_equal(fx[k], fy[k]) for k in fx)
+        check(back.step == result.state.step and same, "train-minilm: the resumed step differs")
+        log(f"train-minilm: checkpoint of {os.path.getsize(os.path.join(path, tck.STATE_FILE))} bytes; the "
+            f"reloaded state's next step bit-identical to the saved state's")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # remat: peak memory of one step with and without
+    peaks, step_losses = {}, {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _, mt = tc.train_step(result.state, qb, db, tx, c)
+        step_losses[remat] = float(mt["loss"])
+        peaks[remat] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    check(step_losses[False] == step_losses[True], f"train-minilm: remat changed the loss {step_losses}")
+    log(f"train-minilm: one step of {TRAIN_BATCH} x {TRAIN_MAX_LEN}: peak allocated above the resident state "
+        f"{peaks[False]:.0f} MiB without remat, {peaks[True]:.0f} MiB with remat; losses equal")
 
 
 def phase_clustered_artifact(retr, p, embedder, runs, pipe) -> int:
@@ -4773,7 +5241,7 @@ def check_learned_exact(li, q_terms, q_weights, scores, rows, cand, label) -> in
 
 
 def phase_tri_hybrid(seed: int) -> int:
-    """tri-hybrid-262k: hybrid-1M's text law at TRI_N documents,
+    """tri-hybrid-65k: hybrid-1M's text law at TRI_N documents,
     ``MockEmbedder(384)`` and a seeded ``SpladeEncoder`` at MiniLM-L6 width
     through ``RagPipelineBuilder.with_learned_sparse`` on tier "bf16"
     (staged, K1), the learned candidates held to the float64 oracle, one
@@ -5065,60 +5533,69 @@ def main() -> int:
         return 2
     from trueno_rag_tpu_torch.ops.kernels import scan_select as ss
     t_start = time.perf_counter()
-    phase_device()
-    k1, k3 = phase_kernels(args.seed)
-    k8, k9 = phase_kernels_k8k9(args.seed)
-    k2, k2b = phase_kernels_k2(args.seed)
-    k5 = phase_kernels_k5(args.seed)
-    k10a, k10b, k10c, k1_inline = phase_kernels_k10(args.seed)
+
+    def timed(phase, *a):
+        """``phase(*a)``, then a log line with the smoke's elapsed seconds."""
+        out = phase(*a)
+        log(f"-- {phase.__name__[len('phase_'):]} done at {time.perf_counter() - t_start:.0f} s")
+        return out
+
+    timed(phase_device)
+    k1, k3 = timed(phase_kernels, args.seed)
+    k8, k9 = timed(phase_kernels_k8k9, args.seed)
+    k2, k2b = timed(phase_kernels_k2, args.seed)
+    k5 = timed(phase_kernels_k5, args.seed)
+    k10a, k10b, k10c, k1_inline = timed(phase_kernels_k10, args.seed)
     k10_kernels = (ss.scan_select_v2, ss.scan_select_v2_indirect, ss.scan_select_int8_v2)
     for kern in k10_kernels:  # no later phase reaches K10: checked still 0 at the end
         kern.launches = 0
-    k4 = phase_kernels_k4(args.seed)
-    phase_mma_probe(args.seed)
-    k6, k7 = phase_kernels_k6k7(args.seed)
-    k11a, k11b = phase_kernels_k11(args.seed)
+    k4 = timed(phase_kernels_k4, args.seed)
+    timed(phase_mma_probe, args.seed)
+    k6, k7 = timed(phase_kernels_k6k7, args.seed)
+    k11a, k11b = timed(phase_kernels_k11, args.seed)
     from trueno_rag_tpu_torch.ops.kernels import maxsim_scan as km
     k11_kernels = (km.maxsim_scan16_scores_v2, km.maxsim_scan16_scores_self_v2)
     for kern in k11_kernels:  # no later phase reaches K11: checked still 0 at the end
         kern.launches = 0
-    k1_odd, k6_odd = phase_odd_widths(args.seed)
-    phase_tier(args.seed)
-    k12a, k12b, seg_idx, seg_qs = phase_kernels_k12(args.seed)
-    k1_seg, k12a["launches"], k12b["launches"] = phase_segments_17m(seg_idx, seg_qs, args.seed)
+    k1_odd, k6_odd = timed(phase_odd_widths, args.seed)
+    timed(phase_tier, args.seed)
+    k12a, k12b, seg_idx, seg_qs = timed(phase_kernels_k12, args.seed)
+    k1_seg, k12a["launches"], k12b["launches"] = timed(phase_segments_17m, seg_idx, seg_qs, args.seed)
     del seg_idx
     gc.collect()
     torch.cuda.empty_cache()
-    pipe, k1["launches"], batches = phase_slice(args.seed)
-    k1["launches"] += phase_persist_1m(pipe, batches, args.seed)
-    phase_metrics_1m(pipe, args.seed)
-    _, k3["launches"] = phase_stores(pipe, args.seed)
-    k8["launches"], k9["launches"] = phase_block_stores(pipe, args.seed)
-    n_1, n_a, n_b = phase_segments_store(pipe, args.seed)
+    pipe, k1["launches"], batches = timed(phase_slice, args.seed)
+    k1["launches"] += timed(phase_persist_1m, pipe, batches, args.seed)
+    timed(phase_metrics_1m, pipe, args.seed)
+    _, k3["launches"] = timed(phase_stores, pipe, args.seed)
+    k8["launches"], k9["launches"] = timed(phase_block_stores, pipe, args.seed)
+    n_1, n_a, n_b = timed(phase_segments_store, pipe, args.seed)
     k1["launches"] += k1_seg + n_1
     k12a["launches"] += n_a
     k12b["launches"] += n_b
     check(k12b["launches"] > 0, "the segment path never launched fetch_contribs8")
-    k5["launches"] = phase_clustered_store(pipe, args.seed)
-    k1["launches"] += phase_serve_1m(pipe, args.seed)
+    k5["launches"] = timed(phase_clustered_store, pipe, args.seed)
+    k1["launches"] += timed(phase_serve_1m, pipe, args.seed)
     del pipe
-    phase_clustered_stream(args.seed)
-    emb, k4["launches"] = phase_nemotron_8k(args.seed)
-    k4["launches"] += phase_nemotron_rag(emb, args.seed)
+    timed(phase_clustered_stream, args.seed)
+    emb, k4["launches"] = timed(phase_nemotron_8k, args.seed)
+    k4["launches"] += timed(phase_nemotron_rag, emb, args.seed)
     del emb
     gc.collect()
     torch.cuda.empty_cache()
-    k1["launches"] += phase_encoder_262k(args.seed)
+    k4["launches"] += timed(phase_gguf_quantized, args.seed)
+    k1["launches"] += timed(phase_encoder_262k, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
-    k6["launches"], k7["launches"] = phase_late_interaction(args.seed)
+    k6["launches"], k7["launches"] = timed(phase_late_interaction, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
-    k1["launches"] += phase_tri_hybrid(args.seed)
-    k1_cli, k6_cli = phase_cli(args.seed)
+    k1["launches"] += timed(phase_tri_hybrid, args.seed)
+    k1_cli, k6_cli = timed(phase_cli, args.seed)
     k1["launches"] += k1_cli
     k6["launches"] += k6_cli
-    phase_checkpoint(args.seed)
+    timed(phase_checkpoint, args.seed)
+    timed(phase_train_minilm, args.seed)
     k1["launches"] += k1_odd + k1_inline
     k6["launches"] += k6_odd
     n10 = [kern.launches for kern in k10_kernels]

@@ -2,9 +2,9 @@
 process give JSON equal to the JAX CLI's on the same files (TF-IDF; tags
 by folder and by flag; every filter kind), each CLI queries the other's
 index, the multi-vector and semantic indexes answer as the in-memory
-retrievers do, ``info`` and ``demo`` run, the learned-sparse indexes
-build, the branch that waits for a later ROADMAP item raises
-``InvalidConfigError``, the entry points need
+retrievers do, a semantic model from a local Hugging Face directory
+answers as the JAX CLI's does, ``info`` and ``demo`` run, the
+learned-sparse indexes build, the entry points need
 ``--device cpu`` without a card; and the port (package and
 ``chip_smoke.py``) names neither JAX nor the JAX package."""
 
@@ -142,6 +142,66 @@ def test_semantic_index_answers_as_the_in_memory_pipeline(tmp_path):
         (r.chunk.content, r.dense_score, r.sparse_score, r.fused_score) for r in want]
 
 
+def test_semantic_from_a_local_hf_directory_answers_as_the_jax_cli(tmp_path):
+    """A random-weight BERT checkpoint directory (written as safetensors by
+    the port's own writer) indexed and queried through both CLIs: the same
+    chunks in the same order, BM25 scores equal, dense and fused scores
+    within the bf16 trunk's framework difference (1e-2); the port's answer
+    equals an in-process pipeline's over the same loaded encoder."""
+    from trueno_rag_tpu_torch.models.hf_import import load_hf_bert_encoder
+    from trueno_rag_tpu_torch.persist import save_params
+
+    rng = np.random.default_rng(3)
+    h, layers, vocab = 32, 2, ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + [
+        w for w in "dense retrieval ranks by vector similarity bm25 scores term frequency and idf hybrid "
+                   "search fuses both rankings chunks are embedded indexed".split()]
+    state = {"embeddings.word_embeddings.weight": rng.standard_normal((len(vocab), h)),
+             "embeddings.position_embeddings.weight": rng.standard_normal((64, h)),
+             "embeddings.token_type_embeddings.weight": rng.standard_normal((2, h)),
+             "embeddings.LayerNorm.weight": np.ones(h), "embeddings.LayerNorm.bias": np.zeros(h)}
+    for i in range(layers):
+        p = f"encoder.layer.{i}."
+        for name, shape in (("attention.self.query", (h, h)), ("attention.self.key", (h, h)),
+                            ("attention.self.value", (h, h)), ("attention.output.dense", (h, h)),
+                            ("intermediate.dense", (64, h)), ("output.dense", (h, 64))):
+            state[p + name + ".weight"] = rng.standard_normal(shape)
+            state[p + name + ".bias"] = rng.standard_normal(shape[0])
+        for ln in ("attention.output.LayerNorm", "output.LayerNorm"):
+            state[p + ln + ".weight"], state[p + ln + ".bias"] = np.ones(h), np.zeros(h)
+    model_dir = tmp_path / "bert"
+    model_dir.mkdir()
+    save_params(str(model_dir / "model.safetensors"), {k: (v * 0.1).astype(np.float32) for k, v in state.items()})
+    (model_dir / "config.json").write_text(json.dumps(dict(
+        model_type="bert", vocab_size=len(vocab), hidden_size=h, num_hidden_layers=layers, num_attention_heads=4,
+        intermediate_size=64, max_position_embeddings=64, pad_token_id=0)))
+    (model_dir / "vocab.txt").write_text("\n".join(vocab))
+    docs = tmp_path / "docs"
+    docs.mkdir()
+    texts = ["dense retrieval ranks by vector similarity", "bm25 scores term frequency and idf",
+             "hybrid search fuses both rankings", "chunks are embedded and indexed"]
+    for i, t in enumerate(texts):
+        (docs / f"d{i}.txt").write_text(t)
+    answers = {}
+    for name, mod, pre in (("port", tcli, CPU), ("jax", jcli, [])):
+        out = str(tmp_path / name)
+        assert _run(mod, pre + ["index", "--path", str(docs), "--output", out, "--embedder", "semantic",
+                                "--model", str(model_dir)])[0] == 0
+        answers[name] = json.loads(_run(mod, pre + ["query", "vector similarity", "--index", out,
+                                                    "--format", "json"])[1])
+    got, want = answers["port"], answers["jax"]
+    assert [r["content"] for r in got] == [r["content"] for r in want]
+    for g, w in zip(got, want):
+        assert g["sparse_score"] == pytest.approx(w["sparse_score"], rel=1e-4)
+        assert g["dense_score"] == pytest.approx(w["dense_score"], abs=1e-2)
+    emb = load_hf_bert_encoder(str(model_dir), device="cpu")
+    ref = (trag.RagPipelineBuilder().with_embedder(emb).with_reranker(trag.NoOpReranker())
+           .with_chunker(trag.RecursiveChunker(chunk_size=512, overlap=64)).with_device("cpu").build())
+    ref.index_documents(tcli._walk_documents(str(docs)))
+    inproc = ref.retriever.retrieve("vector similarity", 5)
+    assert [(r["content"], r["dense_score"], r["sparse_score"], r["fused_score"]) for r in got] == [
+        (r.chunk.content, r.dense_score, r.sparse_score, r.fused_score) for r in inproc]
+
+
 def test_info_demo_and_the_unported_branches(corpus, tmp_path):
     assert _run(tcli, CPU + ["info"])[0] == 0
     rc, text = _run(tcli, CPU + ["demo", "--top-k", "2"])
@@ -152,8 +212,17 @@ def test_info_demo_and_the_unported_branches(corpus, tmp_path):
         assert rc == 0 and "indexed 60 documents" in text
     with pytest.raises(SystemExit):
         _run(tcli, base + ["--multi-vector", "--learned-sparse"])
-    with pytest.raises(trag.InvalidConfigError, match="item 5"):
-        _run(tcli, base + ["--embedder", "semantic", "--model", str(tmp_path)])
+    # a local model directory is ported (test_semantic_from_a_local_hf_directory_answers_as_the_jax_cli):
+    # one without a readable or parseable config.json raises as the JAX CLI does
+    for body in (None, "{not json"):
+        model_dir = tmp_path / f"model-{body is None}"
+        model_dir.mkdir()
+        if body is not None:
+            (model_dir / "config.json").write_text(body)
+        for mod, pre in ((tcli, base), (jcli, base[2:])):
+            with pytest.raises(Exception, match="config.json" if body is None else "unparseable") as e:
+                _run(mod, pre + ["--embedder", "semantic", "--model", str(model_dir)])
+            assert type(e.value).__name__ == "SerializationError"
     with pytest.raises(SystemExit):  # serve is ported (tests/test_torch_serve.py): a missing index exits
         _run(tcli, CPU + ["serve", "--index", str(tmp_path / "nothing")])
     with pytest.raises(SystemExit):

@@ -41,3 +41,22 @@ def test_no_port_source_names_jax_or_finished_kernels():
         if banned.search(p.read_text())
     ]
     assert not offenders, offenders
+
+
+def test_training_and_model_import_leave_reference_packages_out():
+    """The training, Hugging Face import and device k-quant modules import
+    none of JAX, the JAX package, transformers, safetensors, msgpack,
+    orbax or optax (the card's machine has none of them)."""
+    code = (
+        "import sys\n"
+        "import trueno_rag_tpu_torch.train, trueno_rag_tpu_torch.train.checkpoint\n"
+        "import trueno_rag_tpu_torch.train.distill, trueno_rag_tpu_torch.models.hf_import\n"
+        "import trueno_rag_tpu_torch.models.gguf_device, trueno_rag_tpu_torch.cli\n"
+        "roots = ('jax', 'trueno_rag_tpu', 'transformers', 'safetensors', 'msgpack', 'orbax', 'optax')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in roots)\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr

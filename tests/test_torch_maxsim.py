@@ -251,9 +251,10 @@ def _port_tier(name, tok, tm, q, qm, valid, k, rescore, select="auto"):
         return s, r, torch.ones(q.shape[0], dtype=torch.bool)
     if name == "token":
         return pm.maxsim_topk_token_pruned(qt, qmt, tokt, tmt, vt, k, t_hits=512, rescore=rescore)
-    # the JAX package's blockwise tiers "scan16" and "int8" run on K6/K7 in the port
     if name in ("scan16", "fused"):
         pack = pm.prepare_maxsim_scan16(tokt, tmt)
+        if name == "scan16":  # the blockwise tier, at the JAX side's block
+            return pm.maxsim_topk_scan16(qt, qmt, tokt, tmt, *pack, vt, k, rescore, 64, select)
         return pm.maxsim_topk_scan16_fused(qt, qmt, tokt, tmt, *pack, vt, k, rescore, select)
     if name == "self16":
         b16 = tokt.to(torch.bfloat16)
@@ -262,6 +263,8 @@ def _port_tier(name, tok, tm, q, qm, valid, k, rescore, select="auto"):
     pack = pm.prepare_maxsim_int8(tokt, tmt)
     if name == "int8_store":
         return pm.maxsim_topk_int8_store(qt, qmt, pack[0], pack[1], tmt, pack[3], vt, k, rescore, select)
+    if name == "int8":
+        return pm.maxsim_topk_int8(qt, qmt, tokt, tmt, *pack, vt, k, rescore, 64, select)
     return pm.maxsim_topk_int8_fused(qt, qmt, tokt, tmt, *pack, vt, k, rescore, select)
 
 

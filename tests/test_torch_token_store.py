@@ -1,9 +1,8 @@
 """The port's token store, late-interaction retriever and reranker against
 the JAX package's on the same inputs: the store through inserts, removes,
 ``load_rows``, growth and tag filters under every scan (exact, token,
-tiered × auto/bfloat16/int8, and the JAX package's blockwise
-``scan_kernel="xla"`` tiers, which the port runs on K6/K7, on float32 and
-bfloat16 storage);
+tiered × auto/bfloat16/int8, and the blockwise ``scan_kernel="xla"``
+tiers, on float32 and bfloat16 storage);
 a JAX retriever carried across by ``convert.late_interaction_from_state``;
 the reranker on the same weights.
 
@@ -121,20 +120,24 @@ def test_store_matches_jax_through_mutations(scan, storage):
 
 @pytest.mark.parametrize("scan_dtype", ["bfloat16", "int8"])
 def test_xla_scan_kernel_runs_the_fused_tiers(scan_dtype, monkeypatch):
-    """``scan_kernel="xla"`` loads (a JAX package configuration) and scans
-    with the K6/K7 tiers, answering as ``"fused"`` does."""
+    """``scan_kernel="xla"`` scans with the blockwise tiers
+    (``maxsim_topk_scan16``/``maxsim_topk_int8``) and ``"fused"`` with the
+    K6/K7 tiers, one call each, and both answer alike (the name predates
+    the blockwise tiers, when "xla" ran the fused ones)."""
     from trueno_rag_tpu_torch.index import token_store as mod
 
-    name = "maxsim_topk_int8_fused" if scan_dtype == "int8" else "maxsim_topk_scan16_fused"
+    names = ("maxsim_topk_int8", "maxsim_topk_int8_fused") if scan_dtype == "int8" else (
+        "maxsim_topk_scan16", "maxsim_topk_scan16_fused")
     calls = []
-    fn = getattr(mod, name)
-    monkeypatch.setattr(mod, name, lambda *a, **kw: calls.append(1) or fn(*a, **kw))
+    for name in names:
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _fn=fn, _n=name, **kw: calls.append(_n) or _fn(*a, **kw))
     out = []
     for kernel in ("xla", "fused"):
         cfg = TokenStoreConfig(hidden_dim=H, max_tokens=LT, initial_capacity=16, scan="tiered", rescore=32,
                                scan_dtype=scan_dtype, scan_kernel=kernel)
         out.append(_mutate(TokenVectorStore(cfg, device="cpu"), trag).search_arrays(*_queries(), 7))
-    assert len(calls) == 2
+    assert calls == list(names)
     np.testing.assert_array_equal(out[0][1], out[1][1])
     np.testing.assert_array_equal(out[0][0], out[1][0])
 

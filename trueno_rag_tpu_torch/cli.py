@@ -21,9 +21,11 @@ CLI is queried by the other's):
   processes, ``--autotune`` calibrates the batch size).
 
 Usage: ``python -m trueno_rag_tpu_torch.cli [--device cpu] <command> ...``.
-Everything runs on the card unless ``--device`` names another device. Not
-ported yet, and raising :class:`InvalidConfigError` with its ROADMAP item:
-a ``semantic`` model from a local Hugging Face directory (item 5).
+Everything runs on the card unless ``--device`` names another device.
+``--embedder semantic --model DIR`` loads a local Hugging Face checkpoint
+(:mod:`trueno_rag_tpu_torch.models.hf_import`: ``roformer`` and
+``nomic_bert`` through the rotary loader, every other ``model_type``
+through the BERT loader).
 """
 
 from __future__ import annotations
@@ -34,7 +36,6 @@ import os
 import sys
 from typing import List, Optional
 
-from trueno_rag_tpu_torch.errors import InvalidConfigError
 
 DEMO_TEXTS = [
     (
@@ -65,10 +66,6 @@ DEMO_TEXTS = [
 ]
 
 
-def _not_ported(what: str, item: int) -> InvalidConfigError:
-    return InvalidConfigError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
-
-
 def _build_embedder(kind: str, dimension: int, model: Optional[str], seed: int = 0, device=None):
     from trueno_rag_tpu_torch.embed import TfIdfEmbedder
 
@@ -78,8 +75,24 @@ def _build_embedder(kind: str, dimension: int, model: Optional[str], seed: int =
         from trueno_rag_tpu_torch.models.encoder import EncoderConfig, EncoderEmbedder
 
         name = model or "mini-lm"
-        if os.path.isdir(name):
-            raise _not_ported("loading a semantic model from a local Hugging Face directory", 5)
+        if os.path.isdir(name):  # a local Hugging Face checkpoint directory
+            from trueno_rag_tpu_torch.errors import SerializationError
+
+            cfg_path = os.path.join(name, "config.json")
+            try:
+                with open(cfg_path) as f:
+                    model_type = json.load(f).get("model_type", "bert")
+            except OSError as e:
+                raise SerializationError(
+                    f"model directory {name!r} has no readable config.json ({e}); "
+                    "expected an HF checkpoint directory") from e
+            except json.JSONDecodeError as e:
+                raise SerializationError(f"unparseable {cfg_path!r}: {e}") from e
+            from trueno_rag_tpu_torch.models import hf_import
+
+            if model_type in ("roformer", "nomic_bert"):
+                return hf_import.load_hf_rotary_encoder(name, device=device)
+            return hf_import.load_hf_bert_encoder(name, device=device)
         configs = {
             "mini-lm": EncoderConfig.minilm_l6,
             "mini-lm-l12": EncoderConfig.minilm_l12,

@@ -4,7 +4,8 @@ a token store's state (:func:`token_store_from_state`,
 :func:`late_interaction_from_state`) and the models' parameters (:func:`encoder_params_from_jax`,
 :func:`nemotron_params_from_jax`, :func:`cross_encoder_params_from_jax`,
 :func:`splade_params_from_jax`; back with
-:func:`params_to_jax`, the layout of a checkpoint file).
+:func:`params_to_jax`, the layout of a checkpoint file) and a training
+state (:func:`train_state_from_jax`: f32 params, AdamW moments, count).
 
 The JAX package's ``HybridRetriever`` exposes everything needed:
 
@@ -199,6 +200,27 @@ def splade_params_from_jax(params: Mapping[str, Any], device) -> Dict[str, Any]:
     from trueno_rag_tpu_torch.models.encoder import LAYER_KEYS
 
     return _layered(params, LAYER_KEYS, (), device)
+
+
+def train_state_from_jax(state, device):
+    """A JAX ``TrainState`` (``train.contrastive.create_train_state``'s,
+    optax ``adamw``) → the port's
+    :class:`~trueno_rag_tpu_torch.train.contrastive.TrainState` on
+    ``device``: the f32 params, the moments ``mu``/``nu`` and the count of
+    ``scale_by_adam``'s state, and the step, all as they are (f32 leaves in
+    the port's per-layer layout), so one step of either package starts
+    from the same numbers."""
+    from trueno_rag_tpu_torch.models.encoder import LAYER_KEYS
+    from trueno_rag_tpu_torch.train.contrastive import AdamState, TrainState
+
+    adam = next(s for s in state.opt_state if hasattr(s, "mu"))
+
+    def tree(p):
+        return _layered({k: np.asarray(v) for k, v in p.items()}, LAYER_KEYS, (), device)
+
+    return TrainState(params=tree(state.params),
+                      opt_state=AdamState(count=int(adam.count), mu=tree(adam.mu), nu=tree(adam.nu)),
+                      step=int(state.step))
 
 
 def cross_encoder_params_from_jax(params: Mapping[str, Any], device) -> Dict[str, Any]:

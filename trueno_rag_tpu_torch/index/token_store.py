@@ -16,7 +16,8 @@ same contracts:
 
 On the card, ``scan="tiered"`` scans with the CUDA kernels K6 (bf16
 replica, or the bf16 primary in place) and K7 (int8 replica); on CPU
-tensors their plain versions run. Scores are the port's
+tensors their plain versions run. ``scan_kernel="xla"`` takes the
+blockwise tiers instead. Scores are the port's
 exact MaxSim (float64, rounded once; ``ops/maxsim.py``), so a certified
 query and its exact-scan fallback agree row for row.
 """
@@ -36,7 +37,9 @@ from trueno_rag_tpu_torch.index.base import ChunkRegistry
 from trueno_rag_tpu_torch.ops.maxsim import (
     max_token_norm,
     maxsim_scan_topk,
+    maxsim_topk_int8,
     maxsim_topk_int8_fused,
+    maxsim_topk_scan16,
     maxsim_topk_scan16_fused,
     maxsim_topk_token_pruned,
     prepare_maxsim_int8,
@@ -56,10 +59,10 @@ class TokenStoreConfig:
     certified token-pruned tier) or ``"tiered"`` (the certified bf16/int8
     scan replica, rescored from primary storage). ``scan_dtype`` picks the
     tiered replica; ``"auto"`` resolves to int8 when the primary storage is
-    already bf16 and to bf16 otherwise. The tiers scan with K6/K7
-    (``ops/kernels/maxsim_scan.py``) whatever ``scan_kernel`` says: it
-    accepts the JAX package's ``"xla"`` so that its configurations load,
-    but the blockwise scan behind that name is not ported."""
+    already bf16 and to bf16 otherwise. ``scan_kernel="fused"`` scans
+    with K6/K7 (``ops/kernels/maxsim_scan.py``); ``"xla"`` runs the
+    blockwise tiers (``maxsim_topk_scan16``/``maxsim_topk_int8``,
+    ``scan_block`` chunks at a time), as in the JAX package."""
 
     hidden_dim: int = 384
     max_tokens: int = 32
@@ -298,14 +301,17 @@ class TokenVectorStore:
             s, r = self._patch_uncertified(s, r, cert, qd, qmd, tokens, t_mask, valid, k)
         elif cfg.scan == "tiered":
             tier = self._device_tier()
+            blockwise = {} if cfg.scan_kernel == "fused" else {"block": cfg.scan_block}
             if tier[0] == "int8":
                 _, tok8, s_tok, e_max, n_max = tier
-                s, r, cert = maxsim_topk_int8_fused(qd, qmd, tokens, t_mask, tok8, s_tok, e_max, n_max, valid, k,
-                                                    rescore=rescore)
+                scan = maxsim_topk_int8 if blockwise else maxsim_topk_int8_fused
+                s, r, cert = scan(qd, qmd, tokens, t_mask, tok8, s_tok, e_max, n_max, valid, k,
+                                  rescore=rescore, **blockwise)
             else:
                 _, tok16, e_max, n_max = tier
-                s, r, cert = maxsim_topk_scan16_fused(qd, qmd, tokens, t_mask, tok16, e_max, n_max, valid, k,
-                                                      rescore=rescore)
+                scan = maxsim_topk_scan16 if blockwise else maxsim_topk_scan16_fused
+                s, r, cert = scan(qd, qmd, tokens, t_mask, tok16, e_max, n_max, valid, k,
+                                  rescore=rescore, **blockwise)
             s, r = self._patch_uncertified(s, r, cert, qd, qmd, tokens, t_mask, valid, k)
         else:
             s, r = maxsim_scan_topk(qd, qmd, tokens, t_mask, valid, k, cfg.scan_block, self._d_norm)

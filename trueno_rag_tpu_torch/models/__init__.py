@@ -14,13 +14,16 @@ reranking, the counterparts of the JAX package's ``models``:
 - :mod:`~trueno_rag_tpu_torch.models.splade` — the SPLADE-class
   learned-sparse expansion encoder and its retriever;
 - :mod:`~trueno_rag_tpu_torch.models.gguf` — GGUF model files;
+- :mod:`~trueno_rag_tpu_torch.models.gguf_device` — k-quant blocks kept
+  on the card and dequantized layer by layer inside the Nemotron forward;
+- :mod:`~trueno_rag_tpu_torch.models.hf_import` — local Hugging Face
+  BERT/RoFormer/nomic-bert checkpoints and BERT cross-encoders;
 - :mod:`~trueno_rag_tpu_torch.models.tokenization` — WordPiece.
 
 Weights: no network here, so constructors draw seeded random weights
 from a ``torch.Generator`` on the model's device, or take a parameter
 dict (``convert.py`` carries the JAX package's across; ``from_gguf``
-reads a model file). Not ported yet (ROADMAP Queue 1): the Hugging Face
-importers and device-side GGUF dequantization.
+reads a model file; ``hf_import`` reads a checkpoint directory).
 """
 
 from trueno_rag_tpu_torch.models.encoder import (
@@ -57,6 +60,11 @@ from trueno_rag_tpu_torch.models.splade import (
     splade_activations,
 )
 from trueno_rag_tpu_torch.models.gguf import load_nemotron_gguf, read_gguf, write_gguf
+from trueno_rag_tpu_torch.models.hf_import import (
+    load_hf_bert_encoder,
+    load_hf_cross_encoder,
+    load_hf_rotary_encoder,
+)
 from trueno_rag_tpu_torch.models.tokenization import WordPieceTokenizer
 
 __all__ = [
@@ -86,5 +94,8 @@ __all__ = [
     "load_nemotron_gguf",
     "read_gguf",
     "write_gguf",
+    "load_hf_bert_encoder",
+    "load_hf_cross_encoder",
+    "load_hf_rotary_encoder",
     "WordPieceTokenizer",
 ]

@@ -14,7 +14,13 @@ poolings and the hashed word tokenizer, with the JAX package's numbers:
   gathered rows in f32 and casts the sum to bf16, which bf16 tables would
   round differently;
 - the layer loop is a Python loop over per-layer weights (the JAX
-  package's ``lax.scan`` over layer-stacked arrays).
+  package's ``lax.scan`` over layer-stacked arrays);
+- :func:`encoder_trunk`, :func:`encoder_pooled` and
+  :func:`token_states` are differentiable: training (``train/``) runs
+  them on f32 master weights, which :func:`_linear` casts to the compute
+  dtype at each use as the JAX trunk does; the inference entry points
+  wrap them in ``no_grad``. ``EncoderConfig.remat`` recomputes each
+  block in the backward pass (``torch.utils.checkpoint``).
 
 Bidirectional attention here is materialized, as in the JAX package (no
 Pallas kernel there): the encoders run at most ``max_len`` tokens.
@@ -30,6 +36,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from trueno_rag_tpu_torch.device import resolve_device
 from trueno_rag_tpu_torch.embed import Embedder, EmbeddingConfig, PoolingStrategy
@@ -72,6 +79,9 @@ class EncoderConfig:
     rope_interleaved: bool = False
     # "gelu" (exact erf GELU) or "swiglu" (mlp_w1 packs [gate|up])
     mlp: str = "gelu"
+    # recompute each block in the backward pass instead of keeping its
+    # activations (the JAX package's jax.checkpoint); no effect without grad
+    remat: bool = False
 
     def __post_init__(self) -> None:
         if self.hidden_dim % self.num_heads != 0:
@@ -120,15 +130,16 @@ def _normal(shape, generator, device, dtype=torch.float32) -> torch.Tensor:
 
 
 def init_encoder_params(config: EncoderConfig, generator: torch.Generator,
-                        device=None) -> Dict[str, Any]:
+                        device=None, matrix_dtype=torch.bfloat16) -> Dict[str, Any]:
     """Seeded random parameters on ``device`` (default: the generator's):
     ``{"tok_emb", "pos_emb" (learned only), "emb_ln_scale", "emb_ln_bias",
-    "layers": [per-layer dict]}``. Matrices bf16; tables, norms and biases
-    f32."""
+    "layers": [per-layer dict]}``. Matrices in ``matrix_dtype`` (bf16; f32
+    for training's master weights, the same draws); tables, norms and
+    biases f32."""
     device = torch.device(device) if device is not None else generator.device
     h, m = config.hidden_dim, config.mlp_dim
     m1 = 2 * m if config.mlp == "swiglu" else m
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32, mat = torch.float32, matrix_dtype
 
     def zeros(n):
         return torch.zeros(n, dtype=f32, device=device)
@@ -145,11 +156,11 @@ def init_encoder_params(config: EncoderConfig, generator: torch.Generator,
         params["pos_emb"] = _normal((config.max_len, h), generator, device)
     params["layers"] = [
         {
-            "qkv_w": _normal((h, 3 * h), generator, device, bf16), "qkv_b": zeros(3 * h),
-            "attn_out_w": _normal((h, h), generator, device, bf16), "attn_out_b": zeros(h),
+            "qkv_w": _normal((h, 3 * h), generator, device, mat), "qkv_b": zeros(3 * h),
+            "attn_out_w": _normal((h, h), generator, device, mat), "attn_out_b": zeros(h),
             "ln1_scale": ones(h), "ln1_bias": zeros(h),
-            "mlp_w1": _normal((h, m1), generator, device, bf16), "mlp_b1": zeros(m1),
-            "mlp_w2": _normal((m, h), generator, device, bf16), "mlp_b2": zeros(h),
+            "mlp_w1": _normal((h, m1), generator, device, mat), "mlp_b1": zeros(m1),
+            "mlp_w2": _normal((m, h), generator, device, mat), "mlp_b2": zeros(h),
             "ln2_scale": ones(h), "ln2_bias": zeros(h),
         }
         for _ in range(config.num_layers)
@@ -252,32 +263,47 @@ def encoder_trunk(params: Dict[str, Any], token_ids: torch.Tensor, config: Encod
     ``config.position`` for the embedding only (the cross-encoder always
     adds its learned table)."""
     mask = token_ids != PAD_ID
-    x = params["tok_emb"][token_ids]
+    x = F.embedding(token_ids, params["tok_emb"])  # a gather whose backward is deterministic on CUDA
     if (position or config.position) == "learned":
         x = x + params["pos_emb"][: token_ids.shape[1]][None, :, :]
     x = _layer_norm(x.to(config.compute_dtype), params["emb_ln_scale"], params["emb_ln_bias"])
+    remat = config.remat and torch.is_grad_enabled()
     for lp in params["layers"]:
-        x = _block(x, mask, lp, config)
+        if remat:
+            x = checkpoint(_block, x, mask, lp, config, use_reentrant=False)
+        else:
+            x = _block(x, mask, lp, config)
     return x, mask
 
 
-@torch.no_grad()
-def encoder_token_states(params: Dict[str, Any], token_ids: torch.Tensor, config: EncoderConfig):
-    """Per-token final states ``([B, T, H] f32, mask [B, T])``."""
+def token_states(params: Dict[str, Any], token_ids: torch.Tensor, config: EncoderConfig):
+    """Per-token final states ``([B, T, H] f32, mask [B, T])``, differentiable."""
     x, mask = encoder_trunk(params, token_ids, config)
     return x.float(), mask
 
 
-@torch.no_grad()
-def encoder_forward(params: Dict[str, Any], token_ids: torch.Tensor, config: EncoderConfig) -> torch.Tensor:
+def encoder_pooled(params: Dict[str, Any], token_ids: torch.Tensor, config: EncoderConfig) -> torch.Tensor:
     """ids ``[B, T]`` → pooled (optionally L2-normalized) ``[B, hidden_dim]``
-    f32 embeddings."""
+    f32 embeddings, differentiable."""
     x, mask = encoder_trunk(params, token_ids, config)
     pooled = _pool(x, mask, config.pooling)
     if config.normalize:
         n = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
         pooled = pooled / torch.where(n == 0.0, torch.ones_like(n), n)
     return pooled
+
+
+@torch.no_grad()
+def encoder_token_states(params: Dict[str, Any], token_ids: torch.Tensor, config: EncoderConfig):
+    """Per-token final states ``([B, T, H] f32, mask [B, T])``."""
+    return token_states(params, token_ids, config)
+
+
+@torch.no_grad()
+def encoder_forward(params: Dict[str, Any], token_ids: torch.Tensor, config: EncoderConfig) -> torch.Tensor:
+    """ids ``[B, T]`` → pooled (optionally L2-normalized) ``[B, hidden_dim]``
+    f32 embeddings."""
+    return encoder_pooled(params, token_ids, config)
 
 
 # ---------------------------------------------------------------------------

@@ -159,9 +159,16 @@ def nemotron_forward(params: Dict[str, Any], token_ids: torch.Tensor, config: Ne
     x = params["tok_emb"][token_ids].to(config.compute_dtype)
     for lp in params["layers"]:
         x = _decoder_block(x, mask, lp, config)
+    return pool_last_token(x, mask, params["final_rms_scale"], config)
+
+
+def pool_last_token(x: torch.Tensor, mask: torch.Tensor, final_rms_scale: torch.Tensor,
+                    config: NemotronConfig) -> torch.Tensor:
+    """Final hidden states ``[B, T, H]`` → the last valid token's state,
+    RMSNorm, optional L2 → ``[B, H]`` f32."""
     last = torch.clamp(mask.sum(dim=1) - 1, min=0)
     pooled = x[torch.arange(x.shape[0], device=x.device), last]
-    pooled = _rms_norm(pooled, params["final_rms_scale"]).float()
+    pooled = _rms_norm(pooled, final_rms_scale).float()
     if config.normalize:
         n = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
         pooled = pooled / torch.where(n == 0.0, torch.ones_like(n), n)

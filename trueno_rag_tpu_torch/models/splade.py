@@ -22,7 +22,7 @@ expands each text into a sparse vector over the vocabulary,
 Seeded weights come from a ``torch.Generator`` on the model's device;
 ``convert.splade_params_from_jax`` carries the JAX package's across (in
 f32, so :meth:`SpladeEncoder.params_fingerprint` gives the JAX digest).
-The SPLADE training loss (``train/contrastive``) is not ported yet.
+The SPLADE training losses are in ``train/`` (:func:`splade_head_grad`).
 """
 
 from __future__ import annotations
@@ -52,14 +52,15 @@ from trueno_rag_tpu_torch.retrieve import RetrievalResult, resolve_tag_filters
 _EXPAND_BYTES = 1 << 31  # f32 vocabulary logits one expansion forward may hold
 
 
-def init_splade_params(config: EncoderConfig, generator: torch.Generator, device=None) -> Dict[str, Any]:
-    """Trunk parameters (:func:`init_encoder_params`) + the MLM-style
-    expansion head: a dense ``[H, H]`` transform (N(0, 0.02²)), its layer
-    norm and a per-vocabulary bias, all f32. The vocabulary projection is
-    tied to ``tok_emb``."""
+def init_splade_params(config: EncoderConfig, generator: torch.Generator, device=None,
+                       matrix_dtype=torch.bfloat16) -> Dict[str, Any]:
+    """Trunk parameters (:func:`init_encoder_params`, its matrices in
+    ``matrix_dtype``) + the MLM-style expansion head: a dense ``[H, H]``
+    transform (N(0, 0.02²)), its layer norm and a per-vocabulary bias, all
+    f32. The vocabulary projection is tied to ``tok_emb``."""
     device = torch.device(device) if device is not None else generator.device
     h = config.hidden_dim
-    params = init_encoder_params(config, generator, device)
+    params = init_encoder_params(config, generator, device, matrix_dtype)
     params.update({
         "splade_tr_w": _normal((h, h), generator, device),
         "splade_tr_b": torch.zeros(h, device=device),
@@ -70,23 +71,34 @@ def init_splade_params(config: EncoderConfig, generator: torch.Generator, device
     return params
 
 
-@torch.no_grad()
-def splade_head(params: Dict[str, Any], states: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def splade_head_grad(params: Dict[str, Any], states: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Token states ``[B, T, H]`` + mask ``[B, T]`` → sparse vocabulary
     activations ``[B, V]`` f32: transform (+exact GELU) + LN, tied
     projection to vocabulary logits, ``max_t log1p(relu(z))`` over valid
-    tokens, reserved ids zeroed. All f32, TF32 off."""
+    tokens, reserved ids zeroed. All f32, TF32 off. Differentiable (the
+    SPLADE training losses); without grad the ``[B, T, V]`` logits are
+    transformed in place."""
     require_fp32()
     x = states.float()
     x = F.gelu(x @ params["splade_tr_w"].float() + params["splade_tr_b"].float(), approximate="none")
     x = _layer_norm(x, params["splade_ln_scale"], params["splade_ln_bias"])
     logits = torch.matmul(x, params["tok_emb"].float().t())  # [B, T, V]
-    logits += params["splade_vocab_bias"].float()
-    act = torch.log1p_(torch.relu_(logits))
-    act.masked_fill_(~mask[:, :, None], 0.0)
+    if torch.is_grad_enabled():
+        act = torch.log1p(torch.relu(logits + params["splade_vocab_bias"].float()))
+        act = act.masked_fill(~mask[:, :, None], 0.0)
+    else:
+        logits += params["splade_vocab_bias"].float()
+        act = torch.log1p_(torch.relu_(logits))
+        act.masked_fill_(~mask[:, :, None], 0.0)
     out = act.amax(dim=1)  # SPLADE-max pooling (activations >= 0)
-    out[:, :_RESERVED] = 0.0
-    return out
+    keep = torch.arange(out.shape[1], device=out.device) >= _RESERVED
+    return torch.where(keep, out, 0.0)
+
+
+@torch.no_grad()
+def splade_head(params: Dict[str, Any], states: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """:func:`splade_head_grad` without grad: the inference activations."""
+    return splade_head_grad(params, states, mask)
 
 
 @torch.no_grad()

@@ -16,3 +16,7 @@ Conventions: candidate lists are fixed-width tensors ``(rows, scores)``
 where ``rows`` is int32 (``-1`` = invalid slot) and invalid slots carry
 ``-inf`` scores; ties sort deterministically (score desc, then row asc).
 """
+
+from trueno_rag_tpu_torch.ops.dense import dense_topk, similarity_scores
+
+__all__ = ["dense_topk", "similarity_scores"]

@@ -23,6 +23,13 @@ a stable sort; never ``torch.topk``).
   k-th exact score strictly beats the (R+1)-th bound. They scan with the
   CUDA kernels K6 ``maxsim_scan16_scores`` and K7
   ``maxsim_scan_int8_scores`` (``ops/kernels/maxsim_scan.py``).
+- :func:`maxsim_topk_scan16` / :func:`maxsim_topk_int8` — the same
+  certificates over a blockwise scan of the replica (``block`` chunks at a
+  time, the JAX package's "xla" tiers): the bf16 replica against the f32
+  query (bound ``Σᵢ‖qᵢ‖·(e_max + κ·n_max)``), the int8 replica against the
+  int8 query through an exact integer dot. Their products are
+  ``torch.matmul`` in f32 (f64 where an int8 dot could pass 2²⁴), as the
+  JAX package computes them outside any Pallas kernel.
 - :func:`maxsim_topk_token_pruned` — the token-level certificate: exact
   top-``t_hits`` token matches per query token give candidates and a
   sound threshold.
@@ -49,8 +56,7 @@ tightens them.
 an exact selector in its place (``dense_tiered._topk_select``): its recall
 is 1.0, an outcome ``approx_max_k`` may give, and the count-trick threshold
 and the short-allowed-set rule follow the JAX code. ``auto`` stays
-``exact``. Left out (ROADMAP Queue 1): the JAX package's blockwise "xla"
-tiers (the token store runs K6/K7 for them).
+``exact``.
 """
 
 from __future__ import annotations
@@ -557,6 +563,68 @@ def maxsim_topk_int8_store(q_tok, q_mask, tok8, s_tok, t_mask, n_max, valid, k: 
     u = maxsim_scan_int8_scores(q8, t_q, tok8, s_tok, t_mask, valid)
     u += ((vsum + _tier_rounding_coeff(lq, h) * qsum_w)[:, None] * n_max[None, :]) * _BOUND_SLACK + _BOUND_EPS
     return _select_rescore_certify(qv, q_mask, (tok8, s_tok), t_mask, u, k, min(rescore, n), select)
+
+
+def maxsim_topk_scan16(q_tok, q_mask, tokens, t_mask, tok16, e_max, n_max, valid, k: int,
+                       rescore: int = 1024, block: int = 1024, select: str = "auto"):
+    """Certified bf16-scan MaxSim top-k over a blockwise scan →
+    ``(scores [B,k], rows [B,k], certified [B] bool)``. Each block of
+    ``block`` chunks of the replica ``tok16`` is scored against the f32
+    query (:func:`maxsim_block_scores`) and bounded by ``U = s16 +
+    Σᵢ‖qᵢ‖·(e_max + κ·n_max)`` (κ :func:`_tier_rounding_coeff`); the
+    ``rescore`` best-bounded chunks are rescored exactly from ``tokens``.
+    ``tok16 is tokens`` (a bf16 primary with
+    :func:`prepare_maxsim_self16`'s pack) scans the primary in place."""
+    _check_rescore(rescore, k)
+    b, lq, h = q_tok.shape
+    n = t_mask.shape[0]
+    qv, qn_w = _widened_query_norms(q_tok, q_mask)
+    qsum_w = torch.where(q_mask, qn_w, 0.0).sum(dim=1)  # [B]
+    k_round = _tier_rounding_coeff(lq, h)
+    u = torch.empty((b, n), dtype=torch.float32, device=t_mask.device)
+    for lo in range(0, n, block):
+        hi = min(lo + block, n)
+        s16 = maxsim_block_scores(qv, q_mask, tok16[lo:hi], t_mask[lo:hi])
+        w = (qsum_w[:, None] * (e_max[None, lo:hi] + k_round * n_max[None, lo:hi])) * _BOUND_SLACK + _BOUND_EPS
+        u[:, lo:hi] = torch.where(valid[None, lo:hi], s16 + w, NEG_INF)
+    return _select_rescore_certify(qv, q_mask, tokens, t_mask, u, k, min(rescore, n), select)
+
+
+def _int_dot_dtype(h: int) -> torch.dtype:
+    """A float type in which an int8 dot of ``h`` terms is exact in any
+    summation order: every partial sum is an integer within 127²·h."""
+    return torch.float32 if 127 * 127 * h < 2**24 else torch.float64
+
+
+def maxsim_topk_int8(q_tok, q_mask, tokens, t_mask, tok8, s_tok, e_max, n_max, valid, k: int,
+                     rescore: int = 1024, block: int = 512, select: str = "auto"):
+    """Certified int8-scan MaxSim top-k over a blockwise scan →
+    ``(scores [B,k], rows [B,k], certified [B] bool)``. The integer dot
+    ``q8·d8`` is exact (an integer-valued float product, TF32 off), then
+    scaled ``f32(dot)·t_q·s_tok``; the bound carries the token residual
+    (``e_max·Σu_q``), the query residual (``n_max·Σv_q``) and both
+    programs' f32 rounding (:func:`_int8_widths`)."""
+    _check_rescore(rescore, k)
+    require_fp32()
+    b, lq, h = q_tok.shape
+    n, lt = t_mask.shape
+    qv, q8, t_q, usum, vsum, qsum_w = _int8_query_pack(q_tok, q_mask)
+    dot_t = _int_dot_dtype(h)
+    q8t = q8.reshape(b * lq, h).to(dot_t).T
+    tq = t_q.reshape(b * lq)
+    u = torch.empty((b, n), dtype=torch.float32, device=t_mask.device)
+    for lo in range(0, n, block):
+        hi = min(lo + block, n)
+        c = hi - lo
+        dots = tok8[lo:hi].reshape(c * lt, h).to(dot_t) @ q8t  # [C·Lt, B·Lq], exact integers
+        sim = (dots.float() * tq[None, :] * s_tok[lo:hi].reshape(c * lt)[:, None]).view(c, lt, b, lq)
+        sim.masked_fill_(~t_mask[lo:hi, :, None, None], NEG_INF)
+        best = sim.amax(dim=1)  # [C, B, Lq]
+        best = torch.where(q_mask[None] & torch.isfinite(best), best, 0.0)
+        s8 = best.sum(dim=2).T  # [B, C]
+        w = _int8_widths(usum, vsum, qsum_w, e_max[lo:hi], n_max[lo:hi], lq, h)
+        u[:, lo:hi] = torch.where(valid[None, lo:hi], s8 + w, NEG_INF)
+    return _select_rescore_certify(qv, q_mask, tokens, t_mask, u, k, min(rescore, n), select)
 
 
 # ---------------------------------------------------------------------------
