@@ -312,6 +312,24 @@ Run from the repository root. Phases, each fatal on failure:
    objectives; a checkpoint saved, reloaded and stepped identically to the
    state it was saved from; peak memory of a step with and without
    ``remat`` (losses equal).
+38. sharded-1M (after phase 31, on phase 5's pipeline): ``ShardedHybridIndex``
+   over a 4-shard mesh on the one card (``create_mesh(devices=[cuda] * 4)``),
+   BM25 sharded by document, RRF(60) over 50 candidates per source, in
+   dense modes fp32, compact (K1 once per shard per batch) and clustered
+   (per-shard host k-means; K5 once per shard per batch): 2 batches of 256
+   and one filtered ``all=["t1"]`` through ``search_arrays(k=5)``; the fp32
+   lists equal to the exact fp32 path's rows and scores, the compact and
+   clustered sets to the float64 exact sets (certified fractions logged),
+   BM25 to the single host up to near-ties of the tail's rounding (each
+   shard's list bit for bit the single-card tail on its own table), the
+   fused lists to the host oracle; build s, ms per batch and peak memory
+   per mode, the merge's share of the dense stage; then a one-device
+   ``create_mesh()`` on fp32 identical to ``retrieve_batch``;
+39. sharded-tokens (inside phase 15, on its zero-copy bf16 store):
+   ``ShardedTokenIndex.from_token_store(scan="tiered")`` on the same 4-shard
+   mesh, 2 batches of 8 at k = 10: K6 once per shard per batch, at least
+   75% certified, every answer the float64 exact top-10 of the stored
+   values and the single-card store's rows.
 
 The last two lines of standard output are JSON: the per-kernel record, then
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
@@ -446,6 +464,9 @@ TRI_QUERY_TOP = 32
 SERVE_REQUESTS = 1024  # serve-1M: single-query POSTs per server
 SERVE_CLIENTS = 32
 SERVE_BATCH_SIZES = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+SHARDS = 4  # sharded-1M and sharded-tokens: a 4-shard mesh over the one card
+SHARD_BATCHES = 2  # sharded-1M: batches of 256 per dense mode, plus one tag-filtered batch
+SHARD_TOKEN_BATCHES = 2  # sharded-tokens: batches of 8
 BM25_ULPS = 16  # BM25 scores of two panel shapes: within 16 ulps of the panel's mass (bm25_near_ties)
 
 # H100 SXM peaks (NVIDIA data sheet) for the kernels' bounds
@@ -3482,6 +3503,8 @@ def phase_late_interaction(seed: int):
             f"{'' if kw.get('storage_dtype') == 'bfloat16' else ' and to the tiered store row for row'}")
         if kw["scan"] == "exact":
             li_exact_split(sib, qb[0], f"late-interaction {name}")
+        if "zero-copy" in name:
+            k6_total += phase_sharded_tokens(sib, qb[:SHARD_TOKEN_BATCHES], rows[:SHARD_TOKEN_BATCHES])
         del sib
         gc.collect()
         torch.cuda.empty_cache()
@@ -5521,6 +5544,228 @@ def phase_serve_1m(pipe, seed: int) -> int:
     return launches
 
 
+# -- slice 17: the sharded serving path ------------------------------------------
+
+
+def shard_mesh():
+    """The smoke's mesh: SHARDS shards over the one card."""
+    import torch
+
+    from trueno_rag_tpu_torch.parallel import create_mesh
+
+    return create_mesh(devices=[torch.device(DEV)] * SHARDS)
+
+
+def block_mass(idx, qs):
+    """Each query's BM25 panel mass on the block table (the sum of the
+    contributions its slots gather), the scale of the tail's rounding."""
+    import torch
+
+    bids, lo, hi = idx.gather_block_tensors(qs)
+    blocks = idx._snap["blocks"]
+    lane = torch.arange(blocks.shape[-1], device=blocks.device)
+    g = blocks[bids.long()][:, :, 1, :]
+    mask = (lane >= lo[:, :, None]) & (lane < hi[:, :, None])
+    return torch.where(mask, g, 0.0).double().sum(dim=(1, 2)).cpu().numpy()
+
+
+def phase_sharded_tokens(li, batches, rows_single) -> int:
+    """sharded-tokens (inside late-interaction-262k): the zero-copy bf16
+    store's rows behind ``ShardedTokenIndex.from_token_store(scan="tiered")``
+    on a SHARDS-shard mesh over the card (each shard's bf16 primary is its
+    scan replica): ``batches`` of 8 at k = LI_K, K6 once per shard per
+    batch, at least MIN_CERTIFIED of the queries certified, every answer
+    the float64 exact top-k of the stored values and the single-card
+    store's rows (``rows_single``) → K6 launches."""
+    import numpy as np
+    import torch
+
+    from trueno_rag_tpu_torch.ops.kernels.maxsim_scan import maxsim_scan16_scores
+    from trueno_rag_tpu_torch.parallel import ShardedTokenIndex
+
+    store = li.store
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = ShardedTokenIndex.from_token_store(store, shard_mesh(), scan="tiered")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    check(idx._tier[0] is idx.tokens and idx.tokens.dtype == torch.bfloat16,
+          "sharded-tokens: the shards' scan replica is not their bf16 primary")
+    tokens, t_mask, valid = store._device()
+    lat, launches = [], 0
+    for i, qs in enumerate(batches):
+        q, qm = li._encode(qs)
+        maxsim_scan16_scores.launches = 0
+        t0 = time.perf_counter()
+        s, r = idx.search(q, qm, LI_K)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        check(maxsim_scan16_scores.launches == SHARDS,
+              f"sharded-tokens batch {i}: K6 launched {maxsim_scan16_scores.launches} times, expected {SHARDS}")
+        launches += maxsim_scan16_scores.launches
+        qd, qmd = li_unit_queries(li, qs)
+        check(np.array_equal(r, exact_rows64(qd, qmd, tokens, t_mask, valid, LI_K)),
+              f"sharded-tokens batch {i}: an answer differs from the float64 exact top-{LI_K}")
+        check(np.array_equal(r, rows_single[i]), f"sharded-tokens batch {i}: rows differ from the single-card store's")
+    n_q = sum(len(qs) for qs in batches)
+    check(n_q - idx.uncertified >= MIN_CERTIFIED * n_q,
+          f"sharded-tokens: certified {n_q - idx.uncertified}/{n_q}, below {MIN_CERTIFIED}")
+    log(f"sharded-tokens ({SHARDS} shards of {' x '.join(map(str, idx.tokens.shards[0].shape))} bf16, zero-copy): "
+        f"build {t_build:.1f} s; batches of {LI_BATCH} {', '.join(f'{t:.1f}' for t in lat)} ms (host clock); "
+        f"certified {n_q - idx.uncertified}/{n_q}; K6 launches {launches}; every answer equal to the float64 exact "
+        f"top-{LI_K} and to the single-card store's rows")
+    del idx
+    return launches
+
+
+def phase_sharded_1m(pipe, seed: int):
+    """sharded-1M: hybrid-1M's retriever behind ``ShardedHybridIndex`` on a
+    SHARDS-shard mesh over the card, in dense modes fp32, compact (K1 once
+    per shard per batch) and clustered (K5 once per shard per batch, K1
+    under fetch "gather"), BM25 sharded by document, RRF(60) over 50
+    candidates per source: SHARD_BATCHES batches of 256 and one batch
+    filtered ``all=["t1"]`` through ``search_arrays(k=5)`` per mode, each
+    held to the single card (dense: the exact fp32 rows and scores, or the
+    float64 exact sets; BM25: the single-host rows and scores up to
+    near-ties of the tail's rounding, each shard's list bit for bit the
+    single-card tail on its own table; fusion: the host oracle); then a
+    one-device ``create_mesh()`` on fp32 equal to ``retrieve_batch`` →
+    (K1 launches, K5 launches) of the ``search_arrays`` calls."""
+    import numpy as np
+    import torch
+
+    import trueno_rag_tpu_torch as rag
+    from trueno_rag_tpu_torch.ops.bm25 import bm25_topk_blocks
+    from trueno_rag_tpu_torch.ops.clustered import resolve_cluster_fetch
+    from trueno_rag_tpu_torch.ops.fusion import fuse_topk
+    from trueno_rag_tpu_torch.ops.kernels.scan_select import scan_select_v3, scan_select_v3_indirect
+    from trueno_rag_tpu_torch.ops.tags import dense_topk_tagged
+    from trueno_rag_tpu_torch.parallel import ShardedHybridIndex, create_mesh
+    from trueno_rag_tpu_torch.parallel.sharded import merge_local_topk
+    from trueno_rag_tpu_torch.retrieve import resolve_tag_filters
+
+    retr = pipe.retriever
+    store, reg, bm25 = retr.vector_store, retr.registry, retr.sparse_index
+    cand, strategy = retr.config.candidates_per_source, retr.config.fusion
+    rng = np.random.default_rng(seed + 19)
+    tag_f = rag.TagFilter(all=("t1",))
+    runs = [(qs, None) for qs in query_batches(rng, SHARD_BATCHES)] + [(query_batches(rng, 1)[0], tag_f)]
+    mesh = shard_mesh()
+
+    # the single card's answers: exact fp32 dense lists (float64 re-rank) and BM25
+    refs = []
+    for qs, f in runs:
+        qv = torch.from_numpy(np.asarray(retr.embedder.embed_queries(qs), dtype=np.float32)).to(DEV)
+        if f is None:
+            d_s, d_r = exact_topk_chunked(qv, store.device_matrix, store.device_valid, cand)
+            masks = None
+        else:
+            masks = resolve_tag_filters(reg, f, len(qs))
+            d_s, d_r = dense_topk_tagged(qv, store.device_matrix, store.device_valid, store._device_tag_bits(),
+                                         *(torch.from_numpy(m).to(DEV) for m in masks), cand, "cosine")
+        b_s, b_r = bm25.search_arrays(qs, cand)
+        refs.append((d_s, d_r, b_s.cpu().numpy(), b_r.cpu().numpy(), block_mass(bm25, qs), masks))
+    k1_total = k5_total = 0
+    cl_kernel = "K5" if resolve_cluster_fetch(store.config.cluster_fetch, DEV) == "dma" else "K1"
+    for mode in ("fp32", "compact", "clustered"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        idx = ShardedHybridIndex(retr, mesh, candidates_per_source=cand, dense_mode=mode, sparse_mode="sharded")
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        rec = {}
+        for name, obj, attr in (("dense", idx.dense, "search"), ("sparse", idx.sparse, "search_arrays")):
+            real = getattr(obj, attr)
+            setattr(obj, attr, lambda *a, _real=real, _name=name, **kw: rec.setdefault(_name, _real(*a, **kw)))
+        uncert0 = getattr(idx.dense, "uncertified", 0)
+        lat, near, bits_equal, n1, n5 = [], 0, 0, [], []
+        for i, (qs, f) in enumerate(runs):
+            rec.clear()
+            scan_select_v3.launches = scan_select_v3_indirect.launches = 0
+            t0 = time.perf_counter()
+            f_r, f_s = idx.search_arrays(qs, K, tag_filter=f)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            n1.append(scan_select_v3.launches)
+            n5.append(scan_select_v3_indirect.launches)
+            d_s, d_r = rec["dense"][:2]
+            s_s, s_r = rec["sparse"]
+            x_s, x_r, b_s, b_r, mass, masks = refs[i]
+            label = f"sharded-1M {mode} batch {i}{'' if f is None else ' (all=[t1])'}"
+            if mode == "fp32":
+                check(torch.equal(d_r, x_r) and torch.equal(d_s, x_s),
+                      f"{label}: dense rows or scores differ from the single card's exact fp32 path")
+            else:
+                check(all(set(a) == set(b) for a, b in zip(d_r.cpu().tolist(), x_r.cpu().tolist())),
+                      f"{label}: a dense set differs from the float64 exact top-{cand} set")
+            s_np, r_np = s_s.cpu().numpy(), s_r.cpu().numpy()
+            near += bm25_near_ties(s_np, r_np, b_s, b_r, mass, f"{label} BM25")
+            bits_equal += sum(np.array_equal(s_np[j], b_s[j]) and np.array_equal(r_np[j], b_r[j])
+                              for j in range(len(qs)))
+            if mode == "fp32" and i == 0:  # each shard's list is the single-card tail on its own table
+                bids, lo, hi = idx.sparse._gather_blocks(qs)
+                parts = [bm25_topk_blocks(*(torch.from_numpy(x[j]).to(DEV) for x in (bids, lo, hi)),
+                                          idx.sparse.blocks.shards[j][0], k=cand) for j in range(SHARDS)]
+                rps = idx.sparse.rows_per_shard
+                m_s, m_r = merge_local_topk([p[0] for p in parts],
+                                            [torch.where(p[1] >= 0, p[1] + j * rps, 2**31 - 1).int()
+                                             for j, p in enumerate(parts)], cand, mesh)
+                check(torch.equal(m_s, s_s) and torch.equal(m_r, s_r), f"{label}: the BM25 merge is not the shards'")
+            s_r, s_s = idx._filtered(s_r, s_s, masks)
+            check_fused(strategy, d_r, d_s, s_r, s_s, label)
+            w_r, w_s = fuse_topk(d_r, d_s, s_r, s_s, kind=strategy.kind, param=strategy.device_param)
+            check(torch.equal(f_r, w_r[:, :K]) and torch.equal(f_s, w_s[:, :K]), f"{label}: search_arrays' fusion")
+            if f is not None:
+                check(all(r % 4 == 1 for r in f_r.cpu().numpy().ravel() if r >= 0), f"{label}: a row fails the filter")
+        want1, want5 = {"fp32": (0, 0), "compact": (SHARDS, 0),
+                        "clustered": (SHARDS, 0) if cl_kernel == "K1" else (0, SHARDS)}[mode]
+        check(all(a == want1 for a in n1) and all(a == want5 for a in n5),
+              f"sharded-1M {mode}: launches K1 {n1}, K5 {n5} per batch, expected {want1} and {want5}")
+        k1_total += sum(n1)
+        k5_total += sum(n5)
+        n_q = sum(len(qs) for qs, _ in runs)
+        cert = ("" if mode == "fp32" else
+                f"; device-certified {n_q - (idx.dense.uncertified - uncert0)}/{n_q} (host patch: the rest)")
+        log(f"sharded-1M {mode}: build {t_build:.1f} s; batches {', '.join(f'{t:.1f}' for t in lat)} ms "
+            f"(search_arrays k={K}, host clock; the last filtered); launches K1 {n1}, K5 {n5}{cert}; peak allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; dense "
+            f"{'rows and scores equal to the exact fp32 path' if mode == 'fp32' else 'sets equal to the float64 exact sets'}"
+            f"; BM25 bit-identical to the single host for {bits_equal}/{n_q} queries, the rest equal up to near-ties "
+            f"({near} with rows differing); fused lists match the host oracle")
+        if mode == "fp32":  # the merge's cost at the path's shapes (B 256, 50 candidates a shard)
+            qv = np.asarray(retr.embedder.embed_queries(runs[0][0]), dtype=np.float32)
+            rps = idx.dense.matrix.rows_per_shard
+            loc = [(torch.randn(BATCH, cand, device=DEV).sort(dim=1, descending=True).values,
+                    torch.arange(cand, device=DEV, dtype=torch.int32).repeat(BATCH, 1) + j * rps)
+                   for j in range(SHARDS)]
+            t_merge = cuda_ms(lambda: merge_local_topk([x[0] for x in loc], [x[1] for x in loc], cand, mesh), 10)
+            t_dense = cuda_ms(lambda: idx.dense.search(qv, cand), 3)
+            log(f"sharded-1M fp32: dense stage {t_dense:.2f} ms per batch (4 shard scans + merge, CUDA events), of which "
+                f"the merge of {SHARDS} x {cand} candidates {t_merge:.3f} ms = {t_merge / t_dense:.1%}")
+        del idx, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one device: the sharded fp32 path over a one-shard mesh equals the single card
+    one = create_mesh() if DEV == "cuda" else create_mesh(devices=[DEV])
+    idx = ShardedHybridIndex(retr, one, candidates_per_source=cand, dense_mode="fp32", sparse_mode="sharded")
+    for qs, f in runs:
+        f_r, f_s = idx.search_arrays(qs, K, tag_filter=f)
+        want = retr.retrieve_batch(qs, K, tag_filter=f)
+        got = [[(reg.id_of(int(r)), float(s)) for r, s in zip(rr, ss) if r >= 0]
+               for rr, ss in zip(f_r.cpu().numpy(), f_s.cpu().numpy())]
+        check(got == [[(x.chunk.id, x.fused_score) for x in res] for res in want],
+              "sharded-1M one-device mesh: answers differ from retrieve_batch")
+    log(f"sharded-1M one-device mesh (create_mesh(), {one.shape}): fp32 answers of {len(runs)} batches identical to "
+        f"retrieve_batch's (rows and fused scores); K1 {k1_total}, K5 {k5_total} launches on the 4-shard path")
+    del idx
+    gc.collect()
+    torch.cuda.empty_cache()
+    return k1_total, k5_total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5576,6 +5821,9 @@ def main() -> int:
     check(k12b["launches"] > 0, "the segment path never launched fetch_contribs8")
     k5["launches"] = timed(phase_clustered_store, pipe, args.seed)
     k1["launches"] += timed(phase_serve_1m, pipe, args.seed)
+    n_1, n_5 = timed(phase_sharded_1m, pipe, args.seed)
+    k1["launches"] += n_1
+    k5["launches"] += n_5
     del pipe
     timed(phase_clustered_stream, args.seed)
     emb, k4["launches"] = timed(phase_nemotron_8k, args.seed)

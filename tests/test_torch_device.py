@@ -58,3 +58,27 @@ def test_clustered_store_runs_on_the_cpu_when_asked(no_cuda):
     hits = store.search(rows[3], 1)
     assert hits[0][0] == "c3"
     assert store._cluster[1].device == torch.device("cpu")
+
+
+def test_load_nemotron_gguf_defaults_to_cuda(no_cuda, tmp_path):
+    """``load_nemotron_gguf`` with no device resolves to the card: without
+    one it raises; asked for the CPU it loads there."""
+    import numpy as np
+
+    from trueno_rag_tpu_torch.models.gguf import load_nemotron_gguf, write_gguf
+
+    rng = np.random.default_rng(0)
+    h, m = 8, 16
+    tensors = {"token_embd.weight": rng.standard_normal((32, h)).astype(np.float32),
+               "output_norm.weight": np.ones(h, np.float32)}
+    for name, shape in (("attn_q", (h, h)), ("attn_k", (h, h)), ("attn_v", (h, h)), ("attn_output", (h, h)),
+                        ("ffn_gate", (m, h)), ("ffn_up", (m, h)), ("ffn_down", (h, m))):
+        tensors[f"blk.0.{name}.weight"] = rng.standard_normal(shape).astype(np.float32)
+    tensors["blk.0.attn_norm.weight"] = tensors["blk.0.ffn_norm.weight"] = np.ones(h, np.float32)
+    path = str(tmp_path / "tiny.gguf")
+    write_gguf(path, {"general.architecture": "llama", "llama.block_count": 1, "llama.embedding_length": h,
+                      "llama.feed_forward_length": m, "llama.attention.head_count": 2}, tensors)
+    with pytest.raises(trag.InvalidConfigError, match="device='cpu'"):
+        load_nemotron_gguf(path)
+    params, config = load_nemotron_gguf(path, device="cpu")
+    assert config.num_layers == 1 and params["tok_emb"].device == torch.device("cpu")

@@ -18,6 +18,7 @@ def test_importing_the_port_leaves_jax_out():
         "import trueno_rag_tpu_torch.models, trueno_rag_tpu_torch.ops.kernels.attention\n"
         "import trueno_rag_tpu_torch.ops.maxsim, trueno_rag_tpu_torch.ops.kernels.maxsim_scan\n"
         "import trueno_rag_tpu_torch.index.token_store, trueno_rag_tpu_torch.models.late_interaction\n"
+        "import trueno_rag_tpu_torch.parallel, trueno_rag_tpu_torch.parallel.ingest\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'trueno_rag_tpu.')))\n"
         "assert not bad, bad\n"
     )

@@ -240,7 +240,7 @@ def test_gguf_file_loads_equal_params_in_both_packages(tmp_path):
     path = str(tmp_path / "tiny.gguf")
     _tiny_llama(path)
     pj, cj = jg.load_nemotron_gguf(path)
-    pt, ct = tg.load_nemotron_gguf(path)
+    pt, ct = tg.load_nemotron_gguf(path, device="cpu")
     assert dataclasses.asdict(ct) == {**dataclasses.asdict(cj), "compute_dtype": torch.bfloat16}
     want = nemotron_params_from_jax(_np(pj), "cpu")
     for key in ("tok_emb", "final_rms_scale"):

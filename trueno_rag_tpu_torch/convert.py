@@ -5,7 +5,9 @@ a token store's state (:func:`token_store_from_state`,
 :func:`nemotron_params_from_jax`, :func:`cross_encoder_params_from_jax`,
 :func:`splade_params_from_jax`; back with
 :func:`params_to_jax`, the layout of a checkpoint file) and a training
-state (:func:`train_state_from_jax`: f32 params, AdamW moments, count).
+state (:func:`train_state_from_jax`: f32 params, AdamW moments, count),
+and a sharded clustered index's per-shard layout
+(:func:`sharded_clustered_from_jax`).
 
 The JAX package's ``HybridRetriever`` exposes everything needed:
 
@@ -325,3 +327,31 @@ def late_interaction_from_state(
                                     device=store.device)
     retr.store = store
     return retr
+
+
+def sharded_clustered_from_jax(jax_index, mesh, matrix: Optional[np.ndarray] = None, fetch: str = "auto"):
+    """The port's :class:`~trueno_rag_tpu_torch.parallel.clustered.ShardedClusteredIndex`
+    over a JAX ``ShardedClusteredIndex``'s per-shard layout: its orders
+    (``_orders``), centroids, radii, valid rows and tags, read as numpy, so
+    no k-means runs and the two packages' pruned scans see the same tiles.
+    ``matrix`` (its rows, in original order) defaults to the JAX index's
+    host copy; an index built with ``keep_host=False`` needs it given, and
+    the port's index then keeps no host copy either."""
+    from trueno_rag_tpu_torch.parallel.clustered import ShardedClusteredIndex
+
+    host = getattr(jax_index, "_host", None)
+    keep_host = host is not None
+    if matrix is None:
+        if host is None:
+            raise InvalidConfigError("the JAX index kept no host matrix; pass matrix=")
+        matrix = host
+    cents = np.asarray(jax_index.centroids, dtype=np.float32)  # [s, T, d]
+    radii = np.asarray(jax_index.radii, dtype=np.float32)  # [s, T]
+    layouts = [(np.asarray(o, np.int32), cents[i], radii[i]) for i, o in enumerate(jax_index._orders)]
+    tags = getattr(jax_index, "_tags_host", None)
+    return ShardedClusteredIndex.from_layout(
+        np.asarray(matrix, np.float32), mesh, layouts, metric=jax_index.metric,
+        valid=np.asarray(jax_index._valid_host, bool), axis=jax_index.axis, rows_normalized=True,
+        tile_n=jax_index.tile_n, probe_tiles=jax_index.probe_tiles, fetch=fetch, keep_host=keep_host,
+        tags=None if tags is None else np.asarray(tags, np.int32),
+    )

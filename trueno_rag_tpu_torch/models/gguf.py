@@ -35,6 +35,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
+from trueno_rag_tpu_torch.device import resolve_device
 from trueno_rag_tpu_torch.errors import IndexNotFoundError, SerializationError
 
 GGUF_MAGIC = b"GGUF"
@@ -335,9 +336,10 @@ def write_gguf(path: str, metadata: Dict[str, Any], tensors: Dict[str, np.ndarra
 # ---------------------------------------------------------------------------
 
 
-def load_nemotron_gguf(path: str, config=None, device="cpu"):
+def load_nemotron_gguf(path: str, config=None, device=None):
     """Load a llama-architecture GGUF into the Nemotron parameter dict on
-    ``device`` → ``(params, config)``.
+    ``device`` (default: the CUDA device; raises without one, pass
+    ``device="cpu"`` for the CPU) → ``(params, config)``.
 
     When ``config`` is None the shape is inferred from the GGUF metadata
     (``llama.block_count``, ``llama.embedding_length``, ...). Weight
@@ -346,6 +348,7 @@ def load_nemotron_gguf(path: str, config=None, device="cpu"):
     scales in f32."""
     from trueno_rag_tpu_torch.models.nemotron import NemotronConfig
 
+    device = resolve_device(device)
     meta, tensors = read_gguf(path)
 
     def need(name: str) -> np.ndarray:

@@ -210,10 +210,12 @@ def maxsim_scan_topk(
     k: int,
     block: int = 512,
     d_norm: Optional[torch.Tensor] = None,  # max_token_norm(tokens, t_mask), computed here if None
+    allowed: Optional[torch.Tensor] = None,  # [B, N] bool per-query row filter (a tag predicate)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact full-corpus MaxSim top-k → ``(scores [B,k], rows [B,k])``: the
     f32 scan (slabs of at least ``block`` chunks) preselects candidates,
-    re-ranked by :func:`maxsim_pair_scores`.
+    re-ranked by :func:`maxsim_pair_scores`. ``allowed`` excludes (query,
+    chunk) pairs as ``valid`` excludes chunks.
 
     The preselection starts at ``2k`` chunks and doubles until, for every
     query, the best chunk left out scores below the k-th kept one by more
@@ -225,6 +227,8 @@ def maxsim_scan_topk(
     if d_norm is None:
         d_norm = max_token_norm(tokens, t_mask)
     scores = _scan_scores(q_tok, q_mask, tokens, t_mask, valid, block)
+    if allowed is not None:
+        scores.masked_fill_(~allowed, NEG_INF)
     _, qn_w = _widened_query_norms(q_tok, q_mask)
     budget = _tier_rounding_coeff(lq, h) * torch.where(q_mask, qn_w, 0.0).sum(dim=1) * d_norm  # [B]
     w = min(2 * k, n)
