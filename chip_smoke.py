@@ -329,7 +329,20 @@ Run from the repository root. Phases, each fatal on failure:
    ``ShardedTokenIndex.from_token_store(scan="tiered")`` on the same 4-shard
    mesh, 2 batches of 8 at k = 10: K6 once per shard per batch, at least
    75% certified, every answer the float64 exact top-10 of the stored
-   values and the single-card store's rows.
+   values and the single-card store's rows;
+40. sharded-train (after phase 37): MiniLM-L6 at full width (vocabulary
+   30,522, max_len 64) on ``(data, model)`` meshes (4, 1) and (2, 2) of the
+   4 shards over the one card (``shard_params``, ``shard_batch``): at f32
+   the step-0 loss of each shape within rel 1e-5 of the single-device
+   ``train_step``'s on the same state and batch of 64 ICT pairs, the
+   params after 5 steps within train-minilm's card-against-CPU tolerance
+   of the single-device run (99% within 5e-4·lr, all within 2·lr), the
+   ``data`` replicas bit-identical; the loss falling over 10 bf16 steps on
+   (2, 2) (one batch); one MaxSim, SPLADE and distillation step on (2, 2), each loss
+   finite and within rel 1e-4 of its single-device step's; ms a step per
+   shape beside the single device's, and peak memory. Four shards on one
+   card: the per-shard work and the sums are real, the interconnect is
+   not measured.
 
 The last two lines of standard output are JSON: the per-kernel record, then
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
@@ -467,6 +480,9 @@ SERVE_BATCH_SIZES = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 SHARDS = 4  # sharded-1M and sharded-tokens: a 4-shard mesh over the one card
 SHARD_BATCHES = 2  # sharded-1M: batches of 256 per dense mode, plus one tag-filtered batch
 SHARD_TOKEN_BATCHES = 2  # sharded-tokens: batches of 8
+SHARD_TRAIN_SHAPES = ((4, 1), (2, 2))  # sharded-train: (data, model) meshes of the SHARDS shards
+SHARD_TRAIN_STEPS = 5  # f32 steps held to the single device's
+SHARD_TRAIN_BF16_STEPS = 10  # bf16 steps on (2, 2): the loss must fall
 BM25_ULPS = 16  # BM25 scores of two panel shapes: within 16 ulps of the panel's mass (bm25_near_ties)
 
 # H100 SXM peaks (NVIDIA data sheet) for the kernels' bounds
@@ -5151,6 +5167,137 @@ def phase_train_minilm(seed: int) -> None:
         f"{peaks[False]:.0f} MiB without remat, {peaks[True]:.0f} MiB with remat; losses equal")
 
 
+def phase_sharded_train(seed: int) -> None:
+    """sharded-train: the data- and tensor-parallel train steps on meshes of
+    SHARDS shards over the one card, held to the single-device steps."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from trueno_rag_tpu_torch.chunking import Chunk, chunk_id_from_int
+    from trueno_rag_tpu_torch.convert import params_to_jax
+    from trueno_rag_tpu_torch.models.encoder import EncoderConfig, HashTokenizer
+    from trueno_rag_tpu_torch.parallel.mesh import create_mesh, shard_batch, shard_params
+    from trueno_rag_tpu_torch.train import contrastive as tc, distill as td
+    from trueno_rag_tpu_torch.train.data import PairBatcher, ict_pairs
+
+    cfg = dataclasses.replace(EncoderConfig.minilm_l6(), max_len=TRAIN_MAX_LEN)
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    rng = np.random.default_rng(seed + 41)
+    texts = train_texts(rng, TRAIN_DOCS)
+    chunks = [Chunk(document_id=f"tdoc{i}", content=t, start_offset=0, end_offset=len(t), id=chunk_id_from_int(i))
+              for i, t in enumerate(texts)]
+    tok = HashTokenizer(cfg.vocab_size, TRAIN_MAX_LEN)
+    stream = PairBatcher(tok, batch_size=TRAIN_BATCH, max_len=TRAIN_MAX_LEN).batches(
+        ict_pairs(chunks, random.Random(seed + 41)))
+    batches = [next(stream) for _ in range(SHARD_TRAIN_BF16_STEPS)]
+    gen = torch.Generator(device=DEV).manual_seed(seed + 41)
+    state0, tx = tc.create_train_state(gen, cfg, learning_rate=TRAIN_LR, device=DEV)
+    meshes = {shape: create_mesh(*shape, devices=[torch.device(DEV)] * SHARDS) for shape in SHARD_TRAIN_SHAPES}
+    t_phase = time.perf_counter()
+
+    def run(state, steps, config, shape=None, fn=tc.train_step, args=None, **kw):
+        """``steps`` steps from ``state`` (placed on ``shape``'s mesh) → the
+        state, the losses, the median ms of the steps after the first and
+        the peak allocated GiB above the resident state."""
+        if shape is not None:
+            mesh = meshes[shape]
+            state = tc.TrainState(shard_params(state.params, mesh), state.opt_state, state.step)
+        losses, ms = [], []
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for i in range(steps):
+            a = args if args is not None else batches[i]
+            if shape is not None:
+                a = shard_batch(a, meshes[shape])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = fn(state, *a, tx, config, **kw)
+            losses.append(float(m["loss"]))  # a host read: synchronizes
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        steady = sorted(ms[1:])[len(ms[1:]) // 2] if steps > 1 else ms[0]
+        return state, losses, steady, peak
+
+    def replicas_identical(params) -> bool:
+        return all(torch.equal(a, b) for d, m, tree in params.replicas()
+                   for a, b in zip(tc.tree_leaves(tree), tc.tree_leaves(params.local[0][m])))
+
+    # f32: the step-0 loss and the params after SHARD_TRAIN_STEPS steps
+    one, one_losses, one_ms, one_peak = run(state0, SHARD_TRAIN_STEPS, cfg32)
+    want = params_to_jax(one.params)
+    for shape in SHARD_TRAIN_SHAPES:
+        st, losses, ms, peak = run(state0, SHARD_TRAIN_STEPS, cfg32, shape)
+        check(all(np.isfinite(losses)), f"sharded-train {shape}: a loss is not finite")
+        rel = abs(losses[0] - one_losses[0]) / abs(one_losses[0])
+        check(rel <= 1e-5, f"sharded-train {shape}: step-0 loss {losses[0]} vs one device {one_losses[0]}")
+        got = params_to_jax(st.params)
+        diffs = np.concatenate([np.abs(got[k] - want[k]).ravel() for k in want])
+        close = float((diffs <= 5e-4 * TRAIN_LR).mean())
+        check(close >= 0.99 and diffs.max() <= 2.01 * TRAIN_LR,
+              f"sharded-train {shape}: params after {SHARD_TRAIN_STEPS} steps differ from one device's "
+              f"(within 5e-4·lr: {close:.4f}, max {diffs.max():.3e})")
+        check(replicas_identical(st.params) and replicas_identical(st.opt_state.nu),
+              f"sharded-train {shape}: the data replicas differ")
+        log(f"sharded-train {shape} f32: step-0 loss {losses[0]:.6f} vs one device {one_losses[0]:.6f} (rel "
+            f"{rel:.2e}); after {SHARD_TRAIN_STEPS} steps {close:.4%} of parameters within 5e-4·lr of the one-device "
+            f"run, max |diff| {diffs.max():.3e} (lr {TRAIN_LR}); data replicas bit-identical; {ms:.1f} ms a step "
+            f"against one device's {one_ms:.1f}; peak {peak:.2f} GiB against {one_peak:.2f}")
+        del st, got
+    del one, want
+
+    # bf16 on one batch: ms a step per shape, the loss falling on (2, 2)
+    _, _, one_ms, one_peak = run(state0, SHARD_TRAIN_STEPS, cfg, args=batches[0])
+    times = {"one device": (one_ms, one_peak)}
+    for shape in SHARD_TRAIN_SHAPES:
+        steps = SHARD_TRAIN_BF16_STEPS if shape == (2, 2) else SHARD_TRAIN_STEPS
+        _, losses, ms, peak = run(state0, steps, cfg, shape, args=batches[0])
+        times[str(shape)] = (ms, peak)
+        check(all(np.isfinite(losses)), f"sharded-train {shape} bf16: a loss is not finite")
+        if shape == (2, 2):
+            check(losses[-1] < losses[0], f"sharded-train (2, 2) bf16: the loss did not fall {losses}")
+            log(f"sharded-train (2, 2) bf16: {steps} steps on one batch, losses {[round(x, 4) for x in losses]}")
+    log(f"sharded-train bf16, batch {TRAIN_BATCH} x {TRAIN_MAX_LEN} tokens, median ms a step (host clock, "
+        "synchronized) and peak allocated GiB above the resident state: " + "; ".join(f"{k} {v[0]:.1f} ms, {v[1]:.2f} GiB"
+                                                             for k, v in times.items()))
+    # where a step's time goes: device busy share and kernels per step, one device against (2, 2), each
+    # traced from a state that has taken one step (its moments already laid out as its params)
+    mesh = meshes[(2, 2)]
+    placed = {"one device": (state0, batches[0]),
+              "(2, 2)": (tc.TrainState(shard_params(state0.params, mesh), state0.opt_state, state0.step),
+                         shard_batch(batches[0], mesh))}
+    for label, (st, a) in placed.items():
+        st, _ = tc.train_step(st, *a, tx, cfg)
+        check(type(st.opt_state.mu) is type(st.params), f"sharded-train {label}: moments not laid out as the params")
+        rows = device_profile(lambda: tc.train_step(st, *a, tx, cfg), f"sharded-train {label} bf16 step", reps=2)
+        copies = {r[2]: r[1] for r in rows if "Memcpy" in r[2]}
+        log(f"sharded-train {label} bf16 step (steady state): {sum(r[1] for r in rows):.0f} device kernels a "
+            f"step, {sum(copies.values()):.0f} of them memory copies {copies}")
+    del placed, st
+
+    # one MaxSim, SPLADE and distillation step on (2, 2) against one device, f32
+    sp, _ = tc.create_train_state(gen, cfg, learning_rate=TRAIN_LR, kind="splade", device=DEV)
+    d_rng = np.random.default_rng(seed + 43)
+    cand = np.stack([b[1][:16] for b in batches[1:5]], axis=1)  # 16 queries x 4 candidates
+    slate = (batches[0][0][:16], cand, d_rng.standard_normal((16, 4)).astype(np.float32))
+    side = []
+    for name, st, fn, args, kw in (("maxsim", state0, tc.maxsim_train_step, batches[0], {}),
+                                   ("splade", sp, tc.splade_train_step, batches[0],
+                                    {"score_norm": "cosine", "temperature": 0.05}),
+                                   ("distill", state0, td.distill_step, slate, {})):
+        _, (l1,), ms1, _ = run(st, 1, cfg32, None, fn, args, **kw)
+        _, (l2,), ms2, peak = run(st, 1, cfg32, (2, 2), fn, args, **kw)
+        rel = abs(l2 - l1) / abs(l1)
+        check(np.isfinite(l2) and rel <= 1e-4, f"sharded-train {name}: (2, 2) loss {l2} vs one device {l1}")
+        side.append(f"{name} loss {l2:.6f} vs {l1:.6f} (rel {rel:.1e}), {ms2:.0f} ms vs {ms1:.0f} (first steps)")
+    del sp
+    log("sharded-train (2, 2) f32, one step each against one device: " + "; ".join(side)
+        + f"; phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_clustered_artifact(retr, p, embedder, runs, pipe) -> int:
     """clustered-artifact (inside clustered-1M, on its clean store): the
     store saved with its k-means layout and loaded with
@@ -5844,6 +5991,9 @@ def main() -> int:
     k6["launches"] += k6_cli
     timed(phase_checkpoint, args.seed)
     timed(phase_train_minilm, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed(phase_sharded_train, args.seed)
     k1["launches"] += k1_odd + k1_inline
     k6["launches"] += k6_odd
     n10 = [kern.launches for kern in k10_kernels]

@@ -18,7 +18,7 @@ def test_importing_the_port_leaves_jax_out():
         "import trueno_rag_tpu_torch.models, trueno_rag_tpu_torch.ops.kernels.attention\n"
         "import trueno_rag_tpu_torch.ops.maxsim, trueno_rag_tpu_torch.ops.kernels.maxsim_scan\n"
         "import trueno_rag_tpu_torch.index.token_store, trueno_rag_tpu_torch.models.late_interaction\n"
-        "import trueno_rag_tpu_torch.parallel, trueno_rag_tpu_torch.parallel.ingest\n"
+        "import trueno_rag_tpu_torch.parallel, trueno_rag_tpu_torch.parallel.ingest, trueno_rag_tpu_torch.parallel.train\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'trueno_rag_tpu.')))\n"
         "assert not bad, bad\n"
     )
@@ -61,3 +61,15 @@ def test_training_and_model_import_leave_reference_packages_out():
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_parallel_exports_match_jax():
+    """``trueno_rag_tpu_torch.parallel`` exports the JAX package's names,
+    ``encoder_param_specs`` included, plus the port's own ``Mesh`` type
+    (the JAX package's is ``jax.sharding.Mesh``)."""
+    import trueno_rag_tpu.parallel as jpar
+    import trueno_rag_tpu_torch.parallel as ppar
+
+    assert set(ppar.__all__) - {"Mesh"} == set(jpar.__all__)
+    assert all(hasattr(ppar, name) for name in ppar.__all__)
+    from trueno_rag_tpu_torch.parallel.mesh import shard_batch, shard_params  # noqa: F401

@@ -167,11 +167,16 @@ def _layered(params: Mapping[str, Any], layer_keys, matrices, device) -> Dict[st
 
 
 def params_to_jax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """The port's parameter dict (per-layer dicts under ``"layers"``) → the
-    JAX package's flat layout: f32 arrays, per-layer weights stacked on a
-    leading ``[L]`` axis (the inverse of ``*_params_from_jax``; a bf16
-    matrix widens exactly). This is the layout of a model checkpoint, so
-    one file serves both packages."""
+    """The port's parameter dict (per-layer dicts under ``"layers"``; or a
+    ``parallel.mesh.ShardedParams``, gathered) → the JAX package's flat
+    layout: f32 arrays, per-layer weights stacked on a leading ``[L]`` axis
+    (the inverse of ``*_params_from_jax``; a bf16 matrix widens exactly).
+    This is the layout of a model checkpoint, so one file serves both
+    packages."""
+    from trueno_rag_tpu_torch.parallel.mesh import gather_params
+
+    params = gather_params(params)
+
     def host(t):
         return t.detach().to(torch.float32).cpu().numpy()
 
@@ -204,21 +209,25 @@ def splade_params_from_jax(params: Mapping[str, Any], device) -> Dict[str, Any]:
     return _layered(params, LAYER_KEYS, (), device)
 
 
-def train_state_from_jax(state, device):
+def train_state_from_jax(state, device, mesh=None):
     """A JAX ``TrainState`` (``train.contrastive.create_train_state``'s,
-    optax ``adamw``) → the port's
+    optax ``adamw``; sharded or not) → the port's
     :class:`~trueno_rag_tpu_torch.train.contrastive.TrainState` on
     ``device``: the f32 params, the moments ``mu``/``nu`` and the count of
     ``scale_by_adam``'s state, and the step, all as they are (f32 leaves in
     the port's per-layer layout), so one step of either package starts
-    from the same numbers."""
+    from the same numbers. With a ``mesh`` (``parallel.create_mesh``) the
+    params and moments are placed on it by ``parallel.shard_params``; the
+    way back is :func:`params_to_jax`, which gathers them."""
     from trueno_rag_tpu_torch.models.encoder import LAYER_KEYS
+    from trueno_rag_tpu_torch.parallel.mesh import shard_params
     from trueno_rag_tpu_torch.train.contrastive import AdamState, TrainState
 
     adam = next(s for s in state.opt_state if hasattr(s, "mu"))
 
     def tree(p):
-        return _layered({k: np.asarray(v) for k, v in p.items()}, LAYER_KEYS, (), device)
+        out = _layered({k: np.asarray(v) for k, v in p.items()}, LAYER_KEYS, (), device)
+        return out if mesh is None else shard_params(out, mesh)
 
     return TrainState(params=tree(state.params),
                       opt_state=AdamState(count=int(adam.count), mu=tree(adam.mu), nu=tree(adam.nu)),

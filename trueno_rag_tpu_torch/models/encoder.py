@@ -31,7 +31,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -201,14 +201,14 @@ def _linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) 
     return y if b is None else y + b.to(x.dtype)
 
 
-def _attention(x: torch.Tensor, mask: torch.Tensor, lp: Dict[str, torch.Tensor],
-               config: EncoderConfig) -> torch.Tensor:
-    """Bidirectional multi-head attention with padding-key masking: f32
-    logits divided by sqrt(hd), f32 softmax, bf16 probabilities."""
-    b, t, h = x.shape
-    nh = config.num_heads
-    hd = h // nh
-    q, k, v = _linear(x, lp["qkv_w"], lp["qkv_b"]).split(h, dim=-1)
+def _heads_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor, hd: int,
+                     config: EncoderConfig) -> torch.Tensor:
+    """Bidirectional attention over the heads of width ``hd`` that ``[B, T,
+    n·hd]`` q, k and v hold, with padding-key masking: RoPE on q and k
+    (rotary configs), f32 logits divided by sqrt(hd), f32 softmax, bf16
+    probabilities → the context ``[B, T, n·hd]``."""
+    b, t, w = q.shape
+    nh = w // hd
 
     def heads(a):
         return a.reshape(b, t, nh, hd).permute(0, 2, 1, 3)
@@ -218,25 +218,46 @@ def _attention(x: torch.Tensor, mask: torch.Tensor, lp: Dict[str, torch.Tensor],
         q = _rope_heads(q, config.rope_base, config.rope_interleaved)
         k = _rope_heads(k, config.rope_base, config.rope_interleaved)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    logits = logits / torch.tensor(np.sqrt(hd).astype(np.float32), device=x.device)
+    logits = logits / torch.tensor(np.sqrt(hd).astype(np.float32), device=q.device)
     logits = logits.masked_fill_(~mask[:, None, None, :], MASKED)
-    probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    ctx = torch.matmul(probs, v).permute(0, 2, 1, 3).reshape(b, t, h)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.matmul(probs, v).permute(0, 2, 1, 3).reshape(b, t, w)
+
+
+def _attention(x: torch.Tensor, mask: torch.Tensor, lp: Dict[str, torch.Tensor],
+               config: EncoderConfig) -> torch.Tensor:
+    """Multi-head self-attention: the packed q|k|v product, the heads, the
+    output product."""
+    h = x.shape[-1]
+    q, k, v = _linear(x, lp["qkv_w"], lp["qkv_b"]).split(h, dim=-1)
+    ctx = _heads_attention(q, k, v, mask, h // config.num_heads, config)
     return _linear(ctx, lp["attn_out_w"], lp["attn_out_b"])
 
 
-def _block(x: torch.Tensor, mask: torch.Tensor, lp: Dict[str, torch.Tensor],
-           config: EncoderConfig) -> torch.Tensor:
-    """Post-LN transformer block: attention, then a GELU (exact erf) or
-    SwiGLU MLP."""
-    x = _layer_norm(x + _attention(x, mask, lp, config), lp["ln1_scale"], lp["ln1_bias"])
-    pre = _linear(x, lp["mlp_w1"], lp["mlp_b1"])
+def _mlp_hidden(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, config: EncoderConfig) -> torch.Tensor:
+    """The MLP's hidden activations: exact erf GELU, or SwiGLU over the
+    ``[gate|up]`` halves of the input product."""
+    pre = _linear(x, w1, b1)
     if config.mlp == "swiglu":
         gate, up = pre.chunk(2, dim=-1)
-        hdn = F.silu(gate) * up
-    else:
-        hdn = F.gelu(pre, approximate="none")
-    out = _linear(hdn, lp["mlp_w2"], lp["mlp_b2"])
+        return F.silu(gate) * up
+    return F.gelu(pre, approximate="none")
+
+
+def _mlp(x: torch.Tensor, lp: Dict[str, torch.Tensor], config: EncoderConfig) -> torch.Tensor:
+    return _linear(_mlp_hidden(x, lp["mlp_w1"], lp["mlp_b1"], config), lp["mlp_w2"], lp["mlp_b2"])
+
+
+def _block(x: torch.Tensor, mask: torch.Tensor, lp: Dict[str, torch.Tensor], config: EncoderConfig,
+           attention: Optional[Callable] = None, mlp: Optional[Callable] = None) -> torch.Tensor:
+    """Post-LN transformer block: attention, then the MLP, each added to the
+    residual and layer-normed with ``lp``'s norms. ``attention(x, mask)``
+    and ``mlp(x)`` stand in for the one-device sublayers (the
+    tensor-parallel trunk of ``parallel/train.py`` passes its sharded
+    ones)."""
+    a = _attention(x, mask, lp, config) if attention is None else attention(x, mask)
+    x = _layer_norm(x + a, lp["ln1_scale"], lp["ln1_bias"])
+    out = _mlp(x, lp, config) if mlp is None else mlp(x)
     return _layer_norm(x + out, lp["ln2_scale"], lp["ln2_bias"])
 
 
@@ -256,23 +277,29 @@ def _pool(hidden: torch.Tensor, mask: torch.Tensor, pooling: str) -> torch.Tenso
 
 
 def encoder_trunk(params: Dict[str, Any], token_ids: torch.Tensor, config: EncoderConfig,
-                  position: Optional[str] = None):
+                  position: Optional[str] = None, shards=None):
     """Shared trunk: ids → final per-token hidden states (compute dtype) and
     the padding mask. Token (+ learned position) rows are summed in f32 and
     cast before the embedding layer norm. ``position`` overrides
     ``config.position`` for the embedding only (the cross-encoder always
-    adds its learned table)."""
+    adds its learned table). ``shards`` (``parallel/train.py``) looks the
+    tokens up and runs each block's products over model shards;
+    ``params`` then gives the replicated norms and position table."""
     mask = token_ids != PAD_ID
-    x = F.embedding(token_ids, params["tok_emb"])  # a gather whose backward is deterministic on CUDA
+    if shards is None:
+        x = F.embedding(token_ids, params["tok_emb"])  # a gather whose backward is deterministic on CUDA
+    else:
+        x = shards.lookup(token_ids)
     if (position or config.position) == "learned":
         x = x + params["pos_emb"][: token_ids.shape[1]][None, :, :]
     x = _layer_norm(x.to(config.compute_dtype), params["emb_ln_scale"], params["emb_ln_bias"])
     remat = config.remat and torch.is_grad_enabled()
-    for lp in params["layers"]:
+    for i, lp in enumerate(params["layers"]):
+        hooks = () if shards is None else shards.sublayers(i)
         if remat:
-            x = checkpoint(_block, x, mask, lp, config, use_reentrant=False)
+            x = checkpoint(_block, x, mask, lp, config, *hooks, use_reentrant=False)
         else:
-            x = _block(x, mask, lp, config)
+            x = _block(x, mask, lp, config, *hooks)
     return x, mask
 
 
@@ -282,15 +309,20 @@ def token_states(params: Dict[str, Any], token_ids: torch.Tensor, config: Encode
     return x.float(), mask
 
 
-def encoder_pooled(params: Dict[str, Any], token_ids: torch.Tensor, config: EncoderConfig) -> torch.Tensor:
-    """ids ``[B, T]`` → pooled (optionally L2-normalized) ``[B, hidden_dim]``
-    f32 embeddings, differentiable."""
-    x, mask = encoder_trunk(params, token_ids, config)
+def pool_normalize(x: torch.Tensor, mask: torch.Tensor, config: EncoderConfig) -> torch.Tensor:
+    """Final states ``[B, T, H]`` → pooled (optionally L2-normalized)
+    ``[B, H]`` f32 embeddings."""
     pooled = _pool(x, mask, config.pooling)
     if config.normalize:
         n = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
         pooled = pooled / torch.where(n == 0.0, torch.ones_like(n), n)
     return pooled
+
+
+def encoder_pooled(params: Dict[str, Any], token_ids: torch.Tensor, config: EncoderConfig) -> torch.Tensor:
+    """ids ``[B, T]`` → pooled (optionally L2-normalized) ``[B, hidden_dim]``
+    f32 embeddings, differentiable."""
+    return pool_normalize(*encoder_trunk(params, token_ids, config), config)
 
 
 @torch.no_grad()

@@ -71,28 +71,42 @@ def init_splade_params(config: EncoderConfig, generator: torch.Generator, device
     return params
 
 
+def splade_transform(params: Dict[str, Any], states: torch.Tensor) -> torch.Tensor:
+    """The head's dense transform (+exact GELU) and layer norm over token
+    states ``[B, T, H]``, f32."""
+    require_fp32()
+    x = states.float()
+    x = F.gelu(x @ params["splade_tr_w"].float() + params["splade_tr_b"].float(), approximate="none")
+    return _layer_norm(x, params["splade_ln_scale"], params["splade_ln_bias"])
+
+
+def splade_vocab(x: torch.Tensor, mask: torch.Tensor, tok_emb: torch.Tensor, vocab_bias: torch.Tensor,
+                 lo: int = 0) -> torch.Tensor:
+    """Transformed states ``[B, T, H]`` → the activations ``[B, n]`` of the
+    vocabulary ids ``lo .. lo + n`` (``tok_emb``'s and ``vocab_bias``' rows):
+    the tied projection, ``max_t log1p(relu(z))`` over valid tokens,
+    reserved ids zeroed. Without grad the ``[B, T, n]`` logits are
+    transformed in place."""
+    logits = torch.matmul(x, tok_emb.float().t())  # [B, T, n]
+    if torch.is_grad_enabled():
+        act = torch.log1p(torch.relu(logits + vocab_bias.float()))
+        act = act.masked_fill(~mask[:, :, None], 0.0)
+    else:
+        logits += vocab_bias.float()
+        act = torch.log1p_(torch.relu_(logits))
+        act.masked_fill_(~mask[:, :, None], 0.0)
+    out = act.amax(dim=1)  # SPLADE-max pooling (activations >= 0)
+    keep = torch.arange(lo, lo + out.shape[1], device=out.device) >= _RESERVED
+    return torch.where(keep, out, 0.0)
+
+
 def splade_head_grad(params: Dict[str, Any], states: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Token states ``[B, T, H]`` + mask ``[B, T]`` → sparse vocabulary
     activations ``[B, V]`` f32: transform (+exact GELU) + LN, tied
     projection to vocabulary logits, ``max_t log1p(relu(z))`` over valid
     tokens, reserved ids zeroed. All f32, TF32 off. Differentiable (the
-    SPLADE training losses); without grad the ``[B, T, V]`` logits are
-    transformed in place."""
-    require_fp32()
-    x = states.float()
-    x = F.gelu(x @ params["splade_tr_w"].float() + params["splade_tr_b"].float(), approximate="none")
-    x = _layer_norm(x, params["splade_ln_scale"], params["splade_ln_bias"])
-    logits = torch.matmul(x, params["tok_emb"].float().t())  # [B, T, V]
-    if torch.is_grad_enabled():
-        act = torch.log1p(torch.relu(logits + params["splade_vocab_bias"].float()))
-        act = act.masked_fill(~mask[:, :, None], 0.0)
-    else:
-        logits += params["splade_vocab_bias"].float()
-        act = torch.log1p_(torch.relu_(logits))
-        act.masked_fill_(~mask[:, :, None], 0.0)
-    out = act.amax(dim=1)  # SPLADE-max pooling (activations >= 0)
-    keep = torch.arange(out.shape[1], device=out.device) >= _RESERVED
-    return torch.where(keep, out, 0.0)
+    SPLADE training losses)."""
+    return splade_vocab(splade_transform(params, states), mask, params["tok_emb"], params["splade_vocab_bias"])
 
 
 @torch.no_grad()

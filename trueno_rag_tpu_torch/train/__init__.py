@@ -7,8 +7,9 @@ negatives, the MaxSim and SPLADE objectives, optax's AdamW),
 distillation), :mod:`~trueno_rag_tpu_torch.train.data` (ICT and crop
 pairs), :mod:`~trueno_rag_tpu_torch.train.loop` (``fit`` with
 retrieval-driven state selection) and
-:mod:`~trueno_rag_tpu_torch.train.checkpoint`. One card; the JAX
-package's data-parallel mesh is not ported.
+:mod:`~trueno_rag_tpu_torch.train.checkpoint`. On one device, or sharded
+data- and tensor-parallel over a mesh (``parallel.shard_params``,
+``parallel.shard_batch``; :mod:`trueno_rag_tpu_torch.parallel.train`).
 """
 
 from trueno_rag_tpu_torch.train.contrastive import (

@@ -15,13 +15,19 @@ optax's operation order (:class:`AdamW`): ``torch.optim.AdamW`` computes
 the same update in another order (decay applied to the weights before the
 step, ``sqrt(v)/sqrt(1-β₂ᵗ)`` instead of ``sqrt(v/(1-β₂ᵗ))``), which
 rounds differently in f32. Like optax, it decays every parameter (norms
-and biases too) and counts steps from 0 in its state. The data-parallel
-mesh of the JAX package is not part of this module.
+and biases too) and counts steps from 0 in its state.
+
+Every loss and step takes one device's parameter tree or a
+:class:`~trueno_rag_tpu_torch.parallel.mesh.ShardedParams` (``shard_params``)
+with a batch of arrays or ``shard_batch`` values; sharded parameters run
+the data- and tensor-parallel program of
+:mod:`trueno_rag_tpu_torch.parallel.train`, as the JAX package's steps run
+sharded under ``jit`` over a mesh.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,23 +37,9 @@ from trueno_rag_tpu_torch.device import resolve_device
 from trueno_rag_tpu_torch.errors import InvalidConfigError
 from trueno_rag_tpu_torch.models.encoder import EncoderConfig, encoder_pooled, init_encoder_params, token_states
 from trueno_rag_tpu_torch.ops.dense import require_fp32
-
-
-def tree_map(fn: Callable, tree, *rest):
-    """``fn`` over the tensors of a parameter tree (dicts and lists), with
-    the same-shaped trees ``rest`` alongside."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
-    return fn(tree, *rest)
-
-
-def tree_leaves(tree) -> list:
-    """The tensors of a parameter tree, in :func:`tree_map`'s order."""
-    out: list = []
-    tree_map(out.append, tree)
-    return out
+from trueno_rag_tpu_torch.parallel import train as sharded
+from trueno_rag_tpu_torch.parallel.mesh import RowSharded, ShardedParams, place_like, shard_sum
+from trueno_rag_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
 class AdamState(NamedTuple):
@@ -135,11 +127,44 @@ def create_train_state(
 
 
 def _ids(ids, device) -> torch.Tensor:
+    """An array, tensor or ``shard_batch`` value as one tensor on ``device``."""
+    if isinstance(ids, RowSharded):
+        return torch.cat([s.to(device) for s in ids.shards])
     return torch.as_tensor(ids, device=device)
 
 
+def _sharded(params) -> bool:
+    return isinstance(params, ShardedParams)
+
+
 def _device_of(params) -> torch.device:
-    return params["tok_emb"].device
+    """Where the parameters' results land: their device, or a mesh's first."""
+    return params.mesh.lead if _sharded(params) else params["tok_emb"].device
+
+
+def _pooled(params, ids, config: EncoderConfig) -> torch.Tensor:
+    """Pooled embeddings of a batch (``[B, H]`` on :func:`_device_of`)."""
+    if _sharded(params):
+        return sharded.pooled(params, ids, config)
+    return encoder_pooled(params, _ids(ids, _device_of(params)), config)
+
+
+def _token_states(params, ids, config: EncoderConfig):
+    """Token states and mask of a batch (on :func:`_device_of`)."""
+    if _sharded(params):
+        return sharded.token_states(params, ids, config)
+    return token_states(params, _ids(ids, _device_of(params)), config)
+
+
+def _splade_acts(params, ids, config: EncoderConfig) -> List[torch.Tensor]:
+    """SPLADE activations of a batch as vocabulary shards on
+    :func:`_device_of`: ``[B, V / model]`` for each model shard of sharded
+    parameters, the one ``[B, V]`` on one device."""
+    from trueno_rag_tpu_torch.models.splade import splade_head_grad
+
+    if _sharded(params):
+        return sharded.splade_activations(params, ids, config)
+    return [splade_head_grad(params, *_token_states(params, ids, config))]
 
 
 def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -157,14 +182,23 @@ def _l2(x: torch.Tensor) -> torch.Tensor:
     return x / torch.where(n == 0.0, torch.ones_like(n), n)
 
 
+def _l2_shards(acts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Rows of vocabulary shards L2-normalized over all shards together."""
+    if len(acts) == 1:
+        return [_l2(acts[0])]
+    n = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(a, dim=-1) for a in acts]), dim=0)[:, None]
+    n = torch.where(n == 0.0, torch.ones_like(n), n)
+    return [a / n for a in acts]
+
+
 def contrastive_loss(params, query_ids, doc_ids, config: EncoderConfig,
                      temperature: float = 0.05) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Symmetric InfoNCE with in-batch negatives over the pooled, L2-normed
     embeddings."""
     require_fp32()
     dev = _device_of(params)
-    q = encoder_pooled(params, _ids(query_ids, dev), config)  # [B, H] f32
-    d = encoder_pooled(params, _ids(doc_ids, dev), config)
+    q = _pooled(params, query_ids, config)  # [B, H] f32
+    d = _pooled(params, doc_ids, config)
     logits = (q @ d.T) / temperature
     labels = torch.arange(logits.shape[0], device=dev)
     loss = 0.5 * (_ce(logits, labels).mean() + _ce(logits.T, labels).mean())
@@ -179,8 +213,8 @@ def maxsim_contrastive_loss(params, query_ids, doc_ids, config: EncoderConfig,
     asymmetric."""
     require_fp32()
     dev = _device_of(params)
-    q_tok, q_mask = token_states(params, _ids(query_ids, dev), config)
-    d_tok, d_mask = token_states(params, _ids(doc_ids, dev), config)
+    q_tok, q_mask = _token_states(params, query_ids, config)
+    d_tok, d_mask = _token_states(params, doc_ids, config)
     q_tok, d_tok = _l2(q_tok), _l2(d_tok)
     sim = torch.einsum("bqh,cth->bqct", q_tok, d_tok)  # [B, Tq, B, Td]
     sim = torch.where(d_mask[None, None, :, :], sim, float("-inf"))
@@ -200,27 +234,23 @@ def splade_contrastive_loss(params, query_ids, doc_ids, config: EncoderConfig, t
     regularizer ``Σ_v (mean_b w(x)_bv)²`` on each side (the SPLADE recipe;
     sparsification stays an inference step). ``score_norm="cosine"``
     L2-normalizes the activations inside the logits."""
-    from trueno_rag_tpu_torch.models.splade import splade_head_grad
-
     if score_norm not in ("none", "cosine"):
         raise InvalidConfigError(f"unknown score_norm {score_norm!r} (none|cosine)")
     dev = _device_of(params)
-    qs, qm = token_states(params, _ids(query_ids, dev), config)
-    ds, dm = token_states(params, _ids(doc_ids, dev), config)
-    q_act = splade_head_grad(params, qs, qm)  # [B, V] >= 0
-    d_act = splade_head_grad(params, ds, dm)
-    q_s, d_s = (_l2(q_act), _l2(d_act)) if score_norm == "cosine" else (q_act, d_act)
-    logits = (q_s @ d_s.T) / temperature
+    q_act = _splade_acts(params, query_ids, config)  # vocabulary shards [B, V / model], >= 0
+    d_act = _splade_acts(params, doc_ids, config)
+    q_s, d_s = (_l2_shards(q_act), _l2_shards(d_act)) if score_norm == "cosine" else (q_act, d_act)
+    logits = shard_sum([a @ b.T for a, b in zip(q_s, d_s)], dev) / temperature
     labels = torch.arange(logits.shape[0], device=dev)
     ce = _ce(logits, labels).mean()
-    flops_q = (q_act.mean(dim=0) ** 2).sum()
-    flops_d = (d_act.mean(dim=0) ** 2).sum()
+    flops_q = shard_sum([(a.mean(dim=0) ** 2).sum() for a in q_act], dev)
+    flops_d = shard_sum([(a.mean(dim=0) ** 2).sum() for a in d_act], dev)
     loss = ce + lambda_q * flops_q + lambda_d * flops_d
     return loss, {
         "loss": loss, "ce": ce, "accuracy": _accuracy(logits, labels),
         "flops_q": flops_q, "flops_d": flops_d,
-        "nnz_q": (q_act > 0.0).sum(dim=1).float().mean(),
-        "nnz_d": (d_act > 0.0).sum(dim=1).float().mean(),
+        "nnz_q": shard_sum([(a > 0.0).sum(dim=1) for a in q_act], dev).float().mean(),
+        "nnz_d": shard_sum([(a > 0.0).sum(dim=1) for a in d_act], dev).float().mean(),
     }
 
 
@@ -228,20 +258,29 @@ def loss_and_grads(loss_fn: Callable, params, *args, **kw):
     """``loss_fn(params, *args, **kw) → (loss, metrics)`` and the gradients
     of the loss with respect to every parameter → ``(loss, metrics, grads)``
     (``grads`` in the parameters' tree; zeros where the loss does not
-    depend on a parameter). Metrics are detached."""
+    depend on a parameter). Metrics are detached. Sharded parameters give
+    sharded gradients, each leaf's summed over its copies
+    (``parallel.train.sum_copies``)."""
     live = tree_map(lambda p: p.detach().requires_grad_(True), params)
     loss, metrics = loss_fn(live, *args, **kw)
-    leaves = tree_leaves(live)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    it = iter([torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)])
-    grad_tree = tree_map(lambda _: next(it), live)
-    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grad_tree
+    it = iter(torch.autograd.grad(loss, tree_leaves(live), allow_unused=True))
+    grads = tree_map(lambda _: next(it), live)  # None where the loss does not use a copy
+    if _sharded(params):
+        grads = sharded.sum_copies(grads, live)
+    else:
+        grads = tree_map(lambda g, p: torch.zeros_like(p) if g is None else g, grads, live)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
 def _step(state: TrainState, tx: AdamW, loss_fn: Callable, *args, **kw):
-    _, metrics, grads = loss_and_grads(loss_fn, state.params, *args, **kw)
-    updates, opt_state = tx.update(grads, state.opt_state, state.params)
-    return TrainState(apply_updates(state.params, updates), opt_state, state.step + 1), metrics
+    params = state.params
+    _, metrics, grads = loss_and_grads(loss_fn, params, *args, **kw)
+    # the moments laid out as the params: a one-device optimizer state (the
+    # JAX package's device_put(opt_state)) is placed on a sharded step's mesh
+    opt = state.opt_state
+    opt = opt._replace(mu=place_like(opt.mu, params), nu=place_like(opt.nu, params))
+    updates, opt_state = tx.update(grads, opt, params)
+    return TrainState(apply_updates(params, updates), opt_state, state.step + 1), metrics
 
 
 def train_step(state: TrainState, query_ids, doc_ids, tx: AdamW, config: EncoderConfig,

@@ -9,6 +9,10 @@ distribution. Objectives:
 - ``kl`` — KL(softmax(teacher/τ_t) ‖ softmax(student/τ_s)) per slate;
 - ``margin_mse`` — MSE between the teacher's and the student's score
   margins against the slate's first slot (Margin-MSE).
+
+Sharded parameters and ``shard_batch`` values run the data- and
+tensor-parallel program (:mod:`trueno_rag_tpu_torch.parallel.train`), as
+:func:`~trueno_rag_tpu_torch.train.contrastive.train_step` does.
 """
 
 from __future__ import annotations
@@ -19,8 +23,19 @@ import numpy as np
 import torch
 
 from trueno_rag_tpu_torch.errors import InvalidConfigError, QueryError
-from trueno_rag_tpu_torch.models.encoder import EncoderConfig, encoder_pooled, token_states
-from trueno_rag_tpu_torch.train.contrastive import AdamW, TrainState, _device_of, _ids, _step
+from trueno_rag_tpu_torch.models.encoder import EncoderConfig
+from trueno_rag_tpu_torch.parallel.mesh import shard_sum
+from trueno_rag_tpu_torch.parallel.train import row_parts
+from trueno_rag_tpu_torch.train.contrastive import (
+    AdamW,
+    TrainState,
+    _device_of,
+    _ids,
+    _pooled,
+    _sharded,
+    _splade_acts,
+    _step,
+)
 
 OBJECTIVES = ("kl", "margin_mse")
 
@@ -29,7 +44,7 @@ def distill_objective(student: torch.Tensor, teacher, objective: str = "kl", tem
                       temperature_t: float = 1.0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The slate-distillation objective over ``student [B, C]`` and
     ``teacher [B, C]`` scores; the teacher is a constant (no gradient)."""
-    teacher = torch.as_tensor(teacher, device=student.device).detach()
+    teacher = _ids(teacher, student.device).detach()
     if objective == "kl":
         t_logp = torch.log_softmax(teacher / temperature_t, dim=1)
         s_logp = torch.log_softmax(student / temperature_s, dim=1)
@@ -51,6 +66,12 @@ def distill_objective(student: torch.Tensor, teacher, objective: str = "kl", tem
 
 
 def _slate_ids(query_ids, cand_ids, params):
+    """→ ``(query ids, candidate ids [B·C, T], (B, C, T))``; on sharded
+    parameters the ids stay per ``data`` row."""
+    if _sharded(params):
+        cand = row_parts(cand_ids, params.mesh)
+        shape = (sum(c.shape[0] for c in cand),) + tuple(cand[0].shape[1:])
+        return query_ids, [c.reshape(-1, c.shape[2]) for c in cand], shape
     dev = _device_of(params)
     q, c = _ids(query_ids, dev), _ids(cand_ids, dev)
     return q, c.reshape(-1, c.shape[2]), c.shape
@@ -61,8 +82,8 @@ def dense_distill_loss(params, query_ids, cand_ids, teacher_scores, config: Enco
     """The student's ``[B, C]`` cosines of each query against its C
     candidates (``cand_ids [B, C, T]``), distilled."""
     q_ids, flat, (b, c, _) = _slate_ids(query_ids, cand_ids, params)
-    q = encoder_pooled(params, q_ids, config)  # [B, H]
-    d = encoder_pooled(params, flat, config).reshape(b, c, -1)
+    q = _pooled(params, q_ids, config)  # [B, H]
+    d = _pooled(params, flat, config).reshape(b, c, -1)
     s = torch.einsum("bh,bch->bc", q, d)
     return distill_objective(s, teacher_scores, objective, temperature_s, temperature_t)
 
@@ -70,15 +91,13 @@ def dense_distill_loss(params, query_ids, cand_ids, teacher_scores, config: Enco
 def splade_distill_loss(params, query_ids, cand_ids, teacher_scores, config: EncoderConfig, objective: str = "kl",
                         temperature_s: float = 1.0, temperature_t: float = 1.0):
     """The learned-sparse student's slate scores: dense activation dots
-    (sparsification stays an inference step), distilled."""
-    from trueno_rag_tpu_torch.models.splade import splade_head_grad
-
+    (sparsification stays an inference step; on sharded parameters summed
+    over the vocabulary shards), distilled."""
     q_ids, flat, (b, c, _) = _slate_ids(query_ids, cand_ids, params)
-    qs, qm = token_states(params, q_ids, config)
-    q_act = splade_head_grad(params, qs, qm)  # [B, V]
-    ds, dm = token_states(params, flat, config)
-    d_act = splade_head_grad(params, ds, dm).reshape(b, c, -1)
-    s = torch.einsum("bv,bcv->bc", q_act, d_act)
+    q_act = _splade_acts(params, q_ids, config)  # vocabulary shards [B, V / model]
+    d_act = _splade_acts(params, flat, config)
+    s = shard_sum([torch.einsum("bv,bcv->bc", q, d.reshape(b, c, -1)) for q, d in zip(q_act, d_act)],
+                  _device_of(params))
     return distill_objective(s, teacher_scores, objective, temperature_s, temperature_t)
 
 

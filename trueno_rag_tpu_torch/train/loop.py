@@ -10,8 +10,9 @@ The numbers run on the parameters' device: the corpus re-encode is a
 batched forward, retrieval is :func:`~trueno_rag_tpu_torch.ops.dense.dense_topk`
 (pooled), :func:`~trueno_rag_tpu_torch.ops.maxsim.maxsim_scan_topk`
 (MaxSim) or the activation dot (SPLADE), and the metrics are one
-:func:`~trueno_rag_tpu_torch.ops.metrics.batched_metrics` call. The JAX
-package's mesh and data parallelism are not part of this loop.
+:func:`~trueno_rag_tpu_torch.ops.metrics.batched_metrics` call. A sharded
+state (``parallel.shard_params``) trains sharded and is evaluated on its
+gathered parameters on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from trueno_rag_tpu_torch.errors import InvalidConfigError
 from trueno_rag_tpu_torch.models.encoder import EncoderConfig, encoder_forward, encoder_token_states
 from trueno_rag_tpu_torch.ops.dense import dense_topk, require_fp32, topk_desc
 from trueno_rag_tpu_torch.ops.metrics import batched_metrics
+from trueno_rag_tpu_torch.parallel.mesh import gather_params
 from trueno_rag_tpu_torch.train.contrastive import (
     TrainState,
     _device_of,
@@ -133,6 +135,7 @@ def evaluate_retrieval(params, config: EncoderConfig, tokenizer, chunk_texts: Se
             "evaluation needs a non-empty corpus and at least one probe "
             "query (ICT probes require chunks with >= 2 sentences)"
         )
+    params = gather_params(params)
     if mode == "maxsim":
         rows = _maxsim_eval_rows(params, config, tokenizer, chunk_texts, evalset, k, encode_batch)
     elif mode == "splade":
@@ -264,7 +267,8 @@ def fit(
 
 
 def _clone_state(state: TrainState) -> TrainState:
-    """A copy of ``state`` that later steps do not touch."""
+    """A copy of ``state`` (one device's or sharded) that later steps do not
+    touch."""
     opt = state.opt_state
     return TrainState(tree_map(torch.clone, state.params),
                       opt._replace(mu=tree_map(torch.clone, opt.mu), nu=tree_map(torch.clone, opt.nu)),
