@@ -1,0 +1,4 @@
+"""device_idle.dense (%, device trace): the share of the traced window
+with no device operation running (dense cell)."""
+
+from benchmark.harness.readings import device_idle as read  # noqa: F401

@@ -1,0 +1,4 @@
+"""encode_ms.dense (ms, program span): the query encoder's host
+milliseconds per batch in the staged pass (dense cell)."""
+
+from benchmark.harness.readings import encode_ms as read  # noqa: F401
