@@ -46,6 +46,7 @@ from trueno_rag_tpu_torch.ops.maxsim import (
     prepare_maxsim_scan16,
     prepare_maxsim_self16,
 )
+from trueno_rag_tpu_torch.utils import profiling
 
 _UPLOAD_ROWS = 1 << 14  # chunks copied to the device per transfer
 
@@ -315,20 +316,25 @@ class TokenVectorStore:
             s, r = self._patch_uncertified(s, r, cert, qd, qmd, tokens, t_mask, valid, k)
         else:
             s, r = maxsim_scan_topk(qd, qmd, tokens, t_mask, valid, k, cfg.scan_block, self._d_norm)
-        return s.cpu().numpy(), r.cpu().numpy()
+        with profiling.span("rag.scan.wait"):
+            return s.cpu().numpy(), r.cpu().numpy()
 
     def _patch_uncertified(self, s, r, cert, qd, qmd, tokens, t_mask, valid, k):
         """Fail-closed: the uncertified queries re-run on the exact scan,
         counted in :attr:`uncertified`. Both give the exact top-k of
         :func:`~trueno_rag_tpu_torch.ops.maxsim.maxsim_pair_scores`, so a
         certified query and its fallback agree row for row."""
-        miss = torch.nonzero(~cert).flatten()
+        with profiling.span("rag.scan.wait"):
+            miss = torch.nonzero(~cert).flatten()
         if miss.numel():
-            self.uncertified += int(miss.numel())
-            s_e, r_e = maxsim_scan_topk(qd[miss], qmd[miss], tokens, t_mask, valid, k, self.config.scan_block,
-                                        self._d_norm)
-            s, r = s.clone(), r.clone()
-            s[miss], r[miss] = s_e, r_e
+            with profiling.span("rag.scan.fallback") as sp:
+                if sp is not None:
+                    sp.attrs["queries"] = int(miss.numel())
+                self.uncertified += int(miss.numel())
+                s_e, r_e = maxsim_scan_topk(qd[miss], qmd[miss], tokens, t_mask, valid, k, self.config.scan_block,
+                                            self._d_norm)
+                s, r = s.clone(), r.clone()
+                s[miss], r[miss] = s_e, r_e
         return s, r
 
     def search_tokens(self, q_tok: np.ndarray, k: int,

@@ -42,6 +42,7 @@ from trueno_rag_tpu_torch.device import resolve_device
 from trueno_rag_tpu_torch.embed import Embedder, EmbeddingConfig, PoolingStrategy
 from trueno_rag_tpu_torch.errors import InvalidConfigError
 from trueno_rag_tpu_torch.text import tokenize_simple
+from trueno_rag_tpu_torch.utils import profiling
 
 PAD_ID = 0
 CLS_ID = 1
@@ -218,7 +219,9 @@ def _heads_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: to
         q = _rope_heads(q, config.rope_base, config.rope_interleaved)
         k = _rope_heads(k, config.rope_base, config.rope_interleaved)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    logits = logits / torch.tensor(np.sqrt(hd).astype(np.float32), device=q.device)
+    with profiling.span("rag.encode.forward.wait"):  # the scalar's upload synchronizes the stream
+        scale = torch.tensor(np.sqrt(hd).astype(np.float32), device=q.device)
+    logits = logits / scale
     logits = logits.masked_fill_(~mask[:, None, None, :], MASKED)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.matmul(probs, v).permute(0, 2, 1, 3).reshape(b, t, w)
@@ -400,6 +403,16 @@ def pad_batch_pow2(ids: np.ndarray) -> np.ndarray:
     return ids if b == ids.shape[0] else np.pad(ids, ((0, b - ids.shape[0]), (0, 0)))
 
 
+def count_tokens(ids: np.ndarray) -> None:
+    """Add the real tokens of the ids fed to the trunk and their rows ×
+    length to the span recorder's ``rag.encode.tokens`` and
+    ``rag.encode.padded_tokens``, while one is on."""
+    rec = profiling.active()
+    if rec is not None:
+        rec.count("rag.encode.tokens", np.count_nonzero(ids != PAD_ID))
+        rec.count("rag.encode.padded_tokens", ids.size)
+
+
 # ---------------------------------------------------------------------------
 # Embedder wrapper
 # ---------------------------------------------------------------------------
@@ -460,10 +473,14 @@ class EncoderEmbedder(Embedder):
         cfg = self.encoder_config
         out, lo = [], 0
         while lo < len(texts):
-            ids = self.tokenizer.encode_batch(texts[lo:lo + _EMBED_ROWS])
-            rows = min(len(ids), max(1, _LOGIT_BYTES // (4 * cfg.num_heads * ids.shape[1] ** 2)))
-            ids = torch.from_numpy(pad_batch_pow2(ids[:rows])).to(self.device)
-            out.append(encoder_forward(self.params, ids, cfg)[:rows])
+            with profiling.span("rag.encode.tokenize"):
+                ids = self.tokenizer.encode_batch(texts[lo:lo + _EMBED_ROWS])
+                rows = min(len(ids), max(1, _LOGIT_BYTES // (4 * cfg.num_heads * ids.shape[1] ** 2)))
+                ids = pad_batch_pow2(ids[:rows])
+            count_tokens(ids)
+            with profiling.span("rag.encode.forward"):
+                ids = torch.from_numpy(ids).to(self.device)
+                out.append(encoder_forward(self.params, ids, cfg)[:rows])
             lo += rows
         return torch.cat(out)
 
@@ -473,7 +490,9 @@ class EncoderEmbedder(Embedder):
     def embed_batch(self, texts: Sequence[str]) -> np.ndarray:
         if len(texts) == 0:
             return np.zeros((0, self.dimension), dtype=np.float32)
-        return self._forward_texts(list(texts)).cpu().numpy()
+        emb = self._forward_texts(list(texts))
+        with profiling.span("rag.encode.wait"):
+            return emb.cpu().numpy()
 
     def embed_queries_device(self, queries: Sequence[str]) -> torch.Tensor:
         """Device-resident query embeddings for the fused retrieval path."""

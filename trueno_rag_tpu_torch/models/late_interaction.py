@@ -34,12 +34,14 @@ from trueno_rag_tpu_torch.errors import InvalidConfigError
 from trueno_rag_tpu_torch.models.encoder import (
     EncoderConfig,
     HashTokenizer,
+    count_tokens,
     encoder_token_states,
     init_encoder_params,
     pad_batch_pow2,
 )
 from trueno_rag_tpu_torch.ops.dense import require_fp32
 from trueno_rag_tpu_torch.retrieve import RetrievalResult
+from trueno_rag_tpu_torch.utils import profiling
 
 NEG_INF = float("-inf")
 
@@ -195,10 +197,15 @@ class LateInteractionRetriever:
     def _encode(self, texts: Sequence[str]):
         """texts → ``(tokens [B, T, H] f32, mask [B, T] bool)`` numpy; the
         batch is padded to a power of two (the JAX package's buckets)."""
-        ids = torch.from_numpy(pad_batch_pow2(self.tokenizer.encode_batch(texts))).to(self.device)
-        tok, mask = encoder_token_states(self.params, ids, self.config)
+        with profiling.span("rag.encode.tokenize"):
+            ids = pad_batch_pow2(self.tokenizer.encode_batch(texts))
+        count_tokens(ids)
+        with profiling.span("rag.encode.forward"):
+            ids = torch.from_numpy(ids).to(self.device)
+            tok, mask = encoder_token_states(self.params, ids, self.config)
         n = len(texts)
-        return tok[:n].cpu().numpy(), mask[:n].cpu().numpy()
+        with profiling.span("rag.encode.wait"):
+            return tok[:n].cpu().numpy(), mask[:n].cpu().numpy()
 
     def index(self, chunk: Chunk) -> None:
         tok, mask = self._encode([chunk.content])
@@ -218,10 +225,18 @@ class LateInteractionRetriever:
         per-query list) resolves on the host to an allowed-row mask that
         joins the tombstone mask before the scan, so every scan searches
         the FILTERED corpus exactly; queries sharing a filter search
-        together."""
+        together. The call is one ``rag.retrieve`` span of the span
+        recorder (:func:`~trueno_rag_tpu_torch.utils.profiling.spans`)."""
+        with profiling.span("rag.retrieve") as sp:
+            if sp is not None:
+                sp.attrs.update(queries=len(queries), k=k)
+            return self._retrieve_batch(queries, k, tag_filter)
+
+    def _retrieve_batch(self, queries, k: int, tag_filter) -> List[List[RetrievalResult]]:
         if not queries or len(self.store) == 0 or k <= 0:
             return [[] for _ in queries]
-        q_tok, q_mask = self._encode(list(queries))
+        with profiling.span("rag.encode"):
+            q_tok, q_mask = self._encode(list(queries))
         b = len(queries)
         out: List[List[RetrievalResult]] = [[] for _ in range(b)]
         if tag_filter is None:
@@ -242,10 +257,12 @@ class LateInteractionRetriever:
                 allowed = ((bits & wa) == wa) & ((wy == 0) | ((bits & wy) != 0)) & ((bits & wn) == 0)
                 groups.append((allowed, idxs))
         for allowed, idxs in groups:
-            scores, rows = self.store.search_arrays(q_tok[idxs], q_mask[idxs], k, allowed_rows=allowed)
-            for j, i in enumerate(idxs):
-                out[i] = [RetrievalResult(chunk=self.store.get(cid), dense_score=s)
-                          for cid, s in self.store._hydrate(scores[j], rows[j])]
+            with profiling.span("rag.scan"):
+                scores, rows = self.store.search_arrays(q_tok[idxs], q_mask[idxs], k, allowed_rows=allowed)
+            with profiling.span("rag.hydrate"):
+                for j, i in enumerate(idxs):
+                    out[i] = [RetrievalResult(chunk=self.store.get(cid), dense_score=s)
+                              for cid, s in self.store._hydrate(scores[j], rows[j])]
         return out
 
     def ensure_ready(self) -> None:

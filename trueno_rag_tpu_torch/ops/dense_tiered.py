@@ -55,6 +55,7 @@ from trueno_rag_tpu_torch.ops.dense import (
 from trueno_rag_tpu_torch.ops.kernels.scan_select import SEL, scan_select_int8_v3, scan_select_v3
 from trueno_rag_tpu_torch.ops.kernels.scan_select_v1 import BLOCK, TOP, scan_select, scan_select_int8
 from trueno_rag_tpu_torch.ops.tags import dense_topk_tagged, tag_pred
+from trueno_rag_tpu_torch.utils import profiling
 
 # Safety inflation on the analytic bound: absorbs f32 rounding in the
 # bound arithmetic itself (a handful of multiply-adds).
@@ -416,24 +417,28 @@ def _checked_fallback(s, r, ok, queries, matrix, valid_mask, k, metric, tags=Non
     """Re-run ONLY uncertified queries on the exact fp32 path (the tagged
     fp32 scan when ``tags`` is given) and patch their rows in. Returns
     (scores, rows, number of re-run queries)."""
-    bad = torch.nonzero(~ok).flatten()
+    with profiling.span("rag.scan.wait"):
+        bad = torch.nonzero(~ok).flatten()
     if bad.numel() == 0:
         return s, r, 0
-    k_eff = min(k, matrix.shape[0])
-    if tags is not None:
-        tag_bits, t_all, t_any, t_none = (t.to(torch.int32) for t in tags)
-        fb_s, fb_r = dense_topk_tagged(
-            queries[bad], matrix, valid_mask, tag_bits, t_all[bad], t_any[bad], t_none[bad],
-            k_eff, metric,
-        )
-    else:
-        fb_s, fb_r = dense_topk(queries[bad], matrix, valid_mask, k_eff, metric)
-    fb_s, fb_r = _pad_k(fb_s, fb_r, k)
-    s = s.clone()
-    r = r.clone()
-    s[bad] = fb_s
-    r[bad] = fb_r
-    return s, r, int(bad.numel())
+    with profiling.span("rag.scan.fallback") as sp:
+        if sp is not None:
+            sp.attrs["queries"] = int(bad.numel())
+        k_eff = min(k, matrix.shape[0])
+        if tags is not None:
+            tag_bits, t_all, t_any, t_none = (t.to(torch.int32) for t in tags)
+            fb_s, fb_r = dense_topk_tagged(
+                queries[bad], matrix, valid_mask, tag_bits, t_all[bad], t_any[bad], t_none[bad],
+                k_eff, metric,
+            )
+        else:
+            fb_s, fb_r = dense_topk(queries[bad], matrix, valid_mask, k_eff, metric)
+        fb_s, fb_r = _pad_k(fb_s, fb_r, k)
+        s = s.clone()
+        r = r.clone()
+        s[bad] = fb_s
+        r[bad] = fb_r
+        return s, r, int(bad.numel())
 
 
 # ---------------------------------------------------------------------------

@@ -71,6 +71,7 @@ from trueno_rag_tpu_torch.errors import InvalidConfigError
 from trueno_rag_tpu_torch.ops.dense import _pad_k, blockwise_topk, require_fp32, topk_desc
 from trueno_rag_tpu_torch.ops.dense_tiered import _int8_query_bounds, _quantize_rows, _topk_select
 from trueno_rag_tpu_torch.ops.kernels.maxsim_scan import _MASK_BIAS, maxsim_scan16_scores, maxsim_scan_int8_scores
+from trueno_rag_tpu_torch.utils import profiling
 
 NEG_INF = float("-inf")
 
@@ -238,7 +239,9 @@ def maxsim_scan_topk(
             break
         kth, out = top[:, min(k, w) - 1], top[:, w]
         margin = (budget + kth.abs() * 2.0**-22) * _BOUND_SLACK + _BOUND_EPS
-        if bool((torch.isneginf(out) | (out < kth - margin)).all()):
+        with profiling.span("rag.scan.wait"):
+            done = bool((torch.isneginf(out) | (out < kth - margin)).all())
+        if done:
             break
         w = min(2 * w, n)
     return _exact_rescore(q_tok, q_mask, tokens, t_mask, cand[:, :w], k)

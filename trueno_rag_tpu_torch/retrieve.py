@@ -49,6 +49,7 @@ from trueno_rag_tpu_torch.errors import QueryError
 from trueno_rag_tpu_torch.fusion import FusionStrategy
 from trueno_rag_tpu_torch.index import BM25Index, ChunkRegistry, VectorStore, VectorStoreConfig
 from trueno_rag_tpu_torch.index.base import IMPOSSIBLE_BIT
+from trueno_rag_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -273,7 +274,14 @@ class HybridRetriever:
         top-k rows back to chunks exactly once. ``fusion`` overrides the
         configured strategy for this call only. ``tag_filter`` is one
         :class:`TagFilter` for every query, or a list with one per query
-        (None = unfiltered)."""
+        (None = unfiltered). The call is one ``rag.retrieve`` span of the
+        span recorder (:func:`~trueno_rag_tpu_torch.utils.profiling.spans`)."""
+        with profiling.span("rag.retrieve") as sp:
+            if sp is not None:
+                sp.attrs.update(queries=len(queries), k=k)
+            return self._retrieve_batch(queries, k, fusion, tag_filter)
+
+    def _retrieve_batch(self, queries, k: int, fusion, tag_filter) -> List[List[RetrievalResult]]:
         if not queries:
             return []
         if any(not q.strip() for q in queries):
@@ -336,7 +344,8 @@ class HybridRetriever:
         # zero query would only fail certification and re-run on fp32)
         b = len(queries)
         if use_dense:
-            qvecs = np.asarray(self.embedder.embed_queries(queries), dtype=np.float32)
+            with profiling.span("rag.encode"):
+                qvecs = np.asarray(self.embedder.embed_queries(queries), dtype=np.float32)
         masks = None if tag_filter is None else resolve_tag_filters(self.registry, tag_filter, b)
         store = self.vector_store
         staged_tier = store._effective_tier() != "none" and (
@@ -354,12 +363,15 @@ class HybridRetriever:
                 # staged: certified dense scan (exact: checked fallback on
                 # the bf16/int8 tiers, host patch on compact; a filter
                 # rides the scan kernel), then BM25, then device fusion
-                d_scores, d_rows = store.search_arrays(qvecs, cand, tag_masks=masks)
-                s_scores, s_rows = self._sparse_candidates(queries, cand, masks)
-                f_rows, f_scores = fuse_topk(
-                    d_rows, d_scores, s_rows, s_scores,
-                    kind=strategy.kind, param=strategy.device_param,
-                )
+                with profiling.span("rag.scan"):
+                    d_scores, d_rows = store.search_arrays(qvecs, cand, tag_masks=masks)
+                with profiling.span("rag.sparse"):
+                    s_scores, s_rows = self._sparse_candidates(queries, cand, masks)
+                with profiling.span("rag.fuse"):
+                    f_rows, f_scores = fuse_topk(
+                        d_rows, d_scores, s_rows, s_scores,
+                        kind=strategy.kind, param=strategy.device_param,
+                    )
             else:
                 from trueno_rag_tpu_torch.ops.dense import require_fp32
 
@@ -400,18 +412,23 @@ class HybridRetriever:
                         sparse._snap["avgdl"], k1=sparse.k1, b=sparse.b, **kw,
                     )
         elif use_dense:
-            d_scores, d_rows = self._dense_candidates(qvecs, cand, masks)
+            with profiling.span("rag.scan"):
+                d_scores, d_rows = self._dense_candidates(qvecs, cand, masks)
             f_rows, f_scores = d_rows, d_scores
         else:
-            s_scores, s_rows = self._sparse_candidates(queries, cand, masks)
+            with profiling.span("rag.sparse"):
+                s_scores, s_rows = self._sparse_candidates(queries, cand, masks)
             f_rows, f_scores = s_rows, s_scores
 
-        d_maps = self._score_maps(d_rows, d_scores) if use_dense else [{}] * b
-        s_maps = self._score_maps(s_rows, s_scores) if use_sparse else [{}] * b
-        l_maps = self._score_maps(l_rows, l_scores) if use_learned else None
-        return self._hydrate(b, k, f_rows.cpu().numpy(), f_scores.cpu().numpy(), d_maps, s_maps,
-                             fused_is_real=int(use_dense) + int(use_sparse) + int(use_learned) >= 2,
-                             l_maps=l_maps)
+        with profiling.span("rag.hydrate"):
+            d_maps = self._score_maps(d_rows, d_scores) if use_dense else [{}] * b
+            s_maps = self._score_maps(s_rows, s_scores) if use_sparse else [{}] * b
+            l_maps = self._score_maps(l_rows, l_scores) if use_learned else None
+            with profiling.span("rag.hydrate.wait"):
+                f_rows, f_scores = f_rows.cpu().numpy(), f_scores.cpu().numpy()
+            return self._hydrate(b, k, f_rows, f_scores, d_maps, s_maps,
+                                 fused_is_real=int(use_dense) + int(use_sparse) + int(use_learned) >= 2,
+                                 l_maps=l_maps)
 
     def _hydrate(self, b: int, k: int, f_rows, f_scores, d_maps, s_maps,
                  fused_is_real: bool = True, l_maps=None) -> List[List[RetrievalResult]]:
@@ -515,8 +532,9 @@ class HybridRetriever:
 
     @staticmethod
     def _score_maps(rows, scores) -> List[Dict[int, float]]:
-        rows = rows.cpu().numpy()
-        scores = scores.cpu().numpy()
+        with profiling.span("rag.hydrate.wait"):
+            rows = rows.cpu().numpy()
+            scores = scores.cpu().numpy()
         return [
             {int(r): float(s) for r, s in zip(rows[i], scores[i]) if r >= 0}
             for i in range(rows.shape[0])
