@@ -100,9 +100,12 @@ Run from the repository root. Phases, each fatal on failure:
    U = s + W at least the float64 MaxSim on 4,096 sampled chunks; K7
    ``maxsim_scan_int8_scores`` over 2,097,152 x 32 x 128 int8 tokens with
    scales at (8, 8), bit-identical to its plain version, U sound likewise;
-   times beside the plain versions and the bounds; K7 again at the
-   late-interaction store's launch shape (262,144 x 32 x 384 int8 tokens,
-   B = 8, Lq = 32 and 16), bit-identical and timed; then
+   times beside the plain versions and the bounds; K6 at late-262k.b32's
+   launch (262,144 x 32 x 384 bf16 tokens, B = 32, Lq = 16, 6-14 real
+   tokens a query), its wgmma program counted, within 2·κ·C1·n_max of its
+   plain version, timed beside the bound of its real query tokens; K7
+   again at the late-interaction store's launch shape (262,144 x 32 x 384
+   int8 tokens, B = 8, Lq = 32 and 16), bit-identical and timed; then
    ``maxsim_topk_scan16_fused`` and ``maxsim_topk_int8_store`` on random
    and planted queries: at least 75% certified, every certified set equal
    to the float64 exact top-10 set;
@@ -417,6 +420,7 @@ MS_SHAPES = ((8, 8), (32, 8), (8, 32))  # (B, Lq): the bench's point, then its s
 MS_K = 10
 MS_SAMPLE = 4096  # chunks whose float64 MaxSim each bound U must cover
 MS_SLAB = 1 << 15  # chunks made or scored in float64 at a time
+K6_LATE_SHAPE = (32, 16)  # (B, Lq) of late-262k.b32's K6 launch, over LI_N x LI_MAX_LEN x LI_H
 LI_N = 262_144  # late-interaction-262k: one-chunk documents (BEIR TREC-COVID's 171,332 fit)
 LI_WORDS = 30
 LI_MAX_LEN = 32  # the CLI's multi-vector store: max_len 32, 32 tokens per chunk
@@ -2772,6 +2776,42 @@ def phase_kernels_k6k7(seed: int):
     del tok16, t_mask, valid, e_max, n_max
     torch.cuda.empty_cache()
 
+    # -- K6 at late-262k.b32's launch: 262,144 x 32 x 384, B = 32, Lq = 16 ----
+    n, lt_li, h_li = LI_N, LI_MAX_LEN, LI_H
+    tok16 = torch.empty((n, lt_li, h_li), dtype=torch.bfloat16, device=DEV)
+    for lo in range(0, n, MS_SLAB):
+        tok16[lo:lo + MS_SLAB] = unit_token_slab(min(MS_SLAB, n - lo), lt_li, h_li, gen)
+    t_mask = torch.ones((n, lt_li), dtype=torch.bool, device=DEV)
+    valid = torch.ones(n, dtype=torch.bool, device=DEV)
+    bq, lq = K6_LATE_SHAPE
+    # the cell's queries: 4-12 words and [CLS], [SEP], padded to Lq 16 with zero rows
+    lens = torch.randint(6, 15, (bq,), device=DEV, generator=gen)
+    qm = torch.arange(lq, device=DEV)[None, :] < lens[:, None]
+    q16, _, c1, _ = ms._scan16_query_pack(torch.randn((bq, lq, h_li), device=DEV, generator=gen), qm)
+    before = maxsim_scan16_scores.wgmma_launches
+    got = maxsim_scan16_scores(q16, tok16, t_mask, valid)
+    torch.cuda.synchronize()
+    check(maxsim_scan16_scores.wgmma_launches == before + 1, "K6 at the late launch did not run its wgmma program")
+    want = maxsim_scan16_scores_reference(q16, tok16, t_mask, valid)
+    err = (got - want).abs()
+    _, n_max = ms.prepare_maxsim_self16(tok16, t_mask)
+    tol = 2 * (h_li + lq) * 2.0**-23 * c1[:, None] * n_max[None, :]
+    check(bool((err <= tol).all()), f"K6 at the late launch: differs from its plain version by {err.max().item():.3e}")
+    max_err = err.max().item()
+    del got, want, err, tol, n_max
+    ms_k = cuda_ms(lambda: maxsim_scan16_scores(q16, tok16, t_mask, valid), 10)
+    ms_p = cuda_ms(lambda: maxsim_scan16_scores_reference(q16, tok16, t_mask, valid), 3)
+    ms_k2 = cuda_ms(lambda: maxsim_scan16_scores(q16, tok16, t_mask, valid), 10)
+    q_tok = int(qm.sum())
+    flop = 2.0 * q_tok * n * lt_li * h_li  # the real query tokens' work, as benchmark/work/maxsim.py counts it
+    bnd = bound(n * lt_li * h_li * 2, flop, BF16_FLOP_PER_S)
+    log(f"K6 at late-262k.b32's launch, N={n} Lt={lt_li} H={h_li} B={bq} Lq={lq} ({q_tok} real query tokens): kernel "
+        f"{ms_k:.3f} / {ms_k2:.3f} ms (wgmma program), plain {ms_p:.3f} ms (median, CUDA events); bound {bnd[0]:.3f} ms "
+        f"({bnd[1]}); {2.0 * bq * lq * n * lt_li * h_li / (min(ms_k, ms_k2) * 1e-3) / 1e12:.1f} TFLOP/s on the "
+        f"padded rows; max |kernel - plain| {max_err:.3e}")
+    del tok16, t_mask, valid
+    torch.cuda.empty_cache()
+
     # -- K7 over int8 primary storage: 2M x 32 x 128 --------------------------
     n = MS_N7
     t0 = time.perf_counter()
@@ -3221,19 +3261,21 @@ def li_queries(rng, texts, n):
 
 def li_drive(retr, batches, k, tag_filter=None):
     """retrieve_batch over ``batches`` with the K6 and K7 counts set to 0
-    just before and read just after → (results, ms per batch, K6, K7)."""
+    just before and read just after → (results, ms per batch, K6, K7, K6 on
+    its wgmma program)."""
     import torch
 
     from trueno_rag_tpu_torch.ops.kernels.maxsim_scan import maxsim_scan16_scores, maxsim_scan_int8_scores
 
-    maxsim_scan16_scores.launches = maxsim_scan_int8_scores.launches = 0
+    maxsim_scan16_scores.launches = maxsim_scan16_scores.wgmma_launches = maxsim_scan_int8_scores.launches = 0
     res, lat = [], []
     for qs in batches:
         t0 = time.perf_counter()
         res.append(retr.retrieve_batch(qs, k, tag_filter=tag_filter))
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t0) * 1e3)
-    return res, lat, maxsim_scan16_scores.launches, maxsim_scan_int8_scores.launches
+    return (res, lat, maxsim_scan16_scores.launches, maxsim_scan_int8_scores.launches,
+            maxsim_scan16_scores.wgmma_launches)
 
 
 def li_unit_queries(retr, qs):
@@ -3396,7 +3438,7 @@ def phase_late_interaction(seed: int):
     weights) with the CLI's tiered token store at 262,144 one-chunk
     documents; then the same rows in the bf16-storage (K7), zero-copy bf16
     (K6), token-pruned and exact stores; then the reranker → (K6 launches,
-    K7 launches)."""
+    K7 launches, K6 launches on its wgmma program: every one at H 384)."""
     import numpy as np
     import torch
 
@@ -3441,9 +3483,9 @@ def phase_late_interaction(seed: int):
     li_kernel_check(retr, batches[0], "late-interaction tiered")
     retr.retrieve_batch(batches[0], LI_K)  # warm-up
     store.uncertified = 0
-    res, lat, k6, k7 = li_drive(retr, batches, LI_K)
+    res, lat, k6, k7, k6w = li_drive(retr, batches, LI_K)
     check(k6 >= LI_BATCHES and k7 == 0, f"late-interaction tiered: K6 launched {k6} times, K7 {k7}")
-    k6_total, k7_total = k6, 0
+    k6_total, k7_total, k6w_total = k6, 0, k6w
     rows_main = li_check(retr, batches, res, LI_K, "late-interaction tiered")
     n_q = LI_BATCHES * LI_BATCH
     check(n_q - store.uncertified >= MIN_CERTIFIED * n_q,
@@ -3468,8 +3510,8 @@ def phase_late_interaction(seed: int):
     for row in range(LI_N):
         reg.set_tags(chunk_id_from_int(row), [f"t{row % 4}"])
     allowed = (np.arange(store._host.shape[0]) % 4) == 1
-    res_t, lat_t, k6, _ = li_drive(retr, batches[:1], LI_K, tag_filter=rag.TagFilter(all=("t1",)))
-    k6_total += k6
+    res_t, lat_t, k6, _, k6w = li_drive(retr, batches[:1], LI_K, tag_filter=rag.TagFilter(all=("t1",)))
+    k6_total, k6w_total = k6_total + k6, k6w_total + k6w
     li_check(retr, batches[:1], res_t, LI_K, "late-interaction tagged", allowed=allowed)
     check(all(reg.row_of(h.chunk.id) % 4 == 1 for q in res_t[0] for h in q), "late-interaction tagged: a row fails")
     log(f"late-interaction tag batch all=[t1]: {lat_t[0]:.1f} ms (host clock); K6 launches {k6}; every chunk passes, "
@@ -3497,7 +3539,7 @@ def phase_late_interaction(seed: int):
         sib.retrieve_batch(qb[0], LI_K)  # warm-up
         sib.store.uncertified = 0
         torch.cuda.reset_peak_memory_stats()
-        res_s, lat_s, k6, k7 = li_drive(sib, qb, LI_K)
+        res_s, lat_s, k6, k7, k6w = li_drive(sib, qb, LI_K)
         peak = torch.cuda.max_memory_allocated() / 2**30
         rows = li_check(sib, qb, res_s, LI_K, f"late-interaction {name}")
         if kw.get("storage_dtype") != "bfloat16":  # the same stored values as the main store
@@ -3507,7 +3549,7 @@ def phase_late_interaction(seed: int):
             check(k7 >= len(qb) and k6 == 0, f"late-interaction {name}: K7 launched {k7} times, K6 {k6}")
         if "K6" in name:
             check(k6 >= len(qb) and k7 == 0, f"late-interaction {name}: K6 launched {k6} times, K7 {k7}")
-        k6_total, k7_total = k6_total + k6, k7_total + k7
+        k6_total, k7_total, k6w_total = k6_total + k6, k7_total + k7, k6w_total + k6w
         n_q = len(qb) * LI_BATCH
         if kw["scan"] == "tiered":
             check(n_q - sib.store.uncertified >= MIN_CERTIFIED * n_q,
@@ -3520,7 +3562,8 @@ def phase_late_interaction(seed: int):
         if kw["scan"] == "exact":
             li_exact_split(sib, qb[0], f"late-interaction {name}")
         if "zero-copy" in name:
-            k6_total += phase_sharded_tokens(sib, qb[:SHARD_TOKEN_BATCHES], rows[:SHARD_TOKEN_BATCHES])
+            k6, k6w = phase_sharded_tokens(sib, qb[:SHARD_TOKEN_BATCHES], rows[:SHARD_TOKEN_BATCHES])
+            k6_total, k6w_total = k6_total + k6, k6w_total + k6w
         del sib
         gc.collect()
         torch.cuda.empty_cache()
@@ -3555,9 +3598,11 @@ def phase_late_interaction(seed: int):
     log(f"late-interaction-rerank (MiniLM-L6 trunk): {RR_QUERIES} queries x {RR_CANDIDATES} candidates in "
         f"{t_rr * 1e3:.1f} ms = {RR_QUERIES * RR_CANDIDATES / t_rr:.0f} pairs/s (host clock); scores within "
         f"{worst:.1e} of float64 MaxSim on a sample")
-    log(f"late-interaction path (retrieve_batch calls only): launches K6 {k6_total}, K7 {k7_total}")
+    log(f"late-interaction path (retrieve_batch calls only): launches K6 {k6_total} ({k6w_total} on its wgmma "
+        f"program), K7 {k7_total}")
     check(k6_total > 0 and k7_total > 0, "the late-interaction path missed a kernel")
-    return k6_total, k7_total
+    check(k6w_total == k6_total, f"late-interaction: {k6_total - k6w_total} K6 launches at H {LI_H} missed the wgmma program")
+    return k6_total, k7_total, k6w_total
 
 
 # -- slice 6: the block kernels, the fp32 block-max kernels, the block and
@@ -3909,8 +3954,9 @@ def phase_block_stores(pipe, seed: int):
 def phase_odd_widths(seed: int):
     """d (H) = 100 on the card: K1, K3, K5, K8 and K9 over 65,536 rows and K6,
     K7 over 8,192 chunks x 16 tokens against their plain versions; then one
-    bf16-tier batch (K1) and one zero-copy token-store batch (K6) at that
-    width → (K1 launches, K6 launches) of the two batches."""
+    bf16-tier batch (K1) and one zero-copy token-store batch (K6, on its
+    cp.async program at this width) → (K1 launches, K6 launches, K6 launches
+    on its wgmma program: none) of the two batches."""
     import numpy as np
     import torch
 
@@ -4000,18 +4046,19 @@ def phase_odd_widths(seed: int):
     exact.load_rows(chunks, toks, tms)
     plant = [11, ODD_TOK_N // 2]
     qt = np.concatenate([toks[plant][:, :8], tq[:6].cpu().numpy()])
-    km.maxsim_scan16_scores.launches = 0
+    km.maxsim_scan16_scores.launches = km.maxsim_scan16_scores.wgmma_launches = 0
     s_k, r_k = tstore.search_arrays(qt, None, 10)
-    k6 = km.maxsim_scan16_scores.launches
-    check(k6 > 0, "the H = 100 token store never launched K6")
+    k6, k6w = km.maxsim_scan16_scores.launches, km.maxsim_scan16_scores.wgmma_launches
+    check(k6 > 0 and k6w == 0, f"the H = 100 token store launched K6 {k6} times, {k6w} on its wgmma program")
     s_e, r_e = exact.search_arrays(qt, None, 10)
     check(np.array_equal(r_k, r_e) and np.array_equal(s_k, s_e), "the H = 100 token store differs from its exact scan")
     check(r_k[:2, 0].tolist() == plant, "the H = 100 token store missed a planted chunk")
     log(f"odd widths: a bf16-tier batch of {BATCH} at d = {d} equals the exact fp32 path (K1 launches {k1}); a "
-        f"zero-copy token-store batch of 8 at H = {d} equals its exact scan (K6 launches {k6})")
+        f"zero-copy token-store batch of 8 at H = {d} equals its exact scan (K6 launches {k6}, {k6w} on its wgmma "
+        f"program)")
     del m, mb, m_i8, tok, tok16, tok8, store, tstore, exact
     torch.cuda.empty_cache()
-    return k1, k6
+    return k1, k6, k6w
 
 
 # -- the BM25 segment path past 2^24 rows (slice 7) ------------------------------
@@ -4590,7 +4637,8 @@ def phase_cli(seed: int):
     (K1; also ``--filter-any``) against an in-memory pipeline of the same
     files and embedder; ``index --multi-vector`` and ``query`` (K6) against
     an in-memory ``LateInteractionRetriever``; ``info`` and ``demo`` →
-    (K1 launches, K6 launches) of the CLI's queries."""
+    (K1 launches, K6 launches, K6 launches on its wgmma program) of the
+    CLI's queries."""
     import numpy as np
 
     import argparse
@@ -4662,10 +4710,11 @@ def phase_cli(seed: int):
         rc, out = run_cli(["index", "--path", docs_dir, "--output", mv_dir, "--multi-vector", "--tag-by-dir"])
         check(rc == 0, f"cli index --multi-vector exit {rc}")
         log(f"cli index --multi-vector: {out.strip()} ({time.perf_counter() - t0:.1f} s)")
-        maxsim_scan16_scores.launches = 0
+        maxsim_scan16_scores.launches = maxsim_scan16_scores.wgmma_launches = 0
         mv = [json.loads(run_cli(["query", q, "--index", mv_dir, "--format", "json"])[1]) for q in queries]
-        k6 = maxsim_scan16_scores.launches
+        k6, k6w = maxsim_scan16_scores.launches, maxsim_scan16_scores.wgmma_launches
         check(k6 > 0, "the CLI's multi-vector queries never launched maxsim_scan16_scores")
+        check(k6w == k6, f"the CLI's multi-vector queries: {k6 - k6w} of {k6} K6 launches missed the wgmma program")
         li = cli._multi_vector_retriever(DEV)
         chunker = rag.RecursiveChunker(chunk_size=512, overlap=64)
         for d, t in zip(docs, tags):
@@ -4677,8 +4726,8 @@ def phase_cli(seed: int):
         for q, a in zip(queries, mv):
             check(json_rows(a) == cli_rows(li.retrieve(q, 5)),
                   f"cli multi-vector query {q!r}: results differ from the in-memory retriever's")
-        log(f"cli query (multi-vector): {len(queries)} queries, maxsim_scan16_scores launches {k6}; every result "
-            f"equal to the in-memory LateInteractionRetriever's")
+        log(f"cli query (multi-vector): {len(queries)} queries, maxsim_scan16_scores launches {k6} ({k6w} on its "
+            f"wgmma program); every result equal to the in-memory LateInteractionRetriever's")
         del li
         phase_cli_tri_serve(docs_dir, os.path.join(tmp, "tri"), queries)
         k1 += phase_hf_import(docs_dir, tmp, queries, seed)
@@ -4688,7 +4737,7 @@ def phase_cli(seed: int):
         log("cli info and demo: exit 0")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return k1, k6
+    return k1, k6, k6w
 
 
 def write_minilm_checkpoint(path: str, seed: int) -> None:
@@ -5723,7 +5772,8 @@ def phase_sharded_tokens(li, batches, rows_single) -> int:
     scan replica): ``batches`` of 8 at k = LI_K, K6 once per shard per
     batch, at least MIN_CERTIFIED of the queries certified, every answer
     the float64 exact top-k of the stored values and the single-card
-    store's rows (``rows_single``) → K6 launches."""
+    store's rows (``rows_single``) → (K6 launches, those on its wgmma
+    program)."""
     import numpy as np
     import torch
 
@@ -5739,17 +5789,19 @@ def phase_sharded_tokens(li, batches, rows_single) -> int:
     check(idx._tier[0] is idx.tokens and idx.tokens.dtype == torch.bfloat16,
           "sharded-tokens: the shards' scan replica is not their bf16 primary")
     tokens, t_mask, valid = store._device()
-    lat, launches = [], 0
+    lat, launches, wgmma = [], 0, 0
     for i, qs in enumerate(batches):
         q, qm = li._encode(qs)
-        maxsim_scan16_scores.launches = 0
+        maxsim_scan16_scores.launches = maxsim_scan16_scores.wgmma_launches = 0
         t0 = time.perf_counter()
         s, r = idx.search(q, qm, LI_K)
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t0) * 1e3)
-        check(maxsim_scan16_scores.launches == SHARDS,
-              f"sharded-tokens batch {i}: K6 launched {maxsim_scan16_scores.launches} times, expected {SHARDS}")
+        check(maxsim_scan16_scores.launches == maxsim_scan16_scores.wgmma_launches == SHARDS,
+              f"sharded-tokens batch {i}: K6 launched {maxsim_scan16_scores.launches} times "
+              f"({maxsim_scan16_scores.wgmma_launches} on its wgmma program), expected {SHARDS}")
         launches += maxsim_scan16_scores.launches
+        wgmma += maxsim_scan16_scores.wgmma_launches
         qd, qmd = li_unit_queries(li, qs)
         check(np.array_equal(r, exact_rows64(qd, qmd, tokens, t_mask, valid, LI_K)),
               f"sharded-tokens batch {i}: an answer differs from the float64 exact top-{LI_K}")
@@ -5759,10 +5811,10 @@ def phase_sharded_tokens(li, batches, rows_single) -> int:
           f"sharded-tokens: certified {n_q - idx.uncertified}/{n_q}, below {MIN_CERTIFIED}")
     log(f"sharded-tokens ({SHARDS} shards of {' x '.join(map(str, idx.tokens.shards[0].shape))} bf16, zero-copy): "
         f"build {t_build:.1f} s; batches of {LI_BATCH} {', '.join(f'{t:.1f}' for t in lat)} ms (host clock); "
-        f"certified {n_q - idx.uncertified}/{n_q}; K6 launches {launches}; every answer equal to the float64 exact "
-        f"top-{LI_K} and to the single-card store's rows")
+        f"certified {n_q - idx.uncertified}/{n_q}; K6 launches {launches} ({wgmma} on its wgmma program); every "
+        f"answer equal to the float64 exact top-{LI_K} and to the single-card store's rows")
     del idx
-    return launches
+    return launches, wgmma
 
 
 def phase_sharded_1m(pipe, seed: int):
@@ -5949,7 +6001,7 @@ def main() -> int:
     k11_kernels = (km.maxsim_scan16_scores_v2, km.maxsim_scan16_scores_self_v2)
     for kern in k11_kernels:  # no later phase reaches K11: checked still 0 at the end
         kern.launches = 0
-    k1_odd, k6_odd = timed(phase_odd_widths, args.seed)
+    k1_odd, k6_odd, k6w_odd = timed(phase_odd_widths, args.seed)
     timed(phase_tier, args.seed)
     k12a, k12b, seg_idx, seg_qs = timed(phase_kernels_k12, args.seed)
     k1_seg, k12a["launches"], k12b["launches"] = timed(phase_segments_17m, seg_idx, seg_qs, args.seed)
@@ -5982,13 +6034,14 @@ def main() -> int:
     k1["launches"] += timed(phase_encoder_262k, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
-    k6["launches"], k7["launches"] = timed(phase_late_interaction, args.seed)
+    k6["launches"], k7["launches"], k6w = timed(phase_late_interaction, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
     k1["launches"] += timed(phase_tri_hybrid, args.seed)
-    k1_cli, k6_cli = timed(phase_cli, args.seed)
+    k1_cli, k6_cli, k6w_cli = timed(phase_cli, args.seed)
     k1["launches"] += k1_cli
     k6["launches"] += k6_cli
+    k6w += k6w_cli
     timed(phase_checkpoint, args.seed)
     timed(phase_train_minilm, args.seed)
     gc.collect()
@@ -5996,6 +6049,9 @@ def main() -> int:
     timed(phase_sharded_train, args.seed)
     k1["launches"] += k1_odd + k1_inline
     k6["launches"] += k6_odd
+    k6w += k6w_odd
+    log(f"K6 launches of the paths: {k6['launches']}, {k6w} on its wgmma program ({k6_odd} at H = 100 on its "
+        f"cp.async program)")
     n10 = [kern.launches for kern in k10_kernels]
     log(f"K10a/K10b/K10c launches after kernels-K10 (every later phase, the store and pipeline paths): {n10}")
     check(n10 == [0, 0, 0], "a phase after kernels-K10 launched a v2 tile scan")
@@ -6012,7 +6068,8 @@ def main() -> int:
     log(f"nvidia-smi: {smi.stdout.strip()}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in (k1, k2, k2b, k3, k4, k5, k6, k7, k8, k9, k10a, k10b, k10c, k11a, k11b, k12a, k12b)]}))
+    print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in (k1, k2, k2b, k3, k4, k5, k6, k7, k8, k9, k10a, k10b, k10c, k11a, k11b, k12a, k12b)],
+                      "k6_wgmma_launches": k6w}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},

@@ -15,6 +15,7 @@ import torch
 from trueno_rag_tpu_torch.errors import InvalidConfigError
 from trueno_rag_tpu_torch.ops import maxsim as pm
 from trueno_rag_tpu_torch.ops.kernels.maxsim_scan import (
+    _k6_program,
     maxsim_scan16_scores,
     maxsim_scan16_scores_reference,
     maxsim_scan_int8_scores,
@@ -158,6 +159,14 @@ def test_k7_plain_follows_the_fixed_order_bit_for_bit():
         s = (s + (t_q.numpy()[:, i, None] * best[:, i, :]).astype(np.float32)).astype(np.float32)
     want = np.where(valid[None, :], s, -np.inf).astype(np.float32)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("h,program", [(1, "cp.async"), (8, "wgmma"), (15, "cp.async"), (16, "wgmma"),
+                                       (100, "cp.async"), (128, "wgmma"), (384, "wgmma"), (520, "wgmma")])
+def test_k6_program_follows_the_width(h, program):
+    """K6 runs its wgmma program wherever rows are 16-byte aligned (H a
+    multiple of 8, which TMA needs) and its cp.async program elsewhere."""
+    assert _k6_program(h) == program
 
 
 def test_kernel_wrappers_check_their_inputs():

@@ -301,3 +301,36 @@ def test_cuda_k11_equals_k6_at_widths_around_the_mma_depth(h):
     torch.cuda.synchronize()
     assert torch.equal(got_a, k6) and torch.equal(got_b, k6)
     assert bool((k6[:, 7] == 0).all()) and bool(torch.isneginf(k6[:, 3]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,group", [((5003, 32, 384, 32, 16), 256), ((700, 7, 384, 3, 150), 128),
+                                         ((600, 5, 1032, 9, 16), 100)],
+                         ids=["late-b32", "lq150", "h1032"])
+def test_cuda_k6_wgmma_program_equals_k11(shape, group):
+    """K6's wgmma program at late-262k.b32's launch shape (B 32, Lq 16, H
+    384, Lt 32, masked tokens, an empty and an invalid chunk), over two
+    128-row tiles of one query, and with its query rows streaming: bit for
+    bit K11a's and K11b's cp.async program, within 2·κ·C1·n_max of its
+    plain version, one launch counted on the program."""
+    _cuda_or_skip()
+    n, lt, h, b, lq = shape
+    tok, tm, q16, valid = build(n, lt, h, b, lq, seed=n + lq)
+    q, tok16 = _bf16(q16).cuda(), _bf16(tok).cuda()
+    tm_d, v_d = _t(tm).cuda(), _t(valid).cuda()
+    tok_l, bias_l, _, _ = pm.prepare_maxsim_scan16_opt(tok16, tm_d, group=group)
+    bias = pm.prepare_maxsim_bias_l(tm_d, group)
+    lt_p = -(-lt // 4) * 4
+    before = (maxsim_scan16_scores.launches, maxsim_scan16_scores.wgmma_launches)
+    k6 = maxsim_scan16_scores(q, tok16, tm_d, v_d)
+    torch.cuda.synchronize()
+    assert (maxsim_scan16_scores.launches, maxsim_scan16_scores.wgmma_launches) == (before[0] + 1, before[1] + 1)
+    got_a = maxsim_scan16_scores_v2(q, tok_l, bias_l, v_d, lt_p, group)
+    got_b = maxsim_scan16_scores_self_v2(q, tok16, bias, v_d, group)
+    torch.cuda.synchronize()
+    assert torch.equal(got_a, k6) and torch.equal(got_b, k6)
+    want = maxsim_scan16_scores_reference(q, tok16, tm_d, v_d)
+    assert torch.equal(torch.isneginf(k6), torch.isneginf(want))
+    fin = torch.isfinite(want)
+    assert bool(((k6 - want).abs()[fin] <= _k6_tol(q, tok16, tm_d, lq)[fin]).all())
+    assert bool((k6[:, 7] == 0).all()) and bool(torch.isneginf(k6[:, 3]).all())

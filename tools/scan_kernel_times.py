@@ -21,8 +21,10 @@ median CUDA-event milliseconds of, by group,
 - maxsim: K6 ``maxsim_scan16_scores``, K11a ``maxsim_scan16_scores_v2``
   and K11b ``maxsim_scan16_scores_self_v2`` (group 256) at 1,048,576
   chunks x 32 tokens x 128, and K7 ``maxsim_scan_int8_scores`` on the same
-  tokens in int8, B = 8, Lq = 8; K7 also at the late-interaction store's
-  launch shape, 262,144 chunks x 32 x 384, B = 8, Lq = 32 and 16;
+  tokens in int8, B = 8, Lq = 8; K6 also at (B, Lq) = (32, 8) and (8, 32)
+  there; K7 at the late-interaction store's launch shape, 262,144 chunks x
+  32 x 384, B = 8, Lq = 32 and 16; K6 at late-262k.b32's launch there, B =
+  32, Lq = 16, each query 6-14 real tokens and its padding rows zero;
 - dense: K2 ``score_blockmax`` and K2b ``blockmax_only`` at 1,048,576 x
   384, B = 256, f32, beside ``torch.matmul`` + ``amax``;
 - attention: K4 ``block_attention`` at (a) BH 32 x T 8192 x hd 128,
@@ -143,6 +145,9 @@ def maxsim_group(out, gen) -> None:
     tvalid = torch.ones(N, dtype=torch.bool, device="cuda")
     q16 = unit((BQ, LQ, H), gen).to(torch.bfloat16)
     out["K6_ms"] = cuda_ms(lambda: km.maxsim_scan16_scores(q16, tok, t_mask, tvalid))
+    for bq, lq in ((32, 8), (8, 32)):
+        qx = unit((bq, lq, H), gen).to(torch.bfloat16)
+        out[f"K6_b{bq}_lq{lq}_ms"] = cuda_ms(lambda: km.maxsim_scan16_scores(qx, tok, t_mask, tvalid))
     bias = pm.prepare_maxsim_bias_l(t_mask, GROUP)
     out["K11b_ms"] = cuda_ms(lambda: km.maxsim_scan16_scores_self_v2(q16, tok, bias, tvalid, GROUP))
     del bias
@@ -175,6 +180,18 @@ def maxsim_group(out, gen) -> None:
         q8, tq, _ = dt._quantize_rows(unit((BQ * lq, h), gen), clip=True)
         out[f"K7_li_lq{lq}_ms"] = cuda_ms(lambda: km.maxsim_scan_int8_scores(q8.view(BQ, lq, h), tq.view(BQ, lq), tok8,
                                                                             s_tok, t_mask, tvalid))
+    del tok8, s_tok
+    # late-262k.b32's launch: the bf16 replica, 32 queries of 6-14 real tokens padded to Lq 16
+    tok = torch.empty((n, LT, h), dtype=torch.bfloat16, device="cuda")
+    for lo in range(0, n, 1 << 15):
+        tok[lo:lo + (1 << 15)] = unit((1 << 15, LT, h), gen)
+    b, lq = 32, 16
+    lens = torch.randint(6, 15, (b,), device="cuda", generator=gen)
+    q16 = (unit((b, lq, h), gen) * (torch.arange(lq, device="cuda")[None, :] < lens[:, None])[..., None]).to(
+        torch.bfloat16)
+    out["K6_late_b32_lq16_ms"] = cuda_ms(lambda: km.maxsim_scan16_scores(q16, tok, t_mask, tvalid))
+    out["K6_late_q_tokens"] = int(lens.sum())
+    out["K6_wgmma_launches"] = getattr(km.maxsim_scan16_scores, "wgmma_launches", 0)
 
 
 def attention_group(out, gen) -> None:

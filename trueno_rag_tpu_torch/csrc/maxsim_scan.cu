@@ -102,11 +102,16 @@
 // instructions per byte of the bf16 form and no split adds, stays beside
 // the copies.
 //
+// K6 at an aligned width (H % 8 == 0) runs its Hopper program instead
+// (maxsim_wgmma.cuh: TMA, mbarriers, wgmma, the same bits), through its own
+// entry point; this file's program serves K6 at the other widths, K7, K11a
+// and K11b.
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC; called through the plain C entry points
-//             maxsim_scan16_launch, maxsim_scan_int8_launch,
-//             maxsim_scan16_v2_launch and maxsim_scan16_self_v2_launch on
-//             the caller's stream.
+//             maxsim_scan16_launch, maxsim_scan16_wgmma_launch,
+//             maxsim_scan_int8_launch, maxsim_scan16_v2_launch and
+//             maxsim_scan16_self_v2_launch on the caller's stream.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -117,6 +122,7 @@
 
 #include "mma_bf16.cuh"
 #include "mma_dot.cuh"
+#include "maxsim_wgmma.cuh"
 #include "row_load.cuh"
 
 namespace mb = mma_bf16;
@@ -366,8 +372,11 @@ int launch(const void* q, const void* tq, const void* tok, const void* s_tok, co
   const int n_groups = (nq + qg - 1) / qg;
   const int64_t blocks = (int64_t)((n + CT - 1) / CT) * n_groups;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  auto kernel = rows_aligned<sizeof(E)>(h) ? maxsim_scan_kernel<E, true, LAYOUT>
-                                           : maxsim_scan_kernel<E, false, LAYOUT>;
+  // K6's aligned widths run maxsim_wgmma.cuh's program: its aligned form is not built here, and
+  // maxsim_scan16_launch reads rows of any width byte by byte
+  constexpr bool K6 = std::is_same<E, __nv_bfloat16>::value && LAYOUT == kMask;
+  auto kernel = !K6 && rows_aligned<sizeof(E)>(h) ? maxsim_scan_kernel<E, !K6, LAYOUT>
+                                                  : maxsim_scan_kernel<E, false, LAYOUT>;
   const int bytes = scan_smem_bytes<E>(h);
   const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
@@ -392,6 +401,13 @@ extern "C" int maxsim_scan16_launch(const void* q16, const void* tok16, const vo
   if (bad_shape(nq, lq, n, lt, h)) return (int)cudaErrorInvalidValue;
   return launch<__nv_bfloat16, kMask>(q16, nullptr, tok16, nullptr, t_mask, nullptr, valid, out, nq, lq, n,
                                       lt, h, 1, stream);
+}
+
+// K6's Hopper program (maxsim_wgmma.cuh), the same arguments; h % 8 == 0.
+extern "C" int maxsim_scan16_wgmma_launch(const void* q16, const void* tok16, const void* t_mask,
+                                          const void* valid, void* out, int nq, int lq, int n, int lt,
+                                          int h, void* stream) {
+  return maxsim_wgmma::launch(q16, tok16, t_mask, valid, out, nq, lq, n, lt, h, stream);
 }
 
 extern "C" int maxsim_scan_int8_launch(const void* q8, const void* tq, const void* tok8,

@@ -50,6 +50,7 @@ ENTRY = {
     "block_attention_launch": ("block_attention.cu", [_P] * 5 + [_I] * 5 + [_F, _P]),
     # q16, tok16, t_mask, valid, out, nq, lq, n, lt, h, stream
     "maxsim_scan16_launch": ("maxsim_scan.cu", [_P] * 5 + [_I] * 5 + [_P]),
+    "maxsim_scan16_wgmma_launch": ("maxsim_scan.cu", [_P] * 5 + [_I] * 5 + [_P]),
     # q8, t_q, tok8, s_tok, t_mask, valid, out, nq, lq, n, lt, h, stream
     "maxsim_scan_int8_launch": ("maxsim_scan.cu", [_P] * 7 + [_I] * 5 + [_P]),
     # q16, tok_l (or tokens), bias_l, valid, out, nq, lq, n, lt, h, group, stream

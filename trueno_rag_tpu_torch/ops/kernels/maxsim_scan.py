@@ -27,6 +27,12 @@ vector is read byte by byte with zero columns past H
 (``csrc/row_load.cuh``), so the zero-copy tier reads the stored tokens in
 place at any H.
 
+The bf16 kernel has two programs, chosen by the width alone
+(:func:`_k6_program`): at a width whose rows are 16-byte aligned (H a
+multiple of 8) a Hopper program on TMA, mbarriers and ``wgmma``
+(``csrc/maxsim_wgmma.cuh``), elsewhere the ``cp.async`` and ``mma.sync``
+program the other three scans share; both give the same bits.
+
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to
 the kernel, or the call raises. The kernels are built at first use by
 :mod:`~trueno_rag_tpu_torch.ops.kernels.build`.
@@ -116,6 +122,12 @@ def _slabs(n: int, lt: int, h: int, bl: int):
     return ((lo, min(n, lo + step)) for lo in range(0, n, step))
 
 
+def _k6_program(h: int) -> str:
+    """The bf16 kernel's program at width ``h``: ``"wgmma"`` where rows are
+    16-byte aligned, which TMA needs, else ``"cp.async"``."""
+    return "wgmma" if h % 8 == 0 else "cp.async"
+
+
 def maxsim_scan16_scores(
     q16: torch.Tensor,  # [B, Lq, H] bf16 (padding tokens zeroed)
     tok16: torch.Tensor,  # [N, Lt, H] bf16 replica (or the bf16 primary itself)
@@ -126,20 +138,25 @@ def maxsim_scan16_scores(
 
     CPU tensors run :func:`maxsim_scan16_scores_reference`; CUDA tensors
     launch the kernel (counted in ``maxsim_scan16_scores.launches``) or
-    raise. The kernel reads ``tok16`` in place, at any H."""
+    raise. The kernel reads ``tok16`` in place, at any H. A launch of the
+    ``wgmma`` program (:func:`_k6_program`) also counts in
+    ``maxsim_scan16_scores.wgmma_launches``."""
     _check(q16, tok16, t_mask, valid, torch.bfloat16, torch.bfloat16, "maxsim_scan16_scores")
     if q16.device.type == "cpu":
         return maxsim_scan16_scores_reference(q16, tok16, t_mask, valid)
     b, lq, h = q16.shape
     n, lt = t_mask.shape
     q16 = q16.contiguous()
-    out = _launch("maxsim_scan16_launch", (q16, tok16, t_mask, valid), (q16, tok16),
-                  (b, lq, n, lt, h), b, n, q16.device)
+    wgmma = _k6_program(h) == "wgmma"
+    out = _launch("maxsim_scan16_wgmma_launch" if wgmma else "maxsim_scan16_launch", (q16, tok16, t_mask, valid),
+                  (q16, tok16), (b, lq, n, lt, h), b, n, q16.device)
     maxsim_scan16_scores.launches += 1
+    maxsim_scan16_scores.wgmma_launches += wgmma
     return out
 
 
 maxsim_scan16_scores.launches = 0
+maxsim_scan16_scores.wgmma_launches = 0
 
 
 def maxsim_scan16_scores_reference(q16, tok16, t_mask, valid) -> torch.Tensor:

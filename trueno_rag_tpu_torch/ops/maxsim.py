@@ -536,7 +536,11 @@ def maxsim_topk_scan16_fused(q_tok, q_mask, tokens, t_mask, tok16, e_max, n_max,
     n = t_mask.shape[0]
     qv = torch.where(q_mask[:, :, None], _f32(q_tok), 0.0)
     q16, a_c, c1, q_w = _scan16_query_pack(q_tok, q_mask)
+    wgmma = maxsim_scan16_scores.wgmma_launches
     u = maxsim_scan16_scores(q16, tok16, t_mask, valid)  # [B, N]; -inf at invalid chunks
+    rec, wgmma = profiling.active(), maxsim_scan16_scores.wgmma_launches - wgmma
+    if rec is not None and wgmma:  # K6 launches on its Hopper program
+        rec.count("rag.scan.maxsim_wgmma", wgmma)
     u += _scan16_fused_widths(a_c, c1, q_w, e_max, n_max, h, lq)
     return _select_rescore_certify(qv, q_mask, tokens, t_mask, u, k, min(rescore, n), select)
 
