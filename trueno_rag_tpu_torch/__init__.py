@@ -3,7 +3,8 @@
 The hybrid RAG query path of the JAX package, for one NVIDIA H100:
 chunking, embedders (hash, TF-IDF and the neural models of
 :mod:`~trueno_rag_tpu_torch.models`: the MiniLM/BGE-class encoder, the
-4096-d Nemotron-class embedder, the cross-encoder reranker and the
+4096-d Nemotron-class embedder, DeepSeek-V2-Lite's trunk as an embedder
+(latent attention and routed experts), the cross-encoder reranker and the
 late-interaction (MaxSim) reranker and retriever over a multi-vector
 token store, and the SPLADE-class learned-sparse encoder), a
 device-resident dense store (exact fp32; the certified
@@ -115,6 +116,8 @@ from trueno_rag_tpu_torch.preprocess import (
 from trueno_rag_tpu_torch.preprocess_adaptive import AdaptivePreprocessor
 from trueno_rag_tpu_torch.models import (
     CrossEncoderReranker,
+    DeepseekV2Config,
+    DeepseekV2Embedder,
     EncoderConfig,
     EncoderEmbedder,
     LateInteractionReranker,
@@ -186,6 +189,8 @@ __all__ = [
     "LateInteractionRetriever",
     "NemotronConfig",
     "NemotronEmbedder",
+    "DeepseekV2Config",
+    "DeepseekV2Embedder",
     "AssembledContext",
     "AssemblyStrategy",
     "Citation",

@@ -6,6 +6,10 @@ reranking, the counterparts of the JAX package's ``models``:
 - :mod:`~trueno_rag_tpu_torch.models.nemotron` — the Nemotron-class
   decoder-style embedder (4096-d, 8192 tokens), whose long-context
   attention is the CUDA kernel ``block_attention``;
+- :mod:`~trueno_rag_tpu_torch.models.deepseek_v2` — DeepSeek-V2-Lite's
+  trunk as an embedder: latent attention (MLA) with YaRN RoPE and
+  DeepSeekMoE (routed experts as grouped products, shared experts),
+  last-token pooling;
 - :mod:`~trueno_rag_tpu_torch.models.cross_encoder` — the neural
   cross-encoder reranker;
 - :mod:`~trueno_rag_tpu_torch.models.late_interaction` — ColBERT-style
@@ -40,6 +44,17 @@ from trueno_rag_tpu_torch.models.nemotron import (
     NemotronEmbedder,
     init_nemotron_params,
     nemotron_forward,
+)
+from trueno_rag_tpu_torch.models.deepseek_v2 import (
+    DEEPSEEK_V2_QUERY_PREFIX,
+    DeepseekV2Config,
+    DeepseekV2Embedder,
+    deepseek_v2_forward,
+    dense_mlp,
+    init_deepseek_v2_params,
+    mla_attention,
+    moe_mlp,
+    yarn_inv_freq,
 )
 from trueno_rag_tpu_torch.models.cross_encoder import (
     CrossEncoderReranker,
@@ -79,6 +94,15 @@ __all__ = [
     "NemotronEmbedder",
     "init_nemotron_params",
     "nemotron_forward",
+    "DEEPSEEK_V2_QUERY_PREFIX",
+    "DeepseekV2Config",
+    "DeepseekV2Embedder",
+    "deepseek_v2_forward",
+    "dense_mlp",
+    "init_deepseek_v2_params",
+    "mla_attention",
+    "moe_mlp",
+    "yarn_inv_freq",
     "CrossEncoderReranker",
     "cross_encoder_scores",
     "init_cross_encoder_params",

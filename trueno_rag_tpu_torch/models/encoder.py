@@ -178,13 +178,17 @@ def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> tor
     return (y * scale + bias).to(x.dtype)
 
 
-def _rope_heads(x: torch.Tensor, base: float, interleaved: bool) -> torch.Tensor:
+def _rope_heads(x: torch.Tensor, base: float, interleaved: bool,
+                inv_freq: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Rotary position embedding over ``[B, H, T, hd]`` head states, in f32
-    (angles ``pos · base**(-i/half)``). ``interleaved=False`` pairs
-    (x[i], x[i+half]); ``True`` pairs even/odd lanes."""
+    (angles ``pos · base**(-i/half)``, or ``pos · inv_freq[i]`` when the
+    ``[hd/2]`` f32 frequencies are given, as YaRN's are).
+    ``interleaved=False`` pairs (x[i], x[i+half]); ``True`` pairs even/odd
+    lanes."""
     t, hd = x.shape[2], x.shape[3]
     half = hd // 2
-    freqs = 1.0 / (base ** (torch.arange(0, half, dtype=torch.float32, device=x.device) / half))
+    freqs = inv_freq if inv_freq is not None else (
+        1.0 / (base ** (torch.arange(0, half, dtype=torch.float32, device=x.device) / half)))
     angles = torch.arange(t, dtype=torch.float32, device=x.device)[:, None] * freqs[None, :]
     cos, sin = torch.cos(angles), torch.sin(angles)
     if interleaved:
