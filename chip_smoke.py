@@ -347,6 +347,18 @@ Run from the repository root. Phases, each fatal on failure:
    card: the per-shard work and the sums are real, the interconnect is
    not measured.
 
+41. kernels-M1 (after phase 10): M1 ``moe_combine``, the expert layer's
+   combine (``csrc/moe_combine.cu``), (a) at dsv2lite-1m.b256's shape
+   (8,192 positions, 6,134 real tokens, k 6, H 2,048, 64 experts) and at
+   H 2,047 (one lane a thread): bit for bit its plain version on the same
+   inputs, its time beside the plain version's and the bound of its bytes;
+   (b) the main path: ``DeepseekV2Embedder`` at ``lite()``'s published
+   widths (31 GB of seeded weights), 2 batches of 256 queries through
+   ``embed_queries`` (with the instruction prefix, as ``retrieve_batch``
+   embeds them) after a warm-up, with ``moe_combine.launches`` set to 0
+   before them: 26 launches a forward, the span recorder's
+   ``rag.encode.moe_combine`` equal to them, every embedding finite and of
+   unit norm; the launches go to the ``kernels`` line.
 The last two lines of standard output are JSON: the per-kernel record, then
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
 """
@@ -402,6 +414,10 @@ K4_TOL_MEAN = 2.0**-12
 K4_A = (32, 8192, 128)  # BH, T, hd: the 8k context, 32 heads of one text
 K4_B = (8, 32, 1024)  # rows, heads, T: a Nemotron ingest batch (hd 128)
 K4_C = (64, 528, 64)  # BH, T, hd: T no multiple of the 64-key or 128-row tile
+# kernels-M1: positions, real tokens, k, H, experts of one dsv2lite-1m.b256 batch
+M1_SHAPE = (8192, 6134, 6, 2048, 64)
+M1_BATCHES = 2  # main-path batches of BATCH queries after the warm-up
+M1_MOE_LAYERS = 26  # DeepSeek-V2-Lite: 27 layers, the first dense
 K4_D = ((14, 1024), (500, 1024), (600, 1000), (1023, 1024), (1, 1024), (0, 0), (300, 700), (64, 1010))
 # (d): each batch row of shape (b) keeps keys [lo, hi): left padding, kept keys only in a row's future, all-PAD
 K4_WARP_ROWS, K4_TILE_KEYS, K4_BLOCK_ROWS = 32, 64, 128  # csrc/block_attention.cu's tiles
@@ -2904,6 +2920,100 @@ def phase_kernels_k6k7(seed: int):
     del tok8, s_tok, t_mask, valid
     torch.cuda.empty_cache()
     return rec6, rec7
+
+
+def m1_inputs(p: int, n: int, k: int, h: int, experts: int, gen):
+    """One MoE layer's combine inputs on the card: ``n`` real tokens among
+    ``p`` positions, each routed to ``k`` distinct experts and sorted stably
+    by expert as ``moe_mlp`` sorts them; expert rows whose magnitudes span a
+    few binades; descending gates → ``moe_combine``'s arguments."""
+    import torch
+
+    from trueno_rag_tpu_torch.ops.kernels.moe_combine import pair_rows, position_slots
+
+    real = torch.randperm(p, device=DEV, generator=gen)[:n].sort().values
+    expert = torch.rand(n, experts, device=DEV, generator=gen).argsort(dim=1)[:, :k]
+    order = torch.argsort(expert.reshape(-1), stable=True)
+    out = (torch.randn(n * k, h, device=DEV, generator=gen)
+           * torch.exp(torch.randn(n * k, 1, device=DEV, generator=gen))).to(torch.bfloat16)
+    weight = (torch.rand(n, k, device=DEV, generator=gen) / k).sort(dim=1, descending=True).values
+    x = torch.randn(p, h, device=DEV, generator=gen).to(torch.bfloat16)
+    shared = (0.3 * torch.randn(p, h, device=DEV, generator=gen)).to(torch.bfloat16)
+    return out, pair_rows(order), weight, position_slots(real, p), x, shared
+
+
+def phase_kernels_m1(seed: int):
+    """M1 against its plain version at the cell's shape and at an odd
+    width, its times beside the plain version and the bound, then its
+    launches on the main path (``DeepseekV2Embedder`` at ``lite()``) → the
+    M1 record."""
+    import numpy as np
+    import torch
+
+    from trueno_rag_tpu_torch.models.deepseek_v2 import DeepseekV2Config, DeepseekV2Embedder
+    from trueno_rag_tpu_torch.ops.kernels.moe_combine import moe_combine, moe_combine_reference
+    from trueno_rag_tpu_torch.utils import profiling
+
+    gen = torch.Generator(device=DEV).manual_seed(seed + 41)
+    p, n, k, h, experts = M1_SHAPE
+    err = 0.0
+    for width in (h, h - 1):  # 16-byte loads, then one lane a thread
+        args = m1_inputs(p, n, k, width, experts, gen)
+        got = moe_combine(*args)
+        torch.cuda.synchronize()
+        want = moe_combine_reference(*args)
+        check(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+              f"M1 at P={p} n={n} k={k} H={width}: the kernel differs from its plain version")
+        err = max(err, (got.float() - want.float()).abs().max().item())
+        log(f"M1 moe_combine at P={p} n={n} k={k} H={width}: bit-identical to its plain version")
+        if width == h:
+            ms = cuda_ms(lambda: moe_combine(*args), 20)
+            plain = cuda_ms(lambda: moe_combine_reference(*args), 5)
+            ms2 = cuda_ms(lambda: moe_combine(*args), 20)
+            moved = 2 * (n * k * h + 3 * p * h) + 8 * n * k + 4 * p  # bf16 rows, x, shared, y; src, weight, slot
+            m1_bound = bound(moved, 2.0 * n * k * h + 2.0 * p * h, FP32_FLOP_PER_S)
+            log(f"M1 at the cell's shape: kernel {ms:.4f} / {ms2:.4f} ms, plain {plain:.3f} ms (median, CUDA "
+                f"events); bound {m1_bound[0]:.4f} ms ({m1_bound[1]}: {moved / 1e6:.1f} MB), "
+                f"{moved / (min(ms, ms2) * 1e-3) / 1e12:.2f} TB/s")
+        del args, got, want
+    torch.cuda.empty_cache()
+
+    # (b) the main path: the embedder at the published widths, launches counted from 0
+    t0 = time.perf_counter()
+    cfg = DeepseekV2Config.lite()
+    emb = DeepseekV2Embedder(cfg, seed=seed, device=DEV)
+    torch.cuda.synchronize()
+    log(f"M1 main path: DeepseekV2Embedder(lite()) seeded weights in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    batches = query_batches(np.random.default_rng(seed + 41), M1_BATCHES + 1)
+    emb.embed_queries(batches[0])  # warm-up: cuBLAS handles and workspaces
+    moe_combine.launches = 0
+    lat = []
+    with profiling.spans() as rec:
+        for qs in batches[1:]:  # as retrieve_batch embeds a batch: with the instruction prefix
+            t0 = time.perf_counter()
+            e = emb.embed_queries(qs)
+            lat.append(time.perf_counter() - t0)
+            check(e.shape == (BATCH, cfg.hidden_dim) and bool(np.isfinite(e).all())
+                  and np.allclose(np.linalg.norm(e, axis=1), 1.0, atol=1e-3), "M1 main path: embeddings")
+    forwards = sum(s.name == "rag.encode.forward" for s in rec.spans)
+    launches = moe_combine.launches
+    counted = rec.counters.get("rag.encode.moe_combine", 0)
+    real = rec.counters.get("rag.encode.tokens", 0)
+    busy = (emb.expert_tokens > 0).sum(dim=1)
+    log(f"M1 main path: {M1_BATCHES} batches of {BATCH} queries, {forwards} forwards, {real} real tokens; "
+        f"moe_combine launches {launches}, rag.encode.moe_combine {counted}; experts busy per MoE layer "
+        f"{int(busy.min())}-{int(busy.max())} of {cfg.n_routed_experts}; batches "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in lat)} ms (host clock, with the copy back)")
+    check(forwards == M1_BATCHES and launches == M1_MOE_LAYERS * forwards,
+          f"M1 main path: {launches} launches in {forwards} forwards, expected {M1_MOE_LAYERS} a forward")
+    check(counted == launches, f"M1 main path: rag.encode.moe_combine {counted}, launches {launches}")
+    del emb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"name": "moe_combine", "route": "cuda", "source": "trueno_rag_tpu_torch/csrc/moe_combine.cu",
+            "replaces": None, "launches": launches, "max_abs_err": err, "ms": min(ms, ms2), "plain_ms": plain,
+            "bound_ms": m1_bound[0], "bound_by": m1_bound[1], "library_ms": None}
 
 
 def phase_mma_probe(seed: int):
@@ -5994,6 +6104,7 @@ def main() -> int:
     for kern in k10_kernels:  # no later phase reaches K10: checked still 0 at the end
         kern.launches = 0
     k4 = timed(phase_kernels_k4, args.seed)
+    m1 = timed(phase_kernels_m1, args.seed)
     timed(phase_mma_probe, args.seed)
     k6, k7 = timed(phase_kernels_k6k7, args.seed)
     k11a, k11b = timed(phase_kernels_k11, args.seed)
@@ -6068,7 +6179,7 @@ def main() -> int:
     log(f"nvidia-smi: {smi.stdout.strip()}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in (k1, k2, k2b, k3, k4, k5, k6, k7, k8, k9, k10a, k10b, k10c, k11a, k11b, k12a, k12b)],
+    print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in (k1, k2, k2b, k3, k4, k5, k6, k7, k8, k9, k10a, k10b, k10c, k11a, k11b, k12a, k12b, m1)],
                       "k6_wgmma_launches": k6w}))
     print(json.dumps({
         "ok": True,

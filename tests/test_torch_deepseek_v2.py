@@ -6,6 +6,10 @@ card (marker ``cuda``). No JAX here: the card's machine runs the card
 tests with ``--noconftest -m cuda``."""
 
 import math
+import os
+import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -14,11 +18,17 @@ import torch
 from benchmark.harness import inputs
 from benchmark.reference import deepseek_v2 as ref
 from benchmark.reference import scores as ref_scores
+from trueno_rag_tpu_torch.errors import InvalidConfigError
+from trueno_rag_tpu_torch.models import deepseek_v2 as dsv2
 from trueno_rag_tpu_torch.models.deepseek_v2 import (
     DEEPSEEK_V2_QUERY_PREFIX, DeepseekV2Config, DeepseekV2Embedder, deepseek_v2_forward, init_deepseek_v2_params,
     mla_qkv, moe_mlp, real_token_index, softmax_scale, yarn_correction_range, yarn_inv_freq,
 )
 from trueno_rag_tpu_torch.models.encoder import HashTokenizer, pad_batch_pow2
+from trueno_rag_tpu_torch.ops.kernels.moe_combine import (
+    moe_combine, moe_combine_reference, pair_rows, position_slots,
+)
+from trueno_rag_tpu_torch.utils import profiling
 
 TINY = DeepseekV2Config.tiny()
 QUERIES = ["w00012 w00400 w07001", "w00002 w00003 w00004 w00005 w00006 w00007 w00008 w00009 w00010",
@@ -234,6 +244,148 @@ def test_hybrid_retriever_serves_it_with_the_references_top_k(tiny_params):
         np.testing.assert_allclose([r.dense_score for r in res], ws, rtol=0, atol=1e-6)
 
 
+# -- the combine (ops/kernels/moe_combine.py) ------------------------------------------
+
+
+def combine_inputs(p: int, n: int, k: int, h: int, seed: int, experts: int = 64):
+    """A layer's combine inputs on the CPU: ``n`` real tokens among ``p``
+    positions, each routed to ``k`` distinct experts sorted stably by
+    expert as ``moe_mlp`` sorts them, expert outputs whose magnitudes span
+    a few binades, descending gates → ``(out, order, weight, real, x,
+    shared)``."""
+    g = torch.Generator().manual_seed(seed)
+    real = torch.sort(torch.randperm(p, generator=g)[:n]).values
+    expert = torch.stack([torch.randperm(experts, generator=g)[:k] for _ in range(n)]) if n else \
+        torch.zeros(0, k, dtype=torch.int64)
+    order = torch.argsort(expert.reshape(-1), stable=True)
+    out = (torch.randn(n * k, h, generator=g) * torch.exp(torch.randn(n * k, 1, generator=g))).to(torch.bfloat16)
+    weight = torch.sort(torch.rand(n, k, generator=g) / k, dim=-1, descending=True).values
+    x = torch.randn(p, h, generator=g).to(torch.bfloat16)
+    shared = (0.3 * torch.randn(p, h, generator=g)).to(torch.bfloat16)
+    return out, order, weight, real, x, shared
+
+
+def parent_combine(out, order, weight, real, x, shared):
+    """The combine as ``moe_mlp`` wrote it before the kernel: scatter the
+    sorted rows back to pair order, weight in f32, sum rank by rank, round,
+    scatter to the real positions, add the shared output and the residual."""
+    (n, k), h = weight.shape, out.shape[1]
+    per_pair = torch.empty_like(out).index_copy_(0, order, out).view(-1, k, h).float() * weight[..., None]
+    acc = per_pair[:, 0]
+    for r in range(1, k):
+        acc = acc + per_pair[:, r]
+    routed = x.new_zeros(x.shape[0], h).index_copy_(0, real, acc.to(x.dtype))
+    return x + (routed + shared)
+
+
+# (positions, real tokens, k, H): tiny()'s widths, the published k = 6 with
+# padding, one real token, k = 1, a width that is not a multiple of 8
+COMBINE_CASES = [(24, 16, TINY.experts_per_token, TINY.hidden_dim), (512, 300, 6, 64), (32, 1, 6, 64),
+                 (16, 16, 1, 36), (40, 29, 6, 100)]
+
+
+@pytest.mark.parametrize("p,n,k,h", COMBINE_CASES)
+def test_combine_on_the_cpu_gives_the_parent_expressions_bits(p, n, k, h):
+    out, order, weight, real, x, shared = combine_inputs(p, n, k, h, seed=p + n + k + h)
+    launches = moe_combine.launches
+    got = moe_combine(out, pair_rows(order), weight, position_slots(real, p), x, shared)
+    assert moe_combine.launches == launches  # the CPU takes the plain version
+    want = parent_combine(out, order, weight, real, x, shared)
+    assert got.dtype == torch.bfloat16 and torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("p,n,k,h", COMBINE_CASES)
+def test_combine_maps_place_what_index_copy_places(p, n, k, h):
+    """``pair_rows(order)`` gathers what ``index_copy_(0, order, …)``
+    scatters; ``position_slots`` puts each real token where
+    ``index_copy_(0, real, …)`` does and -1 elsewhere."""
+    out, order, _, real, _, _ = combine_inputs(p, n, k, h, seed=7 * p + n)
+    src = pair_rows(order)
+    assert src.dtype == torch.int32
+    assert torch.equal(out.index_select(0, src), torch.empty_like(out).index_copy_(0, order, out))
+    slot = position_slots(real, p)
+    assert slot.dtype == torch.int32
+    placed = torch.zeros(p, dtype=torch.int64).index_copy_(0, real, torch.arange(1, n + 1))
+    assert torch.equal(torch.where(slot < 0, 0, slot + 1), placed)
+
+
+def _stand_in(fn):
+    """``fn`` in ``moe_combine``'s place, keeping the ``launches`` count that
+    ``moe_mlp`` reads: the kernel launches made inside ``fn``."""
+    def call(*args):
+        before = moe_combine.launches
+        got = fn(*args)
+        call.launches += moe_combine.launches - before
+        return got
+
+    call.launches = 0
+    return call
+
+
+def _tiny_layer_inputs(tiny_params):
+    ids = torch.from_numpy(token_ids(TINY, QUERIES))
+    mask = ids != 0
+    return dsv2.embed(tiny_params, ids), real_token_index(mask, int(mask.sum())), mask.numel()
+
+
+def test_expert_layer_hands_the_combine_its_maps(tiny_params, monkeypatch):
+    """``moe_mlp`` hands the combine the sorted rows' inverse and the
+    position slots of ``real``; on the CPU nothing launches, so the span
+    recorder counts no ``rag.encode.moe_combine``."""
+    c, lp = TINY, tiny_params["layers"][1]
+    x, real, positions = _tiny_layer_inputs(tiny_params)
+    seen = []
+    monkeypatch.setattr(dsv2, "moe_combine", _stand_in(lambda *a: seen.append(a) or moe_combine(*a)))
+    with profiling.spans() as rec:
+        moe_mlp(x, lp, c, real)
+    assert len(seen) == 1 and "rag.encode.moe_combine" not in rec.counters
+    out, src, weight, slot, _, _ = seen[0]
+    assert torch.equal(slot, position_slots(real, positions))
+    assert torch.equal(slot[real], torch.arange(real.numel(), dtype=torch.int32))
+    assert sorted(src.tolist()) == list(range(out.shape[0])) and weight.shape == (real.numel(), c.experts_per_token)
+
+
+def test_expert_layer_counts_the_kernels_launches_on_the_recorder(tiny_params, monkeypatch):
+    """``rag.encode.moe_combine`` gains what ``moe_combine.launches``
+    gained across the layer's call, and nothing while no recorder is on."""
+    c, lp = TINY, tiny_params["layers"][1]
+    x, real, _ = _tiny_layer_inputs(tiny_params)
+
+    def launching(*args):  # a combine that reports one launch a call
+        launching.launches += 1
+        return moe_combine_reference(*args)
+
+    launching.launches = 0
+    monkeypatch.setattr(dsv2, "moe_combine", launching)
+    moe_mlp(x, lp, c, real)  # no recorder on
+    with profiling.spans() as rec:
+        moe_mlp(moe_mlp(x, lp, c, real), lp, c, real)
+    assert rec.counters["rag.encode.moe_combine"] == 2 and launching.launches == 3
+
+
+@pytest.mark.parametrize("bad", ["weight_f16", "out_shape", "src_int64", "slot_shape", "shared_f32", "k0"])
+def test_combine_refuses_what_the_kernel_does_not_take(bad):
+    out, order, weight, real, x, shared = combine_inputs(16, 8, 2, 64, seed=1)
+    src, slot = pair_rows(order), position_slots(real, 16)
+    args = {"out": out, "src": src, "weight": weight, "slot": slot, "x": x, "shared": shared}
+    args.update({"weight_f16": {"weight": weight.half()}, "out_shape": {"out": out[1:]},
+                 "src_int64": {"src": src.long()}, "slot_shape": {"slot": slot[1:]},
+                 "shared_f32": {"shared": shared.float()}, "k0": {"weight": weight[:, :0]}}[bad])
+    with pytest.raises(InvalidConfigError):
+        moe_combine(**args)
+
+
+def test_combine_module_imports_without_a_card_or_a_build():
+    root = pathlib.Path(__file__).resolve().parents[1]
+    code = ("import torch\n"
+            "import trueno_rag_tpu_torch.models.deepseek_v2, trueno_rag_tpu_torch.ops.kernels.moe_combine\n"
+            "from trueno_rag_tpu_torch.ops.kernels import build\n"
+            "assert build._fns is None and build.build_log == '' and not torch.cuda.is_initialized()\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(root), env=dict(os.environ, PYTHONPATH=str(root)),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 # -- the card, lite() ---------------------------------------------------------------
 
 
@@ -286,3 +438,94 @@ def test_cuda_lite_embeddings_equal_the_bf16_reference_with_the_same_experts(lit
     for layer, (a, b) in enumerate(zip(routes_port, routes_ref)):
         assert torch.equal(a, b), f"MoE layer {layer + 1}: experts differ"
     assert torch.equal(got, unit(want)), (got - unit(want)).abs().max().item()
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16).cpu()
+
+
+# (positions, real tokens, k, H, misalign): the cell's shape (8,192 positions,
+# 6,134 real tokens, k 6, H 2,048), one real token in a padded batch, k = 1,
+# tiny()'s widths, k past the kernel's 8 loads in flight, widths that are not
+# a multiple of 8, and rows 8 bytes off 16-byte alignment (both one lane a
+# thread)
+CUDA_COMBINE_CASES = [(8192, 6134, 6, 2048, 0), (512, 1, 6, 2048, 0), (1024, 1024, 1, 2048, 0),
+                      (1024, 700, 2, 64, 0), (256, 200, 9, 256, 0), (1024, 700, 6, 100, 0),
+                      (512, 300, 6, 2047, 0), (1024, 700, 6, 2048, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,n,k,h,misalign", CUDA_COMBINE_CASES)
+def test_cuda_combine_kernel_equals_its_plain_version_bit_for_bit(p, n, k, h, misalign):
+    _need_card()
+    out, order, weight, real, x, shared = combine_inputs(p, n, k, h, seed=p + n + k + h)
+    want = moe_combine(out, pair_rows(order), weight, position_slots(real, p), x, shared)  # CPU: the plain version
+    assert torch.equal(want.view(torch.int16), parent_combine(out, order, weight, real, x, shared).view(torch.int16))
+    dev = [t.cuda() for t in (out, order, weight, real)]
+    xs = []
+    for t in (x, shared):  # `misalign` bf16 values into a buffer: the row starts lose 16-byte alignment
+        buf = torch.empty(p * h + misalign, dtype=torch.bfloat16, device="cuda")
+        xs.append(buf[misalign:].view(p, h).copy_(t))
+    launches = moe_combine.launches
+    got = moe_combine(dev[0], pair_rows(dev[1]), dev[2], position_slots(dev[3], p), *xs)
+    torch.cuda.synchronize()
+    assert moe_combine.launches == launches + 1
+    assert torch.equal(_bits(got), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_cuda_lite_moe_layers_run_the_kernel_with_the_plain_versions_bits(lite_params, monkeypatch):
+    """A forward of 256 queries, every expert busy: each of the 26 MoE
+    layers launches the kernel once (``moe_combine.launches`` and the span
+    recorder's ``rag.encode.moe_combine``), each launch equals the plain
+    version on the same inputs bit for bit, and the embeddings equal the
+    ``"bf16"`` reference with the same experts."""
+    c = DeepseekV2Config.lite()
+    ids = torch.from_numpy(token_ids(c, _card_queries(256, 3))).cuda()
+    same = []
+
+    def checked(*args):
+        got = moe_combine(*args)
+        same.append(torch.equal(got, moe_combine_reference(*args)))
+        return got
+
+    monkeypatch.setattr(dsv2, "moe_combine", _stand_in(checked))
+    counts = torch.zeros(c.num_layers - c.first_k_dense, c.n_routed_experts, dtype=torch.int64, device="cuda")
+    routes_port, routes_ref = [], []
+    launches = moe_combine.launches
+    with profiling.spans() as rec:
+        got = deepseek_v2_forward(lite_params, ids, c, expert_counts=counts, routes=routes_port)
+    torch.cuda.synchronize()
+    assert moe_combine.launches - launches == 26 and rec.counters["rag.encode.moe_combine"] == 26
+    assert same == [True] * 26
+    assert int((counts > 0).sum(dim=1).min()) == 64  # every expert busy in every layer
+    want = ref.pooled(lite_params, ids, hf_config(c), "bf16", routes_ref)
+    for layer, (a, b) in enumerate(zip(routes_port, routes_ref)):
+        assert torch.equal(a, b), f"MoE layer {layer + 1}: experts differ"
+    assert torch.equal(got, unit(want)), (got - unit(want)).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lengths", [(1, 0, 0, 0), (5, 0, 3, 2)])
+def test_cuda_lite_moe_layer_with_idle_experts_equals_its_plain_version(lite_params, monkeypatch, lengths):
+    """One MoE layer at the published widths with experts that get no
+    token: one real token in a padded batch of 4 x 32, and 10 real tokens
+    in rows of 0-5 (60 pairs over 64 experts leave at least 4 idle). The
+    kernel's layer equals the layer with the plain combine bit for bit."""
+    c, lp = DeepseekV2Config.lite(), lite_params["layers"][1]
+    t = 32
+    mask = torch.arange(t, device="cuda")[None, :] < torch.tensor(lengths, device="cuda")[:, None]
+    g = torch.Generator(device="cuda").manual_seed(len(lengths))
+    x = (0.5 * torch.randn(len(lengths), t, c.hidden_dim, generator=g, device="cuda")).to(torch.bfloat16)
+    real = real_token_index(mask, sum(lengths))
+    counts = torch.zeros(c.n_routed_experts, dtype=torch.int64, device="cuda")
+    got = moe_mlp(x, lp, c, real, counts)
+    monkeypatch.setattr(dsv2, "moe_combine", _stand_in(moe_combine_reference))
+    want = moe_mlp(x, lp, c, real)
+    assert int((counts == 0).sum()) > 0 and int(counts.sum()) == c.experts_per_token * sum(lengths)
+    assert torch.equal(_bits(got), _bits(want))

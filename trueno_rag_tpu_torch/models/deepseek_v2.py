@@ -29,9 +29,11 @@ The expert layer routes real tokens only (padding is key-masked and never
 pooled, so leaving it out is exact): it sorts the (token, expert) pairs by
 expert, stably, runs each expert projection as one grouped product over
 all experts (``torch._grouped_mm``, a private PyTorch API, with the group
-ends on the device), and scatters the results back in a fixed order. The
-forward has no Python loop over experts and no copy to the host: the host
-never learns a group's size. The number of real tokens comes from the
+ends on the device); one pass (``ops/kernels/moe_combine.py``, on the card
+the kernel ``csrc/moe_combine.cu``) then gathers each token's results back
+in a fixed order, sums them and adds the shared experts and the residual.
+The forward has no Python loop over experts and no copy to the host: the
+host never learns a group's size. The number of real tokens comes from the
 host's token ids.
 
 Attention is causal with the key mask and materializes its f32 logits; the
@@ -57,6 +59,7 @@ from trueno_rag_tpu_torch.models.encoder import (
     pad_batch_pow2,
 )
 from trueno_rag_tpu_torch.models.nemotron import _rms_norm, pool_last_token
+from trueno_rag_tpu_torch.ops.kernels.moe_combine import moe_combine, pair_rows, position_slots
 from trueno_rag_tpu_torch.utils import profiling
 
 # e5-mistral's MS MARCO instruction (arXiv:2401.00368); passages are plain
@@ -282,10 +285,14 @@ def moe_mlp(x: torch.Tensor, lp: Dict[str, torch.Tensor], config: DeepseekV2Conf
     """The DeepSeekMoE sublayer: RMSNorm; the router (f32 product, softmax,
     greedy top-k, descending); the routed experts of the real tokens
     (``real``, :func:`real_token_index`) as two grouped products over
-    expert-sorted (token, expert) pairs; each token's weighted outputs
-    summed in f32 in gate order and rounded to bf16; the shared experts;
-    the residual add. ``expert_counts [E]`` (int64) gains each expert's
-    tokens; ``routes`` gains the real tokens' experts ``[n, k]``."""
+    expert-sorted (token, expert) pairs; the shared experts; then
+    :func:`~trueno_rag_tpu_torch.ops.kernels.moe_combine.moe_combine` (on
+    the card one kernel): each token's weighted outputs summed in f32 in
+    gate order and rounded to bf16, the shared output and the residual
+    added. ``expert_counts [E]`` (int64) gains each expert's tokens;
+    ``routes`` gains the real tokens' experts ``[n, k]``. While a span
+    recorder is on, its counter ``rag.encode.moe_combine`` gains the
+    kernel's launches."""
     c = config
     b, t, h = x.shape
     k, m = c.experts_per_token, c.expert_dim
@@ -308,12 +315,13 @@ def moe_mlp(x: torch.Tensor, lp: Dict[str, torch.Tensor], config: DeepseekV2Conf
     gate_up = torch._grouped_mm(rows, lp["experts_w13"], offs=group_ends)
     act = F.silu(gate_up[:, :m]) * gate_up[:, m:]
     out = torch._grouped_mm(act, lp["experts_w2"], offs=group_ends)
-    per_pair = torch.empty_like(out).index_copy_(0, order, out).view(-1, k, h).float() * weight[..., None]
-    acc = per_pair[:, 0]
-    for r in range(1, k):
-        acc = acc + per_pair[:, r]
-    routed = y.new_zeros(b * t, h).index_copy_(0, real, acc.to(y.dtype)).view(b, t, h)
-    return x + (routed + _swiglu(y, lp))
+    shared = _swiglu(y, lp).view(b * t, h)
+    launches = moe_combine.launches
+    x = moe_combine(out, pair_rows(order), weight, position_slots(real, b * t), x.reshape(b * t, h), shared)
+    rec, launches = profiling.active(), moe_combine.launches - launches
+    if rec is not None and launches:  # the kernel ran (the CPU takes its plain version)
+        rec.count("rag.encode.moe_combine", launches)
+    return x.view(b, t, h)
 
 
 @torch.no_grad()

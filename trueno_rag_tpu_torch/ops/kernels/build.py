@@ -60,6 +60,8 @@ ENTRY = {
     # one_minus_b, b, k1, k1p1, av, stream
     "fetch_contribs_launch": ("bm25_fetch.cu", [_P] * 6 + [_I] * 2 + [_F] * 5 + [_P]),
     "fetch_contribs8_launch": ("bm25_fetch.cu", [_P] * 6 + [_I] * 2 + [_F] * 5 + [_P]),
+    # out, src, weight, slot, x, shared, y, positions, k, h, stream
+    "moe_combine_launch": ("moe_combine.cu", [_P] * 7 + [_I] * 3 + [_P]),
 }
 
 _fns: Optional[Dict[str, object]] = None
